@@ -1,0 +1,17 @@
+"""probunet_tpu_torch — the PyTorch/CUDA port of ``probunet_tpu``.
+
+The JAX package ``probunet_tpu`` is the frozen reference; this package
+mirrors its module paths (``models/unet.py`` <-> ``models/unet.py``) and
+its public layouts: NHWC fields ``(B, H, W, C)``, ensembles
+``(B, M, H, W, K)``, latents ``(M, B, D)``. It imports torch, numpy and
+the standard library only — never jax or flax — and reuses
+``probunet_tpu.config`` (pure standard library) for its presets.
+
+Ported so far: the serve path — device-side preprocessing, the
+Probabilistic U-Net forward (U-Net, prior/posterior Gaussians, Fcomb),
+the no-grad afCRPS/CRPS eval ELBO, prior-ensemble sampling and the
+streamed ensemble metrics. The TPU's Pallas kernels on that path are
+hand-written CUDA C++ for Hopper in ``csrc/`` (see ``ops/kernels``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,116 @@
+// Ensemble CRPS terms, forward: for ens x (B, M, P) and target y (B, P),
+//
+//   t1(b) = sum_{j, p}   |x_bjp - y_bp|
+//   t2(b) = sum_{j<k, p} |x_bjp - x_bkp|
+//
+// Replaces the TPU kernel probunet_tpu/ops/pallas/afcrps.py:_terms_fwd_impl
+// (pallas_call of _fwd_kernel).
+//
+// Bound: HBM bytes. The kernel reads the ensemble once (B*M*P elements; at
+// B=128, M=5, P=49152 that is 126 MB in f32) and does M(M+1)/2 abs-diffs
+// per pixel, a handful of operations per byte, far below any ridge of the
+// card. Design: one thread per pixel, 256 pixels per block, one block per
+// (pixel tile, batch element). Each thread loads its pixel's M members
+// once, coalesced across the warp for every member, into a column of a
+// (M, 256) shared-memory slab (shared memory stands in for a register array
+// indexed at run time), takes t1 on the way in and then every j<k pair
+// from the slab. Block sums go to per-(batch, tile) partials; a second
+// small kernel adds them in a fixed order (common.cuh).
+//
+// Numerics follow the TPU kernel: for bf16 input each difference is
+// rounded to bf16 before abs, every sum is f32; f32 input stays f32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace probunet {
+namespace {
+
+constexpr int kThreads = 256;  // pixels per block
+constexpr int kMaxM = 32;
+
+__device__ __forceinline__ float abs_diff(float a, float b) { return fabsf(a - b); }
+
+__device__ __forceinline__ float abs_diff(__nv_bfloat16 a, __nv_bfloat16 b) {
+  const float d = __bfloat162float(a) - __bfloat162float(b);
+  return fabsf(__bfloat162float(__float2bfloat16_rn(d)));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+afcrps_tile_kernel(const T* __restrict__ ens, const T* __restrict__ tgt,
+                   float* __restrict__ partial, int batch, int m, int p, int ntiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* slab = reinterpret_cast<T*>(smem_raw);  // (m, kThreads), one column per thread
+  __shared__ float red[kThreads / 32];
+
+  const int b = blockIdx.y;
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int pix = tile * kThreads + tid;
+
+  float v1 = 0.f;
+  float v2 = 0.f;
+  if (pix < p) {  // ragged last tile: out-of-range pixels add nothing
+    const T* x = ens + static_cast<size_t>(b) * m * p + pix;
+    const T y = tgt[static_cast<size_t>(b) * p + pix];
+    for (int j = 0; j < m; ++j) {
+      const T xj = x[static_cast<size_t>(j) * p];
+      slab[j * kThreads + tid] = xj;
+      v1 += abs_diff(xj, y);
+    }
+    for (int k = 1; k < m; ++k) {
+      const T xk = slab[k * kThreads + tid];
+      for (int j = 0; j < k; ++j) v2 += abs_diff(slab[j * kThreads + tid], xk);
+    }
+  }
+  const float s1 = block_sum<kThreads>(v1, red);
+  const float s2 = block_sum<kThreads>(v2, red);
+  if (tid == 0) {
+    partial[static_cast<size_t>(b) * ntiles + tile] = s1;
+    partial[(static_cast<size_t>(batch) + b) * ntiles + tile] = s2;
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* ens, const void* tgt, void* partial, void* t1, void* t2,
+                   int batch, int m, int p, cudaStream_t stream) {
+  const int ntiles = (p + kThreads - 1) / kThreads;
+  const size_t smem = static_cast<size_t>(m) * kThreads * sizeof(T);
+  afcrps_tile_kernel<T><<<dim3(ntiles, batch), kThreads, smem, stream>>>(
+      static_cast<const T*>(ens), static_cast<const T*>(tgt),
+      static_cast<float*>(partial), batch, m, p, ntiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  launch_reduce(static_cast<const float*>(partial), static_cast<float*>(t1),
+                static_cast<float*>(t2), batch, ntiles, stream);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace probunet
+
+extern "C" {
+
+int afcrps_tile_pixels() { return probunet::kThreads; }
+
+int afcrps_max_members() { return probunet::kMaxM; }
+
+// ens (B, M, P) and tgt (B, P), both f32 (is_bf16 = 0) or both bf16
+// (is_bf16 = 1), contiguous; partial: (2, B, ceil(P / tile)) f32 scratch;
+// t1, t2: (B,) f32. Returns cudaGetLastError() after the launches.
+int afcrps_terms_fwd(const void* ens, const void* tgt, void* partial, void* t1, void* t2,
+                     int batch, int m, int p, int is_bf16, void* stream) {
+  if (m < 1 || m > probunet::kMaxM || batch < 1 || p < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? probunet::launch<__nv_bfloat16>(ens, tgt, partial, t1, t2, batch, m, p, s)
+              : probunet::launch<float>(ens, tgt, partial, t1, t2, batch, m, p, s);
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

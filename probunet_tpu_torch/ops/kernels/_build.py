@@ -1,0 +1,115 @@
+"""Build the CUDA sources of ``probunet_tpu_torch/csrc`` and load them.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface, which ``ctypes`` loads. The library is
+built at first use into ``probunet_tpu_torch/_build/`` (listed in
+``.gitignore``) and named after a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is reused. Nothing here
+runs at import time: the CPU tests import every module without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry -> argument types; every entry returns an int (cudaError_t)
+_SIGNATURES = {
+    "afcrps_tile_pixels": (),
+    "afcrps_max_members": (),
+    "afcrps_terms_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "fcomb_crps_tile_pixels": (),
+    "fcomb_crps_channels": (),
+    "fcomb_crps_max_members": (),
+    "fcomb_crps_max_classes": (),
+    "fcomb_crps_terms_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels can only be built where the CUDA toolkit is")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libprobunet_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the library unless the current one exists; returns
+    ``{"path", "built", "seconds", "log"}`` (``log``: nvcc's output,
+    including ptxas' register and shared-memory report)."""
+    path = library_path()
+    if path.exists():
+        return {"path": str(path), "built": False, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu],
+            capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return {"path": str(path), "built": True,
+            "seconds": time.perf_counter() - t0,
+            "log": proc.stdout + proc.stderr}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), with argtypes and
+    restype declared for every C entry."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.probunet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.probunet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if err != 0:
+        text = library().probunet_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({text})")

@@ -1,0 +1,60 @@
+"""The port imports without JAX: the machine with the GPU has none.
+
+A fresh interpreter blocks ``jax`` and ``flax`` (``sys.modules[name] =
+None`` makes every import of them fail), then imports every module of
+``probunet_tpu_torch`` and ``chip_smoke`` (the import only, not its run).
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_SCRIPT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import probunet_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(probunet_tpu_torch.__path__,
+                                               "probunet_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                and sys.modules[m] is not None)
+print(len(names), loaded)
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, loaded = out.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 20
+    assert loaded.strip() == "[]"
+
+
+def test_no_jax_import_statement_in_the_port():
+    """No ``import jax`` / ``from flax ...`` anywhere in the package or in
+    chip_smoke.py, even inside a function."""
+    files = sorted((REPO / "probunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            offenders += [f"{path.name}:{node.lineno}" for r in roots
+                          if r in ("jax", "jaxlib", "flax")]
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                    "probunet_tpu.") and node.module != "probunet_tpu.config":
+                offenders.append(f"{path.name}:{node.lineno} {node.module}")
+    assert not offenders
