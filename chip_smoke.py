@@ -4,23 +4,32 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``probunet_tpu_torch/csrc`` with
-nvcc (sm_90a), holds each kernel against its plain PyTorch version at the
-serve shapes, checks the whole f32 path on the card against the CPU path on
-a small input, then drives the serve path at the full width of the
-flagship preset (``probunet_multivar_128``, bf16, randomly initialized
-weights): the no-grad eval ELBO (bs=128, M=5), once fused (fcomb-CRPS
-kernel) and once unfused (afCRPS-terms kernel), and the prior-ensemble
-evaluation (M=16) through ``EvalAccumulator``. Launch counters show that
-the main path went through both kernels.
+nvcc (sm_90a) and holds each against its plain PyTorch version on the card,
+at the shapes of the serve and training paths: the fcomb-CRPS forward (A)
+and backward (A′), the afCRPS-terms forward (B) and backward (B′), and the
+hash dropout (D), with each kernel's time beside its plain version's and
+its bound. Then it checks the f32 serve path and the f32 training step
+(gradients and one AdamW update) on the card against the CPU, and drives
+both paths at the full width of the flagship preset
+(``probunet_multivar_128``, bf16, randomly initialized weights):
 
-Needs a CUDA device and nvcc; there is no CPU route. Any failed check
-raises, so the exit code is 0 only when every phase passed. The line
-before the last is a JSON object with each kernel's launches, error and
-times; the last line is ``{"ok": true, "device": {...}}``.
+- serve: the no-grad eval ELBO (bs=128, M=5), fused (A) and unfused (B),
+  and the prior-ensemble evaluation (M=16) through ``EvalAccumulator``;
+- train: the ELBO training step (bs=128, M=15, dropout 0.1, beta_1 = 1,
+  AdamW lr 1e-4 wd 0.01), fused (A, A′, D) and unfused (B, B′, D), with
+  train samples/s, peak memory and a breakdown of the step's device time.
+
+Each path's launch counters are set to 0 just before it and read just
+after: every kernel of the path must have launched. Needs a CUDA device and
+nvcc; there is no CPU route. Any failed check raises, so the exit code is
+0 only when every phase passed. The line before the last is a JSON object
+with each kernel's launches on the training path, error, times and bound;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -28,8 +37,9 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from probunet_tpu.config import preset
+from probunet_tpu_torch.config import preset
 from probunet_tpu_torch.data.climex import (
     compute_stats,
     lrinterp_from_batch,
@@ -40,8 +50,9 @@ from probunet_tpu_torch.data.synthetic import synthetic_climex_fields
 from probunet_tpu_torch.data.transforms import apply_physical_transform, invert_physical_transform
 from probunet_tpu_torch.evals.streaming import EvalAccumulator
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
-from probunet_tpu_torch.ops.kernels import _build, afcrps, fcomb_crps
-from probunet_tpu_torch.train.loop import eval_model, make_eval_step
+from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps
+from probunet_tpu_torch.train.loop import eval_model, make_eval_step, make_train_step
+from probunet_tpu_torch.train.state import create_train_state, global_norm
 
 BATCH = 128          # bench.py's serve batch
 N_BATCHES = 3
@@ -60,15 +71,52 @@ FUSED_RTOL = 1e-4
 # values keep it (4.5e-5 of the largest value reached)
 DEVICE_RTOL = 1e-4
 ENSEMBLE_RTOL = 2e-4
+# kernel A′ vs its plain version. Sums (dz over 16384 pixels; dW1, db1,
+# dW2, db2 over 2.1e6 (batch, pixel) pairs, of 15 members each) are taken
+# in another order: max error over max value 1e-4 in f32; in bf16 a hidden
+# value whose f32 sum differs in its last bit can round to the other bf16
+# neighbour, so 1e-3. The per-pixel outputs (dfeat, dy) are exact up to
+# sign ties: the kernel's and the plain decode differ in the last bits of x,
+# so where x_j - y or x_j - x_k is within ~1e-7 of 0 a sign can flip and
+# that pixel's value moves by 2 g. At most 1e-5 of their elements may
+# differ by more than 1e-4 of the largest value.
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+TIE_FRACTION = 1e-5
+# f32 training step on the card vs the CPU, per parameter: ||g_cuda -
+# g_cpu|| / ||g_cpu||. The CRPS gradient is a sum of signs of x_j - y and
+# x_j - x_k: the f32 forwards of the two devices differ by up to ~4.5e-5
+# of the largest ensemble value (the prior-ensemble check), so member
+# pairs closer than that flip sign and move their pixel's gradient by 2 g.
+# The phase prints the CPU gradients' own change under a 1e-6 relative
+# move of the inputs beside the card-vs-CPU error. Reached on an H100:
+# median 3.6e-4, max 1.5e-3 (two items, M=15)
+GRAD_RTOL = 1e-2
+# the first AdamW step moves each weight by ~lr * sign(g) plus the same
+# decay on both devices, so steps agree to far under lr or, where a
+# gradient's sign lies inside the two devices' f32 noise, differ by ~2 lr.
+# The share of weights that stepped the other way: 1.5e-4 reached on an
+# H100 on either route. A wrong gradient flips about half of its
+# parameter's weights; the per-parameter check is GRAD_RTOL's
+FLIP_SHARE = 2e-3
+TRAIN_BATCH, TRAIN_M = 128, 15   # bench.py's training step
+TRAIN_WARMUP, TRAIN_STEPS = 2, 4
+H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; FP32 CUDA core
 
 
-def _sync_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call by CUDA events, after warm-up."""
+def _sync_ms(fn, iters: int, warmup: int = 2, spin: bool = True) -> float:
+    """Mean milliseconds per call by CUDA events, after warm-up. With
+    ``spin`` the device first spins for ~50 ms, so the host enqueues the
+    timed calls while it waits and a kernel shorter than its launch's host
+    overhead is timed on the device, not on the host. Steps are timed
+    without it: their time includes the device's waits for the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(100_000_000)  # cycles, ~50 ms at ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -85,8 +133,24 @@ def _errors(got, want) -> tuple[float, float]:
     return abs_err, rel_err
 
 
+def _bound(n_bytes: float, n_ops: float, dtype: str) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak rate for the type, whichever is larger."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+            else {"bound_ms": t_ops, "bound_by": "operations"})
+
+
+def _max_err_ratio(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
 def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
-    """Each kernel against its plain version at the serve shapes."""
+    """Each kernel against its plain version at the serve and training
+    shapes. The JSON row of a kernel carries its training-path shape: M=15
+    bf16 for A and A′, M=15 f32 for B and B′ (the unfused route scores
+    Fcomb's f32 output), the (128, 128, 128, 32) bf16 activation for D."""
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def randn(*shape, scale=1.0):
@@ -94,55 +158,142 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
 
     report = {}
     b, c, p, k = BATCH, 32, 128 * 128, 3
-    rows = []
-    for m in (5, 16):
+    for m in (TRAIN_M, 5):
         for dtype in ("bfloat16", "float32"):
             args = (randn(b, c, p), randn(b, c, m), randn(c, c, scale=c ** -0.5),
                     randn(c, scale=0.1), randn(c, k, scale=c ** -0.5), randn(k, scale=0.1),
                     randn(b, k, p))
-            got = fcomb_crps.fcomb_crps_terms(*args, compute_dtype=dtype)
+            g1, g2 = randn(b, scale=1e-3), randn(b, scale=1e-3)
+            # forward (A)
+            got = fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype)
             want = fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype)
             abs_err, rel_err = _errors(got, want)
-            ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms(*args, compute_dtype=dtype), 20)
+            ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype), 10)
             plain_ms = _sync_ms(
-                lambda: fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype), 3, 1)
-            print(f"kernel fcomb_crps  B={b} C={c} P={p} K={k} M={m:2d} {dtype:8s} "
+                lambda: fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype), 2, 1)
+            print(f"kernel fcomb_crps      B={b} C={c} P={p} K={k} M={m:2d} {dtype:8s} "
                   f"max_rel_err={rel_err:.3e} max_abs_err={abs_err:.3e} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
             if not rel_err <= KERNEL_RTOL:
                 raise AssertionError(f"fcomb_crps kernel disagrees with its plain version: "
                                      f"rel err {rel_err} > {KERNEL_RTOL}")
-            rows.append((m, dtype, abs_err, ms, plain_ms))
-            del args, got, want
-    # the eval ELBO's shape: M = 5, bf16 compute
-    main = next(r for r in rows if r[:2] == (5, "bfloat16"))
-    report["fcomb_crps"] = {"max_abs_err": max(r[2] for r in rows),
-                            "ms": main[3], "plain_ms": main[4]}
+            ops = 2.0 * b * p * m * (c * c + c * k)
+            if (m, dtype) == (TRAIN_M, "bfloat16"):
+                report["fcomb_crps"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                                        **_bound(4.0 * b * p * (c + k), ops, dtype),
+                                        "library_ms": None}
+            # backward (A′): all seven outputs, twice for bit-reproducibility
+            got = fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype)
+            again = fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError("fcomb_crps backward is not bit-reproducible")
+            want = fcomb_crps.fcomb_crps_terms_bwd_plain(*args, g1, g2, dtype)
+            names = ("dfeat", "dz", "dW1", "db1", "dW2", "db2", "dy")
+            errs = {n: _max_err_ratio(x, y) for n, x, y in zip(names, got, want)}
+            ties = {n: float(((x - y).abs() > 1e-4 * y.abs().max()).float().mean())
+                    for n, x, y in zip(names, got, want) if n in ("dfeat", "dy")}
+            abs_err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+            ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype), 3, 1)
+            plain_ms = _sync_ms(
+                lambda: fcomb_crps.fcomb_crps_terms_bwd_plain(*args, g1, g2, dtype), 1, 1)
+            print(f"kernel fcomb_crps_bwd  B={b} C={c} P={p} K={k} M={m:2d} {dtype:8s} "
+                  f"bit_reproducible=True max_err/max={json.dumps(errs)} "
+                  f"tie_fraction={json.dumps(ties)} max_abs_err={abs_err:.3e} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            bad = {n: e for n, e in errs.items()
+                   if n not in ("dfeat", "dy") and not e <= BWD_RTOL[dtype]}
+            bad.update({n: f for n, f in ties.items() if not f <= TIE_FRACTION})
+            if bad:
+                raise AssertionError(f"fcomb_crps backward disagrees with its plain version: "
+                                     f"{bad}")
+            if (m, dtype) == (TRAIN_M, "bfloat16"):
+                # the algorithm's products: decode (C^2 + CK), dh1, dW2 (CK
+                # each), dh0, dW1 (C^2 each); read feat, y; write dfeat, dy
+                ops = 2.0 * b * p * m * (3 * c * c + 3 * c * k)
+                report["fcomb_crps_bwd"] = {"max_abs_err": abs_err, "ms": ms,
+                                            "plain_ms": plain_ms,
+                                            **_bound(8.0 * b * p * (c + k), ops, dtype),
+                                            "library_ms": None}
+            del args, got, again, want
+    torch.cuda.empty_cache()
 
     p = 128 * 128 * 3
-    rows = []
-    for m in (5, 16):
-        for dtype in ("bfloat16", "float32"):
+    for m in (TRAIN_M, 5):
+        for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
             ens, tgt = randn(b, m, p).to(tdt), randn(b, p).to(tdt)
-            got = afcrps.ensemble_crps_terms(ens, tgt)
+            ens[:, 1, :64] = ens[:, 0, :64]  # ties: sign 0
+            g1, g2 = randn(b, scale=1e-3), randn(b, scale=1e-3)
+            got = afcrps.ensemble_crps_terms_fwd(ens, tgt)
             want = afcrps.ensemble_crps_terms_plain(ens, tgt)
             abs_err, rel_err = _errors(got, want)
-            ms = _sync_ms(lambda: afcrps.ensemble_crps_terms(ens, tgt), 20)
-            plain_ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_plain(ens, tgt), 5, 1)
-            print(f"kernel afcrps      B={b} P={p} M={m:2d} {dtype:8s} "
+            ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_fwd(ens, tgt), 20)
+            plain_ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_plain(ens, tgt), 3, 1)
+            print(f"kernel afcrps          B={b} P={p} M={m:2d} {dtype:8s} "
                   f"max_rel_err={rel_err:.3e} max_abs_err={abs_err:.3e} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
             if not rel_err <= KERNEL_RTOL:
                 raise AssertionError(f"afcrps kernel disagrees with its plain version: "
                                      f"rel err {rel_err} > {KERNEL_RTOL}")
-            rows.append((m, dtype, abs_err, ms, plain_ms))
+            size = ens.element_size()
+            pair_ops = 3.0 * b * p * (m + m * (m - 1) / 2)  # sub, abs, add per term
+            if (m, dtype) == (TRAIN_M, "float32"):
+                report["afcrps"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                                    **_bound(size * b * p * (m + 1), pair_ops, "float32"),
+                                    "library_ms": None}
+            got = afcrps.ensemble_crps_terms_bwd(ens, tgt, g1, g2)
+            want = afcrps.ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2)
+            exact = all(torch.equal(x, y) for x, y in zip(got, want))
+            abs_err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+            ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_bwd(ens, tgt, g1, g2), 20)
+            plain_ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2),
+                                3, 1)
+            print(f"kernel afcrps_bwd      B={b} P={p} M={m:2d} {dtype:8s} exact={exact} "
+                  f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            # sign counts times g, with the same two roundings: equal exactly
+            if not exact:
+                raise AssertionError(f"afcrps backward differs from its plain version: {abs_err}")
+            if (m, dtype) == (TRAIN_M, "float32"):
+                sign_ops = 3.0 * b * p * (m * m + m)  # sub, sign, add per term
+                report["afcrps_bwd"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                                        **_bound(2.0 * size * b * p * (m + 1), sign_ops,
+                                                 "float32"),
+                                        "library_ms": None}
             del ens, tgt, got, want
-    # the unfused bf16 eval ELBO feeds the kernel an f32 ensemble (Fcomb
-    # casts its output to the f32 feature dtype) at M = 5
-    main = next(r for r in rows if r[:2] == (5, "float32"))
-    report["afcrps"] = {"max_abs_err": max(r[2] for r in rows),
-                        "ms": main[3], "plain_ms": main[4]}
+    torch.cuda.empty_cache()
+
+    # D at the flagship's largest activation, NHWC bf16
+    shape, p_drop = (BATCH, 128, 128, 32), 0.1
+    x = randn(*shape).to(torch.bfloat16).requires_grad_()
+    g = randn(*shape).to(torch.bfloat16)
+    seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
+    y = dropout.dropout(x, seed, p_drop)
+    (dx,) = torch.autograd.grad(y, x, g)
+    with torch.no_grad():
+        want_y = dropout.dropout_plain(x, seed, p_drop)
+        want_dx = dropout.dropout_plain(g, seed, p_drop)
+    fwd_exact, bwd_exact = torch.equal(y, want_y), torch.equal(dx, want_dx)
+    n = y.numel()
+    keep = float((y != 0).float().mean())
+    sigma = (p_drop * (1 - p_drop) / n) ** 0.5
+    with torch.no_grad():
+        xd = x.detach()
+        ms = _sync_ms(lambda: dropout.dropout(xd, seed, p_drop), 20)
+        plain_ms = _sync_ms(lambda: dropout.dropout_plain(xd, seed, p_drop), 3, 1)
+        library_ms = _sync_ms(lambda: F.dropout(xd, p_drop, training=True), 20)
+    print(f"kernel dropout         shape={shape} bf16 p={p_drop} fwd_exact={fwd_exact} "
+          f"bwd_exact={bwd_exact} keep_rate={keep:.6f} (1-p={1 - p_drop}, "
+          f"{abs(keep - (1 - p_drop)) / sigma:.2f} sigma) kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} F.dropout_ms={library_ms:.4f}")
+    if not (fwd_exact and bwd_exact):
+        raise AssertionError("dropout kernel masks differ from the plain version's")
+    if not abs(keep - (1 - p_drop)) <= 5 * sigma:
+        raise AssertionError(f"dropout keep rate {keep} is not within 5 sigma of {1 - p_drop}")
+    # read x, write y; ~16 integer operations per element for the hash
+    report["dropout"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                         **_bound(2.0 * 2 * n, 16.0 * n, "float32"),
+                         "library_ms": library_ms}
+    del x, g, y, dx, want_y, want_dx, xd
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return report
@@ -265,6 +416,205 @@ def serve(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg,
     return res
 
 
+def train_device_vs_cpu(model32: ProbabilisticUNet, hr: torch.Tensor, stats, cfg,
+                        dev: torch.device) -> None:
+    """The f32 training step on the card (kernels A, A′, D and B, B′ on
+    the unfused route) against the CPU (plain versions): two items,
+    dropout 0.1, the same noise and seed words, beta_1 = 1. Loss and every
+    parameter's gradient, then the parameters after one AdamW step."""
+    eps = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (cfg.train.ensemble_size, 2, cfg.model.latent_dim)).astype(np.float32))
+    seeds = torch.from_numpy(np.random.default_rng(12).integers(
+        -2 ** 31, 2 ** 31, (len(model32.unet.dropout_blocks), 2), dtype=np.int32))
+    for fused in (True, False):
+        out = {}
+        for where in ("cpu", dev):
+            model = copy.deepcopy(model32)
+            state = create_train_state(model, seed=cfg.train.seed, lr=cfg.train.lr,
+                                       weight_decay=cfg.train.weight_decay, device=where)
+            st = type(stats)(*[t.to(where) for t in stats])
+            batch = preprocess_batch(hr[:2].to(where), st, cfg.data.pipeline,
+                                     cfg.data.lowres_scale, cfg.data.interp_mode,
+                                     cfg.data.epsilon, cfg.data.standardization)
+            total, _ = model.elbo(batch["inputs"], batch["targets"], M=cfg.train.ensemble_size,
+                                  beta_1=1.0, eps=eps.to(where), fused=fused, training=True,
+                                  seeds=seeds.to(where))
+            grads = torch.autograd.grad(total, state.optimizer.params)
+            if where == "cpu" and fused:
+                # the gradients' own sensitivity: the CPU step again on
+                # inputs moved by a relative 1e-6
+                noise = torch.randn(batch["inputs"].shape,
+                                    generator=torch.Generator().manual_seed(13))
+                moved, _ = model.elbo(batch["inputs"] * (1 + 1e-6 * noise), batch["targets"],
+                                      M=cfg.train.ensemble_size, beta_1=1.0, eps=eps,
+                                      fused=True, training=True, seeds=seeds)
+                errs = [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in
+                        zip(torch.autograd.grad(moved, state.optimizer.params), grads)]
+                print(f"cpu f32 train step, inputs moved by 1e-6 relative: gradients "
+                      f"||dg||/||g|| median={float(np.median(errs)):.3e} max={max(errs):.3e}")
+            state.optimizer.step(list(grads))
+            out[str(where)] = (float(total.detach()), [g.cpu() for g in grads],
+                               [p.detach().cpu() for p in state.optimizer.params])
+            del model, state, grads, total
+        # the card's update on its own gradients, redone by the CPU optimizer
+        redo = create_train_state(copy.deepcopy(model32), seed=cfg.train.seed, lr=cfg.train.lr,
+                                  weight_decay=cfg.train.weight_decay, device="cpu")
+        redo.optimizer.step(out[str(dev)][1])
+        (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(dev)]
+        rel = abs(lg - lc) / abs(lc)
+        names = [n for n, _ in model32.named_parameters()]
+        grad_err = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                    for n, a, b in zip(names, gg, gc)}
+        worst = max(grad_err, key=grad_err.get)
+        lr = cfg.train.lr
+        step_diff = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+        flipped = float((step_diff > lr).float().mean())
+        redo_err = max(float((a - b.detach()).abs().max())
+                       for a, b in zip(pg, redo.optimizer.params))
+        print(f"device vs cpu f32 train step fused={fused}: loss cuda={lg:.7g} cpu={lc:.7g} "
+              f"rel_err={rel:.3e}; grads ||dg||/||g|| max={grad_err[worst]:.3e} ({worst}), "
+              f"median={float(np.median(list(grad_err.values()))):.3e}; after AdamW: "
+              f"vs the CPU optimizer on the card's gradients max|dp|={redo_err:.3e}; "
+              f"vs the CPU step max|dp|={float(step_diff.max()):.3e} (lr={lr}), "
+              f"mean|dp|={float(step_diff.mean()):.3e}, share stepped the other way "
+              f"(|dp|>lr): {flipped:.3e}")
+        if not rel <= DEVICE_RTOL:
+            raise AssertionError(f"training loss on the card differs from the CPU: {rel}")
+        if not grad_err[worst] <= GRAD_RTOL:
+            raise AssertionError(f"gradient of {worst} differs from the CPU: {grad_err[worst]}")
+        # the same update from the same gradients: one or two f32 roundings
+        if not redo_err <= 1e-6:
+            raise AssertionError(f"the card's AdamW step differs from the CPU's: {redo_err}")
+        if not flipped <= FLIP_SHARE:
+            raise AssertionError(f"{flipped} of the weights stepped the other way than on "
+                                 f"the CPU (limit {FLIP_SHARE})")
+
+
+def _train_route(model: ProbabilisticUNet, batches, stats, cfg, dev, fused: bool) -> dict:
+    """Warm-up and timed training steps on one route; halves the batch
+    while it does not fit on the card."""
+    bs = TRAIN_BATCH
+    while True:
+        state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed, lr=cfg.train.lr,
+                                   weight_decay=cfg.train.weight_decay, device=dev)
+        step = make_train_step(state.model, cfg, fused=fused)
+        before = [p.detach().clone() for p in state.optimizer.params]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            mets = []
+            for i in range(TRAIN_WARMUP):
+                state, met = step(state, batches[i % len(batches)][:bs], stats, 1.0, 1.0)
+                mets.append(met)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(TRAIN_STEPS):
+                state, met = step(state, batches[i % len(batches)][:bs], stats, 1.0, 1.0)
+                mets.append(met)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            break
+        except torch.OutOfMemoryError:
+            del state, step, before
+            torch.cuda.empty_cache()
+            if bs == 1:
+                raise
+            print(f"train {'fused' if fused else 'unfused'}: bs={bs} does not fit, halving")
+            bs //= 2
+    vals = [{k: float(v) for k, v in m.items()} for m in mets]
+    if not all(math.isfinite(v) for m in vals for v in m.values()):
+        raise AssertionError(f"non-finite training metrics: {vals}")
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, state.optimizer.params))
+    if changed != len(before):
+        raise AssertionError(f"only {changed} of {len(before)} parameters changed")
+    name = "fused" if fused else "unfused"
+    res = {"batch": bs, "samples_per_s": TRAIN_STEPS * bs / dt, "step_ms": dt / TRAIN_STEPS * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"train {name} bs={bs} M={cfg.train.ensemble_size}: " + " ".join(
+        f"step{i}: loss={m['loss']:.6g} recon={m['recon']:.6g} kl={m['kl_mean']:.6g} "
+        f"grad_norm={m['grad_norm']:.6g};" for i, m in enumerate(vals)))
+    print(f"train {name}: samples/s={res['samples_per_s']:.2f} "
+          f"step_ms={res['step_ms']:.3f} peak_memory_gb={res['peak_gb']:.3f}"
+          + ("" if bs == TRAIN_BATCH else f" (bs={TRAIN_BATCH} did not fit)"))
+    del state, step, before
+    torch.cuda.empty_cache()
+    return res
+
+
+_KERNEL_GROUPS = (("A fcomb_crps fwd", ("fcomb_crps_tile_kernel", "reduce_partials")),
+                  ("A' fcomb_crps bwd", ("fcomb_crps_bwd_tile_kernel", "column_sum_kernel")),
+                  ("B afcrps fwd", ("afcrps_tile_kernel",)),
+                  ("B' afcrps bwd", ("afcrps_bwd_kernel",)),
+                  ("D dropout", ("dropout_kernel",)),
+                  ("AdamW (foreach)", ("multi_tensor_apply", "foreach")))
+
+
+def train_breakdown(model: ProbabilisticUNet, hr: torch.Tensor, stats, cfg, dev,
+                    fused: bool, bs: int) -> None:
+    """Where one training step's time goes: CUDA events around the U-Net
+    forward and backward, the whole loss, its backward and the AdamW step;
+    torch.profiler's kernel time by kernel family over two steps; the
+    device's idle share (1 - kernel time / elapsed)."""
+    state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed, lr=cfg.train.lr,
+                               weight_decay=cfg.train.weight_decay, device=dev)
+    step = make_train_step(state.model, cfg, fused=fused)
+    hr = hr[:bs]
+    batch = preprocess_batch(hr, stats, cfg.data.pipeline, cfg.data.lowres_scale,
+                             cfg.data.interp_mode, cfg.data.epsilon, cfg.data.standardization)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    unet = state.model.unet
+    feats = unet(batch["inputs"], train=True, generator=gen)
+    cot = torch.randn_like(feats)
+    del feats
+    unet_fwd = _sync_ms(lambda: unet(batch["inputs"], train=True, generator=gen), 3, 1, spin=False)
+    unet_fb = _sync_ms(lambda: torch.autograd.backward(
+        unet(batch["inputs"], train=True, generator=gen), cot), 3, 1, spin=False)
+    params = state.optimizer.params
+
+    def loss():
+        return state.model.elbo(batch["inputs"], batch["targets"], M=cfg.train.ensemble_size,
+                                beta_1=1.0, generator=gen, fused=fused, training=True)[0]
+
+    loss_ms = _sync_ms(lambda: loss(), 3, 1, spin=False)
+    loss_bwd = _sync_ms(lambda: torch.autograd.grad(loss(), params), 3, 1, spin=False)
+    grads = [torch.randn_like(p) * 1e-3 for p in params]
+    adamw_ms = _sync_ms(lambda: state.optimizer.step(grads), 5, 1, spin=False)
+    step_ms = _sync_ms(lambda: step(state, hr, stats, 1.0, 1.0), 3, 1, spin=False)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            step(state, hr, stats, 1.0, 1.0)
+        torch.cuda.synchronize()
+    groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
+    other, total = 0.0, 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0.0)
+        if e.self_cpu_time_total != 0 or dev_us <= 0:
+            continue
+        total += dev_us
+        for g, keys in _KERNEL_GROUPS:
+            if any(k in e.key for k in keys):
+                groups[g] += dev_us
+                break
+        else:
+            other += dev_us
+    kernel_ms = total / 2e3
+    name = "fused" if fused else "unfused"
+    print(f"train breakdown {name} bs={bs} (CUDA events, ms): step={step_ms:.3f} "
+          f"loss_fwd={loss_ms:.3f} loss_fwd+bwd={loss_bwd:.3f} unet_fwd={unet_fwd:.3f} "
+          f"unet_fwd+bwd={unet_fb:.3f} adamw={adamw_ms:.3f}")
+    print(f"train breakdown {name} kernel ms/step (torch.profiler, 2 steps): "
+          + " ".join(f"{g}={v / 2e3:.3f}" for g, v in groups.items())
+          + f" other={other / 2e3:.3f} total={kernel_ms:.3f} "
+          f"idle_share={1 - kernel_ms / step_ms:.4f}")
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    del state, step, grads, cot
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -291,7 +641,7 @@ def main() -> None:
     report = kernels_vs_plain(dev)
 
     cfg = preset("probunet_multivar_128")
-    cfg.model.compute_dtype = "bfloat16"     # as bench.py serves it
+    cfg.model.compute_dtype = "bfloat16"     # as bench.py runs it
     days = N_BATCHES * BATCH
     t0 = time.perf_counter()
     hr_phys = torch.from_numpy(synthetic_climex_fields(
@@ -303,33 +653,69 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator().manual_seed(0)
-    model = ProbabilisticUNet.from_config(cfg, gen)
+    model = ProbabilisticUNet.from_config(cfg, gen, device="cpu")
     _fill_zero_params(model, gen)
     cfg32 = preset("probunet_multivar_128")
-    model32 = ProbabilisticUNet.from_config(cfg32, torch.Generator().manual_seed(0))
+    model32 = ProbabilisticUNet.from_config(cfg32, torch.Generator().manual_seed(0),
+                                            device="cpu")
     model32.load_state_dict(model.state_dict())
-    device_vs_cpu(model32.eval(), hr.cpu(), type(stats)(*[s.cpu() for s in stats]),
-                  cfg32, dev)
+    hr_cpu, stats_cpu = hr.cpu(), type(stats)(*[t.cpu() for t in stats])
+    device_vs_cpu(model32.eval(), hr_cpu, stats_cpu, cfg32, dev)
+    train_device_vs_cpu(model32, hr_cpu, stats_cpu, cfg32, dev)
     del model32
     model = model.to(dev).eval()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: probunet_multivar_128 bf16, {n_params} parameters")
 
-    counters = {"fcomb_crps": fcomb_crps.fcomb_crps_terms, "afcrps": afcrps.ensemble_crps_terms}
-    for fn in counters.values():
-        fn.launches = 0
+    counters = {"fcomb_crps": fcomb_crps.fcomb_crps_terms,
+                "fcomb_crps_bwd": fcomb_crps.fcomb_crps_terms_bwd,
+                "afcrps": afcrps.ensemble_crps_terms,
+                "afcrps_bwd": afcrps.ensemble_crps_terms_bwd,
+                "dropout": dropout.dropout}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # the serve path: eval ELBO fused and unfused, prior ensemble
+    zero_counts()
     rates = serve(model, batches, stats, cfg, dev)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"launches on the serve path: {launches}; rates: {json.dumps(rates)}")
-    for name, n in launches.items():
-        if n <= 0:
+    serve_launches = read_counts()
+    print(f"launches on the serve path: {json.dumps(serve_launches)}; "
+          f"rates: {json.dumps(rates)}")
+    for name in ("fcomb_crps", "afcrps"):
+        if serve_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serve path")
 
-    modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps}
-    kernels = [{"name": name, "route": "cuda", "source": modules[name].SOURCE,
-                "replaces": modules[name].REPLACES, "launches": launches[name],
-                **report[name]} for name in ("fcomb_crps", "afcrps")]
+    # the training path: bs=128, M=15, dropout 0.1, fused and unfused
+    cfg_train = copy.deepcopy(cfg)
+    cfg_train.train.ensemble_size = TRAIN_M
+    zero_counts()
+    train = {fused: _train_route(model, batches, stats, cfg_train, dev, fused)
+             for fused in (True, False)}
+    launches = read_counts()
+    n_steps = 2 * (TRAIN_WARMUP + TRAIN_STEPS)
+    print(f"launches on the training path ({n_steps} steps, fused and unfused): "
+          f"{json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the training path")
+    for fused in (True, False):
+        train_breakdown(model, batches[0], stats, cfg_train, dev, fused, train[fused]["batch"])
+    print("train rates: " + json.dumps({("fused" if f else "unfused"): r
+                                        for f, r in train.items()}))
+
+    modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "dropout": dropout}
+    kernels = []
+    for name in counters:
+        mod = modules[name.removesuffix("_bwd")]
+        kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
+                        "replaces": mod.REPLACES_BWD if name.endswith("_bwd") else mod.REPLACES,
+                        "launches": launches[name], **report[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -74,6 +74,71 @@ afcrps_tile_kernel(const T* __restrict__ ens, const T* __restrict__ tgt,
   }
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ float sign_f32(float d) {
+  return d > 0.f ? 1.f : (d < 0.f ? -1.f : 0.f);
+}
+
+// Backward (replaces probunet_tpu/ops/pallas/afcrps.py:_terms_bwd_impl,
+// pallas_call of _bwd_kernel): with upstream (g1, g2) per batch element,
+//
+//   dx_j = g1 * sign(x_j - y) + g2 * sum_{k != j} sign(x_j - x_k)
+//   dy   = -g1 * sum_j sign(x_j - y)
+//
+// Signs are taken of the difference in f32 (the sign of a bf16 difference
+// rounded to bf16 is the sign of the exact one). The sign counts are
+// integers, so dx = g1 * s0 + g2 * count rounds at the same two places as
+// the TPU kernel's f32 expression (no FMA contraction: __fmul_rn /
+// __fadd_rn), and dx equals the plain version exactly.
+//
+// Bound: HBM bytes — read ens and tgt once, write dx and dy once (805 MB at
+// B=128, M=15, P=49152 in f32: 0.24 ms at 3.35 TB/s). The pair loop is
+// M(M-1) compares per pixel. Design as the forward: one thread per pixel,
+// its M members in its own column of a (M, 256) shared-memory slab.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+afcrps_bwd_kernel(const T* __restrict__ ens, const T* __restrict__ tgt,
+                  const float* __restrict__ g1, const float* __restrict__ g2,
+                  T* __restrict__ dx, T* __restrict__ dy, int m, int p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* slab = reinterpret_cast<float*>(smem_raw);  // (m, kThreads)
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int pix = blockIdx.x * kThreads + tid;
+  if (pix >= p) return;  // no block-wide sync below
+  const T* x = ens + static_cast<size_t>(b) * m * p + pix;
+  const float y = to_f32(tgt[static_cast<size_t>(b) * p + pix]);
+  for (int j = 0; j < m; ++j) slab[j * kThreads + tid] = to_f32(x[static_cast<size_t>(j) * p]);
+  const float gb1 = g1[b];
+  const float gb2 = g2[b];
+  float s0_sum = 0.f;
+  T* d = dx + static_cast<size_t>(b) * m * p + pix;
+  for (int j = 0; j < m; ++j) {
+    const float xj = slab[j * kThreads + tid];
+    const float s0 = sign_f32(xj - y);
+    s0_sum += s0;
+    float count = 0.f;
+    for (int k = 0; k < m; ++k) count += sign_f32(xj - slab[k * kThreads + tid]);
+    store(d + static_cast<size_t>(j) * p, __fadd_rn(__fmul_rn(gb1, s0), __fmul_rn(gb2, count)));
+  }
+  store(dy + static_cast<size_t>(b) * p + pix, __fmul_rn(-gb1, s0_sum));
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* ens, const void* tgt, const void* g1, const void* g2,
+                       void* dx, void* dy, int batch, int m, int p, cudaStream_t stream) {
+  const int ntiles = (p + kThreads - 1) / kThreads;
+  const size_t smem = static_cast<size_t>(m) * kThreads * sizeof(float);
+  afcrps_bwd_kernel<T><<<dim3(ntiles, batch), kThreads, smem, stream>>>(
+      static_cast<const T*>(ens), static_cast<const T*>(tgt), static_cast<const float*>(g1),
+      static_cast<const float*>(g2), static_cast<T*>(dx), static_cast<T*>(dy), m, p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* ens, const void* tgt, void* partial, void* t1, void* t2,
                    int batch, int m, int p, cudaStream_t stream) {
@@ -110,6 +175,20 @@ int afcrps_terms_fwd(const void* ens, const void* tgt, void* partial, void* t1, 
   const cudaError_t err =
       is_bf16 ? probunet::launch<__nv_bfloat16>(ens, tgt, partial, t1, t2, batch, m, p, s)
               : probunet::launch<float>(ens, tgt, partial, t1, t2, batch, m, p, s);
+  return static_cast<int>(err);
+}
+
+// ens (B, M, P) and tgt (B, P) as for afcrps_terms_fwd; g1, g2: (B,) f32;
+// dx (B, M, P) and dy (B, P) in the input type. Returns cudaGetLastError().
+int afcrps_terms_bwd(const void* ens, const void* tgt, const void* g1, const void* g2,
+                     void* dx, void* dy, int batch, int m, int p, int is_bf16, void* stream) {
+  if (m < 1 || m > probunet::kMaxM || batch < 1 || p < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? probunet::launch_bwd<__nv_bfloat16>(ens, tgt, g1, g2, dx, dy, batch, m, p, s)
+              : probunet::launch_bwd<float>(ens, tgt, g1, g2, dx, dy, batch, m, p, s);
   return static_cast<int>(err);
 }
 

@@ -60,5 +60,38 @@ inline void launch_reduce(const float* partial, float* t1, float* t2, int batch,
       partial, t1, t2, batch, ntiles);
 }
 
+// Column sums of a row-major (rows, cols) f32 matrix: out[c] = sum_r in[r, c],
+// in a fixed order (row group g = r % 8 first, then the 8 groups in order).
+// A warp reads 32 neighbouring columns of one row, so every load is
+// coalesced. grid ceil(cols / 32), 256 threads.
+constexpr int kColThreads = 256;
+constexpr int kColGroups = kColThreads / 32;
+
+__global__ void __launch_bounds__(kColThreads)
+column_sum_kernel(const float* __restrict__ in, float* __restrict__ out, int rows, int cols) {
+  __shared__ float red[kColGroups][33];
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (col < cols) {
+#pragma unroll 8
+    for (int r = g; r < rows; r += kColGroups) s += in[static_cast<size_t>(r) * cols + col];
+  }
+  red[g][lane] = s;
+  __syncthreads();
+  if (g == 0 && col < cols) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kColGroups; ++i) t += red[i][lane];
+    out[col] = t;
+  }
+}
+
+inline void launch_column_sum(const float* in, float* out, int rows, int cols,
+                              cudaStream_t stream) {
+  column_sum_kernel<<<(cols + 31) / 32, kColThreads, 0, stream>>>(in, out, rows, cols);
+}
+
 }  // namespace
 }  // namespace probunet

@@ -10,8 +10,10 @@ take NHWC like the JAX package.
 are cast to it and a bf16 conv returns a bf16-rounded result, as the JAX
 convs with ``preferred_element_type=dt``; parameters stay f32, so a bias
 add promotes to f32 and is rounded back to the activation dtype, the JAX
-package's rounding points. Dropout and the attention block are not
-ported: the serve path runs neither.
+package's rounding points. Dropout runs through kernel D
+(``ops.kernels.dropout``) with seed words from the caller, on the NHWC
+view of the activation, so its masks are the JAX kernel's. The attention
+block is not ported: neither the serve nor the training path runs it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from probunet_tpu_torch.ops.kernels.dropout import dropout as hash_dropout
 from probunet_tpu_torch.ops.precision import matmul_f32
 
 # (init_mode, init_weight_scale, init_bias_scale), as in the JAX package
@@ -133,11 +136,14 @@ class EDMGroupNorm(nn.Module):
     """GroupNorm with groups = min(32, C // 4), eps 1e-5, evaluated with the
     UNetBlock chain that follows it:
 
-        silu((gn(x) * gamma + beta) * (scale + 1) + shift)
+        dropout(silu((gn(x) * gamma + beta) * (scale + 1) + shift))
 
     A plain torch composition like the JAX default (XLA's GN fusion):
     f32 statistics with the fast variance E[x^2] - E[x]^2 (clipped at 0, as
-    flax computes it), normalization in f32, output in ``dtype``.
+    flax computes it), normalization in f32, output in ``dtype``. With
+    ``drop_p > 0`` the chain ends in kernel D's dropout with the (2,) int32
+    ``drop_seed``, applied to the NHWC view (``layers.py:345-378`` in the
+    JAX package with ``PROBUNET_DROPOUT_IMPL=pallas``).
     """
 
     def __init__(self, num_channels: int, *, dtype: torch.dtype | None = None):
@@ -148,7 +154,8 @@ class EDMGroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor, silu: bool = False,
-                film: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+                film: tuple[torch.Tensor, torch.Tensor] | None = None,
+                drop_p: float = 0.0, drop_seed: torch.Tensor | None = None) -> torch.Tensor:
         b, c, h, w = x.shape
         g = self.groups
         xf = x.float().unflatten(1, (g, c // g))              # (B, G, C/G, H, W)
@@ -164,20 +171,26 @@ class EDMGroupNorm(nn.Module):
         if film is not None:
             scale, shift = film
             y = shift[:, :, None, None] + y * (scale[:, :, None, None] + 1)
-        return F.silu(y) if silu else y
+        y = F.silu(y) if silu else y
+        if drop_p > 0.0:
+            if drop_seed is None:
+                raise ValueError("EDMGroupNorm: drop_p > 0 needs drop_seed")
+            y = hash_dropout(y.permute(0, 2, 3, 1), drop_seed, drop_p).permute(0, 3, 1, 2)
+        return y
 
 
 class UNetBlock(nn.Module):
     """Residual U-Net block as the U-Net builds it (EDM init, zero-init
     second conv, skip scale 1, no attention):
-    GN -> SiLU -> conv(up/down) -> FiLM from the embedding -> SiLU -> conv
-    -> + skip. ``in_channels`` counts the skip tensor that the decoder's
-    blocks take as ``skip_in``."""
+    GN -> SiLU -> conv(up/down) -> FiLM from the embedding -> SiLU ->
+    dropout (``train`` only) -> conv -> + skip. ``in_channels`` counts the
+    skip tensor that the decoder's blocks take as ``skip_in``."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  generator: torch.Generator, up: bool = False, down: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dropout: float = 0.0, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dropout = dropout
         kw = dict(generator=generator, dtype=dtype)
         self.norm0 = EDMGroupNorm(in_channels, dtype=dtype)
         self.conv0 = EDMConv(in_channels, out_channels, 3, up=up, down=down,
@@ -192,12 +205,17 @@ class UNetBlock(nn.Module):
                                 init=INIT_EDM, **kw)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                skip_in: torch.Tensor | None = None) -> torch.Tensor:
+                skip_in: torch.Tensor | None = None, train: bool = False,
+                drop_seed: torch.Tensor | None = None) -> torch.Tensor:
+        """``drop_seed``: this block's (2,) int32 dropout seed words, needed
+        when ``train`` and ``dropout > 0``."""
         x_in = x
         full = x if skip_in is None else torch.cat([x, skip_in.to(x.dtype)], dim=1)
         h = self.conv0(self.norm0(full, silu=True))
         scale, shift = self.affine(emb).chunk(2, dim=-1)
-        h = self.conv1(self.norm1(h, silu=True, film=(scale, shift)))
+        drop_p = self.dropout if train else 0.0
+        h = self.conv1(self.norm1(h, silu=True, film=(scale, shift), drop_p=drop_p,
+                                  drop_seed=drop_seed))
         if self.skip is None:
             skip = full
         elif skip_in is not None:

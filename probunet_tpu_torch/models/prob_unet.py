@@ -2,10 +2,12 @@
 U-Net backbone + prior/posterior Gaussians + Fcomb.
 
 Ported: ``sample`` (prior ensemble with shared U-Net features),
-``encode``, ``decode`` and the afCRPS / CRPS branches of ``elbo``. Every
-random draw takes an explicit ``torch.Generator`` or the noise itself
-(``eps``), since JAX's and torch's generators never give the same
-numbers.
+``encode``, ``decode`` and the afCRPS / CRPS branches of ``elbo``, for
+evaluation and for training (``training=True``: U-Net dropout on,
+gradients through both reconstruction routes). Every random draw takes an
+explicit ``torch.Generator`` or the values themselves (the posterior
+noise ``eps``, the dropout seed words ``seeds``), since JAX's and torch's
+generators never give the same numbers.
 
 The ELBO's reconstruction runs fused by default — Fcomb decode and CRPS
 terms in one pass (``ops.kernels.fcomb_crps``: the CUDA kernel for CUDA
@@ -22,6 +24,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from probunet_tpu_torch.device import resolve_device
 from probunet_tpu_torch.models.fcomb import Fcomb
 from probunet_tpu_torch.models.gaussian import AxisAlignedConvGaussian
 from probunet_tpu_torch.models.unet import UNet
@@ -38,13 +41,14 @@ class ProbabilisticUNet(nn.Module):
                  num_filters: Sequence[int] = (32, 64, 128, 256), model_channels: int = 32,
                  channel_mult: Sequence[int] = (1, 2, 4, 8),
                  img_resolution: Sequence[int] = (128, 128), num_blocks: int = 2,
-                 dtype: torch.dtype | None = None):
+                 dropout: float = 0.10, dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         kw = dict(generator=generator, dtype=dtype)
         self.unet = UNet(tuple(img_resolution), input_channels, num_filters[0],
                          model_channels=model_channels,
-                         channel_mult=tuple(channel_mult), num_blocks=num_blocks, **kw)
+                         channel_mult=tuple(channel_mult), num_blocks=num_blocks,
+                         dropout=dropout, **kw)
         self.prior = AxisAlignedConvGaussian(input_channels, num_filters, latent_dim,
                                              posterior=False, **kw)
         self.posterior = AxisAlignedConvGaussian(input_channels + num_classes, num_filters,
@@ -52,16 +56,20 @@ class ProbabilisticUNet(nn.Module):
         self.fcomb = Fcomb(num_filters[0], latent_dim, num_classes, **kw)
 
     @classmethod
-    def from_config(cls, cfg, generator: torch.Generator) -> "ProbabilisticUNet":
-        """The model of a ``probunet_tpu.config.Config`` (as the JAX CLI's
-        ``make_model`` builds it)."""
+    def from_config(cls, cfg, generator: torch.Generator,
+                    device: str | torch.device | None = "cuda") -> "ProbabilisticUNet":
+        """The model of a ``probunet_tpu_torch.config.Config`` (as the JAX
+        CLI's ``make_model`` builds it), initialized from ``generator`` on
+        its device and moved to ``device`` (the CUDA device unless the
+        caller passes ``device="cpu"``; raises without one)."""
+        dev = resolve_device(device)
         m = cfg.model
         return cls(generator=generator, input_channels=m.input_channels,
                    num_classes=m.num_classes, latent_dim=m.latent_dim,
                    num_filters=m.num_filters, model_channels=m.model_channels,
                    channel_mult=m.channel_mult, img_resolution=cfg.data.resolution,
-                   num_blocks=m.num_blocks,
-                   dtype=torch.bfloat16 if m.compute_dtype == "bfloat16" else None)
+                   num_blocks=m.num_blocks, dropout=m.dropout,
+                   dtype=torch.bfloat16 if m.compute_dtype == "bfloat16" else None).to(dev)
 
     def sample(self, x: torch.Tensor, num_samples: int = 1,
                generator: torch.Generator | None = None,
@@ -88,9 +96,16 @@ class ProbabilisticUNet(nn.Module):
     def elbo(self, x: torch.Tensor, target: torch.Tensor, M: int = 1,
              loss_type: str = "afcrps", beta_0: float = 1.0, beta_1: float = 0.0,
              alpha: float = 0.95, generator: torch.Generator | None = None,
-             eps: torch.Tensor | None = None, fused: bool = True):
+             eps: torch.Tensor | None = None, fused: bool = True,
+             training: bool = False, seeds: torch.Tensor | None = None):
         """ELBO = beta_0 * recon + beta_1 * KL(q || p), with M posterior
         draws (noise ``eps`` (M, B, D) or drawn from ``generator``).
+
+        ``training``: the U-Net's dropout on, its seed words ``seeds``
+        ((n_blocks, 2) int32, block order) or drawn from ``generator``
+        first, before the noise. Unlike the JAX method, the default is
+        False (evaluation). Differentiable on both routes: fused (kernels
+        A and A′) and unfused (``Fcomb.ensemble``, kernels B and B′).
 
         Returns (total, metrics) with metrics {"recon", "kl", "kl_mean"}.
         """
@@ -100,7 +115,9 @@ class ProbabilisticUNet(nn.Module):
             raise NotImplementedError(f"the {loss_type!r} ELBO is not ported yet")
         if M < 2:
             raise ValueError(f"M must be >= 2 for {loss_type}, got {M}")
-        feats, prior, posterior = self.encode(x, target)
+        feats = self.unet(x, train=training, seeds=seeds, generator=generator)
+        prior = self.prior(x)
+        posterior = self.posterior(x, target)
         kl = kl_diag_gaussians(posterior, prior)                    # (B,)
         zs = posterior.rsample(generator, (M,), eps)                # (M, B, D)
         if fused:

@@ -1,6 +1,7 @@
 """Build the CUDA sources of ``probunet_tpu_torch/csrc`` and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` — one process per
+source, all started together — and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads. The library is
 built at first use into ``probunet_tpu_torch/_build/`` (listed in
 ``.gitignore``) and named after a hash of the sources and flags, so an
@@ -25,22 +26,27 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry -> argument types; every entry returns an int (cudaError_t)
 _SIGNATURES = {
     "afcrps_tile_pixels": (),
     "afcrps_max_members": (),
     "afcrps_terms_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "afcrps_terms_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "dropout_apply": (_P, _P, _P, _LL, _I, _F, _F, _I, _P),
     "fcomb_crps_tile_pixels": (),
     "fcomb_crps_channels": (),
     "fcomb_crps_max_members": (),
     "fcomb_crps_max_classes": (),
     "fcomb_crps_terms_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P),
+    "fcomb_crps_terms_bwd": (_P,) * 15 + (_I, _I, _I, _I, _I, _P),
 }
 
 
@@ -74,24 +80,38 @@ def build() -> dict:
     if path.exists():
         return {"path": str(path), "built": False, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    workdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
+    log = []
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        objs, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = workdir / f"{src.stem}.o"
+            objs.append(str(obj))
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, proc in procs:  # wait for every compile, so none outlives the build
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = workdir / "lib.so"
+        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                               "-o", str(tmp), *objs],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(link.stdout)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}")
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(workdir, ignore_errors=True)
     return {"path": str(path), "built": True,
-            "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr}
+            "seconds": time.perf_counter() - t0, "log": "".join(log)}
 
 
 @functools.cache

@@ -1,15 +1,22 @@
 """Ensemble CRPS terms: CUDA kernel (``csrc/afcrps.cu``) and plain version.
 
-Port of ``probunet_tpu/ops/pallas/afcrps.py`` (forward only):
+Port of ``probunet_tpu/ops/pallas/afcrps.py``, forward (kernel B) and
+analytic backward (kernel B′, ``afcrps_terms_bwd`` in the same source):
 
     t1(b) = sum_{j, p}   |x_bjp - y_bp|
     t2(b) = sum_{j<k, p} |x_bjp - x_bkp|
 
 for ens x (B, M, P) and target y (B, P), returned as two (B,) f32
 tensors. Differences are taken in the input dtype (bf16 or f32) and
-summed in f32, as in the TPU kernel. The analytic backward (the TPU's
-``_terms_bwd_impl``) is not ported yet: a CUDA call on tensors that
-require grad raises.
+summed in f32, as in the TPU kernel. :func:`ensemble_crps_terms` is a
+``torch.autograd.Function`` whose backward, given (g1, g2) per batch
+element, is
+
+    dx_j = g1 * sign(x_j - y) + g2 * sum_{k != j} sign(x_j - x_k)
+    dy   = -g1 * sum_j sign(x_j - y)
+
+with the signs taken in f32 of the input-dtype difference; dx and dy come
+back in the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from probunet_tpu_torch.ops.kernels import _build
 
 SOURCE = "probunet_tpu_torch/csrc/afcrps.cu"
 REPLACES = "probunet_tpu/ops/pallas/afcrps.py:118"
+REPLACES_BWD = "probunet_tpu/ops/pallas/afcrps.py:155"
 
 
 def ensemble_crps_terms_plain(ens: torch.Tensor, tgt: torch.Tensor):
@@ -29,28 +37,71 @@ def ensemble_crps_terms_plain(ens: torch.Tensor, tgt: torch.Tensor):
     return t1, losses._ensemble_spread_sum(ens)
 
 
-def ensemble_crps_terms(ens: torch.Tensor, tgt: torch.Tensor):
-    """(t1, t2) per batch element; ens (B, M, P), tgt (B, P).
+def ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2):
+    """The plain PyTorch backward: (dx (B, M, P), dy (B, P)) in ens's and
+    tgt's dtypes, pair signs one distance d = k - j at a time."""
+    m = ens.shape[1]
+    s0 = torch.sign((ens - tgt[:, None, :]).float())              # (B, M, P)
+    count = torch.zeros_like(s0)
+    for d in range(1, m):
+        s = torch.sign((ens[:, : m - d] - ens[:, d:]).float())
+        count[:, : m - d] += s
+        count[:, d:] -= s
+    g1 = g1.float()[:, None, None]
+    g2 = g2.float()[:, None, None]
+    dx = g1 * s0 + g2 * count
+    dy = -g1[:, :, 0] * s0.sum(dim=1)
+    return dx.to(ens.dtype), dy.to(tgt.dtype)
 
-    CPU tensors take :func:`ensemble_crps_terms_plain`; CUDA tensors launch
-    the kernel (f32 or bf16, contiguous, 1 <= M <= 32) or raise.
-    """
+
+def ensemble_crps_terms_fwd(ens: torch.Tensor, tgt: torch.Tensor):
+    """(t1, t2) without autograd: the plain version for CPU tensors, the
+    kernel for CUDA tensors (f32 or bf16, contiguous, 1 <= M <= 32)."""
     if ens.device.type == "cpu" and tgt.device.type == "cpu":
         return ensemble_crps_terms_plain(ens, tgt)
     return _launch(ens, tgt)
 
 
+def ensemble_crps_terms_bwd(ens, tgt, g1, g2):
+    """(dx, dy): the plain backward for CPU tensors, kernel B′ for CUDA."""
+    if all(t.device.type == "cpu" for t in (ens, tgt, g1, g2)):
+        return ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2)
+    return _launch_bwd(ens, tgt, g1, g2)
+
+
+ensemble_crps_terms_bwd.launches = 0
+
+
+class _Terms(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ens, tgt):
+        ctx.save_for_backward(ens, tgt)
+        return ensemble_crps_terms_fwd(ens, tgt)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        ens, tgt = ctx.saved_tensors
+        dx, dy = ensemble_crps_terms_bwd(ens, tgt, g1.contiguous(), g2.contiguous())
+        return dx, (dy if ctx.needs_input_grad[1] else None)
+
+
+def ensemble_crps_terms(ens: torch.Tensor, tgt: torch.Tensor):
+    """(t1, t2) per batch element; ens (B, M, P), tgt (B, P). Differentiable
+    (analytic backward).
+
+    CPU tensors take the plain versions; CUDA tensors launch kernels B and
+    B′ (f32 or bf16, contiguous, 1 <= M <= 32) or raise.
+    """
+    return _Terms.apply(ens, tgt)
+
+
 ensemble_crps_terms.launches = 0
 
 
-def _launch(ens: torch.Tensor, tgt: torch.Tensor):
+def _check(ens: torch.Tensor, tgt: torch.Tensor, what: str) -> None:
     if ens.device.type != "cuda" or tgt.device != ens.device:
-        raise ValueError(f"ensemble_crps_terms: ens on {ens.device}, tgt on "
+        raise ValueError(f"{what}: ens on {ens.device}, tgt on "
                          f"{tgt.device}; the kernel needs both on one CUDA device")
-    if torch.is_grad_enabled() and (ens.requires_grad or tgt.requires_grad):
-        raise NotImplementedError(
-            "ensemble_crps_terms has no CUDA backward yet; call it under "
-            "torch.no_grad() or with tensors that do not require grad")
     if ens.dim() != 3 or tgt.dim() != 2 or tuple(tgt.shape) != (ens.shape[0], ens.shape[2]):
         raise ValueError(f"ens must be (B, M, P) and tgt (B, P); got "
                          f"{tuple(ens.shape)} and {tuple(tgt.shape)}")
@@ -58,13 +109,19 @@ def _launch(ens: torch.Tensor, tgt: torch.Tensor):
         raise ValueError(f"ens/tgt dtypes {ens.dtype}/{tgt.dtype}: the kernel "
                          "takes both f32 or both bf16")
     if not (ens.is_contiguous() and tgt.is_contiguous()):
-        raise ValueError("ensemble_crps_terms: ens and tgt must be contiguous")
+        raise ValueError(f"{what}: ens and tgt must be contiguous")
     lib = _build.library()
-    b, m, p = ens.shape
+    b, m, _ = ens.shape
     if not 1 <= m <= lib.afcrps_max_members():
         raise ValueError(f"M={m} outside the kernel's 1..{lib.afcrps_max_members()}")
     if not 1 <= b <= 65535:
         raise ValueError(f"B={b} outside the kernel's 1..65535")
+
+
+def _launch(ens: torch.Tensor, tgt: torch.Tensor):
+    _check(ens, tgt, "ensemble_crps_terms")
+    lib = _build.library()
+    b, m, p = ens.shape
     ntiles = -(-p // lib.afcrps_tile_pixels())
     with torch.cuda.device(ens.device):
         partial = torch.empty((2, b, ntiles), dtype=torch.float32, device=ens.device)
@@ -77,3 +134,23 @@ def _launch(ens: torch.Tensor, tgt: torch.Tensor):
     _build.check(err, "afcrps_terms_fwd")
     ensemble_crps_terms.launches += 1
     return t1, t2
+
+
+def _launch_bwd(ens, tgt, g1, g2):
+    _check(ens, tgt, "ensemble_crps_terms_bwd")
+    b, m, p = ens.shape
+    for name, g in (("g1", g1), ("g2", g2)):
+        if g.device != ens.device or g.dtype != torch.float32 or tuple(g.shape) != (b,):
+            raise ValueError(f"{name} must be a ({b},) f32 tensor on {ens.device}, got "
+                             f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    lib = _build.library()
+    with torch.cuda.device(ens.device):
+        dx = torch.empty_like(ens)
+        dy = torch.empty_like(tgt)
+        err = lib.afcrps_terms_bwd(
+            ens.data_ptr(), tgt.data_ptr(), g1.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+            dy.data_ptr(), b, m, p, int(ens.dtype == torch.bfloat16),
+            torch.cuda.current_stream(ens.device).cuda_stream)
+    _build.check(err, "afcrps_terms_bwd")
+    ensemble_crps_terms_bwd.launches += 1
+    return dx, dy

@@ -1,7 +1,8 @@
 """Fused Fcomb decode + CRPS terms: CUDA kernel (``csrc/fcomb_crps.cu``)
 and plain version.
 
-Port of ``probunet_tpu/ops/pallas/fcomb_crps.py`` (forward only). The
+Port of ``probunet_tpu/ops/pallas/fcomb_crps.py``: forward (kernel A)
+and analytic backward (kernel A′), both in ``csrc/fcomb_crps.cu``. The
 afCRPS ELBO's reconstruction term is CRPS(fcomb-decoded ensemble,
 target); :func:`fcomb_crps_terms` computes its two per-batch sums straight
 from the layer-0 projections, per member m and pixel p:
@@ -11,9 +12,22 @@ from the layer-0 projections, per member m and pixel p:
 
 without storing the (B, M, H, W, K) ensemble or the hiddens. The layer-0
 split projections (``feats @ W0f`` and ``zs @ W0z + b0``) stay
-``torch.matmul`` outside the kernel, as the JAX package leaves them to
-XLA. The analytic backward (the TPU's ``bwd_impl``) is not ported yet: a
-CUDA call on tensors that require grad raises.
+``torch.matmul`` outside the kernel, which autograd differentiates, as the
+JAX package leaves them to XLA.
+
+:func:`fcomb_crps_terms` is a ``torch.autograd.Function``. Its backward,
+given (g1, g2) per batch element, recomputes h0/h1 per member and pixel
+and returns dfeat, dz, dW1, db1, dW2, db2 and (when asked for) dy:
+
+    dx_m = g1 sign(x_m - y) + g2 sum_{k != m} sign(x_m - x_k)
+    dh1 = W2 dx_m;  da1 = dh1 (h1 > 0);  dh0 = W1 da1;  du = dh0 (h0 > 0)
+    dfeat = sum_m du;  dz_m = sum_p du;  dW1 = sum h0 da1^T;  db1 = sum da1
+    dW2 = sum h1 dx^T;  db2 = sum dx;  dy = -g1 sum_m sign(x_m - y)
+
+with ``_dot``/``_dot_t``'s rounding points: every product's operands
+rounded to the compute dtype, sums in f32. Its plain version is this
+formula in torch with the same rounding points, not autograd through the
+plain forward, whose bf16 rounding points differ.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ from probunet_tpu_torch.ops.precision import matmul_f32, round_to
 
 SOURCE = "probunet_tpu_torch/csrc/fcomb_crps.cu"
 REPLACES = "probunet_tpu/ops/pallas/fcomb_crps.py:264"
+REPLACES_BWD = "probunet_tpu/ops/pallas/fcomb_crps.py:317"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,6 +60,87 @@ def fcomb_crps_terms_plain(feat_t, z_t, w1, b1, w2, b2, target_t,
                                      target_t.float().reshape(b, -1))
 
 
+def fcomb_crps_terms_bwd_plain(feat_t, z_t, w1, b1, w2, b2, target_t, g1, g2,
+                               compute_dtype: str = "bfloat16", need_dy: bool = True):
+    """The plain analytic backward, one member at a time: (dfeat, dz, dW1,
+    db1, dW2, db2, dy or None), all f32."""
+    cdt = _DTYPES[compute_dtype]
+    b, c, p = feat_t.shape
+    m = z_t.shape[2]
+    w1r, w2r = round_to(w1, cdt), round_to(w2, cdt)
+
+    def hidden(j):
+        h0 = torch.relu(feat_t + z_t[:, :, j:j + 1])                        # (B, C, P)
+        return h0, torch.relu(torch.matmul(w1r.T, round_to(h0, cdt)) + b1[:, None])
+
+    x = torch.stack([torch.matmul(w2r.T, round_to(hidden(j)[1], cdt)) + b2[:, None]
+                     for j in range(m)], dim=1)                            # (B, M, K, P)
+    s0 = torch.sign(x - target_t.float()[:, None])
+    count = torch.zeros_like(s0)
+    for d in range(1, m):
+        s = torch.sign(x[:, : m - d] - x[:, d:])
+        count[:, : m - d] += s
+        count[:, d:] -= s
+    g1 = g1.float()[:, None, None, None]
+    dx_all = g1 * s0 + g2.float()[:, None, None, None] * count
+    del x, count
+    dfeat = torch.zeros_like(feat_t)
+    dz = torch.zeros_like(z_t)
+    dw1, db1 = torch.zeros_like(w1), torch.zeros_like(b1)
+    dw2, db2 = torch.zeros_like(w2), torch.zeros_like(b2)
+    for j in range(m):
+        dx = dx_all[:, j]                                                 # (B, K, P)
+        dxr = round_to(dx, cdt)
+        h0, h1 = hidden(j)
+        dw2 += torch.matmul(round_to(h1, cdt), dxr.transpose(1, 2)).sum(dim=0)
+        db2 += dx.sum(dim=(0, 2))
+        da1 = torch.matmul(w2r, dxr) * (h1 > 0)                           # (B, C, P)
+        dw1 += torch.matmul(round_to(h0, cdt), round_to(da1, cdt).transpose(1, 2)).sum(dim=0)
+        db1 += da1.sum(dim=(0, 2))
+        du = torch.matmul(w1r, round_to(da1, cdt)) * (h0 > 0)
+        dfeat += du
+        dz[:, :, j] = du.sum(dim=2)
+    dy = -g1[:, 0] * s0.sum(dim=1) if need_dy else None
+    return dfeat, dz, dw1, db1, dw2, db2, dy
+
+
+def fcomb_crps_terms_fwd(feat_t, z_t, w1, b1, w2, b2, target_t,
+                         compute_dtype: str = "bfloat16"):
+    """(t1, t2) without autograd: the plain version for CPU tensors, kernel
+    A for CUDA tensors."""
+    args = (feat_t, z_t, w1, b1, w2, b2, target_t)
+    if all(a.device.type == "cpu" for a in args):
+        return fcomb_crps_terms_plain(*args, compute_dtype)
+    return _launch(args, compute_dtype == "bfloat16")
+
+
+def fcomb_crps_terms_bwd(feat_t, z_t, w1, b1, w2, b2, target_t, g1, g2,
+                         compute_dtype: str = "bfloat16", need_dy: bool = True):
+    """The seven gradients (dy None unless ``need_dy``): the plain backward
+    for CPU tensors, kernel A′ for CUDA tensors."""
+    args = (feat_t, z_t, w1, b1, w2, b2, target_t, g1, g2)
+    if all(a.device.type == "cpu" for a in args):
+        return fcomb_crps_terms_bwd_plain(*args, compute_dtype, need_dy)
+    return _launch_bwd(args, compute_dtype == "bfloat16", need_dy)
+
+
+fcomb_crps_terms_bwd.launches = 0
+
+
+class _Terms(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat_t, z_t, w1, b1, w2, b2, target_t, compute_dtype):
+        ctx.save_for_backward(feat_t, z_t, w1, b1, w2, b2, target_t)
+        ctx.compute_dtype = compute_dtype
+        return fcomb_crps_terms_fwd(feat_t, z_t, w1, b1, w2, b2, target_t, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        grads = fcomb_crps_terms_bwd(*ctx.saved_tensors, g1.contiguous(), g2.contiguous(),
+                                     ctx.compute_dtype, need_dy=ctx.needs_input_grad[6])
+        return (*grads, None)
+
+
 def fcomb_crps_terms(feat_t, z_t, w1, b1, w2, b2, target_t,
                      compute_dtype: str = "bfloat16"):
     """(t1, t2) per batch element over the fcomb-decoded ensemble.
@@ -53,37 +149,32 @@ def fcomb_crps_terms(feat_t, z_t, w1, b1, w2, b2, target_t,
     z_t (B, C, M) f32 — (zs @ W0z + b0) transposed;
     w1/b1 (C, C)/(C,), w2/b2 (C, K)/(K,) — fcomb layers 1-2;
     target_t (B, K, P) f32. Operands are rounded to ``compute_dtype``
-    ("bfloat16" or "float32") with f32 accumulation.
+    ("bfloat16" or "float32") with f32 accumulation. Differentiable
+    (analytic backward).
 
-    CPU tensors take :func:`fcomb_crps_terms_plain`; CUDA tensors launch
-    the kernel (C = 32, 2 <= M <= 32, K <= 4) or raise.
+    CPU tensors take the plain versions; CUDA tensors launch kernels A and
+    A′ (C = 32, 2 <= M <= 32, K <= 4) or raise.
     """
     if compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {compute_dtype!r} not in {tuple(_DTYPES)}")
-    args = (feat_t, z_t, w1, b1, w2, b2, target_t)
-    if all(a.device.type == "cpu" for a in args):
-        return fcomb_crps_terms_plain(*args, compute_dtype)
-    return _launch(args, compute_dtype == "bfloat16")
+    return _Terms.apply(feat_t, z_t, w1, b1, w2, b2, target_t, compute_dtype)
 
 
 fcomb_crps_terms.launches = 0
 
 
-def _launch(args, bf16_operands: bool):
-    feat_t, z_t, w1, b1, w2, b2, target_t = args
+def _check(args, what: str):
+    """Device, dtype, contiguity and shape checks; returns (B, C, P, M, K)."""
+    feat_t, z_t, w1, b1, w2, b2, target_t = args[:7]
     dev = feat_t.device
     if dev.type != "cuda" or any(a.device != dev for a in args):
-        raise ValueError("fcomb_crps_terms: the kernel needs every operand on "
+        raise ValueError(f"{what}: the kernel needs every operand on "
                          f"one CUDA device; got {[str(a.device) for a in args]}")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise NotImplementedError(
-            "fcomb_crps_terms has no CUDA backward yet; call it under "
-            "torch.no_grad() or with tensors that do not require grad")
     if any(a.dtype != torch.float32 for a in args):
-        raise ValueError("fcomb_crps_terms: the kernel takes f32 operands; got "
+        raise ValueError(f"{what}: the kernel takes f32 operands; got "
                          f"{[a.dtype for a in args]}")
     if not all(a.is_contiguous() for a in args):
-        raise ValueError("fcomb_crps_terms: operands must be contiguous")
+        raise ValueError(f"{what}: operands must be contiguous")
     lib = _build.library()
     if feat_t.dim() != 3 or z_t.dim() != 3 or target_t.dim() != 3:
         raise ValueError("feat_t, z_t and target_t must be 3-D")
@@ -95,6 +186,9 @@ def _launch(args, bf16_operands: bool):
     for name, (t, shape) in expect.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    for name, g in zip(("g1", "g2"), args[7:]):
+        if tuple(g.shape) != (b,):
+            raise ValueError(f"{name} has shape {tuple(g.shape)}, expected ({b},)")
     if c != lib.fcomb_crps_channels():
         raise ValueError(f"C={c}: the kernel is built for C={lib.fcomb_crps_channels()}")
     if not 2 <= m <= lib.fcomb_crps_max_members():
@@ -103,6 +197,13 @@ def _launch(args, bf16_operands: bool):
         raise ValueError(f"K={k} outside the kernel's 1..{lib.fcomb_crps_max_classes()}")
     if not 1 <= b <= 65535:
         raise ValueError(f"B={b} outside the kernel's 1..65535")
+    return b, c, p, m, k
+
+
+def _launch(args, bf16_operands: bool):
+    b, _, p, m, k = _check(args, "fcomb_crps_terms")
+    dev = args[0].device
+    lib = _build.library()
     ntiles = -(-p // lib.fcomb_crps_tile_pixels())
     with torch.cuda.device(dev):
         partial = torch.empty((2, b, ntiles), dtype=torch.float32, device=dev)
@@ -115,6 +216,31 @@ def _launch(args, bf16_operands: bool):
     _build.check(err, "fcomb_crps_terms_fwd")
     fcomb_crps_terms.launches += 1
     return t1, t2
+
+
+def _launch_bwd(args, bf16_operands: bool, need_dy: bool):
+    b, c, p, m, k = _check(args, "fcomb_crps_terms_bwd")
+    dev = args[0].device
+    lib = _build.library()
+    ntiles = -(-p // lib.fcomb_crps_tile_pixels())
+    nw = c * c + c + c * k + k
+    f32 = dict(dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        dfeat = torch.empty((b, c, p), **f32)
+        dy = torch.empty((b, k, p), **f32) if need_dy else None
+        dz = torch.empty((b, c, m), **f32)
+        dw = torch.empty(nw, **f32)
+        dz_part = torch.empty((ntiles, b, c, m), **f32)
+        w_part = torch.empty((b * ntiles, nw), **f32)
+        err = lib.fcomb_crps_terms_bwd(
+            *(a.data_ptr() for a in args), dfeat.data_ptr(),
+            dy.data_ptr() if need_dy else None, dz_part.data_ptr(), w_part.data_ptr(),
+            dz.data_ptr(), dw.data_ptr(), b, m, k, p, int(bf16_operands),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fcomb_crps_terms_bwd")
+    fcomb_crps_terms_bwd.launches += 1
+    dw1, db1, dw2, db2 = dw.split([c * c, c, c * k, k])
+    return dfeat, dz, dw1.view(c, c), db1, dw2.view(c, k), db2, dy
 
 
 def fused_fcomb_crps_loss(feature_map, zs, params, target,

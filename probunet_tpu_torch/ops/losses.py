@@ -8,9 +8,11 @@ and target y (B, P):
     t2(b) = sum_{j<k, p} |x_bjp - x_bkp|
 
 :func:`_crps_terms` computes them through ``ops.kernels.afcrps``, which
-launches the hand-written CUDA kernel for CUDA tensors and runs the plain
+launches the hand-written CUDA kernels for CUDA tensors and runs the plain
 form below for CPU tensors: pairwise for M <= ``_PAIRWISE_MAX_M``, the
-sorted identity above (forward only — its sort gradient is a scatter).
+sorted identity above. Both losses are differentiable: the terms' gradient
+is the analytic sign-count backward (kernel B′ on the card), never
+autograd through the sort, whose gradient is a scatter.
 
 Ensembles are ``(B, M, *spatial)``, targets ``(B, *spatial)``; reductions
 cover all trailing axes.

@@ -75,8 +75,7 @@ def _jax_param_count(res, **model_kw):
 def test_parameter_counts_match(size):
     """Counts only at the flagship size (``probunet_multivar_128``): the
     JAX side is traced by ``jax.eval_shape``, nothing runs at 128x128."""
-    from probunet_tpu.config import preset
-
+    from probunet_tpu_torch.config import preset
     from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 
     if size == "tiny":
@@ -91,6 +90,7 @@ def test_parameter_counts_match(size):
                   model_channels=m.model_channels, channel_mult=m.channel_mult,
                   num_blocks=m.num_blocks)
         res = cfg.data.resolution
-        port = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0))
+        port = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0),
+                                             device="cpu")
     n_port = sum(p.numel() for p in port.parameters())
     assert n_port == _jax_param_count(res, **kw)

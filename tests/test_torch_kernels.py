@@ -116,3 +116,127 @@ def test_wrappers_refuse_non_cpu_tensors_without_the_kernel():
             [(2, C, 8), (2, C, 3), (C, C), (C,), (C, K), (K,), (2, K, 8)]]
     with pytest.raises(ValueError, match="CUDA"):
         fcomb_crps.fcomb_crps_terms(*args)
+
+
+# ---------------------------------------------------------------------------
+# The backwards (kernels A′, B′) and dropout (kernel D). Plain versions
+# against jax.vjp of the Pallas kernels in interpret mode, with the same
+# numpy cotangents. B′ and D are sign counts and hash masks: equal exactly
+# (B′ to 1 ulp where XLA may contract g1*s0 + g2*count into one FMA). A′:
+# f32 rtol 1e-5 / atol 1e-5 — the same products summed over pixels in
+# another order; bf16 rtol 1e-4 / atol 1e-4 — a sum that differs in its
+# last f32 bit can round an operand (da1, dx) to the other bf16 neighbour.
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-4, 1e-4)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [2, 5])
+def test_afcrps_backward_plain_matches_pallas_vjp(m, dtype):
+    import jax
+
+    from probunet_tpu.ops.pallas.afcrps import ensemble_crps_terms
+
+    rng = np.random.default_rng(20 + m)
+    p = H * W * K
+    ens = rng.standard_normal((2, m, p)).astype(np.float32)
+    ens[:, 1, :4] = ens[:, 0, :4]   # ties: sign 0 in the pair counts
+    tgt = rng.standard_normal((2, p)).astype(np.float32)
+    tgt[:, 4:6] = ens[:, 0, 4:6]    # and against the target
+    g1, g2 = (rng.standard_normal(2).astype(np.float32) for _ in range(2))
+    _, vjp = jax.vjp(ensemble_crps_terms, jnp.asarray(ens, JNP[dtype]),
+                     jnp.asarray(tgt, JNP[dtype]))
+    want_dx, want_dy = vjp((jnp.asarray(g1), jnp.asarray(g2)))
+    tens = torch.from_numpy(ens).to(TORCH[dtype]).requires_grad_()
+    ttgt = torch.from_numpy(tgt).to(TORCH[dtype]).requires_grad_()
+    t1, t2 = afcrps.ensemble_crps_terms(tens, ttgt)
+    torch.autograd.backward((t1, t2), (torch.from_numpy(g1), torch.from_numpy(g2)))
+    assert tens.grad.dtype == TORCH[dtype] and ttgt.grad.dtype == TORCH[dtype]
+    assert_close(tens.grad.float(), np.asarray(want_dx, np.float32), 1e-6, 0, "dx")
+    assert_close(ttgt.grad.float(), np.asarray(want_dy, np.float32), 1e-6, 0, "dy")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [2, 5])
+def test_fcomb_crps_backward_plain_matches_pallas_vjp(m, dtype):
+    """All seven cotangents: dfeat, dz, dW1, db1, dW2, db2, dy."""
+    import jax
+
+    from probunet_tpu.ops.pallas.fcomb_crps import fcomb_crps_terms as jax_terms
+
+    args = _fcomb_inputs(m, seed=30 + m)
+    args[2] /= np.sqrt(C)
+    args[4] /= np.sqrt(C)
+    rng = np.random.default_rng(40 + m)
+    g1, g2 = (rng.standard_normal(2).astype(np.float32) for _ in range(2))
+    _, vjp = jax.vjp(lambda *a: jax_terms(*a, compute_dtype=dtype), *map(jnp.asarray, args))
+    want = vjp((jnp.asarray(g1), jnp.asarray(g2)))
+    targs = [torch.from_numpy(a).requires_grad_() for a in args]
+    before = fcomb_crps.fcomb_crps_terms_bwd.launches
+    t1, t2 = fcomb_crps.fcomb_crps_terms(*targs, compute_dtype=dtype)
+    torch.autograd.backward((t1, t2), (torch.from_numpy(g1), torch.from_numpy(g2)))
+    assert fcomb_crps.fcomb_crps_terms_bwd.launches == before  # CPU: plain, no launch
+    rtol, atol = BWD_TOL[dtype]
+    for name, t, w in zip(("dfeat", "dz", "dW1", "db1", "dW2", "db2", "dy"), targs, want):
+        assert float(np.abs(np.asarray(w)).max()) > 0, name
+        assert_close(t.grad, np.asarray(w), rtol, atol, name)
+
+
+def test_fcomb_crps_backward_skips_dy_when_not_asked():
+    args = [torch.from_numpy(a) for a in _fcomb_inputs(3, seed=50)]
+    for a in args[:6]:
+        a.requires_grad_()
+    t1, t2 = fcomb_crps.fcomb_crps_terms(*args, compute_dtype="float32")
+    (t1.sum() + t2.sum()).backward()
+    assert args[6].grad is None and args[0].grad is not None
+    grads = fcomb_crps.fcomb_crps_terms_bwd_plain(
+        *[a.detach() for a in args], torch.ones(2), torch.ones(2), "float32", need_dy=False)
+    assert grads[-1] is None
+
+
+# rows = numel / 128 against _block_rows: 16 rows in one block; 6144 in
+# three blocks of 2048; 2064 in two of 1032; 2056 in 257 of 8
+DROPOUT_SHAPES = [(2, 4, 4, 64), (3, 32, 64, 128), (2, 12, 86, 128), (2, 1028, 128)]
+
+
+@pytest.mark.parametrize("shape", DROPOUT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_plain_matches_pallas_bit_for_bit(shape, dtype):
+    import jax
+
+    from probunet_tpu.ops.pallas import dropout as jdrop
+
+    from probunet_tpu_torch.ops.kernels import dropout as tdrop
+
+    assert tdrop.supported(shape) and jdrop.supported(shape)
+    assert tdrop._block_rows(int(np.prod(shape)) // 128) == jdrop._block_rows(
+        int(np.prod(shape)) // 128)
+    rng = np.random.default_rng(len(shape) + shape[1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    seed = np.array([-123456789, 987654321], np.int32)
+    p = 0.1
+    want_y, vjp = jax.vjp(lambda a: jdrop.dropout(a, jnp.asarray(seed), p),
+                          jnp.asarray(x, JNP[dtype]))
+    (want_dx,) = vjp(jnp.asarray(g, JNP[dtype]))
+    tx = torch.from_numpy(x).to(TORCH[dtype]).requires_grad_()
+    y = tdrop.dropout(tx, torch.from_numpy(seed), p)
+    y.backward(torch.from_numpy(g).to(TORCH[dtype]))
+    assert y.dtype == tx.grad.dtype == TORCH[dtype]
+    assert np.array_equal(y.detach().float().numpy(), np.asarray(want_y, np.float32))
+    assert np.array_equal(tx.grad.float().numpy(), np.asarray(want_dx, np.float32))
+    keep = (y.detach() != 0).float().mean().item()
+    n = int(np.prod(shape))
+    assert abs(keep - (1 - p)) < 5 * (p * (1 - p) / n) ** 0.5
+
+
+def test_dropout_mask_is_a_function_of_the_seed():
+    from probunet_tpu_torch.ops.kernels import dropout as tdrop
+
+    shape = (4, 8, 8, 32)
+    s1, s2 = torch.tensor([1, 2], dtype=torch.int32), torch.tensor([1, 3], dtype=torch.int32)
+    k1, k1b, k2 = (tdrop.dropout_keep(shape, s, 0.25) for s in (s1, s1, s2))
+    assert torch.equal(k1, k1b) and not torch.equal(k1, k2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdrop.dropout(torch.empty(shape, device="meta"), s1.to("meta"), 0.1)

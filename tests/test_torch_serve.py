@@ -87,7 +87,7 @@ def test_eval_elbo_matches_jax(setup, loss_type, fused):
 def test_eval_step_and_eval_model(setup):
     """make_eval_step draws the posterior noise from the generator it is
     given; eval_model averages its metrics over the batches."""
-    from probunet_tpu.config import preset
+    from probunet_tpu_torch.config import preset
 
     _, _, tmodel, stored, _, tstats = setup
     cfg = preset("probunet_multivar_128")

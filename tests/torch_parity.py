@@ -46,8 +46,9 @@ def noisy_params(params, seed: int):
 
 
 @functools.lru_cache(maxsize=4)
-def jax_tiny_model(dtype_name: str = "float32", seed: int = 0):
-    """(flax module, noisy numpy params) of the tiny Probabilistic U-Net."""
+def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 0.0):
+    """(flax module, noisy numpy params) of the tiny Probabilistic U-Net
+    (``dropout``: the U-Net blocks' rate in training mode)."""
     import jax
     import jax.numpy as jnp
     from flax.core import unfreeze
@@ -55,7 +56,7 @@ def jax_tiny_model(dtype_name: str = "float32", seed: int = 0):
     from probunet_tpu.models.prob_unet import ProbabilisticUNet
 
     model = ProbabilisticUNet(
-        **TINY, dropout=0.0,
+        **TINY, dropout=dropout,
         dtype=jnp.bfloat16 if dtype_name == "bfloat16" else None)
     h, w = TINY["img_resolution"]
     x = jnp.zeros((1, h, w, TINY["input_channels"]))
@@ -69,15 +70,17 @@ def jax_tiny_model(dtype_name: str = "float32", seed: int = 0):
     return model, noisy_params(params, seed)
 
 
-def torch_tiny_model(params, dtype_name: str = "float32"):
-    """The port's tiny Probabilistic U-Net loaded with ``params``."""
+def torch_tiny_model(params, dtype_name: str = "float32", dropout: float = 0.0):
+    """The port's tiny Probabilistic U-Net loaded with ``params``. Every
+    activation its dropout sees is a shape the dropout kernel takes (numel
+    a multiple of 1024 at batch 2 and above)."""
     import torch
 
     from probunet_tpu_torch.convert import load_params
     from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 
     model = ProbabilisticUNet(
-        generator=torch.Generator().manual_seed(0), **TINY,
+        generator=torch.Generator().manual_seed(0), **TINY, dropout=dropout,
         dtype=torch.bfloat16 if dtype_name == "bfloat16" else None)
     return load_params(model, params).eval()
 
