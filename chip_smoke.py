@@ -6,18 +6,29 @@
 Builds the hand-written CUDA kernels from ``probunet_tpu_torch/csrc`` with
 nvcc (sm_90a) and holds each against its plain PyTorch version on the card,
 at the shapes of the serve and training paths: the fcomb-CRPS forward (A)
-and backward (A′), the afCRPS-terms forward (B) and backward (B′), and the
-hash dropout (D), with each kernel's time beside its plain version's and
-its bound. Then it checks the f32 serve path and the f32 training step
-(gradients and one AdamW update) on the card against the CPU, and drives
-both paths at the full width of the flagship preset
+and backward (A′), the afCRPS-terms forward (B) and backward (B′), the
+GroupNorm chain's forward (C) and backward (C′), and the hash dropout (D),
+with each kernel's time beside its plain version's and its bound. Then it
+checks the f32 serve path and the f32 training step (gradients and one
+AdamW update) on the card against the CPU, both on the GroupNorm kernel
+route, and drives both paths at the full width of the flagship preset
 (``probunet_multivar_128``, bf16, randomly initialized weights):
 
 - serve: the no-grad eval ELBO (bs=128, M=5), fused (A) and unfused (B),
-  and the prior-ensemble evaluation (M=16) through ``EvalAccumulator``;
+  and the prior-ensemble evaluation (M=16) through ``EvalAccumulator``,
+  every U-Net GroupNorm chain through C (57 launches per U-Net forward),
+  with a breakdown of the eval step's device time on the kernel route and
+  on the composed route (torch GroupNorm composition);
 - train: the ELBO training step (bs=128, M=15, dropout 0.1, beta_1 = 1,
-  AdamW lr 1e-4 wd 0.01), fused (A, A′, D) and unfused (B, B′, D), with
-  train samples/s, peak memory and a breakdown of the step's device time.
+  AdamW lr 1e-4 wd 0.01) on six routes: fused (A, A′, C, C′) and unfused
+  (B, B′, C, C′) on the kernel route; fused on the composed route (A, A′,
+  D); fused on the kernel route under ``remat="save_convs"``, ``True`` and
+  the level tuple ``(0,)``, whose first loss must equal the no-remat
+  route's and whose gradients of one step must agree with it (a wrong
+  dropout mask in one block's recompute is shown to exceed that limit).
+  Train samples/s, peak memory and a breakdown of the step's device time;
+  how many GroupNorm chains get an input or gradient that is not
+  channels_last.
 
 Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
@@ -49,8 +60,10 @@ from probunet_tpu_torch.data.climex import (
 from probunet_tpu_torch.data.synthetic import synthetic_climex_fields
 from probunet_tpu_torch.data.transforms import apply_physical_transform, invert_physical_transform
 from probunet_tpu_torch.evals.streaming import EvalAccumulator
+from probunet_tpu_torch.models.layers import EDMGroupNorm
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
-from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps
+from probunet_tpu_torch.models.unet import dropout_seeds
+from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
 from probunet_tpu_torch.train.loop import eval_model, make_eval_step, make_train_step
 from probunet_tpu_torch.train.state import create_train_state, global_norm
 
@@ -98,8 +111,33 @@ GRAD_RTOL = 1e-2
 # H100 on either route. A wrong gradient flips about half of its
 # parameter's weights; the per-parameter check is GRAD_RTOL's
 FLIP_SHARE = 2e-3
+# the remat modes the training path runs (each one route)
+REMAT_MODES = ("save_convs", True, (0,))
+# remat vs no remat, one training step's gradients on the same batch, noise
+# and seed words, max over parameters of ||g - g_plain|| / ||g_plain||: the
+# forward is the same launches on the same inputs, so the backward may
+# differ only by the card's run-to-run noise (cuDNN's weight-gradient sums
+# need not be bit-identical). Reached on an H100: 0.0 for the no-remat
+# route against itself and for every remat mode (bit-identical), 0.68 with
+# one block's dropout seed words changed (a recompute with a wrong mask)
+REMAT_GRAD_RTOL = 1e-3
 TRAIN_BATCH, TRAIN_M = 128, 15   # bench.py's training step
 TRAIN_WARMUP, TRAIN_STEPS = 2, 4
+# kernels C and C′ vs their plain versions. y and dx: in bf16 one bf16
+# step at the largest value (2^-7 of it): the statistics are f32 sums in
+# another order, so an output near a rounding boundary can round to the
+# other neighbour; in f32 1e-5 of the largest value. mean, rstd and the
+# parameter gradients, f32 sums over up to B*H*W = 2.1e6 elements in
+# another order: 1e-4 of the largest value. Dropout masks: equal.
+GN_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+GN_SUM_TOL = 1e-4
+# (B, H, W, C), dtype, FiLM, p_drop (SiLU on, as in every U-Net chain): the
+# dominant norm1 (the JSON row), the largest slab (norm0 of
+# dec_128x128_block0, after the skip concat), the widest level, one f32
+GN_CASES = (((128, 128, 128, 32), "bfloat16", True, 0.1),
+            ((128, 128, 128, 96), "bfloat16", False, 0.0),
+            ((128, 16, 16, 512), "bfloat16", True, 0.1),
+            ((128, 64, 64, 64), "float32", True, 0.1))
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; FP32 CUDA core
 
@@ -296,7 +334,102 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
     del x, g, y, dx, want_y, want_dx, xd
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+    for i, case in enumerate(GN_CASES):
+        rows = _gn_vs_plain(randn, dev, *case)
+        if i == 0:
+            report.update(rows)
+        torch.cuda.empty_cache()
     return report
+
+
+def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
+    """Kernels C and C′ against their plain versions at one shape: every
+    output, the masks, C run twice for identical bits; times, bounds, and
+    ``F.group_norm``'s time at the shape as a note (it computes only the
+    normalization, not the chain, so it is no ``library_ms``)."""
+    b, h, w, c = shape
+    groups = min(32, c // 4)
+    tdt = getattr(torch, dtype)
+    size = torch.finfo(tdt).bits // 8
+    n = b * h * w * c
+    x, g = (randn(*shape) + 0.5).to(tdt), randn(*shape).to(tdt)
+    gamma, beta = 1 + randn(c, scale=0.1), randn(c, scale=0.1)
+    if film:
+        scale, shift = randn(b, c, scale=0.2), randn(b, c, scale=0.2)
+    else:  # norm0: scale = shift = 0
+        scale = shift = torch.zeros(b, c, device=dev)
+    seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
+    args = (x, gamma, beta, scale, shift, seed)
+    consts = (groups, 1e-5, p_drop, True)
+    y, mean, rstd = fused_gn.gn_film_silu_dropout_fwd(*args, *consts)
+    again = fused_gn.gn_film_silu_dropout_fwd(*args, *consts)
+    if not all(torch.equal(u, v) for u, v in zip((y, mean, rstd), again)):
+        raise AssertionError("kernel C is not bit-reproducible")
+    want = fused_gn.gn_film_silu_dropout_plain(*args, *consts)
+    # the kernel's mask is the plain one: every element the plain mask drops
+    # is 0, and a kept element is 0 only where z is (SiLU(0) = 0), which
+    # takes ~1e-8 of them; a kernel that dropped other elements would zero
+    # ~p of the kept ones
+    dropped = (~fused_gn.gn_keep(shape, seed, p_drop) if p_drop > 0
+               else torch.zeros_like(y, dtype=torch.bool))
+    kept_zeros = int(((y == 0) & ~dropped).sum())
+    masks_equal = bool((y[dropped] == 0).all()) and kept_zeros <= 1e-6 * n
+    keep = float((y != 0).float().mean())
+    fwd_err = {"y": _max_err_ratio(y.float(), want[0].float()),
+               "mean": _max_err_ratio(mean, want[1]), "rstd": _max_err_ratio(rstd, want[2])}
+    # the backward of both on the kernel's statistics
+    bwd_args = (x, g, gamma, beta, scale, shift, seed, mean, rstd, groups, p_drop, True)
+    got = fused_gn.gn_film_silu_dropout_bwd(*bwd_args)
+    want_bwd = fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args)
+    names = ("dx", "dgamma", "dbeta", "dscale", "dshift")
+    bwd_err = {k: _max_err_ratio(u.float(), v.float()) for k, u, v in zip(names, got, want_bwd)}
+    abs_fwd = float((y.float() - want[0].float()).abs().max())
+    abs_bwd = max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want_bwd))
+    ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_fwd(*args, *consts), 20)
+    plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_plain(*args, *consts), 2, 1)
+    bwd_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_bwd(*bwd_args), 20)
+    bwd_plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args), 2, 1)
+    xr = x.detach().permute(0, 3, 1, 2).requires_grad_()  # NCHW view, channels_last
+    wr, br = gamma.to(tdt).requires_grad_(), beta.to(tdt).requires_grad_()
+    gr = g.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        gn_ms = _sync_ms(lambda: F.group_norm(xr, groups, wr, br, 1e-5), 20)
+    gn_fb_ms = _sync_ms(lambda: torch.autograd.grad(F.group_norm(xr, groups, wr, br, 1e-5),
+                                                    (xr, wr, br), gr), 10)
+    # bytes: read x, write y (C); read x and g, write dx (C′); the (C,) and
+    # (B, C) vectors and (B, G) statistics once each. Operations per
+    # element: ~10 f32 (statistics, affine, SiLU) forward and ~30 backward,
+    # ~16 integer operations for the mask where p > 0 (as D's count)
+    vec_bytes = 4.0 * (2 * c + 2 * b * c + 2 * b * groups)
+    hash_ops = 16.0 if p_drop > 0 else 0.0
+    fwd_bound = _bound(2.0 * size * n + vec_bytes, (10.0 + hash_ops) * n, "float32")
+    bwd_bound = _bound(3.0 * size * n + vec_bytes + 4.0 * 2 * b * c, (30.0 + hash_ops) * n,
+                       "float32")
+    print(f"kernel fused_gn        shape={shape} {dtype:8s} film={film} p={p_drop} "
+          f"bit_reproducible=True masks_equal={masks_equal} kept_zeros={kept_zeros} "
+          f"keep_rate={keep:.6f} "
+          f"max_err/max={json.dumps(fwd_err)} max_abs_err={abs_fwd:.3e} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={fwd_bound['bound_ms']:.4f} "
+          f"({fwd_bound['bound_by']}) F.group_norm_ms={gn_ms:.4f}")
+    print(f"kernel fused_gn_bwd    shape={shape} {dtype:8s} film={film} p={p_drop} "
+          f"max_err/max={json.dumps(bwd_err)} max_abs_err={abs_bwd:.3e} "
+          f"kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} "
+          f"bound_ms={bwd_bound['bound_ms']:.4f} ({bwd_bound['bound_by']}) "
+          f"F.group_norm_fwd+bwd_ms={gn_fb_ms:.4f}")
+    bad = {k: e for k, e in {**fwd_err, **bwd_err}.items()
+           if not e <= (GN_TOL[dtype] if k in ("y", "dx") else GN_SUM_TOL)}
+    if not masks_equal:
+        bad["masks"] = "differ"
+    if p_drop > 0 and not abs(keep - (1 - p_drop)) <= 5 * (p_drop * (1 - p_drop) / n) ** 0.5:
+        bad["keep_rate"] = keep
+    if bad:
+        raise AssertionError(f"fused_gn kernels disagree with their plain versions at {shape} "
+                             f"{dtype}: {bad}")
+    return {"fused_gn": {"max_abs_err": abs_fwd, "ms": ms, "plain_ms": plain_ms, **fwd_bound,
+                         "library_ms": None},
+            "fused_gn_bwd": {"max_abs_err": abs_bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                             **bwd_bound, "library_ms": None}}
 
 
 def _fill_zero_params(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -490,7 +623,8 @@ def train_device_vs_cpu(model32: ProbabilisticUNet, hr: torch.Tensor, stats, cfg
                                  f"the CPU (limit {FLIP_SHARE})")
 
 
-def _train_route(model: ProbabilisticUNet, batches, stats, cfg, dev, fused: bool) -> dict:
+def _train_route(model: ProbabilisticUNet, batches, stats, cfg, dev, fused: bool,
+                 name: str) -> dict:
     """Warm-up and timed training steps on one route; halves the batch
     while it does not fit on the card."""
     bs = TRAIN_BATCH
@@ -519,7 +653,7 @@ def _train_route(model: ProbabilisticUNet, batches, stats, cfg, dev, fused: bool
             torch.cuda.empty_cache()
             if bs == 1:
                 raise
-            print(f"train {'fused' if fused else 'unfused'}: bs={bs} does not fit, halving")
+            print(f"train {name}: bs={bs} does not fit, halving")
             bs //= 2
     vals = [{k: float(v) for k, v in m.items()} for m in mets]
     if not all(math.isfinite(v) for m in vals for v in m.values()):
@@ -527,11 +661,11 @@ def _train_route(model: ProbabilisticUNet, batches, stats, cfg, dev, fused: bool
     changed = sum(not torch.equal(a, b) for a, b in zip(before, state.optimizer.params))
     if changed != len(before):
         raise AssertionError(f"only {changed} of {len(before)} parameters changed")
-    name = "fused" if fused else "unfused"
     res = {"batch": bs, "samples_per_s": TRAIN_STEPS * bs / dt, "step_ms": dt / TRAIN_STEPS * 1e3,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": [m["loss"] for m in vals]}
     print(f"train {name} bs={bs} M={cfg.train.ensemble_size}: " + " ".join(
-        f"step{i}: loss={m['loss']:.6g} recon={m['recon']:.6g} kl={m['kl_mean']:.6g} "
+        f"step{i}: loss={m['loss']:.9g} recon={m['recon']:.6g} kl={m['kl_mean']:.6g} "
         f"grad_norm={m['grad_norm']:.6g};" for i, m in enumerate(vals)))
     print(f"train {name}: samples/s={res['samples_per_s']:.2f} "
           f"step_ms={res['step_ms']:.3f} peak_memory_gb={res['peak_gb']:.3f}"
@@ -545,12 +679,75 @@ _KERNEL_GROUPS = (("A fcomb_crps fwd", ("fcomb_crps_tile_kernel", "reduce_partia
                   ("A' fcomb_crps bwd", ("fcomb_crps_bwd_tile_kernel", "column_sum_kernel")),
                   ("B afcrps fwd", ("afcrps_tile_kernel",)),
                   ("B' afcrps bwd", ("afcrps_bwd_kernel",)),
+                  ("C fused_gn fwd", ("gn_fwd_",)),
+                  ("C' fused_gn bwd", ("gn_bwd_",)),
                   ("D dropout", ("dropout_kernel",)),
-                  ("AdamW (foreach)", ("multi_tensor_apply", "foreach")))
+                  ("AdamW (foreach)", ("multi_tensor_apply", "foreach")),
+                  ("cuDNN/cuBLAS (convs, matmuls)", ("cudnn", "xmma", "gemm", "conv", "cutlass")))
+
+
+def _kernel_ms_by_group(run, n: int) -> tuple[dict, dict, float]:
+    """torch.profiler's device time per call of ``run`` (n calls), by the
+    kernel families of _KERNEL_GROUPS: (ms by group, ms by kernel of the
+    rest, total ms)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
+    other, total = {}, 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0.0)
+        if e.self_cpu_time_total != 0 or dev_us <= 0:
+            continue
+        total += dev_us
+        for g, keys in _KERNEL_GROUPS:
+            if any(k in e.key for k in keys):
+                groups[g] += dev_us
+                break
+        else:
+            other[e.key] = other.get(e.key, 0.0) + dev_us
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return ({g: v / (1e3 * n) for g, v in groups.items()},
+            {k: v / (1e3 * n) for k, v in other.items()}, total / (1e3 * n))
+
+
+def _print_groups(what: str, groups: dict, other: dict, total: float, step_ms: float) -> None:
+    print(f"{what} kernel ms/step (torch.profiler, 2 steps): "
+          + " ".join(f"{g}={v:.3f}" for g, v in groups.items() if v > 0)
+          + f" other={sum(other.values()):.3f} total={total:.3f} "
+          f"idle_share={1 - total / step_ms:.4f}")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{what} largest other kernels (ms/step): "
+          + "; ".join(f"{k[:90]}={v:.3f}" for k, v in top))
+
+
+def serve_breakdown(model: ProbabilisticUNet, hr: torch.Tensor, stats, cfg, dev,
+                    name: str) -> None:
+    """Where the eval step's time goes (bs=128, M=5, fused): CUDA events
+    around the step, the U-Net forward and the prior ensemble's ``sample``
+    (M=16); torch.profiler's kernel time by family over two steps."""
+    step = make_eval_step(model, cfg, fused=True)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    batch = preprocess_batch(hr, stats, cfg.data.pipeline, cfg.data.lowres_scale,
+                             cfg.data.interp_mode, cfg.data.epsilon, cfg.data.standardization)
+    step_ms = _sync_ms(lambda: step(hr, stats, gen), 3, 1, spin=False)
+    with torch.no_grad():
+        unet_ms = _sync_ms(lambda: model.unet(batch["inputs"]), 3, 1, spin=False)
+        sample_ms = _sync_ms(lambda: model.sample(batch["inputs"], ENSEMBLE_M, generator=gen),
+                             3, 1, spin=False)
+    print(f"serve breakdown {name} bs={hr.shape[0]} (CUDA events, ms): eval_step={step_ms:.3f} "
+          f"unet_fwd={unet_ms:.3f} sample_M{ENSEMBLE_M}={sample_ms:.3f}")
+    _print_groups(f"serve breakdown {name} eval step",
+                  *_kernel_ms_by_group(lambda: step(hr, stats, gen), 2), step_ms)
 
 
 def train_breakdown(model: ProbabilisticUNet, hr: torch.Tensor, stats, cfg, dev,
-                    fused: bool, bs: int) -> None:
+                    fused: bool, bs: int, name: str) -> None:
     """Where one training step's time goes: CUDA events around the U-Net
     forward and backward, the whole loss, its backward and the AdamW step;
     torch.profiler's kernel time by kernel family over two steps; the
@@ -580,39 +777,98 @@ def train_breakdown(model: ProbabilisticUNet, hr: torch.Tensor, stats, cfg, dev,
     grads = [torch.randn_like(p) * 1e-3 for p in params]
     adamw_ms = _sync_ms(lambda: state.optimizer.step(grads), 5, 1, spin=False)
     step_ms = _sync_ms(lambda: step(state, hr, stats, 1.0, 1.0), 3, 1, spin=False)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(2):
-            step(state, hr, stats, 1.0, 1.0)
-        torch.cuda.synchronize()
-    groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
-    other, total = 0.0, 0.0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "cuda_time_total", 0.0)
-        if e.self_cpu_time_total != 0 or dev_us <= 0:
-            continue
-        total += dev_us
-        for g, keys in _KERNEL_GROUPS:
-            if any(k in e.key for k in keys):
-                groups[g] += dev_us
-                break
-        else:
-            other += dev_us
-    kernel_ms = total / 2e3
-    name = "fused" if fused else "unfused"
     print(f"train breakdown {name} bs={bs} (CUDA events, ms): step={step_ms:.3f} "
           f"loss_fwd={loss_ms:.3f} loss_fwd+bwd={loss_bwd:.3f} unet_fwd={unet_fwd:.3f} "
           f"unet_fwd+bwd={unet_fb:.3f} adamw={adamw_ms:.3f}")
-    print(f"train breakdown {name} kernel ms/step (torch.profiler, 2 steps): "
-          + " ".join(f"{g}={v / 2e3:.3f}" for g, v in groups.items())
-          + f" other={other / 2e3:.3f} total={kernel_ms:.3f} "
-          f"idle_share={1 - kernel_ms / step_ms:.4f}")
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
+    _print_groups(f"train breakdown {name}",
+                  *_kernel_ms_by_group(lambda: step(state, hr, stats, 1.0, 1.0), 2), step_ms)
     del state, step, grads, cot
     torch.cuda.empty_cache()
+
+
+def _chain_layouts(model: ProbabilisticUNet, run) -> dict:
+    """Counts, over one call of ``run``, of the GroupNorm chains whose input
+    (forward) or output gradient (backward) is not channels_last in memory:
+    for those the kernel route's NHWC ``contiguous()`` copies the tensor."""
+    counts = {"inputs": 0, "inputs_copied": 0, "grads": 0, "grads_copied": 0}
+
+    def pre(_, args):
+        counts["inputs"] += 1
+        counts["inputs_copied"] += not args[0].is_contiguous(memory_format=torch.channels_last)
+
+    def on_grad(g):
+        counts["grads"] += 1
+        counts["grads_copied"] += not g.is_contiguous(memory_format=torch.channels_last)
+
+    def post(_, args, out):
+        if out.requires_grad:
+            out.register_hook(on_grad)
+
+    norms = [m for m in model.unet.modules() if isinstance(m, EDMGroupNorm)]
+    hooks = [m.register_forward_pre_hook(pre) for m in norms]
+    hooks += [m.register_forward_hook(post) for m in norms]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return counts
+
+
+def remat_grads(model: ProbabilisticUNet, remats: dict, batch: dict, cfg, dev) -> dict:
+    """One training step's loss and gradients on the same batch, noise and
+    dropout seed words for each model of ``remats`` (name -> the same
+    weights under a remat mode) against ``model`` without remat: max over
+    parameters of ||g - g_plain|| / ||g_plain||. Under remat the backward
+    relaunches kernel C and regenerates its masks from the saved seed
+    words, so this is what checks the recompute. The same measure for
+    ``model`` run again (the card's run-to-run noise: cuDNN's
+    weight-gradient sums need not be bit-identical) and for ``model`` with
+    the seed words of one dropout block changed (what a recompute with a
+    wrong mask gives)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    seeds = dropout_seeds(gen, len(model.unet.dropout_blocks))
+    eps = torch.randn((cfg.train.ensemble_size, batch["inputs"].shape[0],
+                       cfg.model.latent_dim), generator=gen, device=dev)
+
+    def grads(m, s):
+        params = list(m.parameters())
+        loss = m.elbo(batch["inputs"], batch["targets"], M=cfg.train.ensemble_size,
+                      beta_1=1.0, eps=eps, fused=True, training=True, seeds=s)[0]
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        return float(loss.detach()), [
+            torch.zeros_like(p) if g is None else g.float() for p, g in zip(params, gs)]
+
+    def worst(gs, ref):
+        return max(float((a - b).norm() / b.norm()) for a, b in zip(gs, ref) if b.norm() > 0)
+
+    loss0, ref = grads(model, seeds)
+    wrong = seeds.clone()
+    wrong[0, 0] ^= 1
+    out = {"noise": worst(grads(model, seeds)[1], ref),
+           "wrong_mask": worst(grads(model, wrong)[1], ref)}
+    for name, m in remats.items():
+        loss, gs = grads(m, seeds)
+        out[name] = worst(gs, ref)
+        if loss != loss0:
+            raise AssertionError(f"{name}: loss {loss!r} vs {loss0!r} without remat")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _variant(model: ProbabilisticUNet, cfg, gn_impl: str = "kernel",
+             remat=False) -> ProbabilisticUNet:
+    """``model`` rebuilt on another GroupNorm route or remat mode (from the
+    config, as a user builds it), with the same weights, on its device."""
+    cfg = copy.deepcopy(cfg)
+    if isinstance(remat, tuple):
+        cfg.train.remat, cfg.train.remat_levels = False, remat
+    else:
+        cfg.train.remat, cfg.train.remat_levels = remat, ()
+    out = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0), device="cpu",
+                                        gn_impl=gn_impl)
+    out.load_state_dict(model.state_dict())
+    return out.to(next(model.parameters()).device).eval()
 
 
 def main() -> None:
@@ -653,7 +909,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator().manual_seed(0)
-    model = ProbabilisticUNet.from_config(cfg, gen, device="cpu")
+    model = ProbabilisticUNet.from_config(cfg, gen, device="cpu")  # GroupNorm: kernels C, C′
     _fill_zero_params(model, gen)
     cfg32 = preset("probunet_multivar_128")
     model32 = ProbabilisticUNet.from_config(cfg32, torch.Generator().manual_seed(0),
@@ -671,6 +927,8 @@ def main() -> None:
                 "fcomb_crps_bwd": fcomb_crps.fcomb_crps_terms_bwd,
                 "afcrps": afcrps.ensemble_crps_terms,
                 "afcrps_bwd": afcrps.ensemble_crps_terms_bwd,
+                "fused_gn": fused_gn.gn_film_silu_dropout,
+                "fused_gn_bwd": fused_gn.gn_film_silu_dropout_bwd,
                 "dropout": dropout.dropout}
 
     def zero_counts():
@@ -681,35 +939,93 @@ def main() -> None:
         torch.cuda.synchronize()
         return {name: fn.launches for name, fn in counters.items()}
 
-    # the serve path: eval ELBO fused and unfused, prior ensemble
+    # the serve path: eval ELBO fused and unfused, prior ensemble; every
+    # GroupNorm chain of every U-Net forward through kernel C
+    unet_calls = [0]
+    hook = model.unet.register_forward_hook(
+        lambda *_: unet_calls.__setitem__(0, unet_calls[0] + 1))
     zero_counts()
     rates = serve(model, batches, stats, cfg, dev)
     serve_launches = read_counts()
-    print(f"launches on the serve path: {json.dumps(serve_launches)}; "
-          f"rates: {json.dumps(rates)}")
-    for name in ("fcomb_crps", "afcrps"):
+    hook.remove()
+    chains = 2 * len(model.unet.dropout_blocks) + 1
+    print(f"launches on the serve path ({unet_calls[0]} U-Net forwards, {chains} GroupNorm "
+          f"chains each): {json.dumps(serve_launches)}; rates: {json.dumps(rates)}")
+    for name in ("fcomb_crps", "afcrps", "fused_gn"):
         if serve_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serve path")
+    if chains != 57 or serve_launches["fused_gn"] != chains * unet_calls[0]:
+        raise AssertionError(f"{serve_launches['fused_gn']} C launches for {unet_calls[0]} "
+                             f"U-Net forwards of {chains} chains: a chain left kernel C")
+    # the chains' bytes: C reads x and writes y, C′ reads x and g and writes dx
+    x_bytes = []
+    hooks = [mod.register_forward_pre_hook(
+        lambda _, a: x_bytes.append(a[0].numel() * a[0].element_size()))
+        for mod in model.unet.modules() if isinstance(mod, EDMGroupNorm)]
+    with torch.no_grad():
+        model.unet(preprocess_batch(batches[0], stats, cfg.data.pipeline, cfg.data.lowres_scale,
+                                    cfg.data.interp_mode, cfg.data.epsilon,
+                                    cfg.data.standardization)["inputs"])
+    for h in hooks:
+        h.remove()
+    print(f"GroupNorm chains of one U-Net forward (bs={BATCH}): {len(x_bytes)} chains, x "
+          f"{sum(x_bytes) / 1e9:.4f} GB; bounds: C {2 * sum(x_bytes) / H100_BYTES_PER_S * 1e3:.4f} "
+          f"ms, C′ {3 * sum(x_bytes) / H100_BYTES_PER_S * 1e3:.4f} ms (bytes at 3.35 TB/s)")
+    model_composed = _variant(model, cfg, gn_impl="composed")
+    for name, m in (("kernel", model), ("composed", model_composed)):
+        serve_breakdown(m, batches[0], stats, cfg, dev, name)
 
-    # the training path: bs=128, M=15, dropout 0.1, fused and unfused
+    # the training path: bs=128, M=15, dropout 0.1, on six routes
     cfg_train = copy.deepcopy(cfg)
     cfg_train.train.ensemble_size = TRAIN_M
+    kernel_fused = "kernel fused"
+    remats = {f"kernel fused remat={r}": (_variant(model, cfg, remat=r), True)
+              for r in REMAT_MODES}
+    routes = {kernel_fused: (model, True), "kernel unfused": (model, False),
+              "composed fused": (model_composed, True), **remats}
     zero_counts()
-    train = {fused: _train_route(model, batches, stats, cfg_train, dev, fused)
-             for fused in (True, False)}
+    train = {name: _train_route(m, batches, stats, cfg_train, dev, fused, name)
+             for name, (m, fused) in routes.items()}
     launches = read_counts()
-    n_steps = 2 * (TRAIN_WARMUP + TRAIN_STEPS)
-    print(f"launches on the training path ({n_steps} steps, fused and unfused): "
+    n_steps = len(routes) * (TRAIN_WARMUP + TRAIN_STEPS)
+    print(f"launches on the training path ({n_steps} steps on {len(routes)} routes): "
           f"{json.dumps(launches)}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the training path")
-    for fused in (True, False):
-        train_breakdown(model, batches[0], stats, cfg_train, dev, fused, train[fused]["batch"])
-    print("train rates: " + json.dumps({("fused" if f else "unfused"): r
-                                        for f, r in train.items()}))
+    plain = train[kernel_fused]
+    for name in remats:
+        r = train[name]
+        print(f"{name}: losses {r['losses'][:2]!r} vs {plain['losses'][:2]!r} without remat; "
+              f"peak memory {r['peak_gb']:.3f} vs {plain['peak_gb']:.3f} GB")
+        if r["batch"] != plain["batch"] or r["losses"][0] != plain["losses"][0]:
+            raise AssertionError(f"{name} changed the training loss")
+    bs = plain["batch"]
+    batch = preprocess_batch(batches[0][:bs], stats, cfg.data.pipeline, cfg.data.lowres_scale,
+                             cfg.data.interp_mode, cfg.data.epsilon, cfg.data.standardization)
+    layouts = _chain_layouts(model, lambda: torch.autograd.grad(model.elbo(
+        batch["inputs"], batch["targets"], M=TRAIN_M, beta_1=1.0, fused=True, training=True,
+        generator=torch.Generator(device=dev).manual_seed(8))[0], list(model.parameters()),
+        allow_unused=True))
+    print(f"GroupNorm chains of one training step on the kernel route, not channels_last "
+          f"(copied to NHWC): {json.dumps(layouts)}")
+    errs = remat_grads(model, {name: m for name, (m, _) in remats.items()}, batch,
+                       cfg_train, dev)
+    print(f"gradients of one training step (bs={bs}) vs no remat, max over parameters of "
+          f"||g - g_plain|| / ||g_plain||: {json.dumps(errs)} (limit {REMAT_GRAD_RTOL})")
+    if not errs["wrong_mask"] > REMAT_GRAD_RTOL:
+        raise AssertionError("one block's wrong dropout mask stays within the remat limit: "
+                             "the check cannot see it")
+    for name in remats:
+        if not errs[name] <= REMAT_GRAD_RTOL:
+            raise AssertionError(f"{name} changed the gradients: {errs[name]}")
+    for name, (m, fused) in routes.items():
+        train_breakdown(m, batches[0], stats, cfg_train, dev, fused, train[name]["batch"], name)
+    print("train rates: " + json.dumps(
+        {name: {k: v for k, v in r.items() if k != "losses"} for name, r in train.items()}))
 
-    modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "dropout": dropout}
+    modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
+               "dropout": dropout}
     kernels = []
     for name in counters:
         mod = modules[name.removesuffix("_bwd")]

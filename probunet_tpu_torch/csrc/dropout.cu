@@ -28,21 +28,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash.cuh"
+
 namespace probunet {
 namespace {
 
 constexpr int kLane = 128;     // row width of the TPU kernel's blocks
 constexpr int kThreads = 256;
 constexpr int kVec = 8;        // elements per thread
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t z) {
-  z ^= z >> 16;
-  z *= 0x85EBCA6Bu;
-  z ^= z >> 16;
-  z *= 0xC2B2AE35u;
-  z ^= z >> 16;
-  return z;
-}
 
 __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -81,19 +74,16 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restrict
                long long nvec, int rb, float p, float scale) {
   const long long v = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (v >= nvec) return;
-  const uint32_t key = static_cast<uint32_t>(seed[0]) * 2654435761u +
-                       static_cast<uint32_t>(seed[1]);
+  const uint32_t key = hash_key(seed);
   const long long e0 = v * kVec;
   const long long row = e0 / kLane;
   const long long salt = row / rb;
-  const uint32_t base = static_cast<uint32_t>((row - salt * rb) * kLane + e0 % kLane) + key +
-                        static_cast<uint32_t>(salt) * 40503u;
+  const uint32_t pos = static_cast<uint32_t>((row - salt * rb) * kLane + e0 % kLane);
   float vals[kVec];
   load8(x + e0, vals);
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    const uint32_t z = fmix32(base + static_cast<uint32_t>(i));
-    const float u = static_cast<float>(z >> 8) * 5.9604644775390625e-08f;  // 2^-24
+    const float u = hash_uniform(pos + static_cast<uint32_t>(i), key, static_cast<uint32_t>(salt));
     vals[i] = u >= p ? __fmul_rn(vals[i], scale) : 0.f;
   }
   store8(y + e0, vals);

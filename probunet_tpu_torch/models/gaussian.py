@@ -5,7 +5,10 @@ Per filter level: [2x2 max pool +] 3 x (conv3x3 + ReLU); then a global
 average pool and two 1x1 convs giving (mu, log_sigma), returned in f32 as
 a :class:`DiagGaussian`. The posterior concatenates the target onto the
 input channels. Init: kaiming-normal (fan-in, ReLU) weights and
-truncated-normal(0.001) biases.
+truncated-normal(0.001) biases. ``save_convs=True`` (the JAX package's
+``remat="save_convs_all"``) runs the encoder under selective
+checkpointing while autograd records: conv outputs are stored, the ReLU
+and pooling chains recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from probunet_tpu_torch.models.layers import save_convs_checkpoint
 from probunet_tpu_torch.ops.distributions import DiagGaussian
 
 
@@ -63,9 +67,9 @@ class AxisAlignedConvGaussian(nn.Module):
 
     def __init__(self, in_channels: int, num_filters: Sequence[int], latent_dim: int, *,
                  generator: torch.Generator, posterior: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, save_convs: bool = False):
         super().__init__()
-        self.posterior, self.dtype = posterior, dtype
+        self.posterior, self.dtype, self.save_convs = posterior, dtype, save_convs
         self.levels = len(num_filters)
         kw = dict(generator=generator, dtype=dtype)
         cin = in_channels
@@ -77,6 +81,13 @@ class AxisAlignedConvGaussian(nn.Module):
         self.conv_log_sigma = _Conv3x3(cin, latent_dim, 1, **kw)
 
     def forward(self, x: torch.Tensor, target: torch.Tensor | None = None) -> DiagGaussian:
+        if self.save_convs and torch.is_grad_enabled():
+            mu, log_sigma = save_convs_checkpoint(self._moments, x, target)
+        else:
+            mu, log_sigma = self._moments(x, target)
+        return DiagGaussian(mu=mu, log_sigma=log_sigma)
+
+    def _moments(self, x: torch.Tensor, target: torch.Tensor | None):
         if self.posterior and target is not None:
             x = torch.cat([x, target.to(x.dtype)], dim=-1)
         if self.dtype is not None:
@@ -88,6 +99,5 @@ class AxisAlignedConvGaussian(nn.Module):
             for j in range(3):
                 h = torch.relu(self.get_submodule(f"enc{i}_conv{j}")(h))
         h = h.mean(dim=(2, 3), keepdim=True)  # global average pool
-        mu = self.conv_mu(h)[:, :, 0, 0].float()
-        log_sigma = self.conv_log_sigma(h)[:, :, 0, 0].float()
-        return DiagGaussian(mu=mu, log_sigma=log_sigma)
+        return (self.conv_mu(h)[:, :, 0, 0].float(),
+                self.conv_log_sigma(h)[:, :, 0, 0].float())

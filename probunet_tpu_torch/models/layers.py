@@ -10,22 +10,32 @@ take NHWC like the JAX package.
 are cast to it and a bf16 conv returns a bf16-rounded result, as the JAX
 convs with ``preferred_element_type=dt``; parameters stay f32, so a bias
 add promotes to f32 and is rounded back to the activation dtype, the JAX
-package's rounding points. Dropout runs through kernel D
-(``ops.kernels.dropout``) with seed words from the caller, on the NHWC
-view of the activation, so its masks are the JAX kernel's. The attention
-block is not ported: neither the serve nor the training path runs it.
+package's rounding points. The GroupNorm chain between the convs runs
+through kernels C/C′ (``ops.kernels.fused_gn``, ``gn_impl="kernel"``) or
+as a torch composition followed by kernel D (``ops.kernels.dropout``,
+``gn_impl="composed"``); either way the dropout seed words come from the
+caller and the masks are the JAX kernels'. The attention block is not
+ported: neither the serve nor the training path runs it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from probunet_tpu_torch.ops.kernels import fused_gn
 from probunet_tpu_torch.ops.kernels.dropout import dropout as hash_dropout
 from probunet_tpu_torch.ops.precision import matmul_f32
+
+# "kernel": kernels C/C′, the JAX package under PROBUNET_GN_IMPL=pallas;
+# "composed": the torch composition + kernel D, the JAX default ("xla")
+# under PROBUNET_DROPOUT_IMPL=pallas
+GN_IMPLS = ("kernel", "composed")
 
 # (init_mode, init_weight_scale, init_bias_scale), as in the JAX package
 INIT_DEFAULT = ("kaiming_normal", 1.0, 0.0)
@@ -59,6 +69,17 @@ def edm_init(mode: str, fan_in: int, fan_out: int, scale: float,
 
 def _out_dtype(x: torch.Tensor, dtype: torch.dtype | None) -> torch.dtype:
     return dtype if dtype is not None else x.dtype
+
+
+def save_convs_checkpoint(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under selective activation checkpointing that
+    stores only the convolutions' outputs and recomputes every other
+    operation in the backward (the GroupNorm chains, kernels C and D
+    included, their masks regenerated from the same seed words): the JAX
+    package's ``nn.remat`` with ``save_only_these_names("conv_out")``."""
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   [torch.ops.aten.convolution.default])
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
 
 
 class EDMLinear(nn.Module):
@@ -138,18 +159,34 @@ class EDMGroupNorm(nn.Module):
 
         dropout(silu((gn(x) * gamma + beta) * (scale + 1) + shift))
 
-    A plain torch composition like the JAX default (XLA's GN fusion):
-    f32 statistics with the fast variance E[x^2] - E[x]^2 (clipped at 0, as
-    flax computes it), normalization in f32, output in ``dtype``. With
-    ``drop_p > 0`` the chain ends in kernel D's dropout with the (2,) int32
-    ``drop_seed``, applied to the NHWC view (``layers.py:345-378`` in the
-    JAX package with ``PROBUNET_DROPOUT_IMPL=pallas``).
+    (``layers.py:345-378`` in the JAX package), by one of two routes:
+
+    - ``gn_impl="kernel"`` (the default): kernels C and C′
+      (``ops.kernels.fused_gn``) on the NHWC view of the channels_last
+      activation, output in x's dtype, with the TPU kernel's arithmetic
+      (statistics s1, s2 in f32, no clamp of the variance) and its dropout
+      masks. The JAX package with ``PROBUNET_GN_IMPL=pallas``.
+    - ``gn_impl="composed"``: a plain torch composition like the JAX
+      default (XLA's GN fusion): f32 statistics with the fast variance
+      E[x^2] - E[x]^2 (clipped at 0, as flax computes it), normalization in
+      f32, output in ``dtype``, and with ``drop_p > 0`` kernel D's dropout
+      on the NHWC view. The JAX default with
+      ``PROBUNET_DROPOUT_IMPL=pallas``.
+
+    A shape the kernel does not take (``fused_gn.supported``) runs the
+    composed route on either setting, as the JAX module decides; the
+    choice is made from the shape, before any launch. Dropout takes the
+    (2,) int32 ``drop_seed``.
     """
 
-    def __init__(self, num_channels: int, *, dtype: torch.dtype | None = None):
+    def __init__(self, num_channels: int, *, dtype: torch.dtype | None = None,
+                 gn_impl: str = "kernel"):
         super().__init__()
+        if gn_impl not in GN_IMPLS:
+            raise ValueError(f"gn_impl must be one of {GN_IMPLS}, got {gn_impl!r}")
         self.groups = min(32, num_channels // 4)
         self.dtype = dtype
+        self.gn_impl = gn_impl
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
@@ -158,6 +195,10 @@ class EDMGroupNorm(nn.Module):
                 drop_p: float = 0.0, drop_seed: torch.Tensor | None = None) -> torch.Tensor:
         b, c, h, w = x.shape
         g = self.groups
+        if drop_p > 0.0 and drop_seed is None:
+            raise ValueError("EDMGroupNorm: drop_p > 0 needs drop_seed")
+        if self.gn_impl == "kernel" and fused_gn.supported(h, w, c, g):
+            return self._kernel_chain(x, silu, film, drop_p, drop_seed)
         xf = x.float().unflatten(1, (g, c // g))              # (B, G, C/G, H, W)
         mean = xf.mean(dim=(2, 3, 4), keepdim=True)
         mean2 = (xf * xf).mean(dim=(2, 3, 4), keepdim=True)
@@ -173,10 +214,23 @@ class EDMGroupNorm(nn.Module):
             y = shift[:, :, None, None] + y * (scale[:, :, None, None] + 1)
         y = F.silu(y) if silu else y
         if drop_p > 0.0:
-            if drop_seed is None:
-                raise ValueError("EDMGroupNorm: drop_p > 0 needs drop_seed")
             y = hash_dropout(y.permute(0, 2, 3, 1), drop_seed, drop_p).permute(0, 3, 1, 2)
         return y
+
+    def _kernel_chain(self, x, silu, film, drop_p, drop_seed):
+        b, c = x.shape[:2]
+        # NHWC view; contiguous() copies only an input that is not channels_last
+        # (none on the U-Net's path: chip_smoke.py counts them)
+        xn = x.permute(0, 2, 3, 1).contiguous()
+        if film is None:  # norm0 and out_norm: scale = shift = 0
+            scale = shift = torch.zeros((b, c), dtype=torch.float32, device=x.device)
+        else:
+            scale, shift = (t.float().contiguous() for t in film)
+        if drop_p <= 0.0:
+            drop_seed = torch.zeros(2, dtype=torch.int32, device=x.device)
+        y = fused_gn.gn_film_silu_dropout(xn, self.weight, self.bias, scale, shift, drop_seed,
+                                          self.groups, 1e-5, drop_p, silu)
+        return y.permute(0, 3, 1, 2)
 
 
 class UNetBlock(nn.Module):
@@ -184,19 +238,21 @@ class UNetBlock(nn.Module):
     second conv, skip scale 1, no attention):
     GN -> SiLU -> conv(up/down) -> FiLM from the embedding -> SiLU ->
     dropout (``train`` only) -> conv -> + skip. ``in_channels`` counts the
-    skip tensor that the decoder's blocks take as ``skip_in``."""
+    skip tensor that the decoder's blocks take as ``skip_in``. ``gn_impl``:
+    the route of both GroupNorm chains (:class:`EDMGroupNorm`)."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  generator: torch.Generator, up: bool = False, down: bool = False,
-                 dropout: float = 0.0, dtype: torch.dtype | None = None):
+                 dropout: float = 0.0, dtype: torch.dtype | None = None,
+                 gn_impl: str = "kernel"):
         super().__init__()
         self.dropout = dropout
         kw = dict(generator=generator, dtype=dtype)
-        self.norm0 = EDMGroupNorm(in_channels, dtype=dtype)
+        self.norm0 = EDMGroupNorm(in_channels, dtype=dtype, gn_impl=gn_impl)
         self.conv0 = EDMConv(in_channels, out_channels, 3, up=up, down=down,
                              init=INIT_EDM, **kw)
         self.affine = EDMLinear(emb_channels, out_channels * 2, init=INIT_EDM, **kw)
-        self.norm1 = EDMGroupNorm(out_channels, dtype=dtype)
+        self.norm1 = EDMGroupNorm(out_channels, dtype=dtype, gn_impl=gn_impl)
         self.conv1 = EDMConv(out_channels, out_channels, 3, init=INIT_ZERO, **kw)
         self.skip = None
         if out_channels != in_channels or up or down:

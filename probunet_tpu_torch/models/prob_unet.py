@@ -15,6 +15,12 @@ tensors, its plain version on the CPU). ``fused=False`` materializes the
 ensemble with ``Fcomb.ensemble`` and scores it with ``afcrps_loss`` /
 ``crps_loss`` (``ops.kernels.afcrps``), like ``PROBUNET_FUSED_ELBO=0`` in
 the JAX package.
+
+``gn_impl`` picks the U-Net's GroupNorm-chain route (kernels C/C′, the
+default, or the torch composition with kernel D; ``layers.EDMGroupNorm``)
+and ``remat`` its gradient rematerialization (``models/unet.py``);
+``remat="save_convs_all"`` also checkpoints the prior and posterior
+encoders, storing their conv outputs. Neither changes the results.
 """
 
 from __future__ import annotations
@@ -41,27 +47,33 @@ class ProbabilisticUNet(nn.Module):
                  num_filters: Sequence[int] = (32, 64, 128, 256), model_channels: int = 32,
                  channel_mult: Sequence[int] = (1, 2, 4, 8),
                  img_resolution: Sequence[int] = (128, 128), num_blocks: int = 2,
-                 dropout: float = 0.10, dtype: torch.dtype | None = None):
+                 dropout: float = 0.10, dtype: torch.dtype | None = None,
+                 gn_impl: str = "kernel", remat=False):
         super().__init__()
         self.dtype = dtype
         kw = dict(generator=generator, dtype=dtype)
         self.unet = UNet(tuple(img_resolution), input_channels, num_filters[0],
                          model_channels=model_channels,
                          channel_mult=tuple(channel_mult), num_blocks=num_blocks,
-                         dropout=dropout, **kw)
+                         dropout=dropout, gn_impl=gn_impl, remat=remat, **kw)
+        save_convs = remat == "save_convs_all"
         self.prior = AxisAlignedConvGaussian(input_channels, num_filters, latent_dim,
-                                             posterior=False, **kw)
+                                             posterior=False, save_convs=save_convs, **kw)
         self.posterior = AxisAlignedConvGaussian(input_channels + num_classes, num_filters,
-                                                 latent_dim, posterior=True, **kw)
+                                                 latent_dim, posterior=True,
+                                                 save_convs=save_convs, **kw)
         self.fcomb = Fcomb(num_filters[0], latent_dim, num_classes, **kw)
 
     @classmethod
     def from_config(cls, cfg, generator: torch.Generator,
-                    device: str | torch.device | None = "cuda") -> "ProbabilisticUNet":
+                    device: str | torch.device | None = "cuda",
+                    gn_impl: str = "kernel") -> "ProbabilisticUNet":
         """The model of a ``probunet_tpu_torch.config.Config`` (as the JAX
-        CLI's ``make_model`` builds it), initialized from ``generator`` on
-        its device and moved to ``device`` (the CUDA device unless the
-        caller passes ``device="cpu"``; raises without one)."""
+        CLI's ``make_model`` builds it, with ``remat =
+        tuple(cfg.train.remat_levels) or cfg.train.remat``), initialized
+        from ``generator`` on its device and moved to ``device`` (the CUDA
+        device unless the caller passes ``device="cpu"``; raises without
+        one). ``gn_impl``: the GroupNorm chains' route."""
         dev = resolve_device(device)
         m = cfg.model
         return cls(generator=generator, input_channels=m.input_channels,
@@ -69,7 +81,9 @@ class ProbabilisticUNet(nn.Module):
                    num_filters=m.num_filters, model_channels=m.model_channels,
                    channel_mult=m.channel_mult, img_resolution=cfg.data.resolution,
                    num_blocks=m.num_blocks, dropout=m.dropout,
-                   dtype=torch.bfloat16 if m.compute_dtype == "bfloat16" else None).to(dev)
+                   dtype=torch.bfloat16 if m.compute_dtype == "bfloat16" else None,
+                   gn_impl=gn_impl,
+                   remat=tuple(cfg.train.remat_levels) or cfg.train.remat).to(dev)
 
     def sample(self, x: torch.Tensor, num_samples: int = 1,
                generator: torch.Generator | None = None,

@@ -47,6 +47,9 @@ _SIGNATURES = {
     "fcomb_crps_terms_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P),
     "fcomb_crps_terms_bwd": (_P,) * 15 + (_I, _I, _I, _I, _I, _P),
+    "fused_gn_tiles": (_I, _I),
+    "fused_gn_fwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+    "fused_gn_bwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I, _I, _P),
 }
 
 

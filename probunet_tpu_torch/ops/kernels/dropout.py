@@ -68,21 +68,28 @@ def _mul32(z: torch.Tensor, m: int) -> torch.Tensor:
     return (lo + (hi << 16)) & _MASK32
 
 
+def hash_uniform(pos: torch.Tensor, seed2: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:
+    """Uniforms in [0, 1) of ``fused_gn._dropout_uniform`` in the JAX package
+    (``csrc/hash.cuh`` on the card): a murmur3 finalizer of (position, seed
+    words, salt) in int64 arithmetic masked to 32 bits. ``pos`` and ``salt``
+    are int64 tensors that broadcast together; the result is f32."""
+    sa, sb = (seed2.to(torch.int64) & _MASK32).unbind()
+    z = (pos + _mul32(sa, 2654435761) + sb + salt * 40503) & _MASK32
+    for mult in (0x85EBCA6B, 0xC2B2AE35):
+        z = _mul32(z ^ (z >> 16), mult)
+    z = z ^ (z >> 16)
+    return (z >> 8).to(torch.float32) * np.float32(2.0 ** -24)
+
+
 def dropout_keep(shape, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
-    """The keep mask (bool, ``shape``) in int64 arithmetic masked to 32 bits."""
+    """The keep mask (bool, ``shape``): the hash at (rb, 128) block
+    coordinates, salted with the block index."""
     n = math.prod(shape)
     rows = n // _LANE
     rb = _block_rows(rows)
     e = torch.arange(n, dtype=torch.int64, device=seed2.device)
     r = e // _LANE
-    salt = r // rb
-    z = (r % rb) * _LANE + e % _LANE
-    sa, sb = (seed2.to(torch.int64) & _MASK32).unbind()
-    z = (z + _mul32(sa, 2654435761) + sb + salt * 40503) & _MASK32
-    for mult in (0x85EBCA6B, 0xC2B2AE35):
-        z = _mul32(z ^ (z >> 16), mult)
-    z = z ^ (z >> 16)
-    u = (z >> 8).to(torch.float32) * np.float32(2.0 ** -24)
+    u = hash_uniform((r % rb) * _LANE + e % _LANE, seed2, r // rb)
     return (u >= np.float32(p_drop)).reshape(shape)
 
 

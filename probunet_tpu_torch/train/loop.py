@@ -4,7 +4,8 @@
 ``make_train_step`` is the ELBO training step (``bench.py``'s default
 mode in the JAX package): device-side preprocessing of a raw HR batch,
 the posterior ELBO at M = ``ensemble_size`` with the U-Net's dropout on,
-its backward (through kernels A′ or B′ and D), and AdamW as optax
+its backward (through kernels A′ or B′, and C′ or D by the model's
+GroupNorm route), and AdamW as optax
 computes it. Its random numbers come from a generator seeded from
 (seed, step) on the batch's device. ``make_eval_step`` is the no-grad
 ELBO users call between epochs and in ``bench.py``'s eval mode (M =
@@ -172,7 +173,9 @@ class Trainer:
     and checkpointing (the reference's training script, src/main.py:107-238), over
     in-memory HR windows. Runs on the CUDA device unless the caller passes
     ``device="cpu"``; builds the model from ``cfg`` (seeded from
-    ``cfg.train.seed``) unless it is given one or a ``state``."""
+    ``cfg.train.seed``, with ``cfg.train``'s remat setting) unless it is
+    given one or a ``state``; a caller who wants the composed GroupNorm
+    route builds the model with ``gn_impl="composed"`` and passes it."""
 
     def __init__(self, cfg: Config, hr_train: torch.Tensor, stats: Standardization,
                  hr_val: torch.Tensor | None = None, val_stats: Standardization | None = None,

@@ -9,6 +9,7 @@ package's, preset by preset.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -17,7 +18,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 _SCRIPT = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["probunet_tpu"] = None
@@ -30,7 +31,7 @@ import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "probunet_tpu")
                 and sys.modules[m] is not None)
-print(len(names), loaded)
+print(json.dumps({"names": names, "loaded": loaded}))
 """
 
 
@@ -39,9 +40,12 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 20
-    assert loaded.strip() == "[]"
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(res["names"]) >= 20
+    # every kernel module, the GroupNorm chain's (C, C′) included
+    for kernel in ("afcrps", "fcomb_crps", "fused_gn", "dropout", "_build"):
+        assert f"probunet_tpu_torch.ops.kernels.{kernel}" in res["names"], kernel
+    assert res["loaded"] == []
 
 
 def test_no_jax_import_statement_in_the_port():

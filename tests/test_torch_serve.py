@@ -8,6 +8,10 @@ total = recon + beta_1 * KL.
 Prior ensemble: decode -> residual_to_hr -> invert_physical_transform ->
 EvalAccumulator.update / update_hist / result.
 
+Both on the composed GroupNorm route against the JAX default, and, for
+the ELBO and the ensemble, on the kernel route (kernel C's plain version)
+against the JAX package under ``PROBUNET_GN_IMPL=pallas``.
+
 f32, rtol 1e-4 / atol 1e-5: the model-level tolerance of
 test_torch_models.py carried through the loss; metrics of identical inputs
 match to 1e-5 and their histograms exactly.
@@ -18,12 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import TINY, assert_close, jax_tiny_model, torch_tiny_model
+from torch_parity import GN_ENV, TINY, assert_close, jax_tiny_model, torch_tiny_model
 
 from probunet_tpu_torch.data import climex as tclimex
 from probunet_tpu_torch.data import transforms as ttransforms
 from probunet_tpu_torch.data.synthetic import synthetic_climex_fields
 from probunet_tpu_torch.evals.streaming import EvalAccumulator as TorchAcc
+from probunet_tpu_torch.ops.kernels import fused_gn as tgn
 from probunet_tpu_torch.train.loop import eval_model, make_eval_step
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -36,7 +41,7 @@ def setup():
     from probunet_tpu.data.transforms import apply_physical_transform
 
     jmodel, params = jax_tiny_model()
-    tmodel = torch_tiny_model(params)
+    tmodel = torch_tiny_model(params, gn_impl="composed")
     phys = synthetic_climex_fields(2 * B, *TINY["img_resolution"], seed=5)
     stored = np.array(apply_physical_transform(jnp.asarray(phys)))  # writable copy
     jstats = jc.compute_stats(jnp.asarray(stored), K_LOW)
@@ -105,6 +110,70 @@ def test_eval_step_and_eval_model(setup):
     assert float(got["kl_mean"]) == float(met["kl_mean"])
     out = eval_model(step, list(torch.from_numpy(stored).split(B)), tstats, cfg)
     assert np.isfinite(out["recon"]) and out["kl"] > 0
+
+
+@pytest.fixture(scope="module")
+def kernel_route(setup):
+    """The JAX model's encode of one batch under PROBUNET_GN_IMPL=pallas,
+    traced and compiled once (an eager run interprets the Pallas kernel
+    call by call), and the port's model on the kernel route."""
+    import jax
+
+    from probunet_tpu.data import climex as jc
+
+    jmodel, params, _, stored, jstats, tstats = setup
+    jb = jc.preprocess_batch(jnp.asarray(stored[:B]), jstats, PIPE, K_LOW)
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in GN_ENV["kernel"].items():
+            mp.setenv(k, v)
+        encoded = jax.jit(lambda p, x, y: jmodel.apply(
+            {"params": p}, x, y, method=lambda m, a, t: m.encode(a, t)))(
+                params, jb["inputs"], jb["targets"])
+    tb = tclimex.preprocess_batch(torch.from_numpy(stored[:B]), tstats, PIPE, K_LOW)
+    return encoded, tb, torch_tiny_model(params, gn_impl="kernel")
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("loss_type", ["afcrps", "crps"])
+def test_eval_elbo_matches_jax_kernel_route(setup, kernel_route, loss_type, fused):
+    from probunet_tpu.ops.distributions import kl_diag_gaussians
+    from probunet_tpu.ops.losses import afcrps_loss, crps_loss
+    from probunet_tpu.ops.pallas.fcomb_crps import fused_fcomb_crps_loss
+
+    jmodel, params = setup[:2]
+    (feats, prior, post), tb, tmodel = kernel_route
+    eps, beta_1 = _eps(1), 0.5
+    zs = post.mu + post.sigma * jnp.asarray(eps)
+    y = jnp.asarray(tb["targets"].numpy())
+    if fused:
+        recon = jmodel.apply({"params": params}, feats, zs, y, method=lambda m, f, z, t:
+                             fused_fcomb_crps_loss(f, z, m.fcomb.variables["params"], t,
+                                                   loss_type, compute_dtype="float32"))
+    else:
+        ens = jmodel.apply({"params": params}, feats, zs, method=lambda m, f, z: m.decode(f, z))
+        recon = afcrps_loss(ens, y) if loss_type == "afcrps" else crps_loss(ens, y)
+    kl = kl_diag_gaussians(post, prior)
+    before = tgn.gn_film_silu_dropout.launches
+    with torch.no_grad():
+        total, met = tmodel.elbo(tb["inputs"], tb["targets"], M=M, loss_type=loss_type,
+                                 beta_1=beta_1, eps=torch.from_numpy(eps), fused=fused)
+    assert tgn.gn_film_silu_dropout.launches == before  # CPU: the plain version
+    assert_close(met["recon"], recon, RTOL, ATOL, "recon")
+    assert_close(met["kl"], kl, RTOL, ATOL, "kl")
+    assert_close(total, recon + beta_1 * kl.mean(), RTOL, ATOL, "total")
+
+
+def test_prior_ensemble_matches_jax_kernel_route(setup, kernel_route):
+    """``sample`` (shared U-Net features, prior draws from numpy noise)."""
+    jmodel, params = setup[:2]
+    (feats, prior, _), tb, tmodel = kernel_route
+    eps = _eps(10)
+    want = jmodel.apply({"params": params}, feats, prior.mu + prior.sigma * jnp.asarray(eps),
+                        method=lambda m, f, z: m.decode(f, z))
+    with torch.no_grad():
+        got = tmodel.sample(tb["inputs"], M, eps=torch.from_numpy(eps))
+    assert tuple(got.shape) == (B, M, *TINY["img_resolution"], 3)
+    assert_close(got, want, RTOL, ATOL, "ensemble")
 
 
 def _compare_results(got, want, rtol, atol, hist_exact):

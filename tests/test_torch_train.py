@@ -1,15 +1,19 @@
 """The training slice, port against JAX, on the tiny model (CPU).
 
 - The training ELBO's loss and every parameter gradient, dropout on, on
-  both reconstruction routes and both losses. The JAX side is
-  ``ProbabilisticUNet.elbo(training=True)`` itself, with
-  ``PROBUNET_DROPOUT_IMPL=pallas`` (the dropout kernel in interpret mode)
-  and ``PROBUNET_FUSED_ELBO`` choosing the route. A test-side wrapper
-  records the seed words each U-Net block hands the dropout kernel, and
-  the posterior's rsample takes numpy noise; the port gets the same seed
-  words and noise. Gradients are compared leaf by leaf through
-  ``convert.py``'s mapping. f32, rtol 1e-4 / atol 1e-5 as the model tests:
-  the same sums in other orders through ~20 layers, forward and back.
+  both reconstruction routes and both losses, with the U-Net's GroupNorm
+  chains on the composed route (torch composition + kernel D); and on the
+  kernel route (kernels C and C′) for afCRPS fused. The
+  JAX side is ``ProbabilisticUNet.elbo(training=True)`` itself, with
+  ``PROBUNET_DROPOUT_IMPL=pallas`` (the dropout kernel in interpret mode),
+  ``PROBUNET_GN_IMPL`` matching the port's route (``pallas`` for the
+  kernel route) and ``PROBUNET_FUSED_ELBO`` choosing the reconstruction.
+  A test-side wrapper records the seed words each U-Net block hands its
+  dropout (``torch_parity.jax_elbo_grads``), and the posterior's rsample
+  takes numpy noise; the port gets the same seed words and noise.
+  Gradients are compared leaf by leaf through ``convert.py``'s mapping.
+  f32, rtol 1e-4 / atol 1e-5 as the model tests: the same sums in other
+  orders through ~20 layers, forward and back.
 - AdamW (with ``grad_clip`` and ``accum``) against
   ``probunet_tpu.train.state.make_optimizer``: three updates on the same
   gradients, rtol 1e-5 / atol 1e-7 (the same f32 formula, one or two
@@ -26,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import TINY, assert_close, jax_tiny_model, torch_tiny_model
+from torch_parity import TINY, assert_close, jax_elbo_grads, jax_tiny_model, torch_tiny_model
 
 from probunet_tpu_torch.convert import convert_params, flax_params
 from probunet_tpu_torch.data import climex as tclimex
@@ -47,52 +51,34 @@ def _batch(seed):
 
 @pytest.fixture(scope="module")
 def dropout_models():
+    """The JAX model and the port's on the composed GroupNorm route."""
     jmodel, params = jax_tiny_model(dropout=DROPOUT)
-    return jmodel, params, torch_tiny_model(params, dropout=DROPOUT)
-
-
-def _jax_elbo_grads(monkeypatch, jmodel, params, x, y, eps, loss_type, fused, beta_1):
-    """(loss, metrics, grads, seed words) of the JAX training ELBO, with the
-    posterior noise ``eps`` and the dropout kernel's seed words recorded.
-    Traced and compiled as one program: an eager run compiles each of the
-    U-Net's operations on its own, which takes several times longer."""
-    from probunet_tpu.ops import distributions as jd
-    from probunet_tpu.ops.pallas import dropout as jdrop
-
-    seeds = []
-    kernel = jdrop.dropout
-
-    def recording_dropout(x, seed2, p_drop):
-        seeds.append(seed2)
-        return kernel(x, seed2, p_drop)
-
-    monkeypatch.setenv("PROBUNET_DROPOUT_IMPL", "pallas")
-    monkeypatch.setenv("PROBUNET_FUSED_ELBO", "1" if fused else "0")
-    monkeypatch.setattr(jdrop, "dropout", recording_dropout)
-    monkeypatch.setattr(jd.DiagGaussian, "rsample",
-                        lambda self, key, sample_shape=(): self.mu + self.sigma * eps)
-
-    def loss(p):
-        seeds.clear()
-        total, metrics = jmodel.apply(
-            {"params": p}, jnp.asarray(x), jnp.asarray(y), M=M, loss_type=loss_type,
-            beta_1=beta_1, training=True, method=type(jmodel).elbo,
-            rngs={"latent": jax.random.key(1), "dropout": jax.random.key(2)})
-        return total, (metrics, jnp.stack(seeds))
-
-    (total, (metrics, seed_words)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-        jax.tree.map(jnp.asarray, params))
-    return total, metrics, jax.device_get(grads), np.asarray(seed_words)
+    return jmodel, params, torch_tiny_model(params, dropout=DROPOUT, gn_impl="composed")
 
 
 @pytest.mark.parametrize("loss_type,fused", [("afcrps", True), ("afcrps", False),
                                              ("crps", True), ("crps", False)])
 def test_training_elbo_gradients_match_jax(dropout_models, monkeypatch, loss_type, fused):
-    jmodel, params, tmodel = dropout_models
+    _check_training_elbo(monkeypatch, *dropout_models, loss_type, fused, "composed")
+
+
+@pytest.mark.parametrize("loss_type,fused", [("afcrps", True)])
+def test_training_elbo_gradients_match_jax_kernel_route(dropout_models, monkeypatch,
+                                                        loss_type, fused):
+    """Kernels C and C′ against the JAX model under PROBUNET_GN_IMPL=pallas,
+    their dropout masks from the seed words the JAX blocks hand kernel C
+    (and kernel D, for the shapes C does not take). One reconstruction
+    route: the U-Net's backward is the same under either."""
+    jmodel, params, _ = dropout_models
+    tmodel = torch_tiny_model(params, dropout=DROPOUT, gn_impl="kernel")
+    _check_training_elbo(monkeypatch, jmodel, params, tmodel, loss_type, fused, "kernel")
+
+
+def _check_training_elbo(monkeypatch, jmodel, params, tmodel, loss_type, fused, gn_impl):
     x, y, eps = _batch(3)
     beta_1 = 0.7
-    want_total, want_met, want_grads, seeds = _jax_elbo_grads(
-        monkeypatch, jmodel, params, x, y, eps, loss_type, fused, beta_1)
+    want_total, want_met, want_grads, seeds = jax_elbo_grads(
+        monkeypatch, jmodel, params, x, y, eps, loss_type, fused, beta_1, M, gn_impl)
     assert seeds.shape == (len(tmodel.unet.dropout_blocks), 2)  # every block, no fallback
     tmodel.zero_grad()
     total, met = tmodel.elbo(torch.from_numpy(x), torch.from_numpy(y), M=M,
