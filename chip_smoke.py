@@ -8,7 +8,11 @@ nvcc (sm_90a) and holds each against its plain PyTorch version on the card,
 at the shapes of the serve and training paths: the fcomb-CRPS forward (A)
 and backward (A′), the afCRPS-terms forward (B) and backward (B′), the
 GroupNorm chain's forward (C) and backward (C′), and the hash dropout (D),
-with each kernel's time beside its plain version's and its bound. Then it
+with each kernel's time beside its plain version's and its bound; A′ on
+both of its kernels (bf16 operands on the tensor cores, f32 on the FP32
+pipes), C′ on its per-shape plan and on the other route (a cluster per
+slab or two passes) with both times, and the registers and spills nvcc
+reports for both. Then it
 checks the f32 serve path and the f32 training step (gradients and one
 AdamW update) on the card against the CPU, both on the GroupNorm kernel
 route, and drives both paths at the full width of the flagship preset
@@ -40,7 +44,9 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import copy
+import ctypes
 import json
 import math
 import subprocess
@@ -182,6 +188,33 @@ def _bound(n_bytes: float, n_ops: float, dtype: str) -> dict:
 
 def _max_err_ratio(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+# the kernels whose registers and spills the run prints (A′'s two, C′'s two routes)
+PTXAS_KERNELS = ("fcomb_crps_bwd_mma_kernel", "fcomb_crps_bwd_tile_kernel",
+                 "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel")
+
+
+def _ptxas_report(log: str, names) -> dict:
+    """Registers and spill bytes of each compiled entry whose name holds one
+    of ``names``, from nvcc's ``-Xptxas -v`` log (empty when the library was
+    not built in this run)."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1] if "'" in line else line
+            entry = next((f"{n} {mangled}" for n in names if n in mangled), None)
+        elif entry and "spill stores" in line:
+            words = line.split()
+            out.setdefault(entry, {})["spill_store_bytes"] = int(words[words.index("spill") - 2])
+            out[entry]["spill_load_bytes"] = int(words[words.index("loads") - 3])
+        elif entry and "Used" in line and "registers" in line:
+            words = line.split()
+            out.setdefault(entry, {})["registers"] = int(words[words.index("registers,") - 1]
+                                                         if "registers," in words
+                                                         else words[words.index("registers") - 1])
+            entry = None
+    return out
 
 
 def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
@@ -345,7 +378,10 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
 
 def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
     """Kernels C and C′ against their plain versions at one shape: every
-    output, the masks, C run twice for identical bits; times, bounds, and
+    output, the masks, C run twice for identical bits, C′ on its planned
+    route and on the other one (two passes where the plan takes a cluster,
+    the shape's cluster layout where it takes two passes), each run twice
+    for identical bits; times, bounds, and
     ``F.group_norm``'s time at the shape as a note (it computes only the
     normalization, not the chain, so it is no ``library_ms``)."""
     b, h, w, c = shape
@@ -378,17 +414,17 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
     keep = float((y != 0).float().mean())
     fwd_err = {"y": _max_err_ratio(y.float(), want[0].float()),
                "mean": _max_err_ratio(mean, want[1]), "rstd": _max_err_ratio(rstd, want[2])}
-    # the backward of both on the kernel's statistics
+    # the backward of both on the kernel's statistics: C′ on the shape's plan
+    # and on the other route, each held to the plain version
     bwd_args = (x, g, gamma, beta, scale, shift, seed, mean, rstd, groups, p_drop, True)
-    got = fused_gn.gn_film_silu_dropout_bwd(*bwd_args)
     want_bwd = fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args)
-    names = ("dx", "dgamma", "dbeta", "dscale", "dshift")
-    bwd_err = {k: _max_err_ratio(u.float(), v.float()) for k, u, v in zip(names, got, want_bwd)}
+    plan = fused_gn.bwd_plan(h * w, c, groups, size)
+    other = (fused_gn.TWO_PASS if plan["route"] == "cluster"
+             else fused_gn.cluster_plan(h * w, c, groups, size))
+    routes = [_gn_bwd_route(bwd_args, want_bwd, pl) for pl in (plan, other) if pl is not None]
     abs_fwd = float((y.float() - want[0].float()).abs().max())
-    abs_bwd = max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want_bwd))
     ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_fwd(*args, *consts), 20)
     plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_plain(*args, *consts), 2, 1)
-    bwd_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_bwd(*bwd_args), 20)
     bwd_plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args), 2, 1)
     xr = x.detach().permute(0, 3, 1, 2).requires_grad_()  # NCHW view, channels_last
     wr, br = gamma.to(tdt).requires_grad_(), beta.to(tdt).requires_grad_()
@@ -412,13 +448,19 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
           f"max_err/max={json.dumps(fwd_err)} max_abs_err={abs_fwd:.3e} kernel_ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={fwd_bound['bound_ms']:.4f} "
           f"({fwd_bound['bound_by']}) F.group_norm_ms={gn_ms:.4f}")
-    print(f"kernel fused_gn_bwd    shape={shape} {dtype:8s} film={film} p={p_drop} "
-          f"max_err/max={json.dumps(bwd_err)} max_abs_err={abs_bwd:.3e} "
-          f"kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} "
+    for i, r in enumerate(routes):
+        print(f"kernel fused_gn_bwd    shape={shape} {dtype:8s} film={film} p={p_drop} "
+              f"{'planned' if i == 0 else 'other  '} plan={json.dumps(r['plan'])} "
+              f"bit_reproducible=True max_err/max={json.dumps(r['err'])} "
+              f"max_abs_err={r['abs_err']:.3e} kernel_ms={r['ms']:.4f} "
+              f"no_silu_no_mask_ms={r['bare_ms']:.4f}")
+    print(f"kernel fused_gn_bwd    shape={shape} {dtype:8s} plain_ms={bwd_plain_ms:.4f} "
           f"bound_ms={bwd_bound['bound_ms']:.4f} ({bwd_bound['bound_by']}) "
           f"F.group_norm_fwd+bwd_ms={gn_fb_ms:.4f}")
-    bad = {k: e for k, e in {**fwd_err, **bwd_err}.items()
-           if not e <= (GN_TOL[dtype] if k in ("y", "dx") else GN_SUM_TOL)}
+    errs = {**fwd_err, **{f"{k} ({r['plan']['route']})": e for r in routes
+                          for k, e in r["err"].items()}}
+    bad = {k: e for k, e in errs.items()
+           if not e <= (GN_TOL[dtype] if k.split()[0] in ("y", "dx") else GN_SUM_TOL)}
     if not masks_equal:
         bad["masks"] = "differ"
     if p_drop > 0 and not abs(keep - (1 - p_drop)) <= 5 * (p_drop * (1 - p_drop) / n) ** 0.5:
@@ -428,8 +470,81 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
                              f"{dtype}: {bad}")
     return {"fused_gn": {"max_abs_err": abs_fwd, "ms": ms, "plain_ms": plain_ms, **fwd_bound,
                          "library_ms": None},
-            "fused_gn_bwd": {"max_abs_err": abs_bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-                             **bwd_bound, "library_ms": None}}
+            "fused_gn_bwd": {"max_abs_err": routes[0]["abs_err"], "ms": routes[0]["ms"],
+                             "plain_ms": bwd_plain_ms, **bwd_bound, "library_ms": None}}
+
+
+def _gn_bwd_route(bwd_args, want, plan: dict) -> dict:
+    """Kernel C′ on one plan of its shape: run twice for identical bits,
+    every output against the plain backward, its time, and its time with
+    the chain's SiLU and mask off (the route's memory traffic and
+    structure alone)."""
+    def run(args=bwd_args):
+        return fused_gn._launch_bwd(*args, plan=plan)
+
+    got, again = run(), run()
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"kernel C′ is not bit-reproducible on plan {plan}")
+    names = ("dx", "dgamma", "dbeta", "dscale", "dshift")
+    out = {"plan": dict(plan),
+           "err": {k: _max_err_ratio(u.float(), v.float()) for k, u, v in zip(names, got, want)},
+           "abs_err": max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want)),
+           "ms": _sync_ms(run, 20),
+           "bare_ms": _sync_ms(lambda: run((*bwd_args[:10], 0.0, False)), 20)}
+    if plan["route"] == "cluster":
+        x, groups = bwd_args[0], bwd_args[9]
+        clusters = ctypes.c_int(0)
+        _build.check(_build.library().fused_gn_bwd_cluster_occupancy(
+            x.shape[-1], plan["part_channels"], plan["cluster"], plan["iters"],
+            int(x.dtype == torch.bfloat16), ctypes.addressof(clusters)),
+            "fused_gn_bwd_cluster_occupancy")
+        out["plan"]["clusters_resident"] = clusters.value
+    return out
+
+
+def gn_bwd_routes(dev, chains) -> None:
+    """Kernel C′ at every chain shape of the flagship U-Net (bf16, bs=128,
+    FiLM, p=0.1) on both routes, two passes and the shape's cluster
+    layout: each run twice for identical bits and held to the plain
+    backward, with both times, and the sums over a training step's 57
+    chains. These are the timings ``fused_gn.bwd_plan``'s rule follows."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
+    per_step = {"planned": 0.0, "two_pass": 0.0, "cluster": 0.0}
+    for (h, w, c, groups), count in sorted(collections.Counter(chains).items()):
+        shape = (BATCH, h, w, c)
+        x, g = (randn(*shape) + 0.5).to(torch.bfloat16), randn(*shape).to(torch.bfloat16)
+        gamma, beta = 1 + randn(c, scale=0.1), randn(c, scale=0.1)
+        scale, shift = randn(BATCH, c, scale=0.2), randn(BATCH, c, scale=0.2)
+        _, mean, rstd = fused_gn.gn_film_silu_dropout_fwd(x, gamma, beta, scale, shift, seed,
+                                                          groups, 1e-5, 0.1, True)
+        bwd_args = (x, g, gamma, beta, scale, shift, seed, mean, rstd, groups, 0.1, True)
+        want = fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args)
+        plan = fused_gn.bwd_plan(h * w, c, groups, 2)
+        layout = fused_gn.cluster_plan(h * w, c, groups, 2)
+        runs = {"two_pass": _gn_bwd_route(bwd_args, want, fused_gn.TWO_PASS)}
+        if layout is not None:
+            runs["cluster"] = _gn_bwd_route(bwd_args, want, layout)
+        bad = {f"{k} ({route})": e for route, r in runs.items() for k, e in r["err"].items()
+               if not e <= (GN_TOL["bfloat16"] if k == "dx" else GN_SUM_TOL)}
+        if bad:
+            raise AssertionError(f"kernel C′ disagrees with its plain version at {shape}: {bad}")
+        ms = {route: r["ms"] for route, r in runs.items()}
+        per_step["planned"] += count * ms[plan["route"]]
+        per_step["two_pass"] += count * ms["two_pass"]
+        per_step["cluster"] += count * ms.get("cluster", ms["two_pass"])
+        print(f"C′ routes shape={shape} chains={count} planned={plan['route']} "
+              f"two_pass_ms={ms['two_pass']:.4f} cluster_ms={ms.get('cluster', float('nan')):.4f} "
+              f"layout={json.dumps(runs.get('cluster', {}).get('plan'))} bit_reproducible=True "
+              f"max_err/max(dx)={max(r['err']['dx'] for r in runs.values()):.3e}")
+        del x, g, want, runs
+    print(f"C′ over one training step's {len(chains)} chains (ms, sum of the shapes' times): "
+          f"{json.dumps(per_step)}")
+    torch.cuda.empty_cache()
 
 
 def _fill_zero_params(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -676,7 +791,8 @@ def _train_route(model: ProbabilisticUNet, batches, stats, cfg, dev, fused: bool
 
 
 _KERNEL_GROUPS = (("A fcomb_crps fwd", ("fcomb_crps_tile_kernel", "reduce_partials")),
-                  ("A' fcomb_crps bwd", ("fcomb_crps_bwd_tile_kernel", "column_sum_kernel")),
+                  ("A' fcomb_crps bwd", ("fcomb_crps_bwd_mma_kernel", "fcomb_crps_bwd_tile_kernel",
+                                         "column_sum_kernel")),
                   ("B afcrps fwd", ("afcrps_tile_kernel",)),
                   ("B' afcrps bwd", ("afcrps_bwd_kernel",)),
                   ("C fused_gn fwd", ("gn_fwd_",)),
@@ -893,6 +1009,8 @@ def main() -> None:
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    for name, res in _ptxas_report(info["log"], PTXAS_KERNELS).items():
+        print(f"ptxas {name}: {json.dumps(res)}")
 
     report = kernels_vs_plain(dev)
 
@@ -958,10 +1076,14 @@ def main() -> None:
         raise AssertionError(f"{serve_launches['fused_gn']} C launches for {unet_calls[0]} "
                              f"U-Net forwards of {chains} chains: a chain left kernel C")
     # the chains' bytes: C reads x and writes y, C′ reads x and g and writes dx
-    x_bytes = []
-    hooks = [mod.register_forward_pre_hook(
-        lambda _, a: x_bytes.append(a[0].numel() * a[0].element_size()))
-        for mod in model.unet.modules() if isinstance(mod, EDMGroupNorm)]
+    x_bytes, chain_shapes = [], []
+
+    def chain_hook(mod, a):
+        x_bytes.append(a[0].numel() * a[0].element_size())
+        chain_shapes.append((a[0].shape[2], a[0].shape[3], a[0].shape[1], mod.groups))
+
+    hooks = [mod.register_forward_pre_hook(chain_hook)
+             for mod in model.unet.modules() if isinstance(mod, EDMGroupNorm)]
     with torch.no_grad():
         model.unet(preprocess_batch(batches[0], stats, cfg.data.pipeline, cfg.data.lowres_scale,
                                     cfg.data.interp_mode, cfg.data.epsilon,
@@ -971,6 +1093,7 @@ def main() -> None:
     print(f"GroupNorm chains of one U-Net forward (bs={BATCH}): {len(x_bytes)} chains, x "
           f"{sum(x_bytes) / 1e9:.4f} GB; bounds: C {2 * sum(x_bytes) / H100_BYTES_PER_S * 1e3:.4f} "
           f"ms, C′ {3 * sum(x_bytes) / H100_BYTES_PER_S * 1e3:.4f} ms (bytes at 3.35 TB/s)")
+    gn_bwd_routes(dev, chain_shapes)
     model_composed = _variant(model, cfg, gn_impl="composed")
     for name, m in (("kernel", model), ("composed", model_composed)):
         serve_breakdown(m, batches[0], stats, cfg, dev, name)

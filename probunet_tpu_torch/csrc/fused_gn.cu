@@ -30,35 +30,45 @@
 // (128, 128, 128, 32) bf16 activation 268 MB, 0.080 ms at 3.35 TB/s); C′
 // reads x and g and writes dx; the arithmetic is ~10 (C) and ~30 (C′) f32
 // operations and one exp per element, far under the FP32 rate those bytes
-// allow. Design: the TPU kernel holds one batch element's whole (HW, C)
-// slab in VMEM (grid (B,)). That slab is 1 MB at 128x128x32 bf16 and 3 MB at
-// the decoder's C=96 concat, up to 13x the 227 KB of shared memory a block
-// has, and 128 blocks would be under one wave of 132 SMs. So the statistics
-// are split:
+// allow, though C′'s ~40 instructions an element (z, an IEEE exp and
+// division, the hash) take about as long to issue as a pass's bytes.
 //
-//   C:  (1) a stats pass over (pixel tile, channel chunk, batch) blocks
-//           writes per-channel f32 partials of s1 and s2; (2) a finalize
-//           block per batch element adds them in a fixed order (tiles, then
-//           the group's channels) into mean/rstd and the per-channel a, b;
-//       (3) an apply pass writes y.
-//   C′: (1) a coefficient pass recomputes a, b from the saved mean/rstd;
-//       (2) a reduce pass recomputes z, silu' and the mask and writes
-//           per-channel partials of Sdz and Sdzx; (3) a finalize block per
-//           batch element gives dshift, dscale, the per-batch dgamma/dbeta
-//           terms and c1, c2, c3; (4) dgamma and dbeta are summed over the
-//           batch in order; (5) a dx pass recomputes dz and writes dx.
+// The TPU kernel holds one batch element's whole (HW, C) slab in VMEM (grid
+// (B,)). That slab is 1 MB at 128x128x32 bf16 and 3 MB at the decoder's
+// C=96 concat, up to 13x the 227 KB of shared memory a block has.
+//
+// C splits the statistics: (1) a stats pass over (pixel tile, channel
+// chunk, batch) blocks writes per-channel f32 partials of s1 and s2; (2) a
+// finalize block per batch element adds them in a fixed order (tiles, then
+// the group's channels) into mean/rstd and the per-channel a, b; (3) an
+// apply pass writes y. It reads x three times (the TPU kernel twice).
+//
+// C′ keeps the slab on chip instead where that pays, on a thread-block
+// cluster: the plan made per shape in the wrapper
+// (ops/kernels/fused_gn.py:bwd_plan) gives each (batch element, channel
+// part of whole groups) of a bf16 chain one cluster of up to 8 blocks,
+// whose shared memory holds the part's x and dz while the blocks exchange
+// their sums through distributed shared memory. x and g are read once, dx
+// written once, and dz computed once (see gn_bwd_cluster_kernel). The
+// other shapes (f32 x, C not a multiple of 8, more rows than 8 blocks'
+// shared memory takes, or parts narrower than 64 bytes, as at 128x128)
+// run the two-pass route: (1) a coefficient pass recomputes a, b from the
+// saved mean/rstd; (2) a reduce pass recomputes z, silu' and the mask and
+// writes per-channel partials of Sdz and Sdzx;
+// (3) a finalize block per batch element gives dshift, dscale, the
+// per-batch dgamma/dbeta terms and c1, c2, c3; (4) dgamma and dbeta are
+// summed over the batch in order; (5) a dx pass recomputes dz and writes
+// dx.
 //
 // Every thread owns VEC = 8 consecutive channels of a pixel (one 16-byte
-// load in bf16, two in f32; VEC = 1 when C % 8 != 0), so the loads are
-// coalesced along channels. In the reduce passes a block's threads keep
-// fixed columns (cw vector columns, rpi rows at a time) and sum their rows
-// in registers, then over rows in shared memory in a fixed order. No float
-// atomics anywhere: results are bit-reproducible from run to run. The
-// passes read x three times in the forward (the TPU kernel twice, as one
-// VMEM-resident slab) and x and g twice each in the backward; keeping a
-// batch element's slab in the 50 MB L2 between passes, or one cluster's
-// DSMEM reduction, is later work.
+// load in bf16, two in f32; VEC = 1 when C % 8 != 0, two-pass only), so the
+// loads are coalesced along channels. In the reduce passes a block's
+// threads keep fixed columns (cw vector columns, rpi rows at a time) and sum
+// their rows in registers, then over rows in shared memory in a fixed order.
+// No float atomics anywhere (an integer arrival count at most): results are
+// bit-reproducible from run to run.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +77,8 @@
 
 namespace probunet {
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 8;  // pixel rows a reduce-pass thread sums
@@ -567,6 +579,451 @@ cudaError_t launch_bwd(const Args& a, void* dx, float* dgamma, float* dbeta, flo
   return cudaGetLastError();
 }
 
+// -- C′ on one cluster per (batch element, channel part) ---------------------
+//
+// The route the wrapper's plan (ops/kernels/fused_gn.py:bwd_plan) picks
+// for bf16 x whenever the slab fits in rows of 64 bytes: one launch (after a 4-byte memset) that reads x
+// and g once and writes dx once, the bytes the bound counts. A cluster of
+// `cs` blocks owns the (HW, cp) slab of one batch element's channel part
+// [c0, c0 + cp), cp a multiple of the group width, so the part's groups are
+// whole; block `rank` owns pixel rows [rank * rows, (rank + 1) * rows).
+//
+//   phase 1: every 16-byte vector (8 channels) of x and g the block owns
+//            is copied into shared memory by cp.async at once; a, b from
+//            the saved mean/rstd (the coefficient pass, folded in) meanwhile;
+//            then dz = g * silu'(z) * mask once, kept (f32) where g was, x
+//            kept in its own type, and dz and dz*x summed over the thread's
+//            rows, then over the block's rows in order;
+//   cluster: every block reads the cs blocks' per-channel sums through
+//            distributed shared memory in rank order, so all hold the same
+//            totals, and computes dshift, dscale, the dgamma/dbeta terms and
+//            c1, c2, c3 for the part (the finalize, folded in); rank 0
+//            writes the per-(b, channel) outputs;
+//   phase 2: dx = dz*c1 + x*c2 + c3 from shared memory;
+//   last:    the last cluster to finish (an integer arrival count) sums the
+//            dgamma/dbeta terms over the batch in order (the batch sum,
+//            folded in).
+//
+// A thread keeps its channels (cols = cp/8 vector columns, rpi = 256/cols
+// rows at a time), so x and dz go back to the same thread: slot (it, t) of
+// shared memory holds iteration it's 8 elements, conflict free. No float
+// atomics; every sum in a fixed order, so the outputs are bit-reproducible.
+//
+// chip_smoke.py times both routes at each of its GroupNorm cases and at
+// every chain shape of the flagship U-Net (PERF.md §6): the cluster
+// route's life (load everything, reduce, sync, then write) leaves the
+// memory idle between its bursts, so it gains over the two passes only
+// where their extra reads cost more than that.
+constexpr int kClusterThreads = 256;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kRedStride = kClusterThreads + 1;  // row sums: 8 rows of this stride
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16-byte asynchronous copies from device to shared memory
+__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gptr) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gptr) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// 8 elements of x's type as raw bits (one uint4 in bf16, two in f32)
+template <typename T>
+struct Raw8 {
+  uint4 v[sizeof(T) * 8 / 16];
+};
+
+__device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r, float (&v)[8]) {
+  loadv(reinterpret_cast<const __nv_bfloat16*>(r.v), v);
+}
+
+__device__ __forceinline__ void unpack(const Raw8<float>& r, float (&v)[8]) {
+  loadv(reinterpret_cast<const float*>(r.v), v);
+}
+
+// Shared memory of the cluster route, in bytes: x and dz slots, the row
+// sums (8 * kRedStride floats) and their segments (kClusterThreads + cp),
+// the part's sums (2 cp), the finalize (5 cp), the group means (2 cp) and
+// the per-channel parameters (6 cp).
+__host__ __device__ inline size_t cluster_smem_bytes(int cp, int iters, int xsize) {
+  return static_cast<size_t>(iters) * kClusterThreads * 8 * (xsize + 4) +
+         sizeof(float) * (8 * static_cast<size_t>(kRedStride) + kClusterThreads +
+                          16 * static_cast<size_t>(cp));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ mean, const float* __restrict__ rstd,
+                      const float* __restrict__ gamma, const float* __restrict__ beta,
+                      const float* __restrict__ scale, const float* __restrict__ shift,
+                      const int* __restrict__ seed, T* __restrict__ dx,
+                      float* __restrict__ dgamma, float* __restrict__ dbeta,
+                      float* __restrict__ dscale, float* __restrict__ dshift,
+                      float* __restrict__ terms,  // (2, B, C): dgamma, dbeta terms
+                      unsigned int* __restrict__ arrived, int batch, int hw, int c, int groups,
+                      int cp, int cs, int iters, int silu, int drop, float p, float drop_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nslots = iters * kClusterThreads;
+  Raw8<T>* s_x = reinterpret_cast<Raw8<T>*>(smem);
+  float4* s_dz = reinterpret_cast<float4*>(smem + static_cast<size_t>(nslots) * sizeof(Raw8<T>));
+  float* red = reinterpret_cast<float*>(s_dz + 2 * static_cast<size_t>(nslots));
+  float* seg = red + 8 * kRedStride;        // (nseg, cp) segment sums, nseg * cp <= 256 + cp
+  float* part = seg + kClusterThreads + cp; // (2, cp): this block's sums
+  float* fin = part + 2 * cp;               // (5, cp)
+  float* gmean = fin + 5 * cp;              // (2, cp / cpg)
+  float* prm = gmean + 2 * cp;              // (6, cp): the part's mean, rstd, gamma, beta,
+                                            // scale, shift per channel
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int c0 = (blockIdx.x / cs) * cp;
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int cols = cp / 8;
+  const int rpi = kClusterThreads / cols;
+  const int col = t % cols;
+  const int row = t / cols;
+  const bool active = row < rpi;
+  const int cpg = c / groups;
+  const int rows = (hw + cs - 1) / cs;
+  const int r0 = static_cast<int>(rank) * rows;
+  const int r1 = min(hw, r0 + rows);
+  const int ch0 = c0 + col * 8;  // this thread's first channel
+  const uint32_t key = hash_key(seed);
+
+  // phase 1
+  float sdz[8], sdzx[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sdz[i] = sdzx[i] = 0.f;
+  const size_t base = static_cast<size_t>(b) * hw * c + ch0;
+  // Every load of the block is in flight at once: cp.async copies x into
+  // its slot and g into the dz slot of the same iteration (dz overwrites
+  // it), in two commit groups, so the first half computes while the second
+  // half lands. A thread reads back only the slots it filled.
+  constexpr int kVecs = sizeof(T) / 2;  // 16-byte pieces of 8 elements
+  const int half = (iters + 1) / 2;
+  for (int it = 0; it < iters; ++it) {
+    if (it == half) cp_async_commit();
+    const int px = r0 + it * rpi + row;
+    if (active && px < r1) {
+      const char* xp = reinterpret_cast<const char*>(x + base + static_cast<size_t>(px) * c);
+      const char* gp = reinterpret_cast<const char*>(g + base + static_cast<size_t>(px) * c);
+      char* xs = reinterpret_cast<char*>(&s_x[it * kClusterThreads + t]);
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) {
+        cp_async16(xs + 16 * v, xp + 16 * v);
+        // bf16: the second dz plane; f32: both planes
+        cp_async16(&s_dz[(2 * static_cast<size_t>(it) + 2 - kVecs + v) * kClusterThreads + t],
+                   gp + 16 * v);
+      }
+    }
+  }
+  cp_async_commit();
+  // the part's per-channel parameters, while the slab lands; then a, b of
+  // this thread's channels (the coefficient pass)
+  for (int j = t; j < cp; j += kClusterThreads) {
+    const int ch = c0 + j;
+    const int gi = b * groups + ch / cpg;
+    prm[j] = mean[gi];
+    prm[cp + j] = rstd[gi];
+    prm[2 * cp + j] = gamma[ch];
+    prm[3 * cp + j] = beta[ch];
+    prm[4 * cp + j] = scale[b * c + ch];
+    prm[5 * cp + j] = shift[b * c + ch];
+  }
+  __syncthreads();
+  float a[8], bb[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int j = col * 8 + i;
+    a[i] = bb[i] = 0.f;
+    if (active) {
+      chain_coef(prm[j], prm[cp + j], prm[2 * cp + j], prm[3 * cp + j], prm[4 * cp + j],
+                 prm[5 * cp + j], &a[i], &bb[i]);
+    }
+  }
+  for (int it = 0; it < iters; ++it) {
+    if (it == 0) {
+      if (half < iters) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else if (it == half) {
+      cp_async_wait<0>();
+    }
+    const int px = r0 + it * rpi + row;
+    if (active && px < r1) {
+      float4* d0 = &s_dz[2 * static_cast<size_t>(it) * kClusterThreads + t];
+      float4* d1 = d0 + kClusterThreads;
+      Raw8<T> gr;
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) {
+        gr.v[v] = reinterpret_cast<const uint4*>(d1 - (kVecs - 1 - v) * kClusterThreads)[0];
+      }
+      float xv[8], gv[8], dz[8];
+      unpack(s_x[it * kClusterThreads + t], xv);
+      unpack(gr, gv);
+      const uint32_t e0 = static_cast<uint32_t>(px) * static_cast<uint32_t>(c) + ch0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        dz[i] = chain_dz(xv[i], gv[i], a[i], bb[i], silu, drop, e0 + i, key,
+                         static_cast<uint32_t>(b), p, drop_scale);
+        sdz[i] += dz[i];
+        sdzx[i] += __fmul_rn(dz[i], xv[i]);
+      }
+      *d0 = make_float4(dz[0], dz[1], dz[2], dz[3]);
+      *d1 = make_float4(dz[4], dz[5], dz[6], dz[7]);
+    }
+  }
+  // the block's per-channel sums over its rows (Sdz, then Sdzx): each
+  // channel's rpi row values in nseg segments of rps rows, then the
+  // segments, all in row order
+  const int nseg = cp >= kClusterThreads ? 1 : kClusterThreads / cp;
+  const int rps = (rpi + nseg - 1) / nseg;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[i * kRedStride + t] = which == 0 ? sdz[i] : sdzx[i];
+    __syncthreads();
+    for (int u = t; u < nseg * cp; u += kClusterThreads) {
+      const int j = u % cp;
+      const int sg = u / cp;
+      const float* rj = red + (j % 8) * kRedStride + j / 8;
+      float s = 0.f;
+      for (int r = sg * rps; r < min(rpi, (sg + 1) * rps); ++r) s += rj[r * cols];
+      seg[u] = s;
+    }
+    __syncthreads();
+    for (int j = t; j < cp; j += kClusterThreads) {
+      float s = 0.f;
+      for (int sg = 0; sg < nseg; ++sg) s += seg[sg * cp + j];
+      part[which * cp + j] = s;
+    }
+    __syncthreads();
+  }
+  cluster.sync();
+
+  // the part's totals, from every block of the cluster in rank order, and
+  // the finalize (gn_bwd_finalize_kernel's arithmetic)
+  const float n = static_cast<float>(static_cast<double>(hw) * cpg);
+  const size_t bc = static_cast<size_t>(batch) * c;
+  for (int j = t; j < cp; j += kClusterThreads) {
+    float rdz[kMaxCluster], rdzx[kMaxCluster];  // all loads in flight, then summed in order
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < cs) {
+        const float* rp = cluster.map_shared_rank(part, r);
+        rdz[r] = rp[j];
+        rdzx[r] = rp[cp + j];
+      }
+    }
+    float s_dz = 0.f, s_dzx = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < cs) {
+        s_dz += rdz[r];
+        s_dzx += rdzx[r];
+      }
+    }
+    const int i = b * c + c0 + j;
+    const float mc = prm[j], rc = prm[cp + j], gam = prm[2 * cp + j];
+    const float pp = __fmul_rn(rc, gam);
+    const float qq = __fsub_rn(prm[3 * cp + j], __fmul_rn(mc, pp));
+    const float sc1 = __fadd_rn(prm[4 * cp + j], 1.f);
+    const float du_s = __fmul_rn(s_dz, sc1);
+    const float dux_hat = __fmul_rn(__fmul_rn(__fsub_rn(s_dzx, __fmul_rn(mc, s_dz)), rc), sc1);
+    if (rank == 0) {
+      dshift[i] = s_dz;
+      dscale[i] = __fadd_rn(__fmul_rn(s_dzx, pp), __fmul_rn(s_dz, qq));
+      terms[i] = dux_hat;
+      terms[bc + i] = du_s;
+    }
+    fin[j] = __fmul_rn(du_s, gam);
+    fin[cp + j] = __fmul_rn(dux_hat, gam);
+  }
+  cluster_arrive();  // done with the other blocks' shared memory
+  __syncthreads();
+  const int ng = cp / cpg;
+  for (int gg = t; gg < ng; gg += kClusterThreads) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = 0; i < cpg; ++i) {
+      s1 += fin[gg * cpg + i];
+      s2 += fin[cp + gg * cpg + i];
+    }
+    gmean[gg] = __fdiv_rn(s1, n);
+    gmean[ng + gg] = __fdiv_rn(s2, n);
+  }
+  __syncthreads();
+  for (int j = t; j < cp; j += kClusterThreads) {
+    const int gg = j / cpg;
+    const float mc = prm[j], rc = prm[cp + j];
+    const float sc1 = __fadd_rn(prm[4 * cp + j], 1.f);
+    const float m1 = gmean[gg], m2 = gmean[ng + gg];
+    fin[2 * cp + j] = __fmul_rn(__fmul_rn(rc, prm[2 * cp + j]), sc1);
+    fin[3 * cp + j] = __fmul_rn(-__fmul_rn(rc, rc), m2);
+    fin[4 * cp + j] = __fmul_rn(rc, __fsub_rn(__fmul_rn(__fmul_rn(mc, rc), m2), m1));
+  }
+  __syncthreads();
+
+  // phase 2
+  if (active) {
+    float c1[8], c2[8], c3[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      c1[i] = fin[2 * cp + col * 8 + i];
+      c2[i] = fin[3 * cp + col * 8 + i];
+      c3[i] = fin[4 * cp + col * 8 + i];
+    }
+    for (int it = 0; it < iters; ++it) {
+      const int px = r0 + it * rpi + row;
+      if (px >= r1) break;
+      float xv[8];
+      unpack(s_x[it * kClusterThreads + t], xv);
+      const float4 d0 = s_dz[2 * static_cast<size_t>(it) * kClusterThreads + t];
+      const float4 d1 = s_dz[(2 * static_cast<size_t>(it) + 1) * kClusterThreads + t];
+      const float dz[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        xv[i] = __fadd_rn(__fadd_rn(__fmul_rn(dz[i], c1[i]), __fmul_rn(xv[i], c2[i])), c3[i]);
+      }
+      storev(dx + base + static_cast<size_t>(px) * c, xv);
+    }
+  }
+
+  // the batch sum of dgamma/dbeta, by the last cluster to write its terms
+  if (rank == 0) {
+    __shared__ bool last;
+    __threadfence();  // this block's terms, before its arrival is counted
+    __syncthreads();
+    if (t == 0) {
+      const unsigned total = gridDim.y * (gridDim.x / cs);
+      last = atomicAdd(arrived, 1u) == total - 1;
+    }
+    __syncthreads();
+    if (last) {
+      // each channel's B terms in bseg segments of consecutive batch
+      // elements, then the segments, in order
+      __threadfence();
+      const int bseg = c >= kClusterThreads ? 1 : min(batch, kClusterThreads / c);
+      const int bps = (batch + bseg - 1) / bseg;
+      for (int u = t; u < bseg * c; u += kClusterThreads) {
+        const int ch = u % c;
+        const int sg = u / c;
+        float dg = 0.f, db = 0.f;
+        const int b1 = min(batch, (sg + 1) * bps);
+#pragma unroll 8
+        for (int bi = sg * bps; bi < b1; ++bi) {
+          dg += __ldcg(terms + static_cast<size_t>(bi) * c + ch);
+          db += __ldcg(terms + bc + static_cast<size_t>(bi) * c + ch);
+        }
+        if (bseg == 1) {
+          dgamma[ch] = dg;
+          dbeta[ch] = db;
+        } else {
+          red[u] = dg;
+          red[kClusterThreads + u] = db;
+        }
+      }
+      if (bseg > 1) {
+        __syncthreads();
+        for (int ch = t; ch < c; ch += kClusterThreads) {
+          float dg = 0.f, db = 0.f;
+          for (int sg = 0; sg < bseg; ++sg) {
+            dg += red[sg * c + ch];
+            db += red[kClusterThreads + sg * c + ch];
+          }
+          dgamma[ch] = dg;
+          dbeta[ch] = db;
+        }
+      }
+    }
+  }
+  cluster_wait();  // no block leaves while another may still read its sums
+}
+
+template <typename T>
+cudaError_t launch_bwd_cluster(const Args& a, void* dx, float* dgamma, float* dbeta,
+                               float* dscale, float* dshift, int cp, int cs, int iters,
+                               cudaStream_t s) {
+  const size_t smem = cluster_smem_bytes(cp, iters, sizeof(T));
+  auto kernel = gn_bwd_cluster_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  float* terms = a.work;
+  unsigned int* arrived =
+      reinterpret_cast<unsigned int*>(a.work + 2 * static_cast<size_t>(a.batch) * a.c);
+  err = cudaMemsetAsync(arrived, 0, sizeof(unsigned int), s);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.c / cp * cs), static_cast<unsigned>(a.batch));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.x), static_cast<const T*>(a.g),
+                           static_cast<const float*>(a.mean), static_cast<const float*>(a.rstd),
+                           a.gamma, a.beta, a.scale, a.shift, a.seed, static_cast<T*>(dx), dgamma,
+                           dbeta, dscale, dshift, terms, arrived, a.batch, a.hw, a.c, a.groups,
+                           cp, cs, iters, a.silu, a.drop, a.p, a.drop_scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The most clusters of the route's shape the card holds at once (0: none).
+template <typename T>
+cudaError_t cluster_occupancy(int c, int cp, int cs, int iters, int* count) {
+  const size_t smem = cluster_smem_bytes(cp, iters, sizeof(T));
+  auto kernel = gn_bwd_cluster_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(c / cp * cs), 1);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+}
+
+// The plan's constraints (the wrapper's bwd_plan meets them; a launch that
+// does not is refused).
+bool cluster_plan_valid(int hw, int c, int groups, int cp, int cs, int iters, int xsize) {
+  if (c % 8 != 0 || cp < 8 || cp % 8 != 0 || c % cp != 0 || cp % (c / groups) != 0) return false;
+  if (cp / 8 > kClusterThreads || cs < 1 || cs > kMaxCluster || iters < 1) return false;
+  const long long rows = (hw + cs - 1) / cs;
+  if (static_cast<long long>(iters) * (kClusterThreads / (cp / 8)) < rows) return false;
+  return cluster_smem_bytes(cp, iters, xsize) <= 232448;  // 227 KB, a block's most
+}
+
 bool valid(int batch, int hw, int c, int groups) {
   // the finalize kernels' shared memory (2C + 2G floats) must fit in 48 KB
   return batch >= 1 && batch <= 65535 && hw >= 1 && c >= 1 && groups >= 1 && c % groups == 0 &&
@@ -611,13 +1068,22 @@ int fused_gn_fwd(const void* x, const void* gamma, const void* beta, const void*
 
 // x, g, dx: (B, HW, C) as x of fused_gn_fwd; gamma, beta, scale, shift,
 // seed as there; mean, rstd (B, G) from the forward; dgamma, dbeta (C,) and
-// dscale, dshift (B, C) f32 out; work as for the forward.
+// dscale, dshift (B, C) f32 out. The plan (ops/kernels/fused_gn.py:
+// bwd_plan): route 1 is one cluster of `cluster` blocks per (batch element,
+// channel part of part_channels channels), `iters` row iterations a
+// thread, work (2*B*C + 1) floats; route 0 the two-pass launches, work as
+// for the forward (part_channels, cluster, iters unused).
 int fused_gn_bwd(const void* x, const void* g, const void* gamma, const void* beta,
                  const void* scale, const void* shift, const void* seed, const void* mean,
                  const void* rstd, void* dx, void* dgamma, void* dbeta, void* dscale,
                  void* dshift, void* work, int batch, int hw, int c, int groups, float p,
-                 float drop_scale, int silu, int is_bf16, void* stream) {
+                 float drop_scale, int silu, int is_bf16, int route, int part_channels,
+                 int cluster, int iters, void* stream) {
   if (!probunet::valid(batch, hw, c, groups)) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1 && !probunet::cluster_plan_valid(hw, c, groups, part_channels, cluster, iters,
+                                                  is_bf16 ? 2 : 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const probunet::Args a{x, g, static_cast<const float*>(gamma),
                          static_cast<const float*>(beta), static_cast<const float*>(scale),
                          static_cast<const float*>(shift), static_cast<const int*>(seed),
@@ -630,8 +1096,15 @@ int fused_gn_bwd(const void* x, const void* g, const void* gamma, const void* be
   float* db = static_cast<float*>(dbeta);
   float* dsc = static_cast<float*>(dscale);
   float* dsh = static_cast<float*>(dshift);
-  const bool v8 = probunet::vec_width(c) == 8;
   cudaError_t err;
+  if (route == 1) {
+    err = is_bf16 ? probunet::launch_bwd_cluster<__nv_bfloat16>(a, dx, dg, db, dsc, dsh,
+                                                                part_channels, cluster, iters, s)
+                  : probunet::launch_bwd_cluster<float>(a, dx, dg, db, dsc, dsh, part_channels,
+                                                        cluster, iters, s);
+    return static_cast<int>(err);
+  }
+  const bool v8 = probunet::vec_width(c) == 8;
   if (is_bf16) {
     err = v8 ? probunet::launch_bwd<__nv_bfloat16, 8>(a, dx, dg, db, dsc, dsh, s)
              : probunet::launch_bwd<__nv_bfloat16, 1>(a, dx, dg, db, dsc, dsh, s);
@@ -639,6 +1112,17 @@ int fused_gn_bwd(const void* x, const void* g, const void* gamma, const void* be
     err = v8 ? probunet::launch_bwd<float, 8>(a, dx, dg, db, dsc, dsh, s)
              : probunet::launch_bwd<float, 1>(a, dx, dg, db, dsc, dsh, s);
   }
+  return static_cast<int>(err);
+}
+
+// The most clusters of a cluster-route plan the current device holds at
+// once, written to *count (an int). Returns a cudaError_t.
+int fused_gn_bwd_cluster_occupancy(int c, int part_channels, int cluster, int iters,
+                                   int is_bf16, void* count) {
+  int* out = static_cast<int*>(count);
+  const cudaError_t err =
+      is_bf16 ? probunet::cluster_occupancy<__nv_bfloat16>(c, part_channels, cluster, iters, out)
+              : probunet::cluster_occupancy<float>(c, part_channels, cluster, iters, out);
   return static_cast<int>(err);
 }
 

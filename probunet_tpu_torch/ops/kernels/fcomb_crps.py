@@ -25,12 +25,17 @@ and returns dfeat, dz, dW1, db1, dW2, db2 and (when asked for) dy:
     dW2 = sum h1 dx^T;  db2 = sum dx;  dy = -g1 sum_m sign(x_m - y)
 
 with ``_dot``/``_dot_t``'s rounding points: every product's operands
-rounded to the compute dtype, sums in f32. Its plain version is this
+rounded to the compute dtype, sums in f32. On the card A′ is one of two
+kernels, picked from the compute dtype (``BWD_KERNELS``): bf16 operands
+run the three C x C products on the tensor cores, f32 operands stay on
+the FP32 pipes. Its plain version is this
 formula in torch with the same rounding points, not autograd through the
 plain forward, whose bf16 rounding points differ.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -44,6 +49,11 @@ REPLACES = "probunet_tpu/ops/pallas/fcomb_crps.py:264"
 REPLACES_BWD = "probunet_tpu/ops/pallas/fcomb_crps.py:317"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# kernel A′ per compute dtype, and its id in csrc/fcomb_crps.cu: bf16
+# operands run the three C x C products on the tensor cores; f32 operands
+# stay on the FP32 pipes (TF32 would move their rounding points)
+BWD_KERNELS = {"bfloat16": "tensor_core", "float32": "fp32"}
+_BWD_KERNEL_IDS = {"fp32": 0, "tensor_core": 1}
 
 
 def fcomb_crps_terms_plain(feat_t, z_t, w1, b1, w2, b2, target_t,
@@ -121,7 +131,7 @@ def fcomb_crps_terms_bwd(feat_t, z_t, w1, b1, w2, b2, target_t, g1, g2,
     args = (feat_t, z_t, w1, b1, w2, b2, target_t, g1, g2)
     if all(a.device.type == "cpu" for a in args):
         return fcomb_crps_terms_bwd_plain(*args, compute_dtype, need_dy)
-    return _launch_bwd(args, compute_dtype == "bfloat16", need_dy)
+    return _launch_bwd(args, BWD_KERNELS[compute_dtype], need_dy)
 
 
 fcomb_crps_terms_bwd.launches = 0
@@ -218,24 +228,28 @@ def _launch(args, bf16_operands: bool):
     return t1, t2
 
 
-def _launch_bwd(args, bf16_operands: bool, need_dy: bool):
+def _launch_bwd(args, kernel: str, need_dy: bool):
+    """Kernel A′ (``kernel``: a value of BWD_KERNELS) and its partial sums."""
     b, c, p, m, k = _check(args, "fcomb_crps_terms_bwd")
     dev = args[0].device
     lib = _build.library()
-    ntiles = -(-p // lib.fcomb_crps_tile_pixels())
+    which = _BWD_KERNEL_IDS[kernel]
     nw = c * c + c + c * k + k
     f32 = dict(dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        rows = ctypes.c_int(0)
+        _build.check(lib.fcomb_crps_bwd_partials(which, b, m, k, p, ctypes.addressof(rows)),
+                     "fcomb_crps_bwd_partials")
         dfeat = torch.empty((b, c, p), **f32)
         dy = torch.empty((b, k, p), **f32) if need_dy else None
         dz = torch.empty((b, c, m), **f32)
         dw = torch.empty(nw, **f32)
-        dz_part = torch.empty((ntiles, b, c, m), **f32)
-        w_part = torch.empty((b * ntiles, nw), **f32)
+        dz_part = torch.empty((rows.value, b, c, m), **f32)
+        w_part = torch.empty((b * rows.value, nw), **f32)
         err = lib.fcomb_crps_terms_bwd(
             *(a.data_ptr() for a in args), dfeat.data_ptr(),
             dy.data_ptr() if need_dy else None, dz_part.data_ptr(), w_part.data_ptr(),
-            dz.data_ptr(), dw.data_ptr(), b, m, k, p, int(bf16_operands),
+            dz.data_ptr(), dw.data_ptr(), b, m, k, p, which,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fcomb_crps_terms_bwd")
     fcomb_crps_terms_bwd.launches += 1

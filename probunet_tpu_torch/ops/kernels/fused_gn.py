@@ -22,10 +22,17 @@ hashes the lane-packed block index r*(k*C) + col, which is the NHWC index
 (:func:`gn_keep`, through ``dropout.hash_uniform``). The backward
 regenerates the mask; the autograd residuals are x, mean, rstd and the
 seed words, as the JAX ``_vjp_fwd`` saves them.
+
+Kernel C′ follows a plan made here per shape, before the launch
+(:func:`bwd_plan`): for bf16 x, one thread-block cluster per batch element
+and channel part, which keeps the part's x and dz in shared memory so x
+and g are read once; for f32 x and the shapes no cluster holds in rows
+of 64 bytes or more, two passes.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -39,6 +46,16 @@ REPLACES = "probunet_tpu/ops/pallas/fused_gn.py:247"
 REPLACES_BWD = "probunet_tpu/ops/pallas/fused_gn.py:282"
 
 _LANE = 128
+
+# Kernel C′'s cluster route (csrc/fused_gn.cu:gn_bwd_cluster_kernel) on the
+# H100: a block's threads, the most blocks of a cluster (the portable 8),
+# the most shared memory a block takes (227 KB) less room for its static
+# part, and the budget that leaves two blocks on each SM's 228 KB.
+CLUSTER_THREADS = 256
+MAX_CLUSTER = 8
+SMEM_PER_BLOCK = 227 * 1024 - 1024
+SMEM_TWO_PER_SM = 112 * 1024
+TWO_PASS = {"route": "two_pass"}
 
 
 def _pack_factor(hw: int, c: int) -> int | None:
@@ -54,6 +71,69 @@ def supported(h: int, w: int, c: int, groups: int) -> bool:
     """Whether the JAX kernel, and so this one, takes the shape: the chain's
     route is chosen from this, before any launch."""
     return c % groups == 0 and _pack_factor(h * w, c) is not None
+
+
+def cluster_smem_bytes(part_channels: int, iters: int, itemsize: int) -> int:
+    """Shared memory of one cluster-route block: x (its own type) and dz
+    (f32) for ``iters`` rows of 8 channels per thread, the row sums, the
+    part's sums, its finalize and parameters (``cluster_smem_bytes`` in
+    the source)."""
+    return (iters * CLUSTER_THREADS * 8 * (itemsize + 4)
+            + 4 * (8 * (CLUSTER_THREADS + 1) + CLUSTER_THREADS + 16 * part_channels))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(hw: int, c: int, groups: int, itemsize: int) -> dict | None:
+    """The cluster route's layout for a (B, HW, C) chain with G groups, or
+    None where no cluster holds the slab (C not a multiple of 8, or more
+    rows than 8 blocks' shared memory takes).
+
+    One thread-block cluster of ``cluster`` blocks per batch element and
+    channel part of ``part_channels`` channels (whole groups) holds the
+    part's x and dz on chip, so x and g are read once; each block takes
+    ``rows`` pixel rows in ``iters`` iterations and ``smem`` bytes.
+    Preferred, in order: blocks that fit two to an SM; pixel rows of 64
+    bytes or more, else of a 32-byte sector; the smallest cluster; the
+    widest part. The returned dict is shared: copy it to change it.
+    """
+    cpg = c // groups
+    best = None
+    if c % 8 == 0:
+        for cp in range(8, c + 1, 8):
+            if c % cp or cp % cpg or cp // 8 > CLUSTER_THREADS:
+                continue
+            for cs in (1, 2, 4, MAX_CLUSTER):
+                rows = -(-hw // cs)
+                iters = -(-rows // (CLUSTER_THREADS // (cp // 8)))
+                smem = cluster_smem_bytes(cp, iters, itemsize)
+                row_bytes = cp * itemsize
+                width = 0 if row_bytes >= 64 else 1 if row_bytes >= 32 else 2
+                key = (smem > SMEM_TWO_PER_SM, width, cs, -cp)
+                if smem <= SMEM_PER_BLOCK and (best is None or key < best[0]):
+                    best = (key, {"route": "cluster", "part_channels": cp, "cluster": cs,
+                                  "rows": rows, "iters": iters, "smem": smem})
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(hw: int, c: int, groups: int, itemsize: int) -> dict:
+    """How kernel C′ covers a (B, HW, C) chain with G groups, chosen before
+    the launch: the cluster route (:func:`cluster_plan`) for bf16 x where a
+    cluster holds the slab in pixel rows of 64 bytes or more, else
+    ``"two_pass"`` (statistics and dx in separate passes over x and g).
+
+    The choice follows chip_smoke.py's timings of both routes at every
+    chain shape of the flagship U-Net on an H100 (PERF.md §6): bf16
+    clusters with rows of 64 bytes or more ran faster than two passes or
+    as fast; narrower rows (48 bytes at 64x64x192, 16 at the 128x128
+    chains, whose slab 8 blocks hold only in 8-channel parts) and f32 x,
+    whose slab takes twice the shared memory, ran slower. The returned
+    dict is shared: copy it to change it.
+    """
+    plan = cluster_plan(hw, c, groups, itemsize) if itemsize == 2 else None
+    if plan is None or plan["part_channels"] * itemsize < 64:
+        return TWO_PASS
+    return plan
 
 
 def gn_keep(shape, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
@@ -237,6 +317,7 @@ def _check(x, params, groups: int, what: str) -> None:
 
 
 def _work(x: torch.Tensor, lib) -> torch.Tensor:
+    """Scratch of C and of C′'s two-pass route."""
     b, h, w, c = x.shape
     ntiles = lib.fused_gn_tiles(h * w, c)
     return torch.empty(7 * b * c + 2 * b * ntiles * c, dtype=torch.float32, device=x.device)
@@ -264,10 +345,15 @@ def _launch(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu):
     return y, mean, rstd
 
 
-def _launch_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_drop, silu):
+def _launch_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_drop, silu,
+                plan=None):
+    """Kernel C′ on ``plan`` (a :func:`bwd_plan` or :func:`cluster_plan`
+    dict; by default the shape's :func:`bwd_plan`)."""
     _check(x, dict(g=g, gamma=gamma, beta=beta, scale=scale, shift=shift, seed2=seed2,
                    mean=mean, rstd=rstd), groups, "gn_film_silu_dropout backward")
     b, h, w, c = x.shape
+    plan = plan or bwd_plan(h * w, c, groups, x.element_size())
+    cluster = plan["route"] == "cluster"
     lib = _build.library()
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
@@ -275,14 +361,18 @@ def _launch_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_dr
         dbeta = torch.empty_like(dgamma)
         dscale = torch.empty((b, c), dtype=torch.float32, device=x.device)
         dshift = torch.empty_like(dscale)
-        work = _work(x, lib)
+        # the cluster route: the (2, B, C) dgamma/dbeta terms and an arrival count
+        work = (torch.empty(2 * b * c + 1, dtype=torch.float32, device=x.device) if cluster
+                else _work(x, lib))
         err = lib.fused_gn_bwd(
             x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), seed2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dscale.data_ptr(),
             dshift.data_ptr(), work.data_ptr(), b, h * w, c, groups,
             float(np.float32(p_drop)), float(_drop_scale(p_drop)), int(silu),
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+            int(x.dtype == torch.bfloat16), int(cluster), plan.get("part_channels", 0),
+            plan.get("cluster", 0), plan.get("iters", 0),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_gn_bwd")
     gn_film_silu_dropout_bwd.launches += 1
     return dx, dgamma, dbeta, dscale, dshift

@@ -146,6 +146,135 @@ def test_supported_matches_jax():
     assert n > 100
 
 
+# ---------------------------------------------------------------------------
+# Kernel C′'s per-shape plan (ops/kernels/fused_gn.py:bwd_plan), checked
+# here by walking the kernel's own thread mapping: block `rank` of the
+# cluster of channel part `part` takes rows [rank * rows, ...) and thread t
+# column t % cols, row t / cols of each iteration.
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's GN_CASES: (B, H, W, C), dtype
+GN_CASES = [((128, 128, 128, 32), "bfloat16"), ((128, 128, 128, 96), "bfloat16"),
+            ((128, 16, 16, 512), "bfloat16"), ((128, 64, 64, 64), "float32")]
+
+
+@pytest.fixture(scope="module")
+def flagship_chains():
+    """(H*W, C, groups) of the 57 GroupNorm chains of one forward of the
+    flagship U-Net (``probunet_multivar_128``), as forward pre-hooks see
+    them."""
+    from probunet_tpu_torch.config import preset
+    from probunet_tpu_torch.models.layers import EDMGroupNorm
+    from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
+
+    cfg = preset("probunet_multivar_128")
+    model = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0), device="cpu")
+    chains = []
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, a: chains.append((a[0].shape[2] * a[0].shape[3], a[0].shape[1], mod.groups)))
+        for mod in model.unet.modules() if isinstance(mod, EDMGroupNorm)]
+    with torch.no_grad():
+        model.unet(torch.zeros(1, *cfg.data.resolution, len(cfg.data.variables)))
+    for h in hooks:
+        h.remove()
+    return chains
+
+
+def _plan_coverage(hw, c, plan):
+    """How often the cluster route visits each (pixel, channel) of one
+    batch element (the grid's y dimension is the batch element)."""
+    cp, cs, iters = plan["part_channels"], plan["cluster"], plan["iters"]
+    cols = cp // 8
+    rpi = tgn.CLUSTER_THREADS // cols
+    t = np.arange(tgn.CLUSTER_THREADS)
+    col, row = t % cols, t // cols
+    count = np.zeros((hw, c), np.int32)
+    for part in range(c // cp):
+        for rank in range(cs):
+            r0 = rank * plan["rows"]
+            r1 = min(hw, r0 + plan["rows"])
+            px = r0 + np.arange(iters)[:, None] * rpi + row[None, :]
+            ok = (row < rpi)[None, :] & (px < r1)
+            ch = np.broadcast_to(part * cp + col * 8, px.shape)[ok]
+            for i in range(8):
+                np.add.at(count, (px[ok], ch + i), 1)
+    return count
+
+
+def _check_cluster(hw, c, groups, itemsize, plan):
+    assert plan["route"] == "cluster", (hw, c, groups, plan)
+    cp, cs = plan["part_channels"], plan["cluster"]
+    assert c % cp == 0 and cp % 8 == 0 and cp % (c // groups) == 0, plan  # whole groups
+    assert 1 <= cs <= tgn.MAX_CLUSTER == 8 and cp // 8 <= tgn.CLUSTER_THREADS, plan
+    assert plan["rows"] == -(-hw // cs)
+    smem = tgn.cluster_smem_bytes(cp, plan["iters"], itemsize)
+    assert plan["smem"] == smem <= tgn.SMEM_PER_BLOCK, plan
+    # x and dz of a cluster fit its blocks' shared memory
+    assert cs * plan["iters"] * tgn.CLUSTER_THREADS * 8 * (itemsize + 4) >= hw * cp * (itemsize + 4)
+    assert (_plan_coverage(hw, c, plan) == 1).all(), plan
+    return plan
+
+
+def _check_plan(hw, c, groups, itemsize):
+    return _check_cluster(hw, c, groups, itemsize, tgn.bwd_plan(hw, c, groups, itemsize))
+
+
+def test_bwd_plan_covers_every_flagship_chain(flagship_chains):
+    """Every one of the flagship's 57 chains (bf16, as the training step
+    runs them) gets a plan. Each has a cluster layout: each element of a
+    batch element once, whole groups per part, at most 8 blocks a
+    cluster, blocks that fit two to an SM (112 KB). The plan takes it
+    where its rows are 64 bytes or wider; the 13 chains at 128x128 (16-byte
+    rows) and the one at 64x64x192 (48-byte rows) take two passes."""
+    assert len(flagship_chains) == 57
+    routes = {"cluster": 0, "two_pass": 0}
+    for hw, c, groups in flagship_chains:
+        layout = _check_cluster(hw, c, groups, 2, tgn.cluster_plan(hw, c, groups, 2))
+        assert layout["smem"] <= tgn.SMEM_TWO_PER_SM, layout
+        plan = tgn.bwd_plan(hw, c, groups, 2)
+        routes[plan["route"]] += 1
+        wide = layout["part_channels"] * 2 >= 64
+        assert plan == (layout if wide else tgn.TWO_PASS), (hw, c, groups, plan)
+        assert wide == (hw < 128 * 128 and (hw, c) != (64 * 64, 192)), (hw, c, groups, layout)
+    assert routes == {"cluster": 43, "two_pass": 14}
+
+
+@pytest.mark.parametrize("shape,dtype", GN_CASES, ids=[f"{s[1]}x{s[2]}x{s[3]}-{d}"
+                                                       for s, d in GN_CASES])
+def test_bwd_plan_covers_the_chip_cases(shape, dtype):
+    """chip_smoke.py runs C′ at each case on its plan and on the other
+    route: the 16x16x512 bf16 case plans a cluster (the other route is two
+    passes); the 128x128 bf16 cases (16-byte rows) and the f32 case plan
+    two passes (the other route is the shape's cluster layout)."""
+    _, h, w, c = shape
+    groups, itemsize = min(32, c // 4), TORCH[dtype].itemsize
+    layout = _check_cluster(h * w, c, groups, itemsize, tgn.cluster_plan(h * w, c, groups,
+                                                                         itemsize))
+    plan = tgn.bwd_plan(h * w, c, groups, itemsize)
+    assert plan == (layout if (h, dtype) == (16, "bfloat16") else tgn.TWO_PASS)
+
+
+def test_bwd_plan_two_pass_where_no_cluster_holds_the_slab():
+    """f32 x, C not a multiple of 8, rows narrower than 64 bytes, or more
+    rows than 8 blocks hold (a 128x128x32 bf16 slab fits in 8-channel
+    parts, 256x256x32 does not)."""
+    assert tgn.bwd_plan(64, 64, 16, 4) == tgn.TWO_PASS
+    assert tgn.cluster_plan(64, 12, 3, 2) is None
+    assert tgn.bwd_plan(64, 12, 3, 2) == tgn.TWO_PASS
+    assert tgn.cluster_plan(128 * 128, 32, 8, 2)["part_channels"] == 8
+    assert tgn.bwd_plan(128 * 128, 32, 8, 2) == tgn.TWO_PASS
+    assert tgn.cluster_plan(256 * 256, 32, 8, 2) is None
+    assert tgn.bwd_plan(256 * 256, 32, 8, 2) == tgn.TWO_PASS
+    assert tgn.bwd_plan(64 * 64, 32, 8, 2)["route"] == "cluster"
+
+
+def test_bwd_plan_is_made_once_per_shape():
+    """The plan is a function of four ints, cached: a training step's 57
+    launches do not search again."""
+    assert tgn.bwd_plan(4096, 64, 16, 2) is tgn.bwd_plan(4096, 64, 16, 2)
+    assert tgn.cluster_plan(64, 64, 16, 4) is tgn.cluster_plan(64, 64, 16, 4)
+
+
 def test_wrapper_refuses_tensors_it_cannot_launch_on():
     """A tensor that is not on the CPU never reaches the plain version: a
     device the kernels do not serve raises, and so do CPU tensors mixed

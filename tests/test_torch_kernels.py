@@ -195,6 +195,25 @@ def test_fcomb_crps_backward_skips_dy_when_not_asked():
     assert grads[-1] is None
 
 
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", "tensor_core"), ("float32", "fp32")])
+def test_fcomb_crps_backward_kernel_is_chosen_by_dtype(monkeypatch, dtype, kernel):
+    """Kernel A′ has two CUDA kernels: bf16 operands on the tensor cores,
+    f32 operands on the FP32 pipes. The wrapper picks one from the
+    compute dtype alone, before it loads the library, and hands it to the
+    launch: no fallback from one to the other."""
+    def no_library():
+        raise AssertionError("the choice needs no library")
+
+    seen = []
+    monkeypatch.setattr(fcomb_crps._build, "library", no_library)
+    monkeypatch.setattr(fcomb_crps, "_launch_bwd",
+                        lambda args, which, need_dy: seen.append(which) or "launched")
+    args = [torch.empty(s, device="meta") for s in
+            [(2, C, 8), (2, C, 3), (C, C), (C,), (C, K), (K,), (2, K, 8), (2,), (2,)]]
+    assert fcomb_crps.fcomb_crps_terms_bwd(*args, compute_dtype=dtype) == "launched"
+    assert seen == [kernel] and fcomb_crps.BWD_KERNELS[dtype] == kernel
+
+
 # rows = numel / 128 against _block_rows: 16 rows in one block; 6144 in
 # three blocks of 2048; 2064 in two of 1032; 2056 in 257 of 8
 DROPOUT_SHAPES = [(2, 4, 4, 64), (3, 32, 64, 128), (2, 12, 86, 128), (2, 1028, 128)]
