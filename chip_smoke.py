@@ -8,11 +8,12 @@ nvcc (sm_90a) and holds each against its plain PyTorch version on the card,
 at the shapes of the serve and training paths: the fcomb-CRPS forward (A)
 and backward (A′), the afCRPS-terms forward (B) and backward (B′), the
 GroupNorm chain's forward (C) and backward (C′), and the hash dropout (D),
-with each kernel's time beside its plain version's and its bound; A′ on
-both of its kernels (bf16 operands on the tensor cores, f32 on the FP32
-pipes), C′ on its per-shape plan and on the other route (a cluster per
-slab or two passes) with both times, and the registers and spills nvcc
-reports for both. Then it
+with each kernel's time beside its plain version's and its bound; A and
+A′ on both of their kernels (bf16 operands on the tensor cores, f32 on
+the FP32 pipes), C and C′ on their per-shape plans and on the other
+route (a cluster per slab, or three passes for C and two for C′) with
+both times, C at every flagship chain shape on every cluster layout, and
+the registers and spills nvcc reports for them. Then it
 checks the f32 serve path and the f32 training step (gradients and one
 AdamW update) on the card against the CPU, both on the GroupNorm kernel
 route, and drives both paths at the full width of the flagship preset
@@ -190,8 +191,11 @@ def _max_err_ratio(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-# the kernels whose registers and spills the run prints (A′'s two, C′'s two routes)
-PTXAS_KERNELS = ("fcomb_crps_bwd_mma_kernel", "fcomb_crps_bwd_tile_kernel",
+# the kernels whose registers and spills the run prints (A's and A′'s two
+# kernels each, C's and C′'s two routes each)
+PTXAS_KERNELS = ("fcomb_crps_fwd_mma_kernel", "fcomb_crps_tile_kernel",
+                 "fcomb_crps_bwd_mma_kernel", "fcomb_crps_bwd_tile_kernel",
+                 "gn_fwd_cluster_kernel", "gn_fwd_stats_kernel", "gn_fwd_apply_kernel",
                  "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel")
 
 
@@ -235,14 +239,18 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
                     randn(c, scale=0.1), randn(c, k, scale=c ** -0.5), randn(k, scale=0.1),
                     randn(b, k, p))
             g1, g2 = randn(b, scale=1e-3), randn(b, scale=1e-3)
-            # forward (A)
+            # forward (A), twice for bit-reproducibility
             got = fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype)
+            again = fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError("fcomb_crps forward is not bit-reproducible")
             want = fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype)
             abs_err, rel_err = _errors(got, want)
             ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype), 10)
             plain_ms = _sync_ms(
                 lambda: fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype), 2, 1)
             print(f"kernel fcomb_crps      B={b} C={c} P={p} K={k} M={m:2d} {dtype:8s} "
+                  f"kernel={fcomb_crps.FWD_KERNELS[dtype]} bit_reproducible=True "
                   f"max_rel_err={rel_err:.3e} max_abs_err={abs_err:.3e} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
             if not rel_err <= KERNEL_RTOL:
@@ -378,12 +386,13 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
 
 def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
     """Kernels C and C′ against their plain versions at one shape: every
-    output, the masks, C run twice for identical bits, C′ on its planned
-    route and on the other one (two passes where the plan takes a cluster,
-    the shape's cluster layout where it takes two passes), each run twice
-    for identical bits; times, bounds, and
-    ``F.group_norm``'s time at the shape as a note (it computes only the
-    normalization, not the chain, so it is no ``library_ms``)."""
+    output and the masks, each kernel on its planned route and on the
+    other one (for C the three passes where the plan takes a cluster and
+    the shape's cluster layout where it takes three passes; for C′ two
+    passes or the cluster layout), each run twice for identical bits;
+    times, bounds, and ``F.group_norm``'s time at the shape as a note (it
+    computes only the normalization, not the chain, so it is no
+    ``library_ms``)."""
     b, h, w, c = shape
     groups = min(32, c // 4)
     tdt = getattr(torch, dtype)
@@ -398,22 +407,16 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
     seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
     args = (x, gamma, beta, scale, shift, seed)
     consts = (groups, 1e-5, p_drop, True)
-    y, mean, rstd = fused_gn.gn_film_silu_dropout_fwd(*args, *consts)
-    again = fused_gn.gn_film_silu_dropout_fwd(*args, *consts)
-    if not all(torch.equal(u, v) for u, v in zip((y, mean, rstd), again)):
-        raise AssertionError("kernel C is not bit-reproducible")
     want = fused_gn.gn_film_silu_dropout_plain(*args, *consts)
-    # the kernel's mask is the plain one: every element the plain mask drops
-    # is 0, and a kept element is 0 only where z is (SiLU(0) = 0), which
-    # takes ~1e-8 of them; a kernel that dropped other elements would zero
-    # ~p of the kept ones
-    dropped = (~fused_gn.gn_keep(shape, seed, p_drop) if p_drop > 0
-               else torch.zeros_like(y, dtype=torch.bool))
-    kept_zeros = int(((y == 0) & ~dropped).sum())
-    masks_equal = bool((y[dropped] == 0).all()) and kept_zeros <= 1e-6 * n
-    keep = float((y != 0).float().mean())
-    fwd_err = {"y": _max_err_ratio(y.float(), want[0].float()),
-               "mean": _max_err_ratio(mean, want[1]), "rstd": _max_err_ratio(rstd, want[2])}
+    plan = fused_gn.fwd_plan(h * w, c, groups, size)
+    fwd = [_gn_fwd_route(args, consts, want, pl)
+           for pl in ((plan,) if plan == fused_gn.THREE_PASS else (plan, fused_gn.THREE_PASS))]
+    y, mean, rstd = fwd[0].pop("result")
+    for r in fwd[1:]:
+        del r["result"]
+    # the public entry takes the planned route
+    if not torch.equal(fused_gn.gn_film_silu_dropout_fwd(*args, *consts)[0], y):
+        raise AssertionError("kernel C's entry point left its planned route")
     # the backward of both on the kernel's statistics: C′ on the shape's plan
     # and on the other route, each held to the plain version
     bwd_args = (x, g, gamma, beta, scale, shift, seed, mean, rstd, groups, p_drop, True)
@@ -422,8 +425,6 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
     other = (fused_gn.TWO_PASS if plan["route"] == "cluster"
              else fused_gn.cluster_plan(h * w, c, groups, size))
     routes = [_gn_bwd_route(bwd_args, want_bwd, pl) for pl in (plan, other) if pl is not None]
-    abs_fwd = float((y.float() - want[0].float()).abs().max())
-    ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_fwd(*args, *consts), 20)
     plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_plain(*args, *consts), 2, 1)
     bwd_plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args), 2, 1)
     xr = x.detach().permute(0, 3, 1, 2).requires_grad_()  # NCHW view, channels_last
@@ -442,12 +443,16 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
     fwd_bound = _bound(2.0 * size * n + vec_bytes, (10.0 + hash_ops) * n, "float32")
     bwd_bound = _bound(3.0 * size * n + vec_bytes + 4.0 * 2 * b * c, (30.0 + hash_ops) * n,
                        "float32")
-    print(f"kernel fused_gn        shape={shape} {dtype:8s} film={film} p={p_drop} "
-          f"bit_reproducible=True masks_equal={masks_equal} kept_zeros={kept_zeros} "
-          f"keep_rate={keep:.6f} "
-          f"max_err/max={json.dumps(fwd_err)} max_abs_err={abs_fwd:.3e} kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={fwd_bound['bound_ms']:.4f} "
-          f"({fwd_bound['bound_by']}) F.group_norm_ms={gn_ms:.4f}")
+    for i, r in enumerate(fwd):
+        print(f"kernel fused_gn        shape={shape} {dtype:8s} film={film} p={p_drop} "
+              f"{'planned' if i == 0 else 'other  '} plan={json.dumps(r['plan'])} "
+              f"bit_reproducible=True masks_equal={r['masks_equal']} "
+              f"kept_zeros={r['kept_zeros']} keep_rate={r['keep']:.6f} "
+              f"max_err/max={json.dumps(r['err'])} max_abs_err={r['abs_err']:.3e} "
+              f"kernel_ms={r['ms']:.4f} no_silu_no_mask_ms={r['bare_ms']:.4f}")
+    print(f"kernel fused_gn        shape={shape} {dtype:8s} plain_ms={plain_ms:.4f} "
+          f"bound_ms={fwd_bound['bound_ms']:.4f} ({fwd_bound['bound_by']}) "
+          f"F.group_norm_ms={gn_ms:.4f}")
     for i, r in enumerate(routes):
         print(f"kernel fused_gn_bwd    shape={shape} {dtype:8s} film={film} p={p_drop} "
               f"{'planned' if i == 0 else 'other  '} plan={json.dumps(r['plan'])} "
@@ -457,21 +462,115 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
     print(f"kernel fused_gn_bwd    shape={shape} {dtype:8s} plain_ms={bwd_plain_ms:.4f} "
           f"bound_ms={bwd_bound['bound_ms']:.4f} ({bwd_bound['bound_by']}) "
           f"F.group_norm_fwd+bwd_ms={gn_fb_ms:.4f}")
-    errs = {**fwd_err, **{f"{k} ({r['plan']['route']})": e for r in routes
-                          for k, e in r["err"].items()}}
+    errs = {**{f"{k} (C {r['plan']['route']})": e for r in fwd for k, e in r["err"].items()},
+            **{f"{k} (C′ {r['plan']['route']})": e for r in routes for k, e in r["err"].items()}}
     bad = {k: e for k, e in errs.items()
            if not e <= (GN_TOL[dtype] if k.split()[0] in ("y", "dx") else GN_SUM_TOL)}
-    if not masks_equal:
-        bad["masks"] = "differ"
+    bad.update({f"masks (C {r['plan']['route']})": "differ" for r in fwd if not r["masks_equal"]})
+    keep = fwd[0]["keep"]
     if p_drop > 0 and not abs(keep - (1 - p_drop)) <= 5 * (p_drop * (1 - p_drop) / n) ** 0.5:
         bad["keep_rate"] = keep
     if bad:
         raise AssertionError(f"fused_gn kernels disagree with their plain versions at {shape} "
                              f"{dtype}: {bad}")
-    return {"fused_gn": {"max_abs_err": abs_fwd, "ms": ms, "plain_ms": plain_ms, **fwd_bound,
-                         "library_ms": None},
+    return {"fused_gn": {"max_abs_err": fwd[0]["abs_err"], "ms": fwd[0]["ms"],
+                         "plain_ms": plain_ms, **fwd_bound, "library_ms": None},
             "fused_gn_bwd": {"max_abs_err": routes[0]["abs_err"], "ms": routes[0]["ms"],
                              "plain_ms": bwd_plain_ms, **bwd_bound, "library_ms": None}}
+
+
+def _cluster_occupancy(forward: bool, x: torch.Tensor, plan: dict) -> int:
+    """Clusters of a cluster-route plan the card holds at once."""
+    clusters = ctypes.c_int(0)
+    _build.check(_build.library().fused_gn_cluster_occupancy(
+        int(forward), x.shape[-1], plan["part_channels"], plan["cluster"], plan["iters"],
+        int(x.dtype == torch.bfloat16), ctypes.addressof(clusters)), "fused_gn_cluster_occupancy")
+    return clusters.value
+
+
+def _gn_fwd_route(args, consts, want, plan: dict) -> dict:
+    """Kernel C on one plan of its shape: run twice for identical bits; y,
+    mean, rstd and the dropout mask against the plain forward; its time,
+    and its time with the chain's SiLU and mask off (the route's memory
+    traffic and structure alone). ``result`` holds its outputs."""
+    def run(cs=consts):
+        return fused_gn._launch(*args, *cs, plan=plan)
+
+    got, again = run(), run()
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"kernel C is not bit-reproducible on plan {plan}")
+    y, p_drop = got[0], consts[2]
+    # the kernel's mask is the plain one: every element the plain mask drops
+    # is 0, and a kept element is 0 only where z is (SiLU(0) = 0), which
+    # takes ~1e-8 of them; a kernel that dropped other elements would zero
+    # ~p of the kept ones
+    dropped = (~fused_gn.gn_keep(y.shape, args[5], p_drop) if p_drop > 0
+               else torch.zeros_like(y, dtype=torch.bool))
+    kept_zeros = int(((y == 0) & ~dropped).sum())
+    out = {"plan": dict(plan), "result": got,
+           "err": {k: _max_err_ratio(u.float(), v.float())
+                   for k, u, v in zip(("y", "mean", "rstd"), got, want)},
+           "abs_err": float((y.float() - want[0].float()).abs().max()),
+           "masks_equal": bool((y[dropped] == 0).all()) and kept_zeros <= 1e-6 * y.numel(),
+           "kept_zeros": kept_zeros, "keep": float((y != 0).float().mean()),
+           "ms": _sync_ms(run, 20),
+           "bare_ms": _sync_ms(lambda: run((consts[0], consts[1], 0.0, False)), 20)}
+    del dropped
+    if plan["route"] == "cluster":
+        out["plan"]["clusters_resident"] = _cluster_occupancy(True, args[0], plan)
+    return out
+
+
+def gn_fwd_routes(dev, chains) -> None:
+    """Kernel C at every chain shape of the flagship U-Net (bf16, bs=128,
+    FiLM, p=0.1) on both routes, the three passes and the planned cluster
+    layout, and on every other cluster layout of the shape (the ``C
+    layouts`` lines): each run twice for identical bits and held to the
+    plain forward, with their times, and the sums over a forward's 57
+    chains. These are the timings ``fused_gn.fwd_plan``'s rule follows."""
+    gen = torch.Generator(device=dev).manual_seed(4322)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
+    per_step = {"planned": 0.0, "three_pass": 0.0}
+    for (h, w, c, groups), count in sorted(collections.Counter(chains).items()):
+        shape = (BATCH, h, w, c)
+        x = (randn(*shape) + 0.5).to(torch.bfloat16)
+        args = (x, 1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(BATCH, c, scale=0.2),
+                randn(BATCH, c, scale=0.2), seed)
+        consts = (groups, 1e-5, 0.1, True)
+        want = fused_gn.gn_film_silu_dropout_plain(*args, *consts)
+        plan = fused_gn.fwd_plan(h * w, c, groups, 2)
+        routes = {"planned": plan, "three_pass": fused_gn.THREE_PASS}
+        routes.update({f"layout{i}": la for i, la in enumerate(fused_gn.cluster_layouts(
+            h * w, c, groups, 2, fused_gn.fwd_cluster_smem_bytes, fused_gn.FWD_REGISTER_BLOCKS))
+            if la != plan})
+        runs = {name: _gn_fwd_route(args, consts, want, pl) for name, pl in routes.items()}
+        for r in runs.values():
+            del r["result"]
+        bad = {f"{k} ({route})": e for route, r in runs.items() for k, e in r["err"].items()
+               if not e <= (GN_TOL["bfloat16"] if k == "y" else GN_SUM_TOL)}
+        bad.update({f"masks ({route})": "differ" for route, r in runs.items()
+                    if not r["masks_equal"]})
+        if bad:
+            raise AssertionError(f"kernel C disagrees with its plain version at {shape}: {bad}")
+        ms = {route: r["ms"] for route, r in runs.items()}
+        per_step["planned"] += count * ms["planned"]
+        per_step["three_pass"] += count * ms["three_pass"]
+        print(f"C routes shape={shape} chains={count} planned={plan['route']} "
+              f"planned_ms={ms['planned']:.4f} three_pass_ms={ms['three_pass']:.4f} "
+              f"plan={json.dumps(runs['planned']['plan'])} bit_reproducible=True "
+              f"max_err/max(y)={max(r['err']['y'] for r in runs.values()):.3e}")
+        for route, r in runs.items():
+            if route.startswith("layout"):
+                print(f"C layouts shape={shape} plan={json.dumps(r['plan'])} "
+                      f"kernel_ms={r['ms']:.4f} no_silu_no_mask_ms={r['bare_ms']:.4f}")
+        del x, args, want, runs
+    print(f"C over one forward's {len(chains)} chains (ms, sum of the shapes' times): "
+          f"{json.dumps(per_step)}")
+    torch.cuda.empty_cache()
 
 
 def _gn_bwd_route(bwd_args, want, plan: dict) -> dict:
@@ -492,13 +591,7 @@ def _gn_bwd_route(bwd_args, want, plan: dict) -> dict:
            "ms": _sync_ms(run, 20),
            "bare_ms": _sync_ms(lambda: run((*bwd_args[:10], 0.0, False)), 20)}
     if plan["route"] == "cluster":
-        x, groups = bwd_args[0], bwd_args[9]
-        clusters = ctypes.c_int(0)
-        _build.check(_build.library().fused_gn_bwd_cluster_occupancy(
-            x.shape[-1], plan["part_channels"], plan["cluster"], plan["iters"],
-            int(x.dtype == torch.bfloat16), ctypes.addressof(clusters)),
-            "fused_gn_bwd_cluster_occupancy")
-        out["plan"]["clusters_resident"] = clusters.value
+        out["plan"]["clusters_resident"] = _cluster_occupancy(False, bwd_args[0], plan)
     return out
 
 
@@ -790,7 +883,8 @@ def _train_route(model: ProbabilisticUNet, batches, stats, cfg, dev, fused: bool
     return res
 
 
-_KERNEL_GROUPS = (("A fcomb_crps fwd", ("fcomb_crps_tile_kernel", "reduce_partials")),
+_KERNEL_GROUPS = (("A fcomb_crps fwd", ("fcomb_crps_fwd_mma_kernel", "fcomb_crps_tile_kernel",
+                                       "reduce_partials")),
                   ("A' fcomb_crps bwd", ("fcomb_crps_bwd_mma_kernel", "fcomb_crps_bwd_tile_kernel",
                                          "column_sum_kernel")),
                   ("B afcrps fwd", ("afcrps_tile_kernel",)),
@@ -1093,6 +1187,7 @@ def main() -> None:
     print(f"GroupNorm chains of one U-Net forward (bs={BATCH}): {len(x_bytes)} chains, x "
           f"{sum(x_bytes) / 1e9:.4f} GB; bounds: C {2 * sum(x_bytes) / H100_BYTES_PER_S * 1e3:.4f} "
           f"ms, C′ {3 * sum(x_bytes) / H100_BYTES_PER_S * 1e3:.4f} ms (bytes at 3.35 TB/s)")
+    gn_fwd_routes(dev, chain_shapes)
     gn_bwd_routes(dev, chain_shapes)
     model_composed = _variant(model, cfg, gn_impl="composed")
     for name, m in (("kernel", model), ("composed", model_composed)):

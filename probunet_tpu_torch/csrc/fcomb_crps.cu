@@ -13,21 +13,28 @@
 // over members, pixels and the K output channels. The (B, M, P, K) ensemble
 // and the (M, B, P, C) hiddens never reach device memory.
 //
-// Bound: at the roofline, HBM bytes. The kernel reads the features once
-// (C f32 per pixel) plus the target; the decode is ~2*C*C + 2*C*K FLOPs per
-// member-pixel (about 80 FLOPs per byte read at C=32, M=5), far below the
-// bf16 tensor-core ridge of ~295. This first design runs the 32x32 product
-// on the FP32 pipes, one pixel per thread, where 80 FLOPs per byte sits above
-// their ridge (~20): it is bound by FP32 issue until the product moves to
-// mma.sync/wgmma (later work). What it does about the bytes: the feature
-// column is loaded once and reused by all M members; the member outputs
-// stay on chip (a column of shared memory per thread); W1, b1, W2, b2 and
-// this batch element's z live in shared memory and are read as broadcasts.
+// Bound: HBM bytes. The kernel reads the features once (C f32 per pixel)
+// plus the target: 4*B*P*(C + K) bytes, 0.088 ms at B=128, P=16384 on an
+// H100's 3.35 TB/s. The decode is 2*B*P*M*(C*C + C*K) FLOPs (7.0e10 at
+// M=15), 0.071 ms on the bf16 tensor cores but 1.05 ms on the FP32 pipes.
+//
+// Two kernels, chosen per compute dtype before the launch
+// (ops/kernels/fcomb_crps.py:FWD_KERNELS):
+// - bf16 operands (both the serve and the training step):
+//   fcomb_crps_fwd_mma_kernel, the 32x32 product on the tensor cores with
+//   the decode functions of A′'s tensor-core kernel (below);
+// - f32 operands: fcomb_crps_tile_kernel, on the FP32 pipes, one pixel per
+//   thread. TF32 would move its rounding points, so it stays there. The
+//   feature column is loaded once and reused by all M members; the member
+//   outputs stay in a column of shared memory per thread; W1, b1, W2, b2
+//   and this batch element's z live in shared memory, read as broadcasts.
 //
 // Rounding points match _dot in the TPU module: with bf16 operands h0, h1,
 // W1 and W2 are rounded to bf16, products accumulate in f32, x stays f32.
 // Out-of-range pixels of the last tile add nothing (bounds check instead of
-// the TPU's padding plus `valid` row). No K or M padding.
+// the TPU's padding plus `valid` row). No K or M padding. Each block writes
+// its (t1, t2) partial and launch_reduce adds them in a fixed order: no
+// float atomics, so t1 and t2 are bit-reproducible.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,16 +54,7 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <bool kBf16>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (kBf16) {
-    return round_bf16(v);
-  } else {
-    return v;
-  }
-}
-
-template <bool kBf16>
+// -- the FP32 forward (f32 operands) -------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 fcomb_crps_tile_kernel(const float* __restrict__ feat,  // (B, C, P)
                        const float* __restrict__ z,     // (B, C, M)
@@ -68,9 +66,9 @@ fcomb_crps_tile_kernel(const float* __restrict__ feat,  // (B, C, P)
                        float* __restrict__ partial,     // (2, B, ntiles)
                        int batch, int m, int k, int p, int ntiles) {
   extern __shared__ __align__(16) float smem[];
-  float* s_w1 = smem;                 // kC * kC, operand-rounded
+  float* s_w1 = smem;                 // kC * kC
   float* s_b1 = s_w1 + kC * kC;       // kC
-  float* s_w2 = s_b1 + kC;            // kC * kMaxK, operand-rounded
+  float* s_w2 = s_b1 + kC;            // kC * kMaxK
   float* s_b2 = s_w2 + kC * kMaxK;    // kMaxK
   float* s_z = s_b2 + kMaxK;          // kC * m, this batch element
   float* s_x = s_z + kC * m;          // (m * k, kThreads) member outputs
@@ -81,8 +79,8 @@ fcomb_crps_tile_kernel(const float* __restrict__ feat,  // (B, C, P)
   const int tid = threadIdx.x;
   const int pix = tile * kThreads + tid;
 
-  for (int i = tid; i < kC * kC; i += kThreads) s_w1[i] = operand<kBf16>(w1[i]);
-  for (int i = tid; i < kC * k; i += kThreads) s_w2[i] = operand<kBf16>(w2[i]);
+  for (int i = tid; i < kC * kC; i += kThreads) s_w1[i] = w1[i];
+  for (int i = tid; i < kC * k; i += kThreads) s_w2[i] = w2[i];
   for (int i = tid; i < kC * m; i += kThreads) s_z[i] = z[static_cast<size_t>(b) * kC * m + i];
   if (tid < kC) s_b1[tid] = b1[tid];
   if (tid < k) s_b2[tid] = b2[tid];
@@ -108,7 +106,7 @@ fcomb_crps_tile_kernel(const float* __restrict__ feat,  // (B, C, P)
       for (int o = 0; o < kC; ++o) acc[o] = 0.f;
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
-        const float h0 = operand<kBf16>(fmaxf(f[c] + s_z[c * m + j], 0.f));
+        const float h0 = fmaxf(f[c] + s_z[c * m + j], 0.f);
 #pragma unroll
         for (int o = 0; o < kC; ++o) acc[o] = fmaf(s_w1[c * kC + o], h0, acc[o]);
       }
@@ -117,7 +115,7 @@ fcomb_crps_tile_kernel(const float* __restrict__ feat,  // (B, C, P)
       for (int kk = 0; kk < kMaxK; ++kk) x[kk] = 0.f;
 #pragma unroll
       for (int o = 0; o < kC; ++o) {
-        const float h1 = operand<kBf16>(fmaxf(acc[o] + s_b1[o], 0.f));
+        const float h1 = fmaxf(acc[o] + s_b1[o], 0.f);
 #pragma unroll
         for (int kk = 0; kk < kMaxK; ++kk) {
           if (kk < k) x[kk] = fmaf(s_w2[o * k + kk], h1, x[kk]);
@@ -149,22 +147,17 @@ size_t smem_bytes(int m, int k) {
                           static_cast<size_t>(m) * k * kThreads);
 }
 
-template <bool kBf16>
-cudaError_t launch(const float* feat, const float* z, const float* w1, const float* b1,
-                   const float* w2, const float* b2, const float* y, float* partial,
-                   float* t1, float* t2, int batch, int m, int k, int p,
-                   cudaStream_t stream) {
+cudaError_t launch_fp32(const float* feat, const float* z, const float* w1, const float* b1,
+                        const float* w2, const float* b2, const float* y, float* partial,
+                        int batch, int m, int k, int p, cudaStream_t stream) {
   const int ntiles = (p + kThreads - 1) / kThreads;
   const size_t smem = smem_bytes(m, k);
-  cudaError_t err = cudaFuncSetAttribute(fcomb_crps_tile_kernel<kBf16>,
+  cudaError_t err = cudaFuncSetAttribute(fcomb_crps_tile_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fcomb_crps_tile_kernel<kBf16><<<dim3(ntiles, batch), kThreads, smem, stream>>>(
+  fcomb_crps_tile_kernel<<<dim3(ntiles, batch), kThreads, smem, stream>>>(
       feat, z, w1, b1, w2, b2, y, partial, batch, m, k, p, ntiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  launch_reduce(partial, t1, t2, batch, ntiles, stream);
   return cudaGetLastError();
 }
 
@@ -451,8 +444,9 @@ cudaError_t launch_bwd_fp32(const float* feat, const float* z, const float* w1, 
   return cudaGetLastError();
 }
 
-// -- the tensor-core kernel (bf16 operands) ----------------------------------
+// -- the tensor-core kernels (bf16 operands) ---------------------------------
 //
+// A′'s design first; A (after it) decodes with the same functions.
 // What bounds the FP32 kernel on this card: ~4 C^2 FMAs per member-pixel on
 // the FP32 pipes, each reading its W1 operand as a shared-memory broadcast,
 // 255 registers with spills, and 128-pixel blocks whose weight partials
@@ -633,6 +627,65 @@ __device__ __forceinline__ float reduce_scatter8(const float (&v)[8], int lane) 
   return (lb ? w2[1] : w2[0]) + __shfl_xor_sync(0xffffffffu, send, 4);
 }
 
+// W1 rounded to bf16 as B fragments in shared memory, 16 words a lane:
+// s_wb of h0 W1 (B[c][o] = W1[c, o]) and, unless null, s_wt of da1 W1^T
+// (B[o][c] = W1[c, o]); register h of k-step ks holds rows
+// 16 ks + 8 h + 2 q + {0, 1} of column nt * 8 + g. Called by every thread
+// of a kMmaThreads block; the caller synchronizes.
+__device__ __forceinline__ void pack_w1(const float* __restrict__ w1, uint32_t* s_wb,
+                                        uint32_t* s_wt) {
+  for (int i = threadIdx.x; i < 16 * 32; i += kMmaThreads) {
+    const int fl = i & 31;  // the lane that reads word i
+    const int frag = i >> 5;
+    const int k0 = (frag >> 1 & 1) * 16 + (frag & 1) * 8 + 2 * (fl & 3);  // ks, h, q
+    const int n = (frag >> 2) * 8 + (fl >> 2);                            // nt, g
+    s_wb[i] = pack_bf16(w1[k0 * kC + n], w1[(k0 + 1) * kC + n]);
+    if (s_wt != nullptr) s_wt[i] = pack_bf16(w1[n * kC + k0], w1[n * kC + k0 + 1]);
+  }
+}
+
+// A warp tile's inputs: the features of the thread's fragment elements
+// (pixels px[r] = 16 tile + g + 8 r, channels nt * 8 + 2 q + e; 0 past the
+// last pixel) and class q's target. fb, yb: this batch element's (C, P)
+// features and (K, P) target.
+template <int K>
+__device__ __forceinline__ void load_tile(const float* __restrict__ fb,
+                                          const float* __restrict__ yb, int p, int tile, int g,
+                                          int q, float (&f)[2][4][2], float (&yq)[2], int (&px)[2],
+                                          bool (&ok)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    px[r] = tile * kTileRows + g + 8 * r;
+    ok[r] = px[r] < p;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        f[r][nt][e] = ok[r] ? fb[static_cast<size_t>(nt * 8 + 2 * q + e) * p + px[r]] : 0.f;
+      }
+    }
+    yq[r] = (ok[r] && q < K) ? yb[static_cast<size_t>(q) * p + px[r]] : 0.f;
+  }
+}
+
+// The first half of member j's decode on a tile: h0 = relu(f + z_j), its A
+// fragments, and the h1 accumulators acc = h0 W1 (before b1). s_z holds
+// this batch element's (C, M) z.
+__device__ __forceinline__ void member_hidden(const float (&f)[2][4][2], const float* s_z, int m,
+                                              int j, int q, const uint32_t* s_wb, int lane,
+                                              float (&h0)[2][4][2], uint32_t (&a)[2][4],
+                                              float (&acc)[4][4]) {
+  float zj[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) zj[nt][e] = s_z[(nt * 8 + 2 * q + e) * m + j];
+  }
+  member_h0(f, zj, h0);
+  a_frags(h0, a);
+  product32(a, s_wb, lane, acc);
+}
+
 template <int K>
 __global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
 fcomb_crps_bwd_mma_kernel(const float* __restrict__ feat,  // (B, C, P)
@@ -658,9 +711,7 @@ fcomb_crps_bwd_mma_kernel(const float* __restrict__ feat,  // (B, C, P)
   float* s_x = s_z + kC * m;                       // per warp (m, 16, 4): decoded x
   float* s_dz = s_x + kMmaWarps * m * kTileRows * 4;  // per warp (kC, m): dz sums
   float* s_w = s_dz + kMmaWarps * kC * m;          // per warp kNW: weight partials
-  // B fragments (16 words a lane): s_wb of h0 W1 (B[c][o] = W1[c, o]),
-  // s_wt of da1 W1^T (B[o][c] = W1[c, o]); register h of k-step ks holds
-  // rows 16 ks + 8 h + 2 q + {0, 1} of column nt * 8 + g
+  // W1's B fragments (pack_w1): s_wb of h0 W1, s_wt of da1 W1^T
   uint32_t* s_wb = reinterpret_cast<uint32_t*>(s_w + kMmaWarps * kNW);
   uint32_t* s_wt = s_wb + 16 * 32;
 
@@ -677,14 +728,7 @@ fcomb_crps_bwd_mma_kernel(const float* __restrict__ feat,  // (B, C, P)
   for (int i = tid; i < kMmaWarps * kC * m; i += kMmaThreads) s_dz[i] = 0.f;
   if (tid < kC) s_b1[tid] = b1[tid];
   if (tid < K) s_b2[tid] = b2[tid];
-  for (int i = tid; i < 16 * 32; i += kMmaThreads) {
-    const int fl = i & 31;  // the lane that reads word i
-    const int frag = i >> 5;
-    const int k0 = (frag >> 1 & 1) * 16 + (frag & 1) * 8 + 2 * (fl & 3);  // ks, h, q
-    const int n = (frag >> 2) * 8 + (fl >> 2);                            // nt, g
-    s_wb[i] = pack_bf16(w1[k0 * kC + n], w1[(k0 + 1) * kC + n]);
-    s_wt[i] = pack_bf16(w1[n * kC + k0], w1[n * kC + k0 + 1]);
-  }
+  pack_w1(w1, s_wb, s_wt);
   const float gb1 = g1[b];
   const float gb2 = g2[b];
   __syncthreads();
@@ -708,40 +752,21 @@ fcomb_crps_bwd_mma_kernel(const float* __restrict__ feat,  // (B, C, P)
   }
 
   const float* fb = feat + static_cast<size_t>(b) * kC * p;
+  const float* yb = y + static_cast<size_t>(b) * K * p;
   const int ntiles = (p + kTileRows - 1) / kTileRows;
   for (int tile = bx * kMmaWarps + warp; tile < ntiles; tile += nbx * kMmaWarps) {
     int px[2];
     bool ok[2];
     float f[2][4][2];
     float yq[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      px[r] = tile * kTileRows + g + 8 * r;
-      ok[r] = px[r] < p;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          f[r][nt][e] = ok[r] ? fb[static_cast<size_t>(nt * 8 + 2 * q + e) * p + px[r]] : 0.f;
-        }
-      }
-      yq[r] = (ok[r] && q < K) ? y[(static_cast<size_t>(b) * K + q) * p + px[r]] : 0.f;
-    }
+    load_tile<K>(fb, yb, p, tile, g, q, f, yq, px, ok);
 
     // pass 1: every member's x on the tile, into this warp's wx
     for (int j = 0; j < m; ++j) {
-      float zj[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) zj[nt][e] = s_z[(nt * 8 + 2 * q + e) * m + j];
-      }
       float h0[2][4][2];
-      member_h0(f, zj, h0);
       uint32_t a[2][4];
-      a_frags(h0, a);
       float acc[4][4];
-      product32(a, s_wb, lane, acc);
+      member_hidden(f, s_z, m, j, q, s_wb, lane, h0, a, acc);
       float x[2][K];
       decode_x<K>(acc, s_b1, s_w2, s_b2, q, x);
 #pragma unroll
@@ -793,18 +818,10 @@ fcomb_crps_bwd_mma_kernel(const float* __restrict__ feat,  // (B, C, P)
         }
       }
       // recompute h1 = h0 W1
-      float zj[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) zj[nt][e] = s_z[(nt * 8 + 2 * q + e) * m + j];
-      }
       float h0[2][4][2];
-      member_h0(f, zj, h0);
       uint32_t a[2][4];
-      a_frags(h0, a);
       float acc[4][4];
-      product32(a, s_wb, lane, acc);
+      member_hidden(f, s_z, m, j, q, s_wb, lane, h0, a, acc);
       // da1 = (W2 dx) * (h1 > 0); db1, dW2 on the FP32 pipes
       float da1[2][4][2];
 #pragma unroll
@@ -947,13 +964,147 @@ size_t bwd_mma_smem_bytes(int m, int k) {
                           2 * 16 * 32);
 }
 
-// Blocks per batch element: as many as fill the card's resident slots once
-// (at least 1, at most one warp per tile).
+// -- A on the tensor cores ---------------------------------------------------
+//
+// What bounded the FP32 kernel with bf16 operands (5.93 ms at B=128,
+// P=16384, M=15 on an H100 80GB HBM3 at 700 W, 68x its byte bound): the
+// 32x32 product on the FP32 pipes, each FMA reading its W1 operand as a
+// shared-memory broadcast, 32-wide feature and accumulator arrays a thread,
+// the pair term through a shared-memory column per thread, and B * P/128
+// partials. The decode here is A′'s first pass: the same 16-pixel warp
+// tiles, the same functions (load_tile, member_hidden, decode_x), so A and
+// A′ decode the members bit for bit alike. Then:
+//
+// - t1: lane q of a quad owns class q and adds |x - y| as each member is
+//   decoded.
+// - t2: the member's x (every class of both rows, the same in each lane of
+//   the quad after decode_x) goes to the warp's slice of shared memory, one
+//   float4 a row. The pairs sum_{i<j} |x_i - x_j| are shared out over the
+//   quad's four lanes by i mod 4, each lane taking all K classes, so no
+//   lane idles through the pair loop when K < 4 (with a class a lane, lane
+//   q >= K would: a quarter of the warp at K = 3). A member's slice is
+//   padded to 72 floats, so the quad's float4 reads of members i..i+3 fall
+//   in distinct banks.
+// - A block of 4 warps walks a fixed set of tiles of one batch element
+//   (grid: as many blocks per element as fill the card once, from an
+//   occupancy query) and writes one (t1, t2) partial: B * nbx partials,
+//   which launch_reduce adds in a fixed order.
+//
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): 1.09 ms at B=128,
+// P=16384, M=15, K=3 (80 registers, no spills), 12.5x its byte bound:
+// issue-bound, as A′ is, on the FP32-pipe work around its 8 mma.sync per
+// 16 pixel-members (decode_x's bias, ReLU, rounding and h1 W2; the pairs).
+constexpr int kPairStride = kTileRows * 4 + 8;  // floats of one member in a warp's x slice
+constexpr int kFwdMinBlocks = 4;                // blocks an SM must hold: at most 128 registers
+
 template <int K>
-cudaError_t mma_blocks(int batch, int m, int p, int* nbx) {
-  const size_t smem = bwd_mma_smem_bytes(m, K);
-  cudaError_t err = cudaFuncSetAttribute(fcomb_crps_bwd_mma_kernel<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+__global__ void __launch_bounds__(kMmaThreads, kFwdMinBlocks)
+fcomb_crps_fwd_mma_kernel(const float* __restrict__ feat,  // (B, C, P)
+                          const float* __restrict__ z,     // (B, C, M)
+                          const float* __restrict__ w1,    // (C, C)
+                          const float* __restrict__ b1,    // (C,)
+                          const float* __restrict__ w2,    // (C, K)
+                          const float* __restrict__ b2,    // (K,)
+                          const float* __restrict__ y,     // (B, K, P)
+                          float* __restrict__ partial,     // (2, B, nbx)
+                          int batch, int m, int p, int nbx) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_x = smem;                                     // per warp (m, kPairStride)
+  uint32_t* s_wb = reinterpret_cast<uint32_t*>(s_x + kMmaWarps * m * kPairStride);  // pack_w1
+  float* s_b1 = reinterpret_cast<float*>(s_wb + 16 * 32);  // kC
+  float* s_w2 = s_b1 + kC;                               // kC * K, rounded
+  float* s_b2 = s_w2 + kC * kMaxK;                       // K
+  float* s_z = s_b2 + kMaxK;                             // kC * m
+  __shared__ float red[kMmaWarps];
+
+  const int b = blockIdx.y;
+  const int bx = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+
+  for (int i = tid; i < kC * K; i += kMmaThreads) s_w2[i] = round_bf16(w2[i]);
+  for (int i = tid; i < kC * m; i += kMmaThreads) s_z[i] = z[static_cast<size_t>(b) * kC * m + i];
+  if (tid < kC) s_b1[tid] = b1[tid];
+  if (tid < K) s_b2[tid] = b2[tid];
+  pack_w1(w1, s_wb, nullptr);
+  __syncthreads();
+
+  float* wx = s_x + warp * m * kPairStride;  // wx[j * kPairStride + row * 4 + class]
+  const float* fb = feat + static_cast<size_t>(b) * kC * p;
+  const float* yb = y + static_cast<size_t>(b) * K * p;
+  const int ntiles = (p + kTileRows - 1) / kTileRows;
+  float v1 = 0.f;
+  float v2 = 0.f;
+  for (int tile = bx * kMmaWarps + warp; tile < ntiles; tile += nbx * kMmaWarps) {
+    int px[2];
+    bool ok[2];
+    float f[2][4][2];
+    float yq[2];
+    load_tile<K>(fb, yb, p, tile, g, q, f, yq, px, ok);
+    for (int j = 0; j < m; ++j) {
+      float h0[2][4][2];
+      uint32_t a[2][4];
+      float acc[4][4];
+      member_hidden(f, s_z, m, j, q, s_wb, lane, h0, a, acc);
+      float x[2][K];
+      decode_x<K>(acc, s_b1, s_w2, s_b2, q, x);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!ok[r]) continue;  // a pixel past the last adds nothing
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) {
+          if (kk == q) v1 += fabsf(x[r][kk] - yq[r]);
+        }
+        const float* col = wx + (g + 8 * r) * 4;
+        for (int i = q; i < j; i += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(col + i * kPairStride);
+          const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int kk = 0; kk < K; ++kk) v2 += fabsf(wv[kk] - x[r][kk]);
+        }
+      }
+      // member j's x: lane q = 0 writes row g, lane q = 1 row g + 8
+      if (q < 2) {
+        float out[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) out[kk] = q == 0 ? x[0][kk] : x[1][kk];
+        *reinterpret_cast<float4*>(wx + j * kPairStride + (g + 8 * q) * 4) =
+            make_float4(out[0], out[1], out[2], out[3]);
+      }
+      __syncwarp();  // member j's x, before member j + 1 reads it
+    }
+  }
+  const float s1 = block_sum<kMmaThreads>(v1, red);
+  const float s2 = block_sum<kMmaThreads>(v2, red);
+  if (tid == 0) {
+    partial[static_cast<size_t>(b) * nbx + bx] = s1;
+    partial[(static_cast<size_t>(batch) + b) * nbx + bx] = s2;
+  }
+}
+
+size_t fwd_mma_smem_bytes(int m) {
+  return sizeof(float) * (static_cast<size_t>(kMmaWarps) * m * kPairStride + 16 * 32 + kC +
+                          kC * kMaxK + kMaxK + static_cast<size_t>(kC) * m);
+}
+
+// -- both directions --------------------------------------------------------------
+
+constexpr int kFp32 = 0;         // f32 operands, FP32 pipes
+constexpr int kTensorCore = 1;   // bf16 operands, mma.sync
+
+bool args_valid(int which, int batch, int m, int k, int p) {
+  return m >= 1 && m <= kMaxM && k >= 1 && k <= kMaxK && batch >= 1 && batch <= 65535 &&
+         p >= 1 && (which == kFp32 || which == kTensorCore);
+}
+
+// Blocks per batch element of a tensor-core kernel: as many as fill the
+// card's resident slots once (at least 1, at most one warp per tile).
+template <typename Kernel>
+cudaError_t fill_blocks(Kernel kernel, size_t smem, int batch, int p, int* nbx) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -961,8 +1112,7 @@ cudaError_t mma_blocks(int batch, int m, int p, int* nbx) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fcomb_crps_bwd_mma_kernel<K>,
-                                                      kMmaThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem);
   if (err != cudaSuccess) return err;
   const int ntiles = (p + kTileRows - 1) / kTileRows;
   const int most = (ntiles + kMmaWarps - 1) / kMmaWarps;
@@ -971,40 +1121,64 @@ cudaError_t mma_blocks(int batch, int m, int p, int* nbx) {
   return cudaSuccess;
 }
 
-template <int K>
-cudaError_t launch_bwd_mma(const float* feat, const float* z, const float* w1, const float* b1,
-                           const float* w2, const float* b2, const float* y, const float* g1,
-                           const float* g2, float* dfeat, float* dy, float* dz_part,
-                           float* w_part, int batch, int m, int p, int nbx,
-                           cudaStream_t stream) {
-  const size_t smem = bwd_mma_smem_bytes(m, K);
-  fcomb_crps_bwd_mma_kernel<K><<<dim3(nbx, batch), kMmaThreads, smem, stream>>>(
-      feat, z, w1, b1, w2, b2, y, g1, g2, dfeat, dy, dz_part, w_part, batch, m, p, nbx);
-  return cudaGetLastError();
-}
-
-// -- both kernels --------------------------------------------------------------
-
-constexpr int kBwdFp32 = 0;         // f32 operands, FP32 pipes
-constexpr int kBwdTensorCore = 1;   // bf16 operands, mma.sync
-
-bool bwd_args_valid(int which, int batch, int m, int k, int p) {
-  return m >= 1 && m <= kMaxM && k >= 1 && k <= kMaxK && batch >= 1 && batch <= 65535 &&
-         p >= 1 && (which == kBwdFp32 || which == kBwdTensorCore);
-}
-
-// Rows of partials per batch element that kernel `which` writes.
-cudaError_t bwd_partials(int which, int batch, int m, int k, int p, int* rows) {
-  if (which == kBwdFp32) {
+// Rows of partials per batch element that forward kernel `which` writes.
+cudaError_t fwd_partials(int which, int batch, int m, int k, int p, int* rows) {
+  if (which == kFp32) {
     *rows = (p + kThreads - 1) / kThreads;
     return cudaSuccess;
   }
+  const size_t smem = fwd_mma_smem_bytes(m);
   switch (k) {
-    case 1: return mma_blocks<1>(batch, m, p, rows);
-    case 2: return mma_blocks<2>(batch, m, p, rows);
-    case 3: return mma_blocks<3>(batch, m, p, rows);
-    default: return mma_blocks<4>(batch, m, p, rows);
+    case 1: return fill_blocks(fcomb_crps_fwd_mma_kernel<1>, smem, batch, p, rows);
+    case 2: return fill_blocks(fcomb_crps_fwd_mma_kernel<2>, smem, batch, p, rows);
+    case 3: return fill_blocks(fcomb_crps_fwd_mma_kernel<3>, smem, batch, p, rows);
+    default: return fill_blocks(fcomb_crps_fwd_mma_kernel<4>, smem, batch, p, rows);
   }
+}
+
+// Rows of partials per batch element that backward kernel `which` writes.
+cudaError_t bwd_partials(int which, int batch, int m, int k, int p, int* rows) {
+  if (which == kFp32) {
+    *rows = (p + kThreads - 1) / kThreads;
+    return cudaSuccess;
+  }
+  const size_t smem = bwd_mma_smem_bytes(m, k);
+  switch (k) {
+    case 1: return fill_blocks(fcomb_crps_bwd_mma_kernel<1>, smem, batch, p, rows);
+    case 2: return fill_blocks(fcomb_crps_bwd_mma_kernel<2>, smem, batch, p, rows);
+    case 3: return fill_blocks(fcomb_crps_bwd_mma_kernel<3>, smem, batch, p, rows);
+    default: return fill_blocks(fcomb_crps_bwd_mma_kernel<4>, smem, batch, p, rows);
+  }
+}
+
+cudaError_t launch_fwd(int which, const float* feat, const float* z, const float* w1,
+                       const float* b1, const float* w2, const float* b2, const float* y,
+                       float* partial, float* t1, float* t2, int batch, int m, int k, int p,
+                       cudaStream_t stream) {
+  int rows = 0;
+  cudaError_t err = fwd_partials(which, batch, m, k, p, &rows);
+  if (err != cudaSuccess) return err;
+  if (which == kFp32) {
+    err = launch_fp32(feat, z, w1, b1, w2, b2, y, partial, batch, m, k, p, stream);
+  } else {
+    const size_t smem = fwd_mma_smem_bytes(m);
+#define PROBUNET_MMA_CASE(K)                                                                  \
+  case K:                                                                                     \
+    fcomb_crps_fwd_mma_kernel<K><<<dim3(rows, batch), kMmaThreads, smem, stream>>>(           \
+        feat, z, w1, b1, w2, b2, y, partial, batch, m, p, rows);                              \
+    err = cudaGetLastError();                                                                 \
+    break;
+    switch (k) {
+      PROBUNET_MMA_CASE(1)
+      PROBUNET_MMA_CASE(2)
+      PROBUNET_MMA_CASE(3)
+      default: PROBUNET_MMA_CASE(4)
+    }
+#undef PROBUNET_MMA_CASE
+  }
+  if (err != cudaSuccess) return err;
+  launch_reduce(partial, t1, t2, batch, rows, stream);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_bwd(int which, const float* feat, const float* z, const float* w1,
@@ -1015,14 +1189,16 @@ cudaError_t launch_bwd(int which, const float* feat, const float* z, const float
   int rows = 0;
   cudaError_t err = bwd_partials(which, batch, m, k, p, &rows);
   if (err != cudaSuccess) return err;
-  if (which == kBwdFp32) {
+  if (which == kFp32) {
     err = launch_bwd_fp32(feat, z, w1, b1, w2, b2, y, g1, g2, dfeat, dy, dz_part, w_part, batch,
                           m, k, p, stream);
   } else {
+    const size_t smem = bwd_mma_smem_bytes(m, k);
 #define PROBUNET_MMA_CASE(K)                                                                  \
   case K:                                                                                     \
-    err = launch_bwd_mma<K>(feat, z, w1, b1, w2, b2, y, g1, g2, dfeat, dy, dz_part, w_part,   \
-                            batch, m, p, rows, stream);                                       \
+    fcomb_crps_bwd_mma_kernel<K><<<dim3(rows, batch), kMmaThreads, smem, stream>>>(           \
+        feat, z, w1, b1, w2, b2, y, g1, g2, dfeat, dy, dz_part, w_part, batch, m, p, rows);   \
+    err = cudaGetLastError();                                                                 \
     break;
     switch (k) {
       PROBUNET_MMA_CASE(1)
@@ -1045,63 +1221,56 @@ cudaError_t launch_bwd(int which, const float* feat, const float* z, const float
 
 extern "C" {
 
-int fcomb_crps_tile_pixels() { return probunet::kThreads; }
-
 int fcomb_crps_channels() { return probunet::kC; }
 
 int fcomb_crps_max_members() { return probunet::kMaxM; }
 
 int fcomb_crps_max_classes() { return probunet::kMaxK; }
 
-// feat (B, C, P), z (B, C, M), w1 (C, C), b1 (C,), w2 (C, K), b2 (K,),
-// y (B, K, P): f32, contiguous, C = fcomb_crps_channels(). partial:
-// (2, B, ceil(P / tile)) f32 scratch; t1, t2: (B,) f32. bf16_operands
-// selects the bf16 rounding points. Returns cudaGetLastError().
-int fcomb_crps_terms_fwd(const void* feat, const void* z, const void* w1, const void* b1,
-                         const void* w2, const void* b2, const void* y, void* partial,
-                         void* t1, void* t2, int batch, int m, int k, int p,
-                         int bf16_operands, void* stream) {
-  if (m < 1 || m > probunet::kMaxM || k < 1 || k > probunet::kMaxK || batch < 1 ||
-      batch > 65535 || p < 1) {
+// Rows of partials per batch element of fcomb_crps_terms_fwd (forward = 1)
+// or fcomb_crps_terms_bwd (forward = 0) with kernel `which` (0: f32
+// operands on the FP32 pipes; 1: bf16 operands on the tensor cores),
+// written to *rows (an int). Returns a cudaError_t.
+int fcomb_crps_partials(int forward, int which, int batch, int m, int k, int p, void* rows) {
+  if (!probunet::args_valid(which, batch, m, k, p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
-  float* o1 = static_cast<float*>(t1);
-  float* o2 = static_cast<float*>(t2);
-  const cudaError_t err =
-      bf16_operands
-          ? probunet::launch<true>(f(feat), f(z), f(w1), f(b1), f(w2), f(b2), f(y), part, o1,
-                                   o2, batch, m, k, p, s)
-          : probunet::launch<false>(f(feat), f(z), f(w1), f(b1), f(w2), f(b2), f(y), part, o1,
-                                    o2, batch, m, k, p, s);
-  return static_cast<int>(err);
+  int* out = static_cast<int*>(rows);
+  return static_cast<int>(forward ? probunet::fwd_partials(which, batch, m, k, p, out)
+                                  : probunet::bwd_partials(which, batch, m, k, p, out));
 }
 
-// Rows of partials per batch element of fcomb_crps_terms_bwd with kernel
-// `which` (0: f32 operands on the FP32 pipes; 1: bf16 operands on the
-// tensor cores), written to *rows (an int). Returns a cudaError_t.
-int fcomb_crps_bwd_partials(int which, int batch, int m, int k, int p, void* rows) {
-  if (!probunet::bwd_args_valid(which, batch, m, k, p)) {
+// feat (B, C, P), z (B, C, M), w1 (C, C), b1 (C,), w2 (C, K), b2 (K,),
+// y (B, K, P): f32, contiguous, C = fcomb_crps_channels(). partial:
+// (2, B, R) f32 scratch, R from fcomb_crps_partials; t1, t2: (B,) f32.
+// `which` as there: kernel 1 rounds the products' operands to bf16,
+// kernel 0 keeps them f32. Returns cudaGetLastError().
+int fcomb_crps_terms_fwd(const void* feat, const void* z, const void* w1, const void* b1,
+                         const void* w2, const void* b2, const void* y, void* partial,
+                         void* t1, void* t2, int batch, int m, int k, int p, int which,
+                         void* stream) {
+  if (!probunet::args_valid(which, batch, m, k, p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(probunet::bwd_partials(which, batch, m, k, p, static_cast<int*>(rows)));
+  auto c = [](const void* ptr) { return static_cast<const float*>(ptr); };
+  auto w = [](void* ptr) { return static_cast<float*>(ptr); };
+  return static_cast<int>(probunet::launch_fwd(
+      which, c(feat), c(z), c(w1), c(b1), c(w2), c(b2), c(y), w(partial), w(t1), w(t2), batch,
+      m, k, p, static_cast<cudaStream_t>(stream)));
 }
 
 // The forward's operands plus g1, g2 (B,) f32. Outputs: dfeat (B, C, P);
 // dy (B, K, P) or null (not computed); dz (B, C, M); dw: the weight
 // gradients packed as [dW1 (C, C) | db1 (C) | dW2 (C, K) | db2 (K)].
 // Scratch: dz_part (R, B, C, M) and w_part (B * R, C*C + C + C*K + K) f32,
-// R from fcomb_crps_bwd_partials. `which` as there: kernel 1 rounds the
-// products' operands to bf16, kernel 0 keeps them f32. Returns
+// R from fcomb_crps_partials. `which` as for the forward. Returns
 // cudaGetLastError().
 int fcomb_crps_terms_bwd(const void* feat, const void* z, const void* w1, const void* b1,
                          const void* w2, const void* b2, const void* y, const void* g1,
                          const void* g2, void* dfeat, void* dy, void* dz_part, void* w_part,
                          void* dz, void* dw, int batch, int m, int k, int p, int which,
                          void* stream) {
-  if (!probunet::bwd_args_valid(which, batch, m, k, p)) {
+  if (!probunet::args_valid(which, batch, m, k, p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto c = [](const void* ptr) { return static_cast<const float*>(ptr); };

@@ -37,11 +37,18 @@
 // (B,)). That slab is 1 MB at 128x128x32 bf16 and 3 MB at the decoder's
 // C=96 concat, up to 13x the 227 KB of shared memory a block has.
 //
-// C splits the statistics: (1) a stats pass over (pixel tile, channel
-// chunk, batch) blocks writes per-channel f32 partials of s1 and s2; (2) a
-// finalize block per batch element adds them in a fixed order (tiles, then
-// the group's channels) into mean/rstd and the per-channel a, b; (3) an
-// apply pass writes y. It reads x three times (the TPU kernel twice).
+// C follows a plan made per shape in the wrapper
+// (ops/kernels/fused_gn.py:fwd_plan), on one of two routes:
+// - clusters (gn_fwd_cluster_kernel), where a cluster of up to 8 blocks
+//   holds a channel part's slab: x read once into shared memory, the sums
+//   exchanged through distributed shared memory, y written from there, in
+//   one launch;
+// - three passes, kept for C % 8 != 0 and slabs no cluster holds: (1) a
+//   stats pass over (pixel tile, channel chunk, batch) blocks writes
+//   per-channel f32 partials of s1 and s2; (2) a finalize block per batch
+//   element adds them in a fixed order (tiles, then the group's channels)
+//   into mean/rstd and the per-channel a, b; (3) an apply pass writes y.
+//   x is read twice.
 //
 // C′ keeps the slab on chip instead where that pays, on a thread-block
 // cluster: the plan made per shape in the wrapper
@@ -61,7 +68,8 @@
 // dx.
 //
 // Every thread owns VEC = 8 consecutive channels of a pixel (one 16-byte
-// load in bf16, two in f32; VEC = 1 when C % 8 != 0, two-pass only), so the
+// load in bf16, two in f32; VEC = 1 when C % 8 != 0, on the three-pass and
+// two-pass routes only), so the
 // loads are coalesced along channels. In the reduce passes a block's
 // threads keep fixed columns (cw vector columns, rpi rows at a time) and sum
 // their rows in registers, then over rows in shared memory in a fixed order.
@@ -116,9 +124,9 @@ __device__ __forceinline__ void storev(float* p, const float (&v)[8]) {
 
 __device__ __forceinline__ void storev(__nv_bfloat16* p, const float (&v)[8]) {
   uint4 raw;
-  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = __float2bfloat16_rn(v[i]);
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
@@ -137,6 +145,25 @@ __device__ __forceinline__ float square(float v, const __nv_bfloat16*) {
 
 __device__ __forceinline__ float sigmoid(float z) { return 1.f / (1.f + expf(-z)); }
 
+// The forward's sigmoid, on the special-function unit: __expf and a fast
+// reciprocal, within a few ulp (far inside the checks' 1e-5 of the largest
+// output in f32). C's apply issues about as long as its bytes take to move,
+// and these two save ~10 of its ~35 instructions an element. The backward
+// keeps the IEEE sigmoid.
+__device__ __forceinline__ float sigmoid_fast(float z) {
+  return __fdividef(1.f, __fadd_rn(1.f, __expf(-z)));
+}
+
+// mean = s1/n and rstd = 1/sqrt(s2/n - mean^2 + eps) of one (batch, group),
+// no clamp
+__device__ __forceinline__ void group_stats(float s1, float s2, float n, float eps, float* mean,
+                                            float* rstd) {
+  const float m = __fdiv_rn(s1, n);
+  const float var = __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(m, m));
+  *mean = m;
+  *rstd = 1.f / sqrtf(__fadd_rn(var, eps));
+}
+
 // a, b of z = x*a + b for one (batch, channel)
 __device__ __forceinline__ void chain_coef(float mean, float rstd, float gam, float bet,
                                            float sc, float sh, float* a, float* b) {
@@ -147,13 +174,14 @@ __device__ __forceinline__ void chain_coef(float mean, float rstd, float gam, fl
 }
 
 // What the forward outputs at one element, before the cast: the chain of
-// z = x*a + b, with dropout at NHWC index e of batch element `salt`.
+// z = x*a + b, with dropout at NHWC index e of batch element `salt` (kept
+// where hash_bits >= keep_from = keep_bits(p)).
 __device__ __forceinline__ float chain_out(float x, float a, float b, int silu, int drop,
-                                           uint32_t e, uint32_t key, uint32_t salt, float p,
-                                           float drop_scale) {
+                                           uint32_t e, uint32_t key, uint32_t salt,
+                                           uint32_t keep_from, float drop_scale) {
   const float z = __fadd_rn(__fmul_rn(x, a), b);
-  float out = silu ? __fmul_rn(z, sigmoid(z)) : z;
-  if (drop) out = hash_uniform(e, key, salt) >= p ? __fmul_rn(out, drop_scale) : 0.f;
+  float out = silu ? __fmul_rn(z, sigmoid_fast(z)) : z;
+  if (drop) out = hash_bits(e, key, salt) >= keep_from ? __fmul_rn(out, drop_scale) : 0.f;
   return out;
 }
 
@@ -289,9 +317,8 @@ gn_fwd_finalize_kernel(const float* __restrict__ partial, const float* __restric
       a += s1[g * cg + i];
       q += s2[g * cg + i];
     }
-    const float m = __fdiv_rn(a, n);
-    const float var = __fsub_rn(__fdiv_rn(q, n), __fmul_rn(m, m));
-    const float r = 1.f / sqrtf(__fadd_rn(var, eps));
+    float m, r;
+    group_stats(a, q, n, eps, &m, &r);
     mean[b * groups + g] = m;
     rstd[b * groups + g] = r;
     gm[g] = m;
@@ -318,6 +345,7 @@ gn_fwd_apply_kernel(const T* __restrict__ x, const float* __restrict__ coef,
   const int c0 = static_cast<int>(e0 % c);
   const size_t off = static_cast<size_t>(b) * hw * c + e0;
   const uint32_t key = hash_key(seed);
+  const uint32_t keep_from = keep_bits(p);
   float v[VEC], a[VEC], bb[VEC];
   loadv(x + off, v);
   loadv(coef + static_cast<size_t>(b) * c + c0, a);
@@ -325,7 +353,7 @@ gn_fwd_apply_kernel(const T* __restrict__ x, const float* __restrict__ coef,
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     v[i] = chain_out(v[i], a[i], bb[i], silu, drop, static_cast<uint32_t>(e0 + i), key,
-                     static_cast<uint32_t>(b), p, drop_scale);
+                     static_cast<uint32_t>(b), keep_from, drop_scale);
   }
   storev(y + off, v);
 }
@@ -665,6 +693,56 @@ __host__ __device__ inline size_t cluster_smem_bytes(int cp, int iters, int xsiz
                           16 * static_cast<size_t>(cp));
 }
 
+// The block's per-channel sums of v over its rows, into out[0, cp): a
+// thread holds channels col * 8 .. col * 8 + 7 (col = t % cols, cols =
+// cp / 8) of rows t / cols, t / cols + rpi, ...; each channel's rpi row
+// values are summed in nseg segments of rps rows, then the segments, all
+// in row order. red: 8 * kRedStride floats; seg: kClusterThreads + cp.
+// Every thread of the block calls it.
+__device__ __forceinline__ void block_channel_sums(const float (&v)[8], float* red, float* seg,
+                                                   float* out, int cp) {
+  const int t = threadIdx.x;
+  const int cols = cp / 8;
+  const int rpi = kClusterThreads / cols;
+  const int nseg = cp >= kClusterThreads ? 1 : kClusterThreads / cp;
+  const int rps = (rpi + nseg - 1) / nseg;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) red[i * kRedStride + t] = v[i];
+  __syncthreads();
+  for (int u = t; u < nseg * cp; u += kClusterThreads) {
+    const int j = u % cp;
+    const int sg = u / cp;
+    const float* rj = red + (j % 8) * kRedStride + j / 8;
+    float s = 0.f;
+    for (int r = sg * rps; r < min(rpi, (sg + 1) * rps); ++r) s += rj[r * cols];
+    seg[u] = s;
+  }
+  __syncthreads();
+  for (int j = t; j < cp; j += kClusterThreads) {
+    float s = 0.f;
+    for (int sg = 0; sg < nseg; ++sg) s += seg[sg * cp + j];
+    out[j] = s;
+  }
+  __syncthreads();
+}
+
+// A cluster-route launch of `grid` blocks in clusters of cs
+cudaLaunchConfig_t cluster_config(dim3 grid, int cs, size_t smem, cudaLaunchAttribute* attr,
+                                  cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kClusterThreads, 2)
 gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -791,32 +869,9 @@ gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
       *d1 = make_float4(dz[4], dz[5], dz[6], dz[7]);
     }
   }
-  // the block's per-channel sums over its rows (Sdz, then Sdzx): each
-  // channel's rpi row values in nseg segments of rps rows, then the
-  // segments, all in row order
-  const int nseg = cp >= kClusterThreads ? 1 : kClusterThreads / cp;
-  const int rps = (rpi + nseg - 1) / nseg;
-#pragma unroll
-  for (int which = 0; which < 2; ++which) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) red[i * kRedStride + t] = which == 0 ? sdz[i] : sdzx[i];
-    __syncthreads();
-    for (int u = t; u < nseg * cp; u += kClusterThreads) {
-      const int j = u % cp;
-      const int sg = u / cp;
-      const float* rj = red + (j % 8) * kRedStride + j / 8;
-      float s = 0.f;
-      for (int r = sg * rps; r < min(rpi, (sg + 1) * rps); ++r) s += rj[r * cols];
-      seg[u] = s;
-    }
-    __syncthreads();
-    for (int j = t; j < cp; j += kClusterThreads) {
-      float s = 0.f;
-      for (int sg = 0; sg < nseg; ++sg) s += seg[sg * cp + j];
-      part[which * cp + j] = s;
-    }
-    __syncthreads();
-  }
+  // the block's per-channel sums over its rows: Sdz, then Sdzx
+  block_channel_sums(sdz, red, seg, part, cp);
+  block_channel_sums(sdzx, red, seg, part + cp, cp);
   cluster.sync();
 
   // the part's totals, from every block of the cluster in rank order, and
@@ -971,18 +1026,10 @@ cudaError_t launch_bwd_cluster(const Args& a, void* dx, float* dgamma, float* db
       reinterpret_cast<unsigned int*>(a.work + 2 * static_cast<size_t>(a.batch) * a.c);
   err = cudaMemsetAsync(arrived, 0, sizeof(unsigned int), s);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(a.c / cp * cs), static_cast<unsigned>(a.batch));
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(static_cast<unsigned>(a.c / cp * cs), static_cast<unsigned>(a.batch)), cs, smem, attr,
+      s);
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.x), static_cast<const T*>(a.g),
                            static_cast<const float*>(a.mean), static_cast<const float*>(a.rstd),
                            a.gamma, a.beta, a.scale, a.shift, a.seed, static_cast<T*>(dx), dgamma,
@@ -1000,28 +1047,245 @@ cudaError_t cluster_occupancy(int c, int cp, int cs, int iters, int* count) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(c / cp * cs), 1);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(static_cast<unsigned>(c / cp * cs)), cs, smem, attr, nullptr);
   return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
 }
 
-// The plan's constraints (the wrapper's bwd_plan meets them; a launch that
-// does not is refused).
-bool cluster_plan_valid(int hw, int c, int groups, int cp, int cs, int iters, int xsize) {
+// -- C on one cluster per (batch element, channel part) ----------------------
+//
+// The route the wrapper's plan (ops/kernels/fused_gn.py:fwd_plan) picks
+// where a cluster holds the slab: one launch that reads x once and writes y
+// once, the bytes the bound counts. The layout comes from C′'s enumeration
+// (cluster_layouts): a cluster of `cs` blocks owns the (HW, cp) slab of one
+// batch element's channel part [c0, c0 + cp) of whole groups, block `rank`
+// pixel rows [rank * rows, (rank + 1) * rows), a thread 8 channels of rows
+// t / cols, t / cols + rpi, ... (`iters` of them).
+//
+//   load:    every 16-byte vector of x the block owns is copied into shared
+//            memory by cp.async at once, in two commit groups, so the sums
+//            of the first half run while the second lands;
+//   sums:    s1 = sum x and s2 = sum bf16(x*x) over the thread's rows, then
+//            over the block's rows in order (block_channel_sums);
+//   cluster: every block reads the cs blocks' per-channel sums through
+//            distributed shared memory in rank order, so all hold the same
+//            totals; the group sums, mean, rstd (rank 0 writes them) and
+//            the per-channel a, b of the part (the finalize, folded in);
+//   apply:   y = chain(x*a + b) from shared memory, written once.
+//
+// A cluster's life leaves the memory idle while it sums and applies, and
+// the clusters of a wave run it nearly in step, so the plan picks small
+// blocks (x alone, 2 bytes an element in bf16), three or four on an SM (64
+// registers a thread at most, by the launch bounds). Measured on an H100
+// 80GB HBM3 at 700 W (PERF.md §6): faster than the three passes at every
+// flagship chain shape; 0.171 ms at 128x128x32 bf16 (bound 0.080), 0.123
+// with the SiLU and mask off, so the apply's arithmetic still does not
+// overlap the loads. No float atomics: bit-reproducible.
+__host__ __device__ inline size_t fwd_cluster_smem_bytes(int cp, int iters, int xsize) {
+  return static_cast<size_t>(iters) * kClusterThreads * 8 * xsize +
+         sizeof(float) * (8 * static_cast<size_t>(kRedStride) + kClusterThreads +
+                          7 * static_cast<size_t>(cp));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads, 4)
+gn_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                      const float* __restrict__ beta, const float* __restrict__ scale,
+                      const float* __restrict__ shift, const int* __restrict__ seed,
+                      T* __restrict__ y, float* __restrict__ mean, float* __restrict__ rstd,
+                      int hw, int c, int groups, int cp, int cs, int iters, float eps, int silu,
+                      int drop, float p, float drop_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nslots = iters * kClusterThreads;
+  Raw8<T>* s_x = reinterpret_cast<Raw8<T>*>(smem);
+  float* red = reinterpret_cast<float*>(s_x + nslots);  // 8 * kRedStride
+  float* seg = red + 8 * kRedStride;                     // kClusterThreads + cp
+  float* part = seg + kClusterThreads + cp;              // (2, cp): this block's s1, s2
+  float* coef = part + 2 * cp;                           // (2, cp): totals, then a, b
+  float* gst = coef + 2 * cp;                            // (2, cp / cpg): mean, rstd
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int c0 = (blockIdx.x / cs) * cp;
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int cols = cp / 8;
+  const int rpi = kClusterThreads / cols;
+  const int col = t % cols;
+  const int row = t / cols;
+  const bool active = row < rpi;
+  const int cpg = c / groups;
+  const int rows = (hw + cs - 1) / cs;
+  const int r0 = static_cast<int>(rank) * rows;
+  const int r1 = min(hw, r0 + rows);
+  const int ch0 = c0 + col * 8;  // this thread's first channel
+  const size_t base = static_cast<size_t>(b) * hw * c + ch0;
+
+  // load
+  constexpr int kVecs = sizeof(T) / 2;  // 16-byte pieces of 8 elements
+  const int half = (iters + 1) / 2;
+  for (int it = 0; it < iters; ++it) {
+    if (it == half) cp_async_commit();
+    const int px = r0 + it * rpi + row;
+    if (active && px < r1) {
+      const char* xp = reinterpret_cast<const char*>(x + base + static_cast<size_t>(px) * c);
+      char* xs = reinterpret_cast<char*>(&s_x[it * kClusterThreads + t]);
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) cp_async16(xs + 16 * v, xp + 16 * v);
+    }
+  }
+  cp_async_commit();
+
+  // sums over the thread's rows, in row order; a thread reads back only the
+  // slots it filled
+  float s1[8], s2[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s1[i] = s2[i] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    if (it == 0) {
+      if (half < iters) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else if (it == half) {
+      cp_async_wait<0>();
+    }
+    const int px = r0 + it * rpi + row;
+    if (active && px < r1) {
+      float xv[8];
+      unpack(s_x[it * kClusterThreads + t], xv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s1[i] += xv[i];
+        s2[i] += square(xv[i], x);
+      }
+    }
+  }
+  block_channel_sums(s1, red, seg, part, cp);
+  block_channel_sums(s2, red, seg, part + cp, cp);
+  cluster.sync();
+
+  // the part's per-channel totals, from every block in rank order
+  for (int j = t; j < cp; j += kClusterThreads) {
+    float v1[kMaxCluster], v2[kMaxCluster];  // all loads in flight, then summed in order
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < cs) {
+        const float* rp = cluster.map_shared_rank(part, r);
+        v1[r] = rp[j];
+        v2[r] = rp[cp + j];
+      }
+    }
+    float a = 0.f, q = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < cs) {
+        a += v1[r];
+        q += v2[r];
+      }
+    }
+    coef[j] = a;
+    coef[cp + j] = q;
+  }
+  cluster_arrive();  // done with the other blocks' shared memory
+  __syncthreads();
+  // the finalize: group sums over the group's channels in order
+  const int ng = cp / cpg;
+  const float n = static_cast<float>(static_cast<double>(hw) * cpg);
+  for (int gg = t; gg < ng; gg += kClusterThreads) {
+    float a = 0.f, q = 0.f;
+    for (int i = 0; i < cpg; ++i) {
+      a += coef[gg * cpg + i];
+      q += coef[cp + gg * cpg + i];
+    }
+    float m, r;
+    group_stats(a, q, n, eps, &m, &r);
+    gst[gg] = m;
+    gst[ng + gg] = r;
+    if (rank == 0) {
+      const int gi = b * groups + c0 / cpg + gg;
+      mean[gi] = m;
+      rstd[gi] = r;
+    }
+  }
+  __syncthreads();
+  for (int j = t; j < cp; j += kClusterThreads) {
+    const int ch = c0 + j;
+    chain_coef(gst[j / cpg], gst[ng + j / cpg], gamma[ch], beta[ch], scale[b * c + ch],
+               shift[b * c + ch], &coef[j], &coef[cp + j]);
+  }
+  __syncthreads();
+
+  // apply
+  if (active) {
+    const uint32_t key = hash_key(seed);
+    const uint32_t keep_from = keep_bits(p);
+    float a[8], bb[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      a[i] = coef[col * 8 + i];
+      bb[i] = coef[cp + col * 8 + i];
+    }
+    for (int it = 0; it < iters; ++it) {
+      const int px = r0 + it * rpi + row;
+      if (px >= r1) break;
+      float xv[8];
+      unpack(s_x[it * kClusterThreads + t], xv);
+      const uint32_t e0 = static_cast<uint32_t>(px) * static_cast<uint32_t>(c) + ch0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        xv[i] = chain_out(xv[i], a[i], bb[i], silu, drop, e0 + i, key, static_cast<uint32_t>(b),
+                          keep_from, drop_scale);
+      }
+      storev(y + base + static_cast<size_t>(px) * c, xv);
+    }
+  }
+  cluster_wait();  // no block leaves while another may still read its sums
+}
+
+template <typename T>
+cudaError_t launch_fwd_cluster(const Args& a, void* y, int cp, int cs, int iters,
+                               cudaStream_t s) {
+  const size_t smem = fwd_cluster_smem_bytes(cp, iters, sizeof(T));
+  auto kernel = gn_fwd_cluster_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(static_cast<unsigned>(a.c / cp * cs), static_cast<unsigned>(a.batch)), cs, smem, attr,
+      s);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.x), a.gamma, a.beta, a.scale,
+                           a.shift, a.seed, static_cast<T*>(y), a.mean, a.rstd, a.hw, a.c,
+                           a.groups, cp, cs, iters, a.eps, a.silu, a.drop, a.p, a.drop_scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The most clusters of a forward cluster-route layout the card holds at once.
+template <typename T>
+cudaError_t fwd_cluster_occupancy(int c, int cp, int cs, int iters, int* count) {
+  const size_t smem = fwd_cluster_smem_bytes(cp, iters, sizeof(T));
+  auto kernel = gn_fwd_cluster_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(static_cast<unsigned>(c / cp * cs)), cs, smem, attr, nullptr);
+  return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+}
+
+// The plans' constraints (the wrapper's fwd_plan and bwd_plan meet them; a
+// launch that does not is refused).
+bool cluster_plan_valid(int hw, int c, int groups, int cp, int cs, int iters, size_t smem) {
   if (c % 8 != 0 || cp < 8 || cp % 8 != 0 || c % cp != 0 || cp % (c / groups) != 0) return false;
   if (cp / 8 > kClusterThreads || cs < 1 || cs > kMaxCluster || iters < 1) return false;
   const long long rows = (hw + cs - 1) / cs;
   if (static_cast<long long>(iters) * (kClusterThreads / (cp / 8)) < rows) return false;
-  return cluster_smem_bytes(cp, iters, xsize) <= 232448;  // 227 KB, a block's most
+  return smem <= 232448;  // 227 KB, a block's most
 }
 
 bool valid(int batch, int hw, int c, int groups) {
@@ -1036,18 +1300,31 @@ bool valid(int batch, int hw, int c, int groups) {
 extern "C" {
 
 // Pixel tiles per batch element of the reduce passes: the work buffer of
-// fused_gn_fwd / fused_gn_bwd holds 7*B*C + 2*B*ntiles*C floats.
+// C's three-pass route and C′'s two-pass route holds 7*B*C + 2*B*ntiles*C
+// floats.
 int fused_gn_tiles(int hw, int c) { return probunet::tiling(hw, c).ntiles; }
 
 // x, y: (B, HW, C) contiguous, f32 (is_bf16 = 0) or bf16; gamma, beta (C,),
 // scale, shift (B, C), f32; seed (2,) int32 (read only when p > 0);
-// mean, rstd (B, G) f32 out; work: scratch (see fused_gn_tiles).
-// drop_scale = f32(1 / (1 - p)). Returns cudaGetLastError().
+// mean, rstd (B, G) f32 out. drop_scale = f32(1 / (1 - p)). The plan
+// (ops/kernels/fused_gn.py:fwd_plan): route 1 is one cluster of `cluster`
+// blocks per (batch element, channel part of part_channels channels),
+// `iters` row iterations a thread, work unused (may be null); route 0 the
+// three passes, work scratch of 7*B*C + 2*B*ntiles*C floats (ntiles from
+// fused_gn_tiles; part_channels, cluster, iters unused). Returns
+// cudaGetLastError().
 int fused_gn_fwd(const void* x, const void* gamma, const void* beta, const void* scale,
                  const void* shift, const void* seed, void* y, void* mean, void* rstd,
                  void* work, int batch, int hw, int c, int groups, float eps, float p,
-                 float drop_scale, int silu, int is_bf16, void* stream) {
+                 float drop_scale, int silu, int is_bf16, int route, int part_channels,
+                 int cluster, int iters, void* stream) {
   if (!probunet::valid(batch, hw, c, groups)) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1 &&
+      !probunet::cluster_plan_valid(
+          hw, c, groups, part_channels, cluster, iters,
+          probunet::fwd_cluster_smem_bytes(part_channels, iters, is_bf16 ? 2 : 4))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const probunet::Args a{x, nullptr, static_cast<const float*>(gamma),
                          static_cast<const float*>(beta), static_cast<const float*>(scale),
                          static_cast<const float*>(shift), static_cast<const int*>(seed),
@@ -1055,8 +1332,14 @@ int fused_gn_fwd(const void* x, const void* gamma, const void* beta, const void*
                          static_cast<float*>(work), batch, hw, c, groups, silu, p > 0.f ? 1 : 0,
                          eps, p, drop_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool v8 = probunet::vec_width(c) == 8;
   cudaError_t err;
+  if (route == 1) {
+    err = is_bf16 ? probunet::launch_fwd_cluster<__nv_bfloat16>(a, y, part_channels, cluster,
+                                                                iters, s)
+                  : probunet::launch_fwd_cluster<float>(a, y, part_channels, cluster, iters, s);
+    return static_cast<int>(err);
+  }
+  const bool v8 = probunet::vec_width(c) == 8;
   if (is_bf16) {
     err = v8 ? probunet::launch_fwd<__nv_bfloat16, 8>(a, y, s)
              : probunet::launch_fwd<__nv_bfloat16, 1>(a, y, s);
@@ -1080,8 +1363,10 @@ int fused_gn_bwd(const void* x, const void* g, const void* gamma, const void* be
                  float drop_scale, int silu, int is_bf16, int route, int part_channels,
                  int cluster, int iters, void* stream) {
   if (!probunet::valid(batch, hw, c, groups)) return static_cast<int>(cudaErrorInvalidValue);
-  if (route == 1 && !probunet::cluster_plan_valid(hw, c, groups, part_channels, cluster, iters,
-                                                  is_bf16 ? 2 : 4)) {
+  if (route == 1 &&
+      !probunet::cluster_plan_valid(
+          hw, c, groups, part_channels, cluster, iters,
+          probunet::cluster_smem_bytes(part_channels, iters, is_bf16 ? 2 : 4))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const probunet::Args a{x, g, static_cast<const float*>(gamma),
@@ -1115,14 +1400,22 @@ int fused_gn_bwd(const void* x, const void* g, const void* gamma, const void* be
   return static_cast<int>(err);
 }
 
-// The most clusters of a cluster-route plan the current device holds at
-// once, written to *count (an int). Returns a cudaError_t.
-int fused_gn_bwd_cluster_occupancy(int c, int part_channels, int cluster, int iters,
-                                   int is_bf16, void* count) {
+// The most clusters of a cluster-route plan of C (forward = 1) or C′
+// (forward = 0) the current device holds at once, written to *count (an
+// int). Returns a cudaError_t.
+int fused_gn_cluster_occupancy(int forward, int c, int part_channels, int cluster, int iters,
+                               int is_bf16, void* count) {
   int* out = static_cast<int*>(count);
-  const cudaError_t err =
-      is_bf16 ? probunet::cluster_occupancy<__nv_bfloat16>(c, part_channels, cluster, iters, out)
-              : probunet::cluster_occupancy<float>(c, part_channels, cluster, iters, out);
+  cudaError_t err;
+  if (forward) {
+    err = is_bf16 ? probunet::fwd_cluster_occupancy<__nv_bfloat16>(c, part_channels, cluster,
+                                                                   iters, out)
+                  : probunet::fwd_cluster_occupancy<float>(c, part_channels, cluster, iters, out);
+  } else {
+    err = is_bf16 ? probunet::cluster_occupancy<__nv_bfloat16>(c, part_channels, cluster, iters,
+                                                               out)
+                  : probunet::cluster_occupancy<float>(c, part_channels, cluster, iters, out);
+  }
   return static_cast<int>(err);
 }
 

@@ -31,9 +31,19 @@ __device__ __forceinline__ uint32_t hash_key(const int* seed) {
   return static_cast<uint32_t>(seed[0]) * 2654435761u + static_cast<uint32_t>(seed[1]);
 }
 
+// u's 24 bits: u = hash_bits * 2^-24
+__device__ __forceinline__ uint32_t hash_bits(uint32_t pos, uint32_t key, uint32_t salt) {
+  return fmix32(pos + key + salt * 40503u) >> 8;
+}
+
 __device__ __forceinline__ float hash_uniform(uint32_t pos, uint32_t key, uint32_t salt) {
-  const uint32_t z = fmix32(pos + key + salt * 40503u);
-  return static_cast<float>(z >> 8) * 5.9604644775390625e-08f;  // 2^-24
+  return static_cast<float>(hash_bits(pos, key, salt)) * 5.9604644775390625e-08f;  // 2^-24
+}
+
+// The least hash_bits of a kept element: u >= p exactly when hash_bits >=
+// keep_bits(p), since p * 2^24 is exact in f32 and hash_bits an integer.
+__device__ __forceinline__ uint32_t keep_bits(float p) {
+  return static_cast<uint32_t>(ceilf(p * 16777216.f));
 }
 
 }  // namespace

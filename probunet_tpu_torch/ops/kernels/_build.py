@@ -40,18 +40,17 @@ _SIGNATURES = {
     "afcrps_terms_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "afcrps_terms_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dropout_apply": (_P, _P, _P, _LL, _I, _F, _F, _I, _P),
-    "fcomb_crps_tile_pixels": (),
     "fcomb_crps_channels": (),
     "fcomb_crps_max_members": (),
     "fcomb_crps_max_classes": (),
+    "fcomb_crps_partials": (_I, _I, _I, _I, _I, _I, _P),
     "fcomb_crps_terms_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P),
-    "fcomb_crps_bwd_partials": (_I, _I, _I, _I, _I, _P),
     "fcomb_crps_terms_bwd": (_P,) * 15 + (_I, _I, _I, _I, _I, _P),
     "fused_gn_tiles": (_I, _I),
-    "fused_gn_fwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+    "fused_gn_fwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "fused_gn_bwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P),
-    "fused_gn_bwd_cluster_occupancy": (_I, _I, _I, _I, _I, _P),
+    "fused_gn_cluster_occupancy": (_I, _I, _I, _I, _I, _I, _P),
 }
 
 

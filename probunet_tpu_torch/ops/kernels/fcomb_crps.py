@@ -25,10 +25,11 @@ and returns dfeat, dz, dW1, db1, dW2, db2 and (when asked for) dy:
     dW2 = sum h1 dx^T;  db2 = sum dx;  dy = -g1 sum_m sign(x_m - y)
 
 with ``_dot``/``_dot_t``'s rounding points: every product's operands
-rounded to the compute dtype, sums in f32. On the card A′ is one of two
-kernels, picked from the compute dtype (``BWD_KERNELS``): bf16 operands
-run the three C x C products on the tensor cores, f32 operands stay on
-the FP32 pipes. Its plain version is this
+rounded to the compute dtype, sums in f32. On the card A and A′ are each
+one of two kernels, picked from the compute dtype before the launch
+(``FWD_KERNELS``, ``BWD_KERNELS``): bf16 operands run the C x C products
+on the tensor cores, with one decode shared by A and A′; f32 operands
+stay on the FP32 pipes. A′'s plain version is this
 formula in torch with the same rounding points, not autograd through the
 plain forward, whose bf16 rounding points differ.
 """
@@ -49,11 +50,12 @@ REPLACES = "probunet_tpu/ops/pallas/fcomb_crps.py:264"
 REPLACES_BWD = "probunet_tpu/ops/pallas/fcomb_crps.py:317"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# kernel A′ per compute dtype, and its id in csrc/fcomb_crps.cu: bf16
-# operands run the three C x C products on the tensor cores; f32 operands
+# kernels A and A′ per compute dtype, and their ids in csrc/fcomb_crps.cu:
+# bf16 operands run the C x C products on the tensor cores; f32 operands
 # stay on the FP32 pipes (TF32 would move their rounding points)
+FWD_KERNELS = {"bfloat16": "tensor_core", "float32": "fp32"}
 BWD_KERNELS = {"bfloat16": "tensor_core", "float32": "fp32"}
-_BWD_KERNEL_IDS = {"fp32": 0, "tensor_core": 1}
+_KERNEL_IDS = {"fp32": 0, "tensor_core": 1}
 
 
 def fcomb_crps_terms_plain(feat_t, z_t, w1, b1, w2, b2, target_t,
@@ -121,7 +123,7 @@ def fcomb_crps_terms_fwd(feat_t, z_t, w1, b1, w2, b2, target_t,
     args = (feat_t, z_t, w1, b1, w2, b2, target_t)
     if all(a.device.type == "cpu" for a in args):
         return fcomb_crps_terms_plain(*args, compute_dtype)
-    return _launch(args, compute_dtype == "bfloat16")
+    return _launch(args, FWD_KERNELS[compute_dtype])
 
 
 def fcomb_crps_terms_bwd(feat_t, z_t, w1, b1, w2, b2, target_t, g1, g2,
@@ -210,19 +212,28 @@ def _check(args, what: str):
     return b, c, p, m, k
 
 
-def _launch(args, bf16_operands: bool):
+def _partial_rows(lib, forward: bool, which: int, b: int, m: int, k: int, p: int) -> int:
+    """Rows of partial sums per batch element that kernel ``which`` writes."""
+    rows = ctypes.c_int(0)
+    _build.check(lib.fcomb_crps_partials(int(forward), which, b, m, k, p,
+                                         ctypes.addressof(rows)), "fcomb_crps_partials")
+    return rows.value
+
+
+def _launch(args, kernel: str):
+    """Kernel A (``kernel``: a value of FWD_KERNELS) and its partial sums."""
     b, _, p, m, k = _check(args, "fcomb_crps_terms")
     dev = args[0].device
     lib = _build.library()
-    ntiles = -(-p // lib.fcomb_crps_tile_pixels())
+    which = _KERNEL_IDS[kernel]
     with torch.cuda.device(dev):
-        partial = torch.empty((2, b, ntiles), dtype=torch.float32, device=dev)
+        rows = _partial_rows(lib, True, which, b, m, k, p)
+        partial = torch.empty((2, b, rows), dtype=torch.float32, device=dev)
         t1 = torch.empty(b, dtype=torch.float32, device=dev)
         t2 = torch.empty(b, dtype=torch.float32, device=dev)
         err = lib.fcomb_crps_terms_fwd(
             *(a.data_ptr() for a in args), partial.data_ptr(), t1.data_ptr(),
-            t2.data_ptr(), b, m, k, p, int(bf16_operands),
-            torch.cuda.current_stream(dev).cuda_stream)
+            t2.data_ptr(), b, m, k, p, which, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fcomb_crps_terms_fwd")
     fcomb_crps_terms.launches += 1
     return t1, t2
@@ -233,19 +244,17 @@ def _launch_bwd(args, kernel: str, need_dy: bool):
     b, c, p, m, k = _check(args, "fcomb_crps_terms_bwd")
     dev = args[0].device
     lib = _build.library()
-    which = _BWD_KERNEL_IDS[kernel]
+    which = _KERNEL_IDS[kernel]
     nw = c * c + c + c * k + k
     f32 = dict(dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rows = ctypes.c_int(0)
-        _build.check(lib.fcomb_crps_bwd_partials(which, b, m, k, p, ctypes.addressof(rows)),
-                     "fcomb_crps_bwd_partials")
+        rows = _partial_rows(lib, False, which, b, m, k, p)
         dfeat = torch.empty((b, c, p), **f32)
         dy = torch.empty((b, k, p), **f32) if need_dy else None
         dz = torch.empty((b, c, m), **f32)
         dw = torch.empty(nw, **f32)
-        dz_part = torch.empty((rows.value, b, c, m), **f32)
-        w_part = torch.empty((b * rows.value, nw), **f32)
+        dz_part = torch.empty((rows, b, c, m), **f32)
+        w_part = torch.empty((b * rows, nw), **f32)
         err = lib.fcomb_crps_terms_bwd(
             *(a.data_ptr() for a in args), dfeat.data_ptr(),
             dy.data_ptr() if need_dy else None, dz_part.data_ptr(), w_part.data_ptr(),

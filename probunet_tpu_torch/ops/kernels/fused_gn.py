@@ -23,11 +23,11 @@ hashes the lane-packed block index r*(k*C) + col, which is the NHWC index
 regenerates the mask; the autograd residuals are x, mean, rstd and the
 seed words, as the JAX ``_vjp_fwd`` saves them.
 
-Kernel C′ follows a plan made here per shape, before the launch
-(:func:`bwd_plan`): for bf16 x, one thread-block cluster per batch element
-and channel part, which keeps the part's x and dz in shared memory so x
-and g are read once; for f32 x and the shapes no cluster holds in rows
-of 64 bytes or more, two passes.
+Kernels C and C′ each follow a plan made here per shape, before the
+launch (:func:`fwd_plan`, :func:`bwd_plan`): one thread-block cluster
+per batch element and channel part, which keeps the part's x (and, in
+C′, dz) in shared memory so x (and g) are read once, where the card ran
+that faster; elsewhere C's three passes and C′'s two.
 """
 
 from __future__ import annotations
@@ -47,15 +47,24 @@ REPLACES_BWD = "probunet_tpu/ops/pallas/fused_gn.py:282"
 
 _LANE = 128
 
-# Kernel C′'s cluster route (csrc/fused_gn.cu:gn_bwd_cluster_kernel) on the
-# H100: a block's threads, the most blocks of a cluster (the portable 8),
-# the most shared memory a block takes (227 KB) less room for its static
-# part, and the budget that leaves two blocks on each SM's 228 KB.
+# The cluster routes of C and C′ (csrc/fused_gn.cu:gn_fwd_cluster_kernel,
+# gn_bwd_cluster_kernel) on the H100: a block's threads, the most blocks of
+# a cluster (the portable 8), the most shared memory a block takes (227 KB)
+# less room for its static part, the budget that leaves two blocks on each
+# SM's 228 KB, an SM's shared memory and threads with the 1 KB the runtime
+# reserves per block, and the blocks an SM's 64K registers hold under each
+# kernel's launch bounds (C: 64 registers a thread, C′: up to 128).
 CLUSTER_THREADS = 256
 MAX_CLUSTER = 8
 SMEM_PER_BLOCK = 227 * 1024 - 1024
 SMEM_TWO_PER_SM = 112 * 1024
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED = 1024
+THREADS_PER_SM = 2048
+FWD_REGISTER_BLOCKS = 4
+BWD_REGISTER_BLOCKS = 2
 TWO_PASS = {"route": "two_pass"}
+THREE_PASS = {"route": "three_pass"}
 
 
 def _pack_factor(hw: int, c: int) -> int | None:
@@ -74,7 +83,7 @@ def supported(h: int, w: int, c: int, groups: int) -> bool:
 
 
 def cluster_smem_bytes(part_channels: int, iters: int, itemsize: int) -> int:
-    """Shared memory of one cluster-route block: x (its own type) and dz
+    """Shared memory of one C′ cluster-route block: x (its own type) and dz
     (f32) for ``iters`` rows of 8 channels per thread, the row sums, the
     part's sums, its finalize and parameters (``cluster_smem_bytes`` in
     the source)."""
@@ -82,22 +91,40 @@ def cluster_smem_bytes(part_channels: int, iters: int, itemsize: int) -> int:
             + 4 * (8 * (CLUSTER_THREADS + 1) + CLUSTER_THREADS + 16 * part_channels))
 
 
-@functools.lru_cache(maxsize=None)
-def cluster_plan(hw: int, c: int, groups: int, itemsize: int) -> dict | None:
-    """The cluster route's layout for a (B, HW, C) chain with G groups, or
-    None where no cluster holds the slab (C not a multiple of 8, or more
-    rows than 8 blocks' shared memory takes).
+def fwd_cluster_smem_bytes(part_channels: int, iters: int, itemsize: int) -> int:
+    """Shared memory of one C cluster-route block: x alone (its own type)
+    for ``iters`` rows of 8 channels per thread, the row sums, the part's
+    sums, its coefficients and group statistics (``fwd_cluster_smem_bytes``
+    in the source)."""
+    return (iters * CLUSTER_THREADS * 8 * itemsize
+            + 4 * (8 * (CLUSTER_THREADS + 1) + CLUSTER_THREADS + 7 * part_channels))
+
+
+def blocks_per_sm(smem: int, register_blocks: int) -> int:
+    """Cluster-route blocks of ``smem`` bytes that an SM's shared memory,
+    threads and (``register_blocks`` by the kernel's launch bounds)
+    registers hold at once."""
+    return min(register_blocks, THREADS_PER_SM // CLUSTER_THREADS,
+               SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+def cluster_layouts(hw: int, c: int, groups: int, itemsize: int, smem_bytes=cluster_smem_bytes,
+                    register_blocks: int = BWD_REGISTER_BLOCKS) -> list[dict]:
+    """Every cluster layout of a (B, HW, C) chain with G groups whose block
+    fits in shared memory (``smem_bytes(part_channels, iters, itemsize)``
+    a block; by default C′'s count and register limit), C′'s preference
+    first; empty where C is not a multiple of 8.
 
     One thread-block cluster of ``cluster`` blocks per batch element and
     channel part of ``part_channels`` channels (whole groups) holds the
-    part's x and dz on chip, so x and g are read once; each block takes
-    ``rows`` pixel rows in ``iters`` iterations and ``smem`` bytes.
-    Preferred, in order: blocks that fit two to an SM; pixel rows of 64
-    bytes or more, else of a 32-byte sector; the smallest cluster; the
-    widest part. The returned dict is shared: copy it to change it.
+    part on chip; each block takes ``rows`` pixel rows in ``iters``
+    iterations, ``smem`` bytes, and an SM holds ``blocks_per_sm`` such
+    blocks. C′ prefers, in order: blocks that fit two to an SM; pixel rows
+    of 64 bytes or more, else of a 32-byte sector; the smallest cluster;
+    the widest part.
     """
     cpg = c // groups
-    best = None
+    found = []
     if c % 8 == 0:
         for cp in range(8, c + 1, 8):
             if c % cp or cp % cpg or cp // 8 > CLUSTER_THREADS:
@@ -105,14 +132,62 @@ def cluster_plan(hw: int, c: int, groups: int, itemsize: int) -> dict | None:
             for cs in (1, 2, 4, MAX_CLUSTER):
                 rows = -(-hw // cs)
                 iters = -(-rows // (CLUSTER_THREADS // (cp // 8)))
-                smem = cluster_smem_bytes(cp, iters, itemsize)
+                smem = smem_bytes(cp, iters, itemsize)
                 row_bytes = cp * itemsize
                 width = 0 if row_bytes >= 64 else 1 if row_bytes >= 32 else 2
-                key = (smem > SMEM_TWO_PER_SM, width, cs, -cp)
-                if smem <= SMEM_PER_BLOCK and (best is None or key < best[0]):
-                    best = (key, {"route": "cluster", "part_channels": cp, "cluster": cs,
-                                  "rows": rows, "iters": iters, "smem": smem})
-    return None if best is None else best[1]
+                if smem <= SMEM_PER_BLOCK:
+                    found.append(((smem > SMEM_TWO_PER_SM, width, cs, -cp),
+                                  {"route": "cluster", "part_channels": cp, "cluster": cs,
+                                   "rows": rows, "iters": iters, "smem": smem,
+                                   "blocks_per_sm": blocks_per_sm(smem, register_blocks)}))
+    return [layout for _, layout in sorted(found, key=lambda kv: kv[0])]
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(hw: int, c: int, groups: int, itemsize: int) -> dict | None:
+    """C′'s cluster layout of a shape (the first of :func:`cluster_layouts`),
+    or None where no cluster holds the slab (C not a multiple of 8, or more
+    rows than 8 blocks' shared memory takes). The returned dict is shared:
+    copy it to change it."""
+    layouts = cluster_layouts(hw, c, groups, itemsize)
+    return layouts[0] if layouts else None
+
+
+def _fwd_key(layout: dict, itemsize: int) -> tuple:
+    """C's preference among layouts, in order: pixel rows of a 32-byte
+    sector or more; three or more blocks an SM; rows of 64 bytes or more;
+    more blocks an SM; the smallest cluster; the widest part."""
+    row_bytes = layout["part_channels"] * itemsize
+    held = layout["blocks_per_sm"]
+    return (row_bytes < 32, held < 3, row_bytes < 64, -held, layout["cluster"],
+            -layout["part_channels"])
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(hw: int, c: int, groups: int, itemsize: int) -> dict:
+    """How kernel C covers a (B, HW, C) chain with G groups, chosen before
+    the launch: the cluster route (x read once into shared memory, one
+    launch) on the layout :func:`_fwd_key` prefers among C's
+    :func:`cluster_layouts`, where that layout has pixel rows of 32 bytes
+    or more and three or more blocks an SM; else ``"three_pass"``
+    (statistics, finalize and apply in separate launches, x read twice),
+    which also takes C not a multiple of 8 and slabs no cluster holds.
+
+    The rule follows chip_smoke.py's timings of every cluster layout and
+    the three passes at each chain shape of the flagship U-Net on an H100
+    (PERF.md §6): the preferred layout ran faster than the three passes at
+    all 17 shapes, and within 11% of the fastest layout measured at each;
+    layouts with 16-byte rows (a sector split between two clusters) or one
+    block an SM (a cluster's life of load, sums, exchange and apply then
+    idles the memory) ran slower than the three passes. The returned dict
+    is shared: copy it to change it.
+    """
+    layouts = cluster_layouts(hw, c, groups, itemsize, fwd_cluster_smem_bytes,
+                              FWD_REGISTER_BLOCKS)
+    plan = min(layouts, key=lambda layout: _fwd_key(layout, itemsize), default=None)
+    if plan is None or plan["part_channels"] * itemsize < 32 or plan["blocks_per_sm"] < 3:
+        return THREE_PASS
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,28 +392,32 @@ def _check(x, params, groups: int, what: str) -> None:
 
 
 def _work(x: torch.Tensor, lib) -> torch.Tensor:
-    """Scratch of C and of C′'s two-pass route."""
+    """Scratch of C's three-pass route and of C′'s two-pass route."""
     b, h, w, c = x.shape
     ntiles = lib.fused_gn_tiles(h * w, c)
     return torch.empty(7 * b * c + 2 * b * ntiles * c, dtype=torch.float32, device=x.device)
 
 
-def _launch(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu):
+def _launch(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, plan=None):
+    """Kernel C on ``plan`` (a :func:`fwd_plan` dict or one of C's
+    :func:`cluster_layouts`; by default the shape's :func:`fwd_plan`)."""
     _check(x, dict(gamma=gamma, beta=beta, scale=scale, shift=shift, seed2=seed2), groups,
            "gn_film_silu_dropout")
     b, h, w, c = x.shape
+    plan = plan or fwd_plan(h * w, c, groups, x.element_size())
     lib = _build.library()
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)
         mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
         rstd = torch.empty_like(mean)
-        work = _work(x, lib)
+        work = None if plan["route"] == "cluster" else _work(x, lib)
         err = lib.fused_gn_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), seed2.data_ptr(), y.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), work.data_ptr(), b, h * w, c, groups,
+            rstd.data_ptr(), None if work is None else work.data_ptr(), b, h * w, c, groups,
             float(np.float32(eps)), float(np.float32(p_drop)), float(_drop_scale(p_drop)),
-            int(silu), int(x.dtype == torch.bfloat16),
+            int(silu), int(x.dtype == torch.bfloat16), int(plan["route"] == "cluster"),
+            plan.get("part_channels", 0), plan.get("cluster", 0), plan.get("iters", 0),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_gn_fwd")
     gn_film_silu_dropout.launches += 1

@@ -20,6 +20,8 @@ output:
   no SiLU) are equal exactly.
 """
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -201,16 +203,26 @@ def _plan_coverage(hw, c, plan):
     return count
 
 
-def _check_cluster(hw, c, groups, itemsize, plan):
+def _check_cluster(hw, c, groups, itemsize, plan, smem_bytes=tgn.cluster_smem_bytes,
+                   register_blocks=tgn.BWD_REGISTER_BLOCKS):
+    """A cluster layout of C′ (by default: its shared memory, x and dz, and
+    its launch bounds' blocks an SM) or of C (``fwd_cluster_smem_bytes``,
+    x alone, and ``FWD_REGISTER_BLOCKS``), walked through the kernel's
+    thread mapping."""
     assert plan["route"] == "cluster", (hw, c, groups, plan)
     cp, cs = plan["part_channels"], plan["cluster"]
     assert c % cp == 0 and cp % 8 == 0 and cp % (c // groups) == 0, plan  # whole groups
     assert 1 <= cs <= tgn.MAX_CLUSTER == 8 and cp // 8 <= tgn.CLUSTER_THREADS, plan
     assert plan["rows"] == -(-hw // cs)
-    smem = tgn.cluster_smem_bytes(cp, plan["iters"], itemsize)
+    smem = smem_bytes(cp, plan["iters"], itemsize)
     assert plan["smem"] == smem <= tgn.SMEM_PER_BLOCK, plan
-    # x and dz of a cluster fit its blocks' shared memory
-    assert cs * plan["iters"] * tgn.CLUSTER_THREADS * 8 * (itemsize + 4) >= hw * cp * (itemsize + 4)
+    # the blocks an SM holds at once: their shared memory and threads fit it
+    held = plan["blocks_per_sm"]
+    assert held == tgn.blocks_per_sm(smem, register_blocks) >= 1, plan
+    assert held * (smem + tgn.SMEM_RESERVED) <= tgn.SMEM_PER_SM, plan
+    assert held * tgn.CLUSTER_THREADS <= tgn.THREADS_PER_SM and held <= register_blocks, plan
+    # a cluster's slots hold the part's rows
+    assert cs * plan["iters"] * tgn.CLUSTER_THREADS * 8 >= hw * cp
     assert (_plan_coverage(hw, c, plan) == 1).all(), plan
     return plan
 
@@ -273,6 +285,74 @@ def test_bwd_plan_is_made_once_per_shape():
     launches do not search again."""
     assert tgn.bwd_plan(4096, 64, 16, 2) is tgn.bwd_plan(4096, 64, 16, 2)
     assert tgn.cluster_plan(64, 64, 16, 4) is tgn.cluster_plan(64, 64, 16, 4)
+
+
+# ---------------------------------------------------------------------------
+# Kernel C's per-shape plan (ops/kernels/fused_gn.py:fwd_plan). Its cluster
+# kernel maps threads as C′'s does (thread t: column t % cols, row t / cols
+# of each iteration), so the same walk checks its layouts, with C's shared
+# memory (x alone) and its launch bounds (4 blocks an SM by registers).
+# ---------------------------------------------------------------------------
+
+def _check_fwd_cluster(hw, c, groups, itemsize, plan):
+    _check_cluster(hw, c, groups, itemsize, plan, tgn.fwd_cluster_smem_bytes,
+                   tgn.FWD_REGISTER_BLOCKS)
+    # what the plan takes a cluster for: rows of a 32-byte sector or more,
+    # and three or more blocks an SM
+    assert plan["part_channels"] * itemsize >= 32 and plan["blocks_per_sm"] >= 3, plan
+    return plan
+
+
+def test_fwd_plan_covers_every_flagship_chain(flagship_chains):
+    """All 57 flagship chains (bf16) take C's cluster route, each layout
+    walked through the kernel's thread mapping: every element of a batch
+    element once, whole groups per part, shared memory within a block's
+    limit and the blocks an SM the plan promises. The 13 chains at 128x128
+    take 16-channel parts (32-byte rows) on 8 blocks, 3 an SM; 64x64x192
+    48-channel parts, 3 an SM; the other 43 parts of 32 to 64 channels, 4
+    an SM."""
+    seen = collections.Counter()
+    for hw, c, groups in flagship_chains:
+        plan = _check_fwd_cluster(hw, c, groups, 2, tgn.fwd_plan(hw, c, groups, 2))
+        seen[(plan["part_channels"] * 2 >= 64, plan["blocks_per_sm"])] += 1
+        if hw == 128 * 128:
+            assert (plan["part_channels"], plan["cluster"]) == (16, 8), plan
+    assert seen == {(True, 4): 43, (True, 3): 1, (False, 3): 13}
+
+
+@pytest.mark.parametrize("shape,dtype", GN_CASES, ids=[f"{s[1]}x{s[2]}x{s[3]}-{d}"
+                                                       for s, d in GN_CASES])
+def test_fwd_plan_covers_the_chip_cases(shape, dtype):
+    """chip_smoke.py runs C at each case on its plan and on the three
+    passes: every case plans a cluster layout, 16x16x512 on one block a
+    cluster, the others on 8."""
+    _, h, w, c = shape
+    groups, itemsize = min(32, c // 4), TORCH[dtype].itemsize
+    plan = _check_fwd_cluster(h * w, c, groups, itemsize, tgn.fwd_plan(h * w, c, groups,
+                                                                      itemsize))
+    assert plan["cluster"] == (1 if h == 16 else 8), plan
+
+
+def test_fwd_plan_three_pass_where_no_cluster_pays():
+    """C % 8 != 0 and slabs no cluster holds take the three passes, in f32
+    as in bf16; so do layouts the card ran slower than the three passes:
+    16-byte rows (a 256x256x32 bf16 slab fits 8 blocks only in 8-channel
+    parts) and one block an SM."""
+    assert tgn.fwd_plan(64, 12, 3, 2) == tgn.THREE_PASS
+    assert tgn.fwd_plan(64, 12, 3, 4) == tgn.THREE_PASS
+    assert tgn.fwd_plan(256 * 256, 32, 8, 4) == tgn.THREE_PASS  # f32: no layout fits
+    wide = tgn.cluster_layouts(256 * 256, 32, 8, 2, tgn.fwd_cluster_smem_bytes,
+                               tgn.FWD_REGISTER_BLOCKS)
+    assert wide and all(la["part_channels"] == 8 or la["blocks_per_sm"] < 3 for la in wide)
+    assert tgn.fwd_plan(256 * 256, 32, 8, 2) == tgn.THREE_PASS
+    assert tgn.fwd_plan(64 * 64, 64, 16, 4)["route"] == "cluster"  # f32 where a cluster pays
+
+
+def test_fwd_plan_is_made_once_per_shape():
+    """The plan is a function of four ints, cached: a forward's 57 launches
+    do not search again."""
+    assert tgn.fwd_plan(4096, 64, 16, 2) is tgn.fwd_plan(4096, 64, 16, 2)
+    assert tgn.fwd_plan(64, 12, 3, 2) is tgn.fwd_plan(64, 12, 3, 2)
 
 
 def test_wrapper_refuses_tensors_it_cannot_launch_on():

@@ -214,6 +214,55 @@ def test_fcomb_crps_backward_kernel_is_chosen_by_dtype(monkeypatch, dtype, kerne
     assert seen == [kernel] and fcomb_crps.BWD_KERNELS[dtype] == kernel
 
 
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", "tensor_core"), ("float32", "fp32")])
+def test_fcomb_crps_forward_kernel_is_chosen_by_dtype(monkeypatch, dtype, kernel):
+    """Kernel A has two CUDA kernels as A′ has: bf16 operands on the tensor
+    cores (with A′'s decode), f32 operands on the FP32 pipes. The wrapper
+    picks one from the compute dtype alone, before it loads the library,
+    and hands it to the launch: no fallback from one to the other."""
+    def no_library():
+        raise AssertionError("the choice needs no library")
+
+    seen = []
+    monkeypatch.setattr(fcomb_crps._build, "library", no_library)
+    monkeypatch.setattr(fcomb_crps, "_launch",
+                        lambda args, which: seen.append(which) or "launched")
+    args = [torch.empty(s, device="meta") for s in
+            [(2, C, 8), (2, C, 3), (C, C), (C,), (C, K), (K,), (2, K, 8)]]
+    assert fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype) == "launched"
+    assert seen == [kernel] and fcomb_crps.FWD_KERNELS[dtype] == kernel
+
+
+def test_c_entry_signatures_match_the_sources():
+    """Every C entry of csrc/*.cu is declared to ctypes with its arguments'
+    count and types: a pointer as c_void_p, an int as c_int, a float as
+    c_float, a long long as c_longlong. ctypes checks neither, and a
+    mismatch shows only on the card."""
+    import ctypes
+    import re
+
+    from probunet_tpu_torch.ops.kernels import _build
+
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float,
+             "longlong": ctypes.c_longlong}
+    found = {}
+    for src in sorted(_build.CSRC_DIR.glob("*.cu")):
+        text = src.read_text()
+        if 'extern "C" {' not in text:
+            continue
+        block = text[text.index('extern "C" {'):]
+        for name, params in re.findall(r"^(?:int|const char\*) (\w+)\(([^)]*)\)", block, re.M):
+            types = []
+            for param in filter(None, (p.strip() for p in params.split(","))):
+                words = param.replace("const ", "").replace("*", " * ").split()
+                kind = "void*" if "*" in words else "".join(words[:-1])
+                types.append(kinds[kind])
+            found[name] = tuple(types)
+    assert set(_build._SIGNATURES) <= set(found), set(_build._SIGNATURES) - set(found)
+    for name, argtypes in _build._SIGNATURES.items():
+        assert argtypes == found[name], name
+
+
 # rows = numel / 128 against _block_rows: 16 rows in one block; 6144 in
 # three blocks of 2048; 2064 in two of 1032; 2056 in 257 of 8
 DROPOUT_SHAPES = [(2, 4, 4, 64), (3, 32, 64, 128), (2, 12, 86, 128), (2, 1028, 128)]
