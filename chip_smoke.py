@@ -70,6 +70,7 @@ from probunet_tpu_torch.evals.streaming import EvalAccumulator
 from probunet_tpu_torch.models.layers import EDMGroupNorm
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 from probunet_tpu_torch.models.unet import dropout_seeds
+from probunet_tpu_torch.ops import losses
 from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
 from probunet_tpu_torch.train.loop import eval_model, make_eval_step, make_train_step
 from probunet_tpu_torch.train.state import create_train_state, global_norm
@@ -81,6 +82,12 @@ ENSEMBLE_M = 16      # bench.py's prior-ensemble size
 # points, sums in another order (per-thread then fixed-order block sums vs
 # ATen's reductions); 2.3e-7 reached on an H100
 KERNEL_RTOL = 1e-5
+# kernel B vs its plain version above 32 members in bf16: the plain form
+# takes the sorted identity in f32, while the kernel rounds each |x_j - x_k|
+# to bf16 (as the TPU kernel does), within 2^-9 of itself. Every term is
+# nonnegative, so the sums differ by at most 2^-9 of the total. The kernel
+# is also held to the pairwise form, which rounds as it does, at KERNEL_RTOL
+SORTED_BF16_RTOL = 2.0 ** -9
 # fused (kernel A) vs unfused (Fcomb.ensemble + kernel B) bf16 eval ELBO:
 # the same bf16 operand rounding, but a hidden value whose f32 sum differs
 # in its last bit can round to the other bf16 neighbour
@@ -99,7 +106,8 @@ ENSEMBLE_RTOL = 2e-4
 # sign ties: the kernel's and the plain decode differ in the last bits of x,
 # so where x_j - y or x_j - x_k is within ~1e-7 of 0 a sign can flip and
 # that pixel's value moves by 2 g. At most 1e-5 of their elements may
-# differ by more than 1e-4 of the largest value.
+# differ by more than 1e-4 of the largest value (6.77e-6 reached at K = 3;
+# 2.7e-6, 5.5e-6 and 6.2e-6 at K = 1, 2 and 4, bs=128, on an H100).
 BWD_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
 TIE_FRACTION = 1e-5
 # f32 training step on the card vs the CPU, per parameter: ||g_cuda -
@@ -192,9 +200,12 @@ def _max_err_ratio(got, want) -> float:
 
 
 # the kernels whose registers and spills the run prints (A's and A′'s two
-# kernels each, C's and C′'s two routes each)
+# kernels each, B's and B′'s member buckets and slab kernels, C's and C′'s
+# two routes each)
 PTXAS_KERNELS = ("fcomb_crps_fwd_mma_kernel", "fcomb_crps_tile_kernel",
                  "fcomb_crps_bwd_mma_kernel", "fcomb_crps_bwd_tile_kernel",
+                 "afcrps_tile_kernel", "afcrps_tile_smem_kernel", "afcrps_reduce_kernel",
+                 "afcrps_bwd_kernel", "afcrps_bwd_smem_kernel",
                  "gn_fwd_cluster_kernel", "gn_fwd_stats_kernel", "gn_fwd_apply_kernel",
                  "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel")
 
@@ -221,6 +232,187 @@ def _ptxas_report(log: str, names) -> dict:
     return out
 
 
+def _fcomb_vs_plain(randn, b: int, c: int, p: int, k: int, m: int, dtype: str) -> dict:
+    """Kernels A and A′ against their plain versions at one shape, each run
+    twice for identical bits; prints both and returns their JSON rows."""
+    args = (randn(b, c, p), randn(b, c, m), randn(c, c, scale=c ** -0.5),
+            randn(c, scale=0.1), randn(c, k, scale=c ** -0.5), randn(k, scale=0.1),
+            randn(b, k, p))
+    g1, g2 = randn(b, scale=1e-3), randn(b, scale=1e-3)
+    # forward (A), twice for bit-reproducibility
+    got = fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype)
+    again = fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("fcomb_crps forward is not bit-reproducible")
+    want = fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype)
+    abs_err, rel_err = _errors(got, want)
+    ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype), 10)
+    plain_ms = _sync_ms(
+        lambda: fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype), 2, 1)
+    print(f"kernel fcomb_crps      B={b} C={c} P={p} K={k} M={m:2d} {dtype:8s} "
+          f"kernel={fcomb_crps.FWD_KERNELS[dtype]} bit_reproducible=True "
+          f"max_rel_err={rel_err:.3e} max_abs_err={abs_err:.3e} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    if not rel_err <= KERNEL_RTOL:
+        raise AssertionError(f"fcomb_crps kernel disagrees with its plain version at K={k}: "
+                             f"rel err {rel_err} > {KERNEL_RTOL}")
+    ops = 2.0 * b * p * m * (c * c + c * k)
+    rows = {"fcomb_crps": {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                           **_bound(4.0 * b * p * (c + k), ops, dtype), "library_ms": None}}
+    # backward (A′): all seven outputs, twice for bit-reproducibility
+    got = fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype)
+    again = fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("fcomb_crps backward is not bit-reproducible")
+    want = fcomb_crps.fcomb_crps_terms_bwd_plain(*args, g1, g2, dtype)
+    names = ("dfeat", "dz", "dW1", "db1", "dW2", "db2", "dy")
+    errs = {n: _max_err_ratio(x, y) for n, x, y in zip(names, got, want)}
+    ties = {n: float(((x - y).abs() > 1e-4 * y.abs().max()).float().mean())
+            for n, x, y in zip(names, got, want) if n in ("dfeat", "dy")}
+    abs_err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype), 3, 1)
+    plain_ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms_bwd_plain(*args, g1, g2, dtype),
+                        1, 1)
+    print(f"kernel fcomb_crps_bwd  B={b} C={c} P={p} K={k} M={m:2d} {dtype:8s} "
+          f"bit_reproducible=True max_err/max={json.dumps(errs)} "
+          f"tie_fraction={json.dumps(ties)} max_abs_err={abs_err:.3e} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    bad = {n: e for n, e in errs.items() if n not in ("dfeat", "dy") and not e <= BWD_RTOL[dtype]}
+    bad.update({n: f for n, f in ties.items() if not f <= TIE_FRACTION})
+    if bad:
+        raise AssertionError(f"fcomb_crps backward disagrees with its plain version at K={k}: "
+                             f"{bad}")
+    # the algorithm's products: decode (C^2 + CK), dh1, dW2 (CK each), dh0,
+    # dW1 (C^2 each); read feat, y; write dfeat, dy
+    ops = 2.0 * b * p * m * (3 * c * c + 3 * c * k)
+    rows["fcomb_crps_bwd"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                              **_bound(8.0 * b * p * (c + k), ops, dtype), "library_ms": None}
+    return rows
+
+
+def _afcrps_inputs(randn, b: int, m: int, p: int, dtype: str, member_major: bool):
+    """ens (B, M, P), contiguous or the member-major view Fcomb.ensemble
+    gives (transpose(0, 1) of an (M, B, P) tensor), with ties among the
+    members and against the target; tgt (B, P); g1, g2 (B,)."""
+    tdt = getattr(torch, dtype)
+    ens = (randn(m, b, p).to(tdt).transpose(0, 1) if member_major
+           else randn(b, m, p).to(tdt))
+    tgt = randn(b, p).to(tdt)
+    n = min(64, p)
+    if m > 1:
+        ens[:, 1, :n] = ens[:, 0, :n]   # sign 0 between members
+    tgt[:, : n // 2] = ens[:, -1, : n // 2]  # and against the target
+    return ens, tgt, randn(b, scale=1e-3), randn(b, scale=1e-3)
+
+
+def _afcrps_check(ens, tgt, g1, g2) -> dict:
+    """Kernels B and B′ against their plain versions on one input: B twice
+    for identical bits, within KERNEL_RTOL of the plain terms (t2 above 32
+    members: within SORTED_BF16_RTOL of the sorted plain form in bf16, and
+    within KERNEL_RTOL of the pairwise form, which rounds each difference as
+    the kernel does); B′ equal to the plain backward, dx in ens's layout.
+    Returns the errors."""
+    m = ens.shape[1]
+    got = afcrps.ensemble_crps_terms_fwd(ens, tgt)
+    again = afcrps.ensemble_crps_terms_fwd(ens, tgt)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"afcrps forward is not bit-reproducible at {tuple(ens.shape)}")
+    want = afcrps.ensemble_crps_terms_plain(ens, tgt)
+    abs_err, rel_err = _errors(got, want)
+    out = {"max_abs_err": abs_err, "max_rel_err": rel_err}
+    limit = KERNEL_RTOL
+    if m > losses._PAIRWISE_MAX_M:
+        out["t2_rel_err_pairwise"] = _errors(got[1:], (losses._pairwise_abs_sum(ens),))[1]
+        out["t1_rel_err"] = _errors(got[:1], want[:1])[1]
+        if ens.dtype == torch.bfloat16:
+            limit = SORTED_BF16_RTOL
+        if not max(out["t2_rel_err_pairwise"], out["t1_rel_err"]) <= KERNEL_RTOL:
+            raise AssertionError(f"afcrps kernel disagrees with the pairwise form at M={m}: "
+                                 f"{out}")
+    if not rel_err <= limit:
+        raise AssertionError(f"afcrps kernel disagrees with its plain version at "
+                             f"{tuple(ens.shape)} {ens.dtype}: rel err {rel_err} > {limit}")
+    got = afcrps.ensemble_crps_terms_bwd(ens, tgt, g1, g2)
+    want = afcrps.ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2)
+    out["exact"] = all(torch.equal(x, y) for x, y in zip(got, want))
+    out["bwd_max_abs_err"] = max(float((x.float() - y.float()).abs().max())
+                                 for x, y in zip(got, want))
+    out["dx_strides"] = list(got[0].stride())
+    # sign counts times g, with the same two roundings: equal exactly
+    if not out["exact"]:
+        raise AssertionError(f"afcrps backward differs from its plain version at "
+                             f"{tuple(ens.shape)} {ens.dtype}: {out['bwd_max_abs_err']}")
+    if got[0].stride() != ens.stride():
+        raise AssertionError(f"afcrps backward wrote dx at strides {got[0].stride()}, "
+                             f"ens has {ens.stride()}")
+    return out
+
+
+def _afcrps_vs_plain(randn) -> dict:
+    """Kernels B and B′ at the unfused training route's shape (B=128,
+    P=128*128*3), M=15 and 5, f32 and bf16: checked, and timed on the
+    contiguous ensemble (the JSON row: M=15, f32) and on the member-major
+    view the route hands them."""
+    report = {}
+    b, p = BATCH, 128 * 128 * 3
+    for m in (TRAIN_M, 5):
+        for dtype in ("float32", "bfloat16"):
+            ms, plain_ms, errs = {}, {}, {}
+            for layout in ("contiguous", "member_major"):
+                ens, tgt, g1, g2 = _afcrps_inputs(randn, b, m, p, dtype, layout == "member_major")
+                errs[layout] = _afcrps_check(ens, tgt, g1, g2)
+                ms[layout] = (_sync_ms(lambda: afcrps.ensemble_crps_terms_fwd(ens, tgt), 20),
+                              _sync_ms(lambda: afcrps.ensemble_crps_terms_bwd(ens, tgt, g1, g2),
+                                       20))
+                if layout == "contiguous":
+                    plain_ms = (
+                        _sync_ms(lambda: afcrps.ensemble_crps_terms_plain(ens, tgt), 3, 1),
+                        _sync_ms(lambda: afcrps.ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2),
+                                 3, 1))
+                del ens, tgt
+            c, mm = ms["contiguous"], ms["member_major"]
+            e = errs["contiguous"]
+            print(f"kernel afcrps          B={b} P={p} M={m:2d} {dtype:8s} "
+                  f"bit_reproducible=True max_rel_err={e['max_rel_err']:.3e} "
+                  f"max_abs_err={e['max_abs_err']:.3e} kernel_ms={c[0]:.4f} "
+                  f"member_major_ms={mm[0]:.4f} plain_ms={plain_ms[0]:.4f}")
+            print(f"kernel afcrps_bwd      B={b} P={p} M={m:2d} {dtype:8s} exact=True "
+                  f"max_abs_err={e['bwd_max_abs_err']:.3e} kernel_ms={c[1]:.4f} "
+                  f"member_major_ms={mm[1]:.4f} plain_ms={plain_ms[1]:.4f}")
+            if (m, dtype) == (TRAIN_M, "float32"):
+                size = 4
+                pair_ops = 3.0 * b * p * (m + m * (m - 1) / 2)  # sub, abs, add per term
+                sign_ops = 3.0 * b * p * (m * m + m)  # sub, sign, add per term
+                report["afcrps"] = {"max_abs_err": e["max_abs_err"], "ms": c[0],
+                                    "plain_ms": plain_ms[0],
+                                    **_bound(size * b * p * (m + 1), pair_ops, "float32"),
+                                    "library_ms": None}
+                report["afcrps_bwd"] = {"max_abs_err": e["bwd_max_abs_err"], "ms": c[1],
+                                        "plain_ms": plain_ms[1],
+                                        **_bound(2.0 * size * b * p * (m + 1), sign_ops,
+                                                 "float32"),
+                                        "library_ms": None}
+    return report
+
+
+def afcrps_cases(randn) -> None:
+    """Kernels B and B′ at every member bucket and both sides of it (M = 2,
+    5, 15, 16, 32 in registers; 33, 64 on the shared-memory slab; 128 with
+    the slab above 48 KB; 500 read from device memory), f32 and bf16,
+    contiguous and member-major, at an aligned P and a ragged one (one load
+    a pixel); and a batch above the grid's old 65535 limit."""
+    cases = [(8, m, p) for m in (2, 5, 15, 16, 32, 33, 64) for p in (49152, 49157)]
+    cases += [(2, 128, 4099), (2, 500, 4099), (66000, 5, 12)]
+    for b, m, p in cases:
+        for dtype in ("float32", "bfloat16"):
+            for member_major in (False, True):
+                ens, tgt, g1, g2 = _afcrps_inputs(randn, b, m, p, dtype, member_major)
+                out = _afcrps_check(ens, tgt, g1, g2)
+                print(f"afcrps case B={b} M={m} P={p} {dtype} "
+                      f"{'member_major' if member_major else 'contiguous'}: {json.dumps(out)}")
+                del ens, tgt
+
+
 def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
     """Each kernel against its plain version at the serve and training
     shapes. The JSON row of a kernel carries its training-path shape: M=15
@@ -235,110 +427,18 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
     b, c, p, k = BATCH, 32, 128 * 128, 3
     for m in (TRAIN_M, 5):
         for dtype in ("bfloat16", "float32"):
-            args = (randn(b, c, p), randn(b, c, m), randn(c, c, scale=c ** -0.5),
-                    randn(c, scale=0.1), randn(c, k, scale=c ** -0.5), randn(k, scale=0.1),
-                    randn(b, k, p))
-            g1, g2 = randn(b, scale=1e-3), randn(b, scale=1e-3)
-            # forward (A), twice for bit-reproducibility
-            got = fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype)
-            again = fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype)
-            if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                raise AssertionError("fcomb_crps forward is not bit-reproducible")
-            want = fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype)
-            abs_err, rel_err = _errors(got, want)
-            ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype), 10)
-            plain_ms = _sync_ms(
-                lambda: fcomb_crps.fcomb_crps_terms_plain(*args, compute_dtype=dtype), 2, 1)
-            print(f"kernel fcomb_crps      B={b} C={c} P={p} K={k} M={m:2d} {dtype:8s} "
-                  f"kernel={fcomb_crps.FWD_KERNELS[dtype]} bit_reproducible=True "
-                  f"max_rel_err={rel_err:.3e} max_abs_err={abs_err:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-            if not rel_err <= KERNEL_RTOL:
-                raise AssertionError(f"fcomb_crps kernel disagrees with its plain version: "
-                                     f"rel err {rel_err} > {KERNEL_RTOL}")
-            ops = 2.0 * b * p * m * (c * c + c * k)
+            rows = _fcomb_vs_plain(randn, b, c, p, k, m, dtype)
             if (m, dtype) == (TRAIN_M, "bfloat16"):
-                report["fcomb_crps"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                                        **_bound(4.0 * b * p * (c + k), ops, dtype),
-                                        "library_ms": None}
-            # backward (A′): all seven outputs, twice for bit-reproducibility
-            got = fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype)
-            again = fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype)
-            if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                raise AssertionError("fcomb_crps backward is not bit-reproducible")
-            want = fcomb_crps.fcomb_crps_terms_bwd_plain(*args, g1, g2, dtype)
-            names = ("dfeat", "dz", "dW1", "db1", "dW2", "db2", "dy")
-            errs = {n: _max_err_ratio(x, y) for n, x, y in zip(names, got, want)}
-            ties = {n: float(((x - y).abs() > 1e-4 * y.abs().max()).float().mean())
-                    for n, x, y in zip(names, got, want) if n in ("dfeat", "dy")}
-            abs_err = max(float((x - y).abs().max()) for x, y in zip(got, want))
-            ms = _sync_ms(lambda: fcomb_crps.fcomb_crps_terms_bwd(*args, g1, g2, dtype), 3, 1)
-            plain_ms = _sync_ms(
-                lambda: fcomb_crps.fcomb_crps_terms_bwd_plain(*args, g1, g2, dtype), 1, 1)
-            print(f"kernel fcomb_crps_bwd  B={b} C={c} P={p} K={k} M={m:2d} {dtype:8s} "
-                  f"bit_reproducible=True max_err/max={json.dumps(errs)} "
-                  f"tie_fraction={json.dumps(ties)} max_abs_err={abs_err:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-            bad = {n: e for n, e in errs.items()
-                   if n not in ("dfeat", "dy") and not e <= BWD_RTOL[dtype]}
-            bad.update({n: f for n, f in ties.items() if not f <= TIE_FRACTION})
-            if bad:
-                raise AssertionError(f"fcomb_crps backward disagrees with its plain version: "
-                                     f"{bad}")
-            if (m, dtype) == (TRAIN_M, "bfloat16"):
-                # the algorithm's products: decode (C^2 + CK), dh1, dW2 (CK
-                # each), dh0, dW1 (C^2 each); read feat, y; write dfeat, dy
-                ops = 2.0 * b * p * m * (3 * c * c + 3 * c * k)
-                report["fcomb_crps_bwd"] = {"max_abs_err": abs_err, "ms": ms,
-                                            "plain_ms": plain_ms,
-                                            **_bound(8.0 * b * p * (c + k), ops, dtype),
-                                            "library_ms": None}
-            del args, got, again, want
+                report.update(rows)
+    # the other class counts' kernel instances (K = 1: the single-variable
+    # presets), at the batch TIE_FRACTION was set at
+    for k in (1, 2, 4):
+        for dtype in ("bfloat16", "float32"):
+            _fcomb_vs_plain(randn, b, c, p, k, TRAIN_M, dtype)
     torch.cuda.empty_cache()
 
-    p = 128 * 128 * 3
-    for m in (TRAIN_M, 5):
-        for dtype in ("float32", "bfloat16"):
-            tdt = getattr(torch, dtype)
-            ens, tgt = randn(b, m, p).to(tdt), randn(b, p).to(tdt)
-            ens[:, 1, :64] = ens[:, 0, :64]  # ties: sign 0
-            g1, g2 = randn(b, scale=1e-3), randn(b, scale=1e-3)
-            got = afcrps.ensemble_crps_terms_fwd(ens, tgt)
-            want = afcrps.ensemble_crps_terms_plain(ens, tgt)
-            abs_err, rel_err = _errors(got, want)
-            ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_fwd(ens, tgt), 20)
-            plain_ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_plain(ens, tgt), 3, 1)
-            print(f"kernel afcrps          B={b} P={p} M={m:2d} {dtype:8s} "
-                  f"max_rel_err={rel_err:.3e} max_abs_err={abs_err:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-            if not rel_err <= KERNEL_RTOL:
-                raise AssertionError(f"afcrps kernel disagrees with its plain version: "
-                                     f"rel err {rel_err} > {KERNEL_RTOL}")
-            size = ens.element_size()
-            pair_ops = 3.0 * b * p * (m + m * (m - 1) / 2)  # sub, abs, add per term
-            if (m, dtype) == (TRAIN_M, "float32"):
-                report["afcrps"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                                    **_bound(size * b * p * (m + 1), pair_ops, "float32"),
-                                    "library_ms": None}
-            got = afcrps.ensemble_crps_terms_bwd(ens, tgt, g1, g2)
-            want = afcrps.ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2)
-            exact = all(torch.equal(x, y) for x, y in zip(got, want))
-            abs_err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
-            ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_bwd(ens, tgt, g1, g2), 20)
-            plain_ms = _sync_ms(lambda: afcrps.ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2),
-                                3, 1)
-            print(f"kernel afcrps_bwd      B={b} P={p} M={m:2d} {dtype:8s} exact={exact} "
-                  f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-            # sign counts times g, with the same two roundings: equal exactly
-            if not exact:
-                raise AssertionError(f"afcrps backward differs from its plain version: {abs_err}")
-            if (m, dtype) == (TRAIN_M, "float32"):
-                sign_ops = 3.0 * b * p * (m * m + m)  # sub, sign, add per term
-                report["afcrps_bwd"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                                        **_bound(2.0 * size * b * p * (m + 1), sign_ops,
-                                                 "float32"),
-                                        "library_ms": None}
-            del ens, tgt, got, want
+    report.update(_afcrps_vs_plain(randn))
+    afcrps_cases(randn)
     torch.cuda.empty_cache()
 
     # D at the flagship's largest activation, NHWC bf16
@@ -381,7 +481,36 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
         if i == 0:
             report.update(rows)
         torch.cuda.empty_cache()
+    gn_preset_chains(randn, dev, "probunet_latent6_64", batch=8)
     return report
+
+
+def gn_preset_chains(randn, dev, name: str, batch: int) -> None:
+    """Kernels C and C′ at every GroupNorm-chain shape of a preset's U-Net
+    (its 8x8 level included), at a small batch: bf16, FiLM, p=0.1, each on
+    its planned route and the other one, twice for identical bits, with
+    _gn_vs_plain's tolerances. A shape kernel C does not take
+    (``fused_gn.supported``) runs the composed chain on the model's kernel
+    route; those are listed."""
+    cfg = preset(name)
+    model = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0),
+                                          device="cpu").to(dev).eval()
+    shapes = []
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, a: shapes.append((a[0].shape[2], a[0].shape[3], a[0].shape[1], mod.groups)))
+        for mod in model.unet.modules() if isinstance(mod, EDMGroupNorm)]
+    with torch.no_grad():
+        model.unet(torch.zeros(1, *cfg.data.resolution, cfg.model.input_channels, device=dev))
+    for h in hooks:
+        h.remove()
+    taken = sorted({sh for sh in shapes if fused_gn.supported(*sh)})
+    composed = sorted({sh for sh in shapes if not fused_gn.supported(*sh)})
+    print(f"{name}: {len(shapes)} GroupNorm chains; (H, W, C, groups) kernel C takes: "
+          f"{taken}; composed: {composed}")
+    for h, w, c, _ in taken:
+        _gn_vs_plain(randn, dev, (batch, h, w, c), "bfloat16", True, 0.1)
+        torch.cuda.empty_cache()
+    del model
 
 
 def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
@@ -887,8 +1016,8 @@ _KERNEL_GROUPS = (("A fcomb_crps fwd", ("fcomb_crps_fwd_mma_kernel", "fcomb_crps
                                        "reduce_partials")),
                   ("A' fcomb_crps bwd", ("fcomb_crps_bwd_mma_kernel", "fcomb_crps_bwd_tile_kernel",
                                          "column_sum_kernel")),
-                  ("B afcrps fwd", ("afcrps_tile_kernel",)),
-                  ("B' afcrps bwd", ("afcrps_bwd_kernel",)),
+                  ("B afcrps fwd", ("afcrps_tile_", "afcrps_reduce_kernel")),
+                  ("B' afcrps bwd", ("afcrps_bwd_",)),
                   ("C fused_gn fwd", ("gn_fwd_",)),
                   ("C' fused_gn bwd", ("gn_bwd_",)),
                   ("D dropout", ("dropout_kernel",)),

@@ -3,9 +3,9 @@
 //
 // The TPU kernels carry t1/t2 from one grid step to the next, because a TPU
 // grid runs in order. Hopper runs blocks in no order, so each block writes
-// its own partial sums and reduce_partials_kernel adds them per batch
-// element in a fixed order. No float atomics: results are bit-reproducible
-// from run to run.
+// its own partial sums and a second kernel (reduce_partials_block) adds
+// them per batch element in a fixed order. No float atomics: results are
+// bit-reproducible from run to run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,10 +40,13 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 constexpr int kReduceThreads = 256;
 
-// partial: (2, B, ntiles) f32 -> t1 (B,), t2 (B,). grid (B, 2).
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_partials_kernel(const float* __restrict__ partial, float* __restrict__ t1,
-                       float* __restrict__ t2, int batch, int ntiles) {
+// partial: (2, B, ntiles) f32 -> t1 (B,), t2 (B,), one block per (b, term)
+// of a (B, 2) grid of kReduceThreads. The body of each source's reduce
+// kernel, so that a profile files every reduce under its own kernel.
+__device__ __forceinline__ void reduce_partials_block(const float* __restrict__ partial,
+                                                      float* __restrict__ t1,
+                                                      float* __restrict__ t2, int batch,
+                                                      int ntiles) {
   __shared__ float red[kReduceThreads / 32];
   const int b = blockIdx.x;
   const int which = blockIdx.y;
@@ -52,6 +55,12 @@ reduce_partials_kernel(const float* __restrict__ partial, float* __restrict__ t1
   for (int i = threadIdx.x; i < ntiles; i += kReduceThreads) s += row[i];
   s = block_sum<kReduceThreads>(s, red);
   if (threadIdx.x == 0) (which == 0 ? t1 : t2)[b] = s;
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_partials_kernel(const float* __restrict__ partial, float* __restrict__ t1,
+                       float* __restrict__ t2, int batch, int ntiles) {
+  reduce_partials_block(partial, t1, t2, batch, ntiles);
 }
 
 inline void launch_reduce(const float* partial, float* t1, float* t2, int batch,

@@ -1221,12 +1221,6 @@ cudaError_t launch_bwd(int which, const float* feat, const float* z, const float
 
 extern "C" {
 
-int fcomb_crps_channels() { return probunet::kC; }
-
-int fcomb_crps_max_members() { return probunet::kMaxM; }
-
-int fcomb_crps_max_classes() { return probunet::kMaxK; }
-
 // Rows of partials per batch element of fcomb_crps_terms_fwd (forward = 1)
 // or fcomb_crps_terms_bwd (forward = 0) with kernel `which` (0: f32
 // operands on the FP32 pipes; 1: bf16 operands on the tensor cores),
@@ -1241,7 +1235,7 @@ int fcomb_crps_partials(int forward, int which, int batch, int m, int k, int p, 
 }
 
 // feat (B, C, P), z (B, C, M), w1 (C, C), b1 (C,), w2 (C, K), b2 (K,),
-// y (B, K, P): f32, contiguous, C = fcomb_crps_channels(). partial:
+// y (B, K, P): f32, contiguous, C = kC (32). partial:
 // (2, B, R) f32 scratch, R from fcomb_crps_partials; t1, t2: (B,) f32.
 // `which` as there: kernel 1 rounds the products' operands to bf16,
 // kernel 0 keeps them f32. Returns cudaGetLastError().

@@ -35,7 +35,7 @@ from probunet_tpu_torch.models.fcomb import Fcomb
 from probunet_tpu_torch.models.gaussian import AxisAlignedConvGaussian
 from probunet_tpu_torch.models.unet import UNet
 from probunet_tpu_torch.ops.distributions import kl_diag_gaussians
-from probunet_tpu_torch.ops.kernels.fcomb_crps import fused_fcomb_crps_loss
+from probunet_tpu_torch.ops.kernels import fcomb_crps
 from probunet_tpu_torch.ops.losses import afcrps_loss, crps_loss
 
 LOSS_TYPES = ("afcrps", "crps", "mse+ssim", "l1")
@@ -120,6 +120,9 @@ class ProbabilisticUNet(nn.Module):
         first, before the noise. Unlike the JAX method, the default is
         False (evaluation). Differentiable on both routes: fused (kernels
         A and A′) and unfused (``Fcomb.ensemble``, kernels B and B′).
+        ``fused`` takes the unfused route where kernel A does not take the
+        shape (``fcomb_crps.supported``: Fcomb width other than 32, M above
+        32, more than 4 classes), on the CPU as on the card.
 
         Returns (total, metrics) with metrics {"recon", "kl", "kl_mean"}.
         """
@@ -134,9 +137,10 @@ class ProbabilisticUNet(nn.Module):
         posterior = self.posterior(x, target)
         kl = kl_diag_gaussians(posterior, prior)                    # (B,)
         zs = posterior.rsample(generator, (M,), eps)                # (M, B, D)
-        if fused:
+        if fused and fcomb_crps.supported(self.fcomb.channels, M, target.shape[-1],
+                                          target.shape[0]):
             params = dict(self.fcomb.named_parameters())
-            recon = fused_fcomb_crps_loss(
+            recon = fcomb_crps.fused_fcomb_crps_loss(
                 feats, zs, params, target, loss_type, alpha,
                 "bfloat16" if self.dtype == torch.bfloat16 else "float32")
         else:

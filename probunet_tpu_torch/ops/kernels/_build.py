@@ -36,13 +36,9 @@ _F = ctypes.c_float
 # C entry -> argument types; every entry returns an int (cudaError_t)
 _SIGNATURES = {
     "afcrps_tile_pixels": (),
-    "afcrps_max_members": (),
-    "afcrps_terms_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "afcrps_terms_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "afcrps_terms_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _P),
+    "afcrps_terms_bwd": (_P,) * 6 + (_I, _I, _I, _LL, _LL, _LL, _LL, _I, _P),
     "dropout_apply": (_P, _P, _P, _LL, _I, _F, _F, _I, _P),
-    "fcomb_crps_channels": (),
-    "fcomb_crps_max_members": (),
-    "fcomb_crps_max_classes": (),
     "fcomb_crps_partials": (_I, _I, _I, _I, _I, _I, _P),
     "fcomb_crps_terms_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P),

@@ -17,6 +17,11 @@ element, is
 
 with the signs taken in f32 of the input-dtype difference; dx and dy come
 back in the inputs' dtype.
+
+The kernels read ens at its own batch and member strides (its pixel
+stride must be 1), so ``Fcomb.ensemble``'s member-major view is scored in
+place; B′ writes dx in ens's layout (``torch.empty_like``), so autograd
+hands it back to the view uncopied. Any M >= 1 and any B launch.
 """
 
 from __future__ import annotations
@@ -56,7 +61,8 @@ def ensemble_crps_terms_bwd_plain(ens, tgt, g1, g2):
 
 def ensemble_crps_terms_fwd(ens: torch.Tensor, tgt: torch.Tensor):
     """(t1, t2) without autograd: the plain version for CPU tensors, the
-    kernel for CUDA tensors (f32 or bf16, contiguous, 1 <= M <= 32)."""
+    kernel for CUDA tensors (f32 or bf16, ens's pixel stride 1, tgt
+    contiguous)."""
     if ens.device.type == "cpu" and tgt.device.type == "cpu":
         return ensemble_crps_terms_plain(ens, tgt)
     return _launch(ens, tgt)
@@ -90,7 +96,7 @@ def ensemble_crps_terms(ens: torch.Tensor, tgt: torch.Tensor):
     (analytic backward).
 
     CPU tensors take the plain versions; CUDA tensors launch kernels B and
-    B′ (f32 or bf16, contiguous, 1 <= M <= 32) or raise.
+    B′ (f32 or bf16, ens's pixel stride 1, tgt contiguous) or raise.
     """
     return _Terms.apply(ens, tgt)
 
@@ -108,14 +114,14 @@ def _check(ens: torch.Tensor, tgt: torch.Tensor, what: str) -> None:
     if ens.dtype not in (torch.float32, torch.bfloat16) or tgt.dtype != ens.dtype:
         raise ValueError(f"ens/tgt dtypes {ens.dtype}/{tgt.dtype}: the kernel "
                          "takes both f32 or both bf16")
-    if not (ens.is_contiguous() and tgt.is_contiguous()):
-        raise ValueError(f"{what}: ens and tgt must be contiguous")
-    lib = _build.library()
-    b, m, _ = ens.shape
-    if not 1 <= m <= lib.afcrps_max_members():
-        raise ValueError(f"M={m} outside the kernel's 1..{lib.afcrps_max_members()}")
-    if not 1 <= b <= 65535:
-        raise ValueError(f"B={b} outside the kernel's 1..65535")
+    if not (pixels_unit_stride(ens) and tgt.is_contiguous()):
+        raise ValueError(f"{what}: ens needs pixel stride 1 (got strides {ens.stride()}) "
+                         "and tgt must be contiguous")
+
+
+def pixels_unit_stride(ens: torch.Tensor) -> bool:
+    """Whether the kernels read (B, M, P) ``ens`` in place: pixel stride 1."""
+    return ens.stride(2) == 1 or ens.shape[2] == 1
 
 
 def _launch(ens: torch.Tensor, tgt: torch.Tensor):
@@ -129,8 +135,8 @@ def _launch(ens: torch.Tensor, tgt: torch.Tensor):
         t2 = torch.empty(b, dtype=torch.float32, device=ens.device)
         err = lib.afcrps_terms_fwd(
             ens.data_ptr(), tgt.data_ptr(), partial.data_ptr(), t1.data_ptr(),
-            t2.data_ptr(), b, m, p, int(ens.dtype == torch.bfloat16),
-            torch.cuda.current_stream(ens.device).cuda_stream)
+            t2.data_ptr(), b, m, p, ens.stride(0), ens.stride(1),
+            int(ens.dtype == torch.bfloat16), torch.cuda.current_stream(ens.device).cuda_stream)
     _build.check(err, "afcrps_terms_fwd")
     ensemble_crps_terms.launches += 1
     return t1, t2
@@ -145,12 +151,12 @@ def _launch_bwd(ens, tgt, g1, g2):
                              f"{g.dtype} {tuple(g.shape)} on {g.device}")
     lib = _build.library()
     with torch.cuda.device(ens.device):
-        dx = torch.empty_like(ens)
+        dx = torch.empty_like(ens)  # ens's strides where ens is dense, else contiguous
         dy = torch.empty_like(tgt)
         err = lib.afcrps_terms_bwd(
             ens.data_ptr(), tgt.data_ptr(), g1.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-            dy.data_ptr(), b, m, p, int(ens.dtype == torch.bfloat16),
-            torch.cuda.current_stream(ens.device).cuda_stream)
+            dy.data_ptr(), b, m, p, ens.stride(0), ens.stride(1), dx.stride(0), dx.stride(1),
+            int(ens.dtype == torch.bfloat16), torch.cuda.current_stream(ens.device).cuda_stream)
     _build.check(err, "afcrps_terms_bwd")
     ensemble_crps_terms_bwd.launches += 1
     return dx, dy

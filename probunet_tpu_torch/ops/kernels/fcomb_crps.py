@@ -56,6 +56,19 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FWD_KERNELS = {"bfloat16": "tensor_core", "float32": "fp32"}
 BWD_KERNELS = {"bfloat16": "tensor_core", "float32": "fp32"}
 _KERNEL_IDS = {"fp32": 0, "tensor_core": 1}
+# the shapes kernels A and A′ are built for (kC, kMaxM, kMaxK and the
+# grid's y limit in csrc/fcomb_crps.cu)
+CHANNELS, MAX_MEMBERS, MAX_CLASSES, MAX_BATCH = 32, 32, 4, 65535
+
+
+def supported(c: int, m: int, k: int, b: int) -> bool:
+    """Whether kernels A and A′ take an Fcomb of width ``c``, ``m`` members,
+    ``k`` classes and batch ``b``. ``ProbabilisticUNet.elbo`` chooses its
+    reconstruction route from this before any launch: where it is False,
+    the fused ELBO takes the unfused route (``Fcomb.ensemble`` and kernels
+    B, B′, which take any M and B)."""
+    return (c == CHANNELS and 2 <= m <= MAX_MEMBERS and 1 <= k <= MAX_CLASSES
+            and 1 <= b <= MAX_BATCH)
 
 
 def fcomb_crps_terms_plain(feat_t, z_t, w1, b1, w2, b2, target_t,
@@ -165,7 +178,7 @@ def fcomb_crps_terms(feat_t, z_t, w1, b1, w2, b2, target_t,
     (analytic backward).
 
     CPU tensors take the plain versions; CUDA tensors launch kernels A and
-    A′ (C = 32, 2 <= M <= 32, K <= 4) or raise.
+    A′ (the shapes of :func:`supported`) or raise.
     """
     if compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {compute_dtype!r} not in {tuple(_DTYPES)}")
@@ -187,7 +200,6 @@ def _check(args, what: str):
                          f"{[a.dtype for a in args]}")
     if not all(a.is_contiguous() for a in args):
         raise ValueError(f"{what}: operands must be contiguous")
-    lib = _build.library()
     if feat_t.dim() != 3 or z_t.dim() != 3 or target_t.dim() != 3:
         raise ValueError("feat_t, z_t and target_t must be 3-D")
     b, c, p = feat_t.shape
@@ -201,14 +213,9 @@ def _check(args, what: str):
     for name, g in zip(("g1", "g2"), args[7:]):
         if tuple(g.shape) != (b,):
             raise ValueError(f"{name} has shape {tuple(g.shape)}, expected ({b},)")
-    if c != lib.fcomb_crps_channels():
-        raise ValueError(f"C={c}: the kernel is built for C={lib.fcomb_crps_channels()}")
-    if not 2 <= m <= lib.fcomb_crps_max_members():
-        raise ValueError(f"M={m} outside the kernel's 2..{lib.fcomb_crps_max_members()}")
-    if not 1 <= k <= lib.fcomb_crps_max_classes():
-        raise ValueError(f"K={k} outside the kernel's 1..{lib.fcomb_crps_max_classes()}")
-    if not 1 <= b <= 65535:
-        raise ValueError(f"B={b} outside the kernel's 1..65535")
+    if not supported(c, m, k, b):
+        raise ValueError(f"C={c}, M={m}, K={k}, B={b}: the kernel takes C={CHANNELS}, "
+                         f"2 <= M <= {MAX_MEMBERS}, K <= {MAX_CLASSES}, B <= {MAX_BATCH}")
     return b, c, p, m, k
 
 

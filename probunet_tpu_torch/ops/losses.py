@@ -59,13 +59,15 @@ def _ensemble_spread_sum(ens: torch.Tensor) -> torch.Tensor:
 
 
 def _crps_terms(ens: torch.Tensor, tgt: torch.Tensor):
-    """(t1, t2) per batch element, f32. ens (B, M, P), tgt (B, 1, P); a
-    strided view (e.g. of ``Fcomb.ensemble``'s member-major output) is
-    copied to the contiguous layout the kernel reads."""
+    """(t1, t2) per batch element, f32. ens (B, M, P), tgt (B, 1, P). A view
+    with pixel stride 1 (such as ``Fcomb.ensemble``'s member-major output)
+    goes to the kernels as it is; any other is copied first."""
     # imported here: the kernel module imports this one for its plain version
-    from probunet_tpu_torch.ops.kernels.afcrps import ensemble_crps_terms
+    from probunet_tpu_torch.ops.kernels.afcrps import ensemble_crps_terms, pixels_unit_stride
 
-    return ensemble_crps_terms(ens.contiguous(), tgt[:, 0, :].contiguous())
+    if not pixels_unit_stride(ens):
+        ens = ens.contiguous()
+    return ensemble_crps_terms(ens, tgt[:, 0, :].contiguous())
 
 
 def afcrps_from_terms(t1, t2, m: int, p: int, alpha: float = 0.95) -> torch.Tensor:

@@ -10,7 +10,11 @@ on the CPU: f32 3.3e-7 (A) and 2.1e-7 (B) — the same terms summed in
 another order; bf16 4.1e-7 (A) — the same operand rounding points (bf16
 h0, h1, W1, W2 with f32 sums), where a sum that differs in its last f32
 bit can still round a hidden value to the other bf16 neighbour; bf16 B
-exactly 0 — the same bf16-rounded differences summed in f32.
+exactly 0 — the same bf16-rounded differences summed in f32. Above 32
+members B's plain version takes the sorted identity in f32, which rounds
+no difference to bf16: 2.2e-6 reached at M=33 in bf16 (each difference
+within 2^-9 of the Pallas kernel's, which bounds the sum; the roundings
+average out over the pairs).
 """
 
 import jax.numpy as jnp
@@ -29,7 +33,7 @@ H, W, K, C = 5, 7, 3, 32  # ragged pixel count: 35 is no multiple of any tile
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", [2, 5, 16])
+@pytest.mark.parametrize("m", [2, 5, 16, 33])
 def test_afcrps_plain_matches_pallas(m, dtype):
     from probunet_tpu.ops.pallas.afcrps import ensemble_crps_terms
 
@@ -55,6 +59,43 @@ def test_afcrps_plain_sorted_form_above_32_members():
                                                                     dtype=np.float32))
     _, t2 = afcrps.ensemble_crps_terms_plain(ens, ens[:, 0])
     assert_close(t2, _pairwise_abs_sum(ens), 1e-5)
+
+
+def test_crps_terms_score_the_member_major_view_in_place(monkeypatch):
+    """``Fcomb.ensemble``'s output is a member-major view, ``transpose(0, 1)``
+    of an (M, B, H, W, K) tensor. ``_crps_terms`` hands it to the kernel
+    wrapper as it is (same storage and strides, no copy), with the same
+    (t1, t2) and gradients as a contiguous copy; a view whose pixel stride
+    is not 1 is copied first."""
+    from probunet_tpu_torch.ops import losses
+
+    rng = np.random.default_rng(7)
+    m, b, p = 5, 2, H * W * K
+    raw = rng.standard_normal((m, b, H, W, K)).astype(np.float32)
+    raw[1, :, 0, 0] = raw[0, :, 0, 0]   # ties
+    tgt = torch.from_numpy(rng.standard_normal((b, 1, p)).astype(np.float32))
+    g1, g2 = (torch.from_numpy(rng.standard_normal(b).astype(np.float32)) for _ in range(2))
+    seen = []
+    wrapper = afcrps.ensemble_crps_terms
+    monkeypatch.setattr(afcrps, "ensemble_crps_terms", lambda e, t: seen.append(e) or wrapper(e, t))
+    out, leaves = {}, {}
+    for layout in ("view", "copy"):
+        leaves[layout] = torch.from_numpy(raw.copy()).requires_grad_()
+        ens = leaves[layout].transpose(0, 1)
+        if layout == "copy":
+            ens = ens.contiguous()
+        t1, t2 = losses._crps_terms(ens.reshape(b, m, p), tgt)
+        torch.autograd.backward((t1, t2), (g1, g2))
+        out[layout] = (t1.detach(), t2.detach(), leaves[layout].grad)
+    assert seen[0].data_ptr() == leaves["view"].data_ptr()
+    assert seen[0].stride() == (p, b * p, 1)
+    for got, want, what in zip(out["view"], out["copy"], ("t1", "t2", "dx")):
+        assert_close(got, want, 1e-6, 0, what)
+    assert torch.equal(out["view"][2], out["copy"][2])  # sign counts: exact
+    strided = torch.from_numpy(raw.reshape(b, p, m)).transpose(1, 2)  # pixel stride m
+    assert strided.stride(2) != 1
+    losses._crps_terms(strided, tgt)
+    assert seen[-1].is_contiguous()
 
 
 def _fcomb_inputs(m, seed):
@@ -132,7 +173,7 @@ BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-4, 1e-4)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", [2, 5])
+@pytest.mark.parametrize("m", [2, 5, 33])
 def test_afcrps_backward_plain_matches_pallas_vjp(m, dtype):
     import jax
 
@@ -231,6 +272,24 @@ def test_fcomb_crps_forward_kernel_is_chosen_by_dtype(monkeypatch, dtype, kernel
             [(2, C, 8), (2, C, 3), (C, C), (C,), (C, K), (K,), (2, K, 8)]]
     assert fcomb_crps.fcomb_crps_terms_fwd(*args, compute_dtype=dtype) == "launched"
     assert seen == [kernel] and fcomb_crps.FWD_KERNELS[dtype] == kernel
+
+
+def test_fcomb_crps_supported_shapes_match_the_source():
+    """``fcomb_crps.supported``, the rule the ELBO's route follows, holds
+    the limits kernels A and A′ are built with (csrc/fcomb_crps.cu)."""
+    import re
+
+    from probunet_tpu_torch.ops.kernels import _build
+
+    text = (_build.CSRC_DIR / "fcomb_crps.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kC|kMaxM|kMaxK) = (\d+);", text))
+    assert consts == {"kC": str(fcomb_crps.CHANNELS), "kMaxM": str(fcomb_crps.MAX_MEMBERS),
+                      "kMaxK": str(fcomb_crps.MAX_CLASSES)}
+    assert f"batch <= {fcomb_crps.MAX_BATCH}" in text
+    assert fcomb_crps.supported(32, 15, 3, 128) and fcomb_crps.supported(32, 32, 4, 65535)
+    for c, m, k, b in [(16, 15, 3, 128), (64, 15, 3, 128), (32, 33, 3, 128), (32, 1, 3, 128),
+                       (32, 15, 5, 128), (32, 15, 3, 65536)]:
+        assert not fcomb_crps.supported(c, m, k, b), (c, m, k, b)
 
 
 def test_c_entry_signatures_match_the_sources():

@@ -142,3 +142,41 @@ def test_edm_init_scales(mode):
     assert float(w.mean()) < 0.01
     zero = edm_init(mode, fan_in, fan_out, 0.0, (4,), torch.Generator())
     assert not bool(zero.any())
+
+
+@pytest.mark.parametrize("num_filters,m,route", [((16, 16), 4, "unfused"),
+                                                 ((32, 16), 33, "unfused"),
+                                                 ((32, 16), 4, "fused")])
+def test_fused_elbo_route_follows_the_kernel_shapes(monkeypatch, num_filters, m, route):
+    """``elbo(fused=True)`` takes kernel A's route only where
+    ``fcomb_crps.supported`` holds (Fcomb width 32, M <= 32, K <= 4), and
+    the unfused route (``Fcomb.ensemble``, kernels B and B′) elsewhere, on
+    the CPU as on the card. Either way the ELBO and every gradient match
+    the JAX package's fused ELBO (``PROBUNET_FUSED_ELBO=1``), at the
+    model-level tolerance."""
+    from torch_parity import jax_elbo_grads
+
+    from probunet_tpu_torch.convert import convert_params
+    from probunet_tpu_torch.ops.kernels import fcomb_crps
+
+    jmodel, params = jax_tiny_model(num_filters=num_filters)
+    tmodel = torch_tiny_model(params, gn_impl="composed", num_filters=num_filters)
+    x, y = _inputs(5)
+    eps = np.random.default_rng(6).standard_normal(
+        (m, 2, TINY["latent_dim"])).astype(np.float32)
+    beta_1 = 0.7
+    want_total, want_met, want_grads, _ = jax_elbo_grads(
+        monkeypatch, jmodel, params, x, y, eps, "afcrps", True, beta_1, m, record=False)
+    fused_calls = []
+    fused_loss = fcomb_crps.fused_fcomb_crps_loss
+    monkeypatch.setattr(fcomb_crps, "fused_fcomb_crps_loss",
+                        lambda *a, **k: fused_calls.append(1) or fused_loss(*a, **k))
+    total, met = tmodel.elbo(torch.from_numpy(x), torch.from_numpy(y), M=m, beta_1=beta_1,
+                             eps=torch.from_numpy(eps), fused=True)
+    total.backward()
+    assert ("fused" if fused_calls else "unfused") == route
+    assert_close(total.detach(), want_total, RTOL, ATOL, "loss")
+    assert_close(met["recon"].detach(), want_met["recon"], RTOL, ATOL, "recon")
+    want = convert_params(want_grads, tmodel)
+    for name, prm in tmodel.named_parameters():
+        assert_close(prm.grad, want[name], RTOL, ATOL, f"d{name}")

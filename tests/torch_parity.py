@@ -46,9 +46,12 @@ def noisy_params(params, seed: int):
 
 
 @functools.lru_cache(maxsize=4)
-def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 0.0):
+def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 0.0,
+                   num_filters: tuple[int, ...] = TINY["num_filters"]):
     """(flax module, noisy numpy params) of the tiny Probabilistic U-Net
-    (``dropout``: the U-Net blocks' rate in training mode)."""
+    (``dropout``: the U-Net blocks' rate in training mode; ``num_filters``:
+    the encoders' widths, the first also the U-Net's output and Fcomb's
+    width)."""
     import jax
     import jax.numpy as jnp
     from flax.core import unfreeze
@@ -56,7 +59,7 @@ def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 
     from probunet_tpu.models.prob_unet import ProbabilisticUNet
 
     model = ProbabilisticUNet(
-        **TINY, dropout=dropout,
+        **{**TINY, "num_filters": num_filters}, dropout=dropout,
         dtype=jnp.bfloat16 if dtype_name == "bfloat16" else None)
     h, w = TINY["img_resolution"]
     x = jnp.zeros((1, h, w, TINY["input_channels"]))
@@ -71,7 +74,8 @@ def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 
 
 
 def torch_tiny_model(params, dtype_name: str = "float32", dropout: float = 0.0,
-                     gn_impl: str = "kernel", remat=False):
+                     gn_impl: str = "kernel", remat=False,
+                     num_filters: tuple[int, ...] = TINY["num_filters"]):
     """The port's tiny Probabilistic U-Net loaded with ``params``, its
     GroupNorm chains on route ``gn_impl``. Every activation the composed
     route's dropout sees is one kernel D takes (numel a multiple of 1024 at
@@ -84,7 +88,8 @@ def torch_tiny_model(params, dtype_name: str = "float32", dropout: float = 0.0,
     from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 
     model = ProbabilisticUNet(
-        generator=torch.Generator().manual_seed(0), **TINY, dropout=dropout,
+        generator=torch.Generator().manual_seed(0), **{**TINY, "num_filters": num_filters},
+        dropout=dropout,
         dtype=torch.bfloat16 if dtype_name == "bfloat16" else None, gn_impl=gn_impl,
         remat=remat)
     return load_params(model, params).eval()
