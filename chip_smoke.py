@@ -33,30 +33,48 @@ route, and drives both paths at the full width of the flagship preset
   dropout mask in one block's recompute is shown to exceed that limit).
   Train samples/s, peak memory and a breakdown of the step's device time;
   how many GroupNorm chains get an input or gradient that is not
-  channels_last.
+  channels_last;
+- the serve CLI, through ``cli.main`` as ``python -m probunet_tpu_torch``
+  runs it: ``pack`` of the flagship's test split (4,380 synthetic days),
+  a checkpoint of a seeded flagship model, ``evaluate`` over the packed
+  split at the defaults (f32, M=16, bs=16) and at bf16, bs=128, with the
+  histogram pass, and ``extremes`` (M=8, bs=32, two pixels, 100 bootstrap
+  draws): days served, metrics, phase times, days/s, peak host memory,
+  57 C launches per U-Net forward; then ``evaluate`` and ``extremes`` on
+  32 days on the card against the CPU (``PROBUNET_PLATFORM=cpu``).
 
 Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
 nvcc; there is no CPU route. Any failed check raises, so the exit code is
 0 only when every phase passed. The line before the last is a JSON object
-with each kernel's launches on the training path, error, times and bound;
-the last line is ``{"ok": true, "device": {...}}``.
+with each kernel's launches on the training path (``launches``) and on the
+serve CLI's runs (``launches_cli``), error, times and bound; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
+import contextlib
 import copy
 import ctypes
+import importlib.util
+import io
 import json
 import math
+import os
+import resource
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from probunet_tpu_torch import cli
 from probunet_tpu_torch.config import preset
 from probunet_tpu_torch.data.climex import (
     compute_stats,
@@ -72,6 +90,7 @@ from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 from probunet_tpu_torch.models.unet import dropout_seeds
 from probunet_tpu_torch.ops import losses
 from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
+from probunet_tpu_torch.train.checkpoint import CheckpointManager
 from probunet_tpu_torch.train.loop import eval_model, make_eval_step, make_train_step
 from probunet_tpu_torch.train.state import create_train_state, global_norm
 
@@ -153,6 +172,17 @@ GN_CASES = (((128, 128, 128, 32), "bfloat16", True, 0.1),
             ((128, 128, 128, 96), "bfloat16", False, 0.0),
             ((128, 16, 16, 512), "bfloat16", True, 0.1),
             ((128, 64, 64, 64), "float32", True, 0.1))
+# the serve CLI phase: the flagship's test split (2034-2046, 12 synthetic
+# years of 365 days), served from its packed artifact; extremes at its
+# defaults but for two pixels and 100 bootstrap draws (1,000 take ~10x the
+# host time); the card-vs-CPU check on 32 days at bs=16, with one day a
+# "year" so that extremes.json's annual maxima are the pixel series itself
+CLI_PRESET = "probunet_multivar_128"
+CLI_TEST_DAYS = 4380
+CLI_EXTREMES = ["--pixels", "20,45", "64,64", "--n-boot", "100"]
+CLI_CHECK_EVAL = ["--max-items", "32", "--batch-size", "16"]
+CLI_CHECK_EXTREMES = ["--pixels", "20,45", "64,64", "--days", "32", "--batch-size", "16",
+                      "--days-per-year", "1", "--n-boot", "10"]
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; FP32 CUDA core
 
@@ -1195,6 +1225,203 @@ def remat_grads(model: ProbabilisticUNet, remats: dict, batch: dict, cfg, dev) -
     return out
 
 
+def _peak_rss_gb(who: int = resource.RUSAGE_SELF) -> float:
+    return resource.getrusage(who).ru_maxrss / 1e6     # kB on Linux
+
+
+def _run_cli(argv: list[str], platform: str | None = None):
+    """``cli.main(argv)`` in this process (under ``PROBUNET_PLATFORM=platform``
+    when given) with its standard output captured and echoed, long lines
+    cut; returns (its result, its output, host seconds, this process's
+    peak RSS in GB after it)."""
+    saved = os.environ.get("PROBUNET_PLATFORM")
+    if platform is not None:
+        os.environ["PROBUNET_PLATFORM"] = platform
+    buf = io.StringIO()
+    rss0 = _peak_rss_gb()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = cli.main(argv)
+    finally:
+        if saved is None:
+            os.environ.pop("PROBUNET_PLATFORM", None)
+        else:
+            os.environ["PROBUNET_PLATFORM"] = saved
+    seconds = time.perf_counter() - t0
+    rss = _peak_rss_gb()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"  | {line[:200]}{' ...' if len(line) > 200 else ''}")
+    print(f"  host {seconds:.3f} s; this process's peak RSS {rss0:.3f} GB before, "
+          f"{rss:.3f} GB after")
+    return result, text, seconds, rss
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def cli_breakdown(name: str, sets: list[str], ckpt: str, bs: int, m: int,
+                  dev: torch.device) -> None:
+    """Where one batch of ``evaluate``'s metric pass goes: CUDA events
+    around the command's per-batch work (host slice and copy, ``sample``,
+    ``residual_to_hr``, the inverse transform, ``EvalAccumulator.update``
+    with its copy of the partials to the host), and torch.profiler's kernel
+    time by family over two batches."""
+    cfg = cli.build_config(argparse.Namespace(preset=CLI_PRESET, config=None, set=sets))
+    _, _, ds = cli.make_datasets(cfg, splits=(2,), device=dev)
+    model = cli._load_model(cfg, ckpt, dev)
+    idx = np.arange(bs)
+    eps = cli.batch_noise(cli.EVAL_SEED, 0, m, bs, cfg.model.latent_dim)
+    acc = EvalAccumulator()
+
+    def run():
+        acc.update(*cli._sample_hr(model, ds, cfg, idx, eps))
+
+    with torch.inference_mode():
+        batch_ms = _sync_ms(run, 5, 2, spin=False)
+        _print_groups(f"cli breakdown {name} batch", *_kernel_ms_by_group(run, 2), batch_ms)
+    print(f"cli breakdown {name}: {batch_ms:.3f} ms a batch (CUDA events), "
+          f"{bs * 1e3 / batch_ms:.2f} days/s, {bs * m * 1e3 / batch_ms:.2f} member-fields/s")
+
+
+def cli_phase(dev: torch.device, zero_counts, read_counts) -> dict:
+    """The serve CLI as users run it, through ``cli.main``: ``pack`` of the
+    flagship's test split, a checkpoint of a seeded flagship model,
+    ``evaluate`` at the defaults (f32, M=16, bs=16) and as ``bench.py``
+    serves (bf16, bs=128), ``extremes``, then ``evaluate`` and ``extremes``
+    on 32 days on the card against the CPU. Every U-Net chain of every
+    served batch goes through kernel C. Returns each run's kernel launches."""
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    print(f"cli: matplotlib {'present' if have_mpl else 'absent'} on this host")
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        packed = os.path.join(tmp, "test.npz")
+        cfg = cli.build_config(argparse.Namespace(preset=CLI_PRESET, config=None, set=[]))
+        # pack in a process of its own, as a user runs it: the synthetic
+        # generator's peak host memory is its own, not the serve runs'
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "probunet_tpu_torch", "pack", "--preset", CLI_PRESET,
+             "--split", "test", "--out", packed], capture_output=True, text=True,
+            timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={k: v for k, v in os.environ.items() if k != "PROBUNET_PLATFORM"})
+        sec = time.perf_counter() - t0
+        print(proc.stdout + proc.stderr, end="")
+        if proc.returncode:
+            raise AssertionError(f"pack exited with {proc.returncode}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        if out["shape"] != [CLI_TEST_DAYS, *cfg.data.resolution, len(cfg.data.variables)]:
+            raise AssertionError(f"packed test split of shape {out['shape']}")
+        print(f"cli pack: {out['shape']} in {sec:.3f} s (process start included), "
+              f"{os.path.getsize(packed) / 1e6:.1f} MB, peak RSS of the largest child so far "
+              f"(pack or nvcc) {_peak_rss_gb(resource.RUSAGE_CHILDREN):.3f} GB")
+
+        gen = torch.Generator().manual_seed(0)
+        model = ProbabilisticUNet.from_config(cfg, gen, device="cpu")
+        _fill_zero_params(model, gen)
+        chains = 2 * len(model.unet.dropout_blocks) + 1     # GroupNorm chains a forward
+        ckpt = os.path.join(tmp, "ckpt")
+        CheckpointManager(ckpt).save_best(model.state_dict())
+        del model
+        serve = ["--preset", CLI_PRESET, "--ckpt", ckpt, "--set",
+                 f"data.packed_test={packed}"]
+
+        # timed runs under torch's default math flags (TF32 convolutions),
+        # as a user's f32 run gets them; the checks below turn TF32 off
+        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+        print("cli timed runs: matmul.allow_tf32=False cudnn.allow_tf32=True (torch defaults)")
+        m = 16
+        runs = (("evaluate f32 bs=16", [], 16), ("evaluate bf16 bs=128",
+                                                  ["model.compute_dtype=bfloat16"], 128))
+        for name, sets, bs in runs:
+            items = CLI_TEST_DAYS // bs * bs
+            zero_counts()
+            (res, spans), text, sec, rss = _run_cli(
+                ["evaluate", *serve, *sets, "--batch-size", str(bs),
+                 "--outdir", os.path.join(tmp, name.split()[1])])
+            launches[name] = read_counts()
+            n = launches[name]["fused_gn"]
+            forwards = 2 * res["items"] // bs     # the metric pass and the histogram pass
+            print(f"cli {name}: items={res['items']} M={res['members']}; "
+                  + "; ".join(f"{v} crps={c:.6g} mae={a:.6g} spread={sp:.6g}"
+                              for v, c, a, sp in zip(cfg.data.variables, res["crps_mean"],
+                                                     res["mae_mean"], res["spread"]))
+                  + f"; timing {json.dumps({k: round(v, 4) for k, v in spans.items()})}; "
+                  f"metric loop {res['items'] / spans['metric_loop']:.2f} days/s, "
+                  f"{res['items'] * m / spans['metric_loop']:.2f} member-fields/s; "
+                  f"C launches {n} for {forwards} U-Net forwards; host {sec:.3f} s; "
+                  f"peak RSS {rss:.3f} GB")
+            if res["items"] != items:
+                raise AssertionError(f"{name} served {res['items']} days, not {items}")
+            if not all(math.isfinite(v) for k in ("crps_mean", "mae_mean", "spread")
+                       for v in res[k]):
+                raise AssertionError(f"{name}: non-finite metrics {res}")
+            if n != chains * forwards:
+                raise AssertionError(f"{name}: {n} C launches for {forwards} U-Net forwards")
+            if ("figures skipped" in text) == have_mpl:
+                raise AssertionError(f"{name}: figures {'skipped' if have_mpl else 'drawn'} "
+                                     f"with matplotlib {'present' if have_mpl else 'absent'}")
+
+        for name, sets, bs in runs:
+            cli_breakdown(name, serve[-1:] + sets, ckpt, bs, m, dev)
+
+        zero_counts()
+        (res, spans), text, sec, rss = _run_cli(
+            ["extremes", *serve, *CLI_EXTREMES, "--outdir", os.path.join(tmp, "extremes")])
+        launches["extremes f32 bs=32"] = read_counts()
+        n = launches["extremes f32 bs=32"]["fused_gn"]
+        days, per_year = CLI_TEST_DAYS // 32 * 32, res["days_per_year"]
+        print(f"cli extremes: days={res['days']} of {res['days_requested']} M={res['members']} "
+              f"timing {json.dumps({k: round(v, 4) for k, v in spans.items()})}; sample loop "
+              f"{res['days'] / spans['sample_loop']:.2f} days/s; C launches {n} for "
+              f"{res['days'] // 32} U-Net forwards; host {sec:.3f} s; peak RSS {rss:.3f} GB")
+        for name, px in res["pixels"].items():
+            for side in ("observed", "model"):
+                r = px[side]
+                print(f"cli extremes {name} {side}: {len(r['block_maxima'])} annual maxima, "
+                      f"gev {r['gev_fit']}, return levels {r['return_levels']} "
+                      f"(T={res['return_periods']}), CI {r['ci_lower']} .. {r['ci_upper']}, "
+                      f"{r['bootstrap_valid']} valid / {r['bootstrap_failed']} failed refits")
+                if len(r["block_maxima"]) != days // per_year:
+                    raise AssertionError(f"{name} {side}: {len(r['block_maxima'])} maxima")
+                if not np.isfinite(r["return_levels"]).all():
+                    raise AssertionError(f"{name} {side}: non-finite return levels")
+        if res["days"] != days or n != chains * (days // 32):
+            raise AssertionError(f"extremes served {res['days']} days with {n} C launches")
+        if ("plotting skipped" in text) == have_mpl:
+            raise AssertionError("extremes: figures and matplotlib disagree")
+
+        # f32 on the card (kernels, TF32 off) against the CPU (plain versions)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        got = {}
+        for where in (None, "cpu"):
+            ev = _run_cli(["evaluate", *serve, *CLI_CHECK_EVAL,
+                           "--outdir", os.path.join(tmp, f"check_{where}")], where)[0][0]
+            ex = _run_cli(["extremes", *serve, *CLI_CHECK_EXTREMES,
+                           "--outdir", os.path.join(tmp, f"check_{where}")], where)[0][0]
+            got[where] = (ev, ex)
+        (ev_g, ex_g), (ev_c, ex_c) = got[None], got["cpu"]
+        errs = {k: _rel(ev_g[k], ev_c[k]) for k in ("crps_mean", "crps_std", "mae_mean",
+                                                     "spread")}
+        for name in ex_c["pixels"]:
+            for side in ("observed", "model"):
+                errs[f"{name} {side} series"] = _rel(ex_g["pixels"][name][side]["block_maxima"],
+                                                     ex_c["pixels"][name][side]["block_maxima"])
+        print(f"cli f32 card vs cpu, max|err|/max|cpu| (limit {ENSEMBLE_RTOL}): "
+              f"{json.dumps(errs)}")
+        if ev_g["items"] != ev_c["items"] or ex_g["days"] != ex_c["days"]:
+            raise AssertionError("the card and the CPU served different days")
+        bad = {k: v for k, v in errs.items() if not v <= ENSEMBLE_RTOL}
+        if bad:
+            raise AssertionError(f"the CLI on the card differs from the CPU: {bad}")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return launches
+
+
 def _variant(model: ProbabilisticUNet, cfg, gn_impl: str = "kernel",
              remat=False) -> ProbabilisticUNet:
     """``model`` rebuilt on another GroupNorm route or remat mode (from the
@@ -1371,6 +1598,10 @@ def main() -> None:
     print("train rates: " + json.dumps(
         {name: {k: v for k, v in r.items() if k != "losses"} for name, r in train.items()}))
 
+    # the serve CLI: pack, evaluate (f32 and bf16), extremes, card vs CPU
+    cli_launches = cli_phase(dev, zero_counts, read_counts)
+    print(f"launches on the serve CLI's runs: {json.dumps(cli_launches)}")
+
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
                "dropout": dropout}
     kernels = []
@@ -1378,7 +1609,8 @@ def main() -> None:
         mod = modules[name.removesuffix("_bwd")]
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                         "replaces": mod.REPLACES_BWD if name.endswith("_bwd") else mod.REPLACES,
-                        "launches": launches[name], **report[name]})
+                        "launches": launches[name], **report[name],
+                        "launches_cli": sum(r[name] for r in cli_launches.values())})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

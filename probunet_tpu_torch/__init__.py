@@ -12,10 +12,13 @@ Probabilistic U-Net forward (U-Net, prior/posterior Gaussians, Fcomb),
 the no-grad afCRPS/CRPS eval ELBO, prior-ensemble sampling and the
 streamed ensemble metrics — and the training path: the afCRPS/CRPS
 training ELBO with dropout, its backward, AdamW as optax computes it,
-checkpoints and the epoch loop. The TPU's Pallas kernels on those paths
-are hand-written CUDA C++ for Hopper in ``csrc/`` (see ``ops/kernels``).
-The entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+checkpoints and the epoch loop — and the serve command line: host ingest
+(``data.climex.ClimexDataset``, the packed artifact), the streamed
+evaluation and GEV extremes behind ``python -m probunet_tpu_torch
+pack|evaluate|extremes`` (``cli.py``). The TPU's Pallas kernels on those
+paths are hand-written CUDA C++ for Hopper in ``csrc/`` (see
+``ops/kernels``). The entry points run on the CUDA device unless the
+caller passes ``device="cpu"`` (the CLI: ``PROBUNET_PLATFORM=cpu``).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,453 @@
+"""Command-line entry points of the port (port of ``probunet_tpu/cli.py``):
+
+    python -m probunet_tpu_torch pack     --preset probunet_multivar_128 --split test --out test.npz
+    python -m probunet_tpu_torch evaluate --preset probunet_multivar_128 --ckpt DIR \
+        --set data.packed_test=test.npz
+    python -m probunet_tpu_torch extremes --preset probunet_multivar_128 --ckpt DIR --pixels 20,45
+
+Config = named preset + dotted overrides (``--set model.compute_dtype=bfloat16``),
+with the JAX CLI's flags and defaults. The commands run on the CUDA device;
+``PROBUNET_PLATFORM=cpu`` (the JAX CLI's own switch) moves them to the CPU.
+Without a card and without that variable they raise.
+
+Where they differ from the JAX CLI:
+
+- **Noise.** Each batch's latent noise comes from :func:`batch_noise`, a
+  CPU ``torch.Generator`` seeded from (seed, batch index), handed to
+  ``ProbabilisticUNet.sample`` as ``eps``. The ensembles are therefore the
+  same on every device and in both of ``evaluate``'s passes, but not the
+  JAX CLI's (``jax.random`` draws other numbers).
+- **Figures.** A figure that cannot be drawn (no matplotlib on the host)
+  is reported as skipped; the numbers are still computed and written.
+- **Checkpoints.** ``--ckpt DIR`` reads the port's ``best_params.pt``
+  (``train/checkpoint.py``); a directory without one raises. A model
+  trained by the JAX package reaches the port through ``convert.py``.
+- ``--quant int8`` and ``--member-mesh N`` (N > 1) are not ported yet and
+  raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from probunet_tpu_torch.config import PRESETS, Config, preset
+from probunet_tpu_torch.device import resolve_device
+
+EVAL_SEED = 0   # evaluate's noise seed, as the JAX CLI's key(0)
+
+
+class _PhaseTimer:
+    """Wall-clock phase breakdown of a command (the "[timing]" line). On a
+    CUDA device each phase ends when the device has finished its work."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.t0 = self.last = time.perf_counter()
+        self.spans: dict[str, float] = {}
+
+    def mark(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.spans[name] = self.spans.get(name, 0.0) + now - self.last
+        self.last = now
+
+    def report(self) -> None:
+        parts = " ".join(f"{k}={v:.1f}s" for k, v in self.spans.items())
+        print(f"[timing] {parts} total={time.perf_counter() - self.t0:.1f}s", flush=True)
+
+
+def cli_device() -> torch.device:
+    """The CUDA device, or the CPU under ``PROBUNET_PLATFORM=cpu``."""
+    plat = os.environ.get("PROBUNET_PLATFORM", "")
+    if plat == "cpu":
+        return torch.device("cpu")
+    if plat not in ("", "cuda", "gpu"):
+        raise ValueError(f"PROBUNET_PLATFORM={plat!r}: the port runs on 'cpu' or 'cuda'")
+    return resolve_device("cuda")
+
+
+def batch_noise(seed: int, batch_index: int, members: int, batch_size: int,
+                latent_dim: int) -> torch.Tensor:
+    """The latent noise ``eps`` (members, batch_size, latent_dim) of batch
+    ``batch_index``: standard normal f32 from a CPU ``torch.Generator``
+    seeded with ``seed * 2**32 + batch_index``, the same on every device
+    and on every pass over the split."""
+    gen = torch.Generator().manual_seed(seed * 2 ** 32 + batch_index)
+    return torch.randn((members, batch_size, latent_dim), generator=gen)
+
+
+def _check_ported(args) -> None:
+    if getattr(args, "quant", "none") != "none":
+        raise NotImplementedError(
+            "--quant int8 is not ported yet (ROADMAP.md §1 item 6, int8 PTQ serving)")
+    if (getattr(args, "member_mesh", 0) or 0) > 1:
+        raise NotImplementedError(
+            "--member-mesh N > 1 is not ported yet (ROADMAP.md §1 item 7, the parallel paths)")
+
+
+def _parse_overrides(pairs):
+    out = {}
+    for p in pairs or []:
+        key, _, val = p.partition("=")
+        try:
+            out[key] = json.loads(val)
+        except json.JSONDecodeError:
+            out[key] = val
+    return out
+
+
+def build_config(args) -> Config:
+    cfg = preset(args.preset) if args.preset else Config()
+    if getattr(args, "config", None):
+        with open(args.config) as f:
+            cfg = Config.from_dict(json.load(f))
+    return cfg.override(_parse_overrides(args.set))
+
+
+def make_datasets(cfg: Config, splits=(0, 1, 2), device: str | torch.device | None = "cuda"):
+    """Build the requested dataset splits on ``device``; unrequested entries
+    are None (a command that reads one split builds only that one)."""
+    from probunet_tpu_torch.data.climex import ClimexDataset
+
+    packed = (cfg.data.packed_train, cfg.data.packed_val,
+              cfg.data.packed_test)
+
+    def mk(years, split_idx):
+        if split_idx not in splits:
+            return None
+        return ClimexDataset(
+            datadir=cfg.data.datadir or None,
+            years=range(*years),
+            variables=cfg.data.variables,
+            coords=cfg.data.coords,
+            pipeline=cfg.data.pipeline,
+            lowres_scale=cfg.data.lowres_scale,
+            transfo=cfg.data.transfo,
+            megafile=cfg.data.megafile,
+            interp_mode=cfg.data.interp_mode,
+            epsilon=cfg.data.epsilon,
+            synthetic=cfg.data.synthetic,
+            # distinct synthetic fields per split
+            synthetic_seed=cfg.data.synthetic_seed + split_idx,
+            standardization=cfg.data.standardization,
+            # packed artifacts (from `pack`) win over the other sources
+            packed=packed[split_idx] or None,
+            device=device,
+        )
+
+    return (mk(cfg.data.years_train, 0), mk(cfg.data.years_val, 1),
+            mk(cfg.data.years_test, 2))
+
+
+def _load_model(cfg: Config, ckpt: str | None, device: torch.device):
+    """The config's model in eval mode on ``device``: the weights of
+    ``ckpt``'s best slot, or the seeded initialization without ``ckpt``."""
+    from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
+    from probunet_tpu_torch.train.checkpoint import CheckpointManager
+
+    model = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0), device=device)
+    if ckpt:
+        params = (CheckpointManager(ckpt).restore_best(device)
+                  if os.path.isdir(ckpt) else None)
+        if params is None:
+            raise FileNotFoundError(
+                f"--ckpt {ckpt}: no best_params.pt (the port reads its own torch "
+                "checkpoints; JAX params load through probunet_tpu_torch.convert)")
+        model.load_state_dict(params)
+    return model.eval()
+
+
+def _sample_hr(model, ds, cfg: Config, idx: np.ndarray, eps: torch.Tensor):
+    """(hr_pred (B, M, H, W, C), gt (B, H, W, C)) of the items ``idx`` with
+    the prior noise ``eps``, in physical units when the data are stored
+    transformed."""
+    from probunet_tpu_torch.data.climex import lrinterp_from_batch
+    from probunet_tpu_torch.data.transforms import invert_physical_transform
+
+    batch = ds.preprocess(torch.from_numpy(ds.get_hr_batch(idx)).to(ds.device))
+    out = model.sample(batch["inputs"], eps.shape[0], eps=eps.to(ds.device))
+    lrinterp = lrinterp_from_batch(batch, cfg.data.lowres_scale, cfg.data.interp_mode)
+    ist = batch.get("stand_stats")
+    if ist is not None:  # the member axis of (B, M, H, W, C) outputs
+        ist = {k: v[:, None] for k, v in ist.items()}
+    hr_pred = ds.residual_to_hr(out, lrinterp[:, None], ist)
+    gt = batch["hr"]
+    if cfg.data.transfo:
+        # metrics are reported in physical units
+        hr_pred = invert_physical_transform(hr_pred, cfg.data.variables)
+        gt = invert_physical_transform(gt, cfg.data.variables)
+    return hr_pred, gt
+
+
+# ---------------------------------------------------------------------------
+# Subcommands
+# ---------------------------------------------------------------------------
+
+def cmd_evaluate(args):
+    """Ensemble test-set evaluation: CRPS / MAE / spread / PSD, streamed:
+    every metric is reduced on the device per batch and only (B, C) and
+    (k, C) partials reach the host. With ``--outdir`` a second pass over
+    the same ensembles fills the pooled-pixel histograms, whose bins are
+    known only after the first. Returns (the printed JSON object, the
+    phase times in seconds)."""
+    from probunet_tpu_torch.data.loader import Batches
+    from probunet_tpu_torch.evals import EvalAccumulator
+
+    _check_ported(args)
+    timer = _PhaseTimer(args.device)
+    cfg = build_config(args)
+    _, _, ds_test = make_datasets(cfg, splits=(2,), device=args.device)
+    timer.mark("dataset")
+    model = _load_model(cfg, args.ckpt, args.device)
+    timer.mark("init")
+
+    m = args.members
+    n_items = min(len(ds_test), args.max_items or len(ds_test))
+
+    def ensembles():
+        for i, idx in enumerate(Batches(n_items, args.batch_size)):
+            eps = batch_noise(EVAL_SEED, i, m, len(idx), cfg.model.latent_dim)
+            yield _sample_hr(model, ds_test, cfg, idx, eps)
+
+    acc = EvalAccumulator()
+    with torch.inference_mode():
+        for e, g in ensembles():
+            acc.update(e, g)
+        timer.mark("metric_loop")
+        if args.outdir:
+            for e, g in ensembles():
+                acc.update_hist(e, g)
+            timer.mark("hist_loop")
+    res = acc.result()
+
+    out = {
+        "members": m,
+        "items": res["items"],
+        "crps_mean": res["crps"]["mean"].tolist(),
+        "crps_std": res["crps"]["std"].tolist(),
+        "mae_mean": res["mae"]["mean"].tolist(),
+        "spread": res["spread"].tolist(),
+    }
+    print(json.dumps(out))
+    if args.outdir:
+        os.makedirs(args.outdir, exist_ok=True)
+        with open(os.path.join(args.outdir, "eval.json"), "w") as f:
+            json.dump(out, f, indent=2)
+        hist = {
+            var: {"bins": res["hist"]["centers"][ci],
+                  "gt": res["hist"]["gt_log"][ci],
+                  "model": res["hist"]["model_log"][ci]}
+            for ci, var in enumerate(cfg.data.variables)
+        }
+        try:
+            from probunet_tpu_torch.utils.plotting import plot_histograms, plot_psd
+            plot_psd({"gt": res["psd_gt"], "model": res["psd_model"]},
+                     variables=cfg.data.variables,
+                     save_path=os.path.join(args.outdir, "psd.png"))
+            plot_histograms(hist, save_path=os.path.join(args.outdir, "histograms.png"))
+        except Exception as e:  # figures only: the numbers above are written
+            print(f"figures skipped: {type(e).__name__}: {e}")
+        timer.mark("figures")
+    timer.report()
+    return out, timer.spans
+
+
+def cmd_extremes(args):
+    """Observed-vs-model return levels, end to end: checkpoint -> batched
+    daily per-pixel ensembles over the test years (only the requested
+    pixels reach the host) -> annual block maxima -> GEV fit + parametric
+    bootstrap CI -> ``extremes.json`` and the curves. Returns (the printed
+    JSON object, the phase times in seconds)."""
+    from probunet_tpu_torch.data.loader import Batches
+    from probunet_tpu_torch.evals import model_ensemble_analysis, return_level_analysis
+
+    _check_ported(args)
+    timer = _PhaseTimer(args.device)
+    cfg = build_config(args)
+    os.makedirs(args.outdir, exist_ok=True)
+    _, _, ds_test = make_datasets(cfg, splits=(2,), device=args.device)
+    timer.mark("dataset")
+    model = _load_model(cfg, args.ckpt, args.device)
+    timer.mark("init")
+
+    pixels = [tuple(int(v) for v in p.split(",")) for p in args.pixels]
+    h, w = ds_test.hr.shape[1:3]
+    outside = [p for p in pixels if not (0 <= p[0] < h and 0 <= p[1] < w)]
+    if outside:  # a device gather would not report them
+        raise ValueError(f"--pixels {outside} outside the {h}x{w} grid")
+    var_idx = list(cfg.data.variables).index(args.var)
+    ys = torch.tensor([p[0] for p in pixels], device=args.device)
+    xs = torch.tensor([p[1] for p in pixels], device=args.device)
+    m = args.members
+
+    days = len(ds_test) if not args.days else min(args.days, len(ds_test))
+    model_vals, gt_vals = [], []
+    with torch.inference_mode():
+        for i, idx in enumerate(Batches(days, args.batch_size)):
+            eps = batch_noise(cfg.train.seed, i, m, len(idx), cfg.model.latent_dim)
+            e, g = _sample_hr(model, ds_test, cfg, idx, eps)
+            model_vals.append(e[:, :, ys, xs, var_idx].cpu().numpy())
+            gt_vals.append(g[:, ys, xs, var_idx].cpu().numpy())
+    model_series = np.concatenate(model_vals)  # (T, M, P)
+    gt_series = np.concatenate(gt_vals)        # (T, P)
+    timer.mark("sample_loop")
+
+    periods = tuple(args.return_periods)
+    results = {}
+    for pi, (py, px) in enumerate(pixels):
+        obs = return_level_analysis(
+            gt_series[:, pi], periods, args.days_per_year,
+            n_boot=args.n_boot, seed=cfg.train.seed,
+        )
+        mod = model_ensemble_analysis(
+            model_series[:, :, pi], periods, args.days_per_year,
+            n_boot=args.n_boot, seed=cfg.train.seed,
+        )
+        name = f"pixel_{py}_{px}"
+        results[name] = {
+            "pixel": [py, px],
+            "observed": {
+                "gev_fit": list(obs["fit"]),
+                "return_levels": obs["return_levels"].tolist(),
+                "ci_lower": obs["bootstrap"]["lower"].tolist(),
+                "ci_upper": obs["bootstrap"]["upper"].tolist(),
+                "bootstrap_valid": obs["bootstrap"]["n_valid"],
+                "bootstrap_failed": obs["bootstrap"]["n_failed"],
+                # raw annual maxima (n_years,): refit on the host without
+                # sampling the split again
+                "block_maxima": obs["block_maxima"].tolist(),
+            },
+            "model": {
+                "gev_fit": list(mod["fit"]),
+                "return_levels": mod["return_levels"].tolist(),
+                "ci_lower": mod["bootstrap"]["lower"].tolist(),
+                "ci_upper": mod["bootstrap"]["upper"].tolist(),
+                "bootstrap_valid": mod["bootstrap"]["n_valid"],
+                "bootstrap_failed": mod["bootstrap"]["n_failed"],
+                # where the model's empirical maxima top out
+                "empirical_plateau": float(mod["empirical_levels"].max()),
+                # (n_years, M) per-member annual maxima, pooled for the fit
+                "block_maxima": mod["block_maxima"].tolist(),
+            },
+        }
+        try:
+            from probunet_tpu_torch.utils.plotting import plot_return_levels
+            plot_return_levels(
+                mod, observed_analysis=obs, label="model",
+                save_path=os.path.join(args.outdir, f"return_levels_{name}.png"),
+            )
+        except Exception as e:  # the figure only: the numbers are kept
+            print(f"plotting skipped for {name}: {type(e).__name__}: {e}")
+
+    timer.mark("gev_fits")
+    # the days served: Batches drops the ragged tail batch (static batch
+    # shape), so a 4,380-day split at bs=32 serves 136 x 32 = 4,352 days
+    out = {"variable": args.var, "members": m,
+           "days": int(model_series.shape[0]),
+           "days_requested": int(days),
+           "days_per_year": args.days_per_year,
+           "return_periods": list(periods), "pixels": results}
+    with open(os.path.join(args.outdir, "extremes.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    print(json.dumps(out))
+    timer.report()
+    return out, timer.spans
+
+
+def cmd_pack(args):
+    """One-time conversion of a split to the packed artifact (raw physical
+    fields; the transforms apply when it is loaded)."""
+    from probunet_tpu_torch.data.climex import ClimexDataset, save_packed
+
+    cfg = build_config(args)
+    years = {"train": cfg.data.years_train, "val": cfg.data.years_val,
+             "test": cfg.data.years_test}[args.split]
+    ds = ClimexDataset(
+        datadir=cfg.data.datadir or None,
+        years=range(*years),
+        variables=cfg.data.variables,
+        coords=cfg.data.coords,
+        pipeline=cfg.data.pipeline,
+        lowres_scale=cfg.data.lowres_scale,
+        transfo=False,
+        megafile=cfg.data.megafile,
+        synthetic=cfg.data.synthetic,
+        device=args.device,
+    )
+    save_packed(args.out, ds.hr, ds.timestamps, ds.timestamps_float)
+    out = {"packed": args.out, "shape": list(ds.hr.shape)}
+    print(json.dumps(out))
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="probunet_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--preset", choices=PRESETS, default=None)
+        sp.add_argument("--config", default=None, help="config JSON path")
+        sp.add_argument("--set", nargs="*", default=[],
+                        help="dotted overrides key=value")
+        sp.add_argument("--outdir", default="results")
+
+    def serve_flags(sp):
+        sp.add_argument("--ckpt", default=None,
+                        help="checkpoint directory holding best_params.pt")
+        sp.add_argument("--member-mesh", type=int, default=0, metavar="N",
+                        help="member-parallel serving over N devices (not ported "
+                             "yet: N > 1 raises)")
+        sp.add_argument("--quant", choices=("none", "int8"), default="none",
+                        help="int8 conv serving (not ported yet: int8 raises)")
+        sp.add_argument("--calib-batches", type=int, default=4,
+                        help="serve batches the int8 calibration pass sees")
+        sp.add_argument("--quant-skip", nargs="*", default=None,
+                        help="regexes of conv module paths kept in float under "
+                             "--quant int8")
+
+    sp = sub.add_parser("evaluate", help="ensemble CRPS/MAE/PSD eval")
+    common(sp)
+    serve_flags(sp)
+    sp.add_argument("--members", type=int, default=16)
+    sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--max-items", type=int, default=None)
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("extremes",
+                        help="observed-vs-model GEV return-level comparison")
+    common(sp)
+    serve_flags(sp)
+    sp.add_argument("--var", default="pr")
+    sp.add_argument("--pixels", nargs="+", default=["20,45"],
+                    help="pixel coords y,x (repeatable)")
+    sp.add_argument("--members", type=int, default=8)
+    sp.add_argument("--batch-size", type=int, default=32)
+    sp.add_argument("--days", type=int, default=0,
+                    help="limit test days (0 = all test years)")
+    sp.add_argument("--days-per-year", type=int, default=365)
+    sp.add_argument("--n-boot", type=int, default=1000)
+    sp.add_argument("--return-periods", type=int, nargs="+",
+                    default=[2, 5, 10, 20, 50, 100])
+    sp.set_defaults(fn=cmd_extremes)
+
+    sp = sub.add_parser("pack", help="dataset split -> packed-array conversion")
+    common(sp)
+    sp.add_argument("--split", choices=("train", "val", "test"),
+                    default="train")
+    sp.add_argument("--out", required=True, help="output .npz path")
+    sp.set_defaults(fn=cmd_pack)
+
+    args = p.parse_args(argv)
+    args.device = cli_device()
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,2 +1,3 @@
-"""ClimEx data: synthetic fields, physical transforms, device-side
-preprocessing (the ingest side of ``probunet_tpu.data`` is not ported)."""
+"""ClimEx data: synthetic fields, physical transforms, host ingest
+(``ClimexDataset``, the packed artifact), device-side preprocessing and
+batch iteration."""

@@ -2,9 +2,11 @@
 
 :class:`Batches` is the JAX package's epoch index batching: numpy, with
 shuffling from an explicit ``np.random.default_rng(seed)`` and drop-last
-by default, so both packages visit the same items in the same order.
+by default, so both packages visit the same items in the same order (the
+``evaluate`` and ``extremes`` commands serve whole batches only).
 :func:`to_device` is a plain host-to-device copy; the JAX package's
-double-buffered prefetch (pinned memory here) is not ported yet.
+double-buffered ``prefetch_to_device`` (pinned memory and a side stream
+here) is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
-"""Synthetic ClimEx-like field generator (numpy).
+"""Synthetic ClimEx-like fields and time features (numpy).
 
-A copy of ``probunet_tpu/data/synthetic.py:synthetic_climex_fields``:
-that module cannot be imported without JAX (``probunet_tpu.data``'s
-package init pulls in the JAX ingest code). Same seed, same draws, same
-arithmetic — the output is bit-identical (asserted by the tests).
+Copies of ``probunet_tpu/data/synthetic.py:synthetic_climex_fields`` and
+``synthetic_timestamps``: that module cannot be imported without JAX
+(``probunet_tpu.data``'s package init pulls in the JAX ingest code). Same
+seed, same draws, same arithmetic — the output is bit-identical (asserted
+by the tests).
 
 Fields are band-limited Fourier noise plus a seasonal cycle; ``pr`` is
 nonnegative and heavy-tailed, ``tasmax > tasmin`` by construction.
@@ -63,3 +64,18 @@ def synthetic_climex_fields(
     fields["tasmax"] = tasmin + diurnal
 
     return np.stack([fields[v] for v in variables], axis=-1).astype(dtype)
+
+
+def synthetic_timestamps(num_days: int, start_year: int = 1960):
+    """(timestamps, timestamps_float) mimicking the reference's cyclic time
+    features over a 365-day (noleap) calendar (reference
+    src/climex_utils.py:116-120)."""
+    day_of_year = np.arange(num_days) % 365
+    month = day_of_year // 31 + 1
+    day = day_of_year % 31 + 1
+    ts = np.sin(2 * np.pi * month / 12.0) + np.cos(2 * np.pi * day / 31.0)
+    # float ns timestamps starting at start_year (approximate epoch offset)
+    ns_per_day = 86400e9
+    epoch_start = (start_year - 1970) * 365.25 * ns_per_day
+    ts_float = epoch_start + np.arange(num_days) * ns_per_day
+    return ts.astype(np.float32), ts_float.astype(np.float64)

@@ -3,12 +3,24 @@
 Precipitation is stored as ``softplus_inv(pr)`` so decoded predictions stay
 positive after ``softplus``; tasmax is stored as
 ``softplus_inv(tasmax - tasmin, c=0)`` so the decoded tasmax exceeds
-tasmin. Branch-free ``torch.where`` forms; inputs are NHWC tensors.
+tasmin. Branch-free ``torch.where`` forms; inputs are NHWC tensors. The
+unit conversions take tensors or numpy arrays; the date helpers are numpy.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def kgm2s_to_mmday(x):
+    """kg/m^2/s -> mm/day (reference src/climex_utils.py:32-33)."""
+    return x * 86400.0
+
+
+def k_to_c(x):
+    """Kelvin -> Celsius (reference src/climex_utils.py:49-50)."""
+    return x - 273.15
 
 
 def softplus_inv(x: torch.Tensor, threshold: float = 20.0,
@@ -59,3 +71,21 @@ def invert_physical_transform(x: torch.Tensor,
         else:
             out.append(chans[v])
     return torch.stack(out, dim=-1)
+
+
+def date_to_float(time_index) -> np.ndarray:
+    """np.datetime64 array -> float64 ns-since-epoch (src/climex_utils.py:21-22)."""
+    return np.asarray(time_index).astype("datetime64[ns]").astype(float)
+
+
+def float_to_date(t) -> np.datetime64:
+    """Inverse of :func:`date_to_float` (src/climex_utils.py:27-29)."""
+    return np.datetime64(int(t), "ns")
+
+
+def cyclic_time_features(month, day) -> np.ndarray:
+    """sin/cos cyclic encoding summed as in reference src/climex_utils.py:117-119:
+    timestamps = sin(2*pi*month/12) + cos(2*pi*day/31)."""
+    return np.sin(2 * np.pi * np.asarray(month) / 12.0) + np.cos(
+        2 * np.pi * np.asarray(day) / 31.0
+    )

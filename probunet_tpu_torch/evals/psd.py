@@ -1,5 +1,5 @@
 """Radially-averaged power spectral density (port of
-``probunet_tpu/evals/psd.py:psd``): the 2-D FFT power of each field,
+``probunet_tpu/evals/psd.py``): the 2-D FFT power of each field,
 averaged over integer wavenumber bins with an ``index_add`` segment sum.
 """
 
@@ -20,6 +20,7 @@ def _radial_bins(h: int, w: int) -> tuple[np.ndarray, int]:
 
 def psd(fields: torch.Tensor) -> torch.Tensor:
     """(..., H, W, C) -> (..., k, C), k = max integer wavenumber + 1."""
+    fields = torch.as_tensor(fields)
     h, w, c = fields.shape[-3:]
     bins, nbins = _radial_bins(h, w)
     idx = torch.from_numpy(bins.reshape(-1)).to(fields.device)
@@ -29,3 +30,8 @@ def psd(fields: torch.Tensor) -> torch.Tensor:
     sums.index_add_(flat.dim() - 2, idx, flat)
     counts = torch.bincount(idx, minlength=nbins).to(flat.dtype)
     return sums / counts[:, None]
+
+
+def psd_over_dataset(fields) -> torch.Tensor:
+    """Dataset-mean radially-averaged PSD: (T, H, W, C) -> (k, C)."""
+    return psd(fields).mean(dim=0)

@@ -11,8 +11,8 @@ computes it. Its random numbers come from a generator seeded from
 ELBO users call between epochs and in ``bench.py``'s eval mode (M =
 ``eval_ensemble_size``, beta_1 = 0, no dropout). ``train_epoch``,
 ``eval_model`` and :class:`Trainer` loop them over in-memory HR tensors
-(N, H, W, C); the JAX package's dataset classes, prefetch, sample plots
-and mesh steps are not ported.
+(N, H, W, C); taking a ``data.climex.ClimexDataset`` as the JAX loop does,
+prefetch, sample plots and mesh steps are not ported yet.
 """
 
 from __future__ import annotations

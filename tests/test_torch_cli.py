@@ -1,0 +1,382 @@
+"""The port's command line (``pack``, ``evaluate``, ``extremes``) against the
+JAX package, on the tiny overrides of ``tests/test_cli.py`` (16x16,
+preset ``probunet_latent6_64``) under ``PROBUNET_PLATFORM=cpu``.
+
+The port serves a checkpoint of the JAX model's noisy parameters
+(``tests/torch_parity.py``) converted by ``convert.load_params``. The JAX
+side is a loop of the JAX package's own functions (its ``make_datasets``
+and ``make_model``, ``encode``/``decode`` with the port's per-batch noise
+``cli.batch_noise``, ``residual_to_hr``, its ``EvalAccumulator`` and GEV
+analyses), so both score the same ensembles up to f32 rounding.
+
+Tolerances: the JSON numbers rtol 1e-4 / atol 1e-5 (the model-level
+tolerance of ``test_torch_models.py``: the same weights and noise through
+two libraries' convolutions); histogram counts exact; the annual maxima,
+GEV fits, return levels and plateaus rtol 1e-4 (fits of series that agree
+to that tolerance); the packed arrays exact. The bootstrap intervals of
+the two runs are not compared with each other: each is a quantile over
+refits of resampled series, each refit a Nelder-Mead search, and a fit
+that moves by 1e-7 can send one refit to another optimum (one quantile
+moved by 19% in a trial). The port's intervals must instead equal, bit for
+bit, those the JAX package's bootstrap computes from the port's own fit.
+"""
+
+import argparse
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import assert_close, noisy_params
+
+from probunet_tpu_torch import cli as tcli
+from probunet_tpu_torch.evals.streaming import EvalAccumulator, _batch_hist
+
+RTOL, ATOL = 1e-4, 1e-5
+PRESET = "probunet_latent6_64"
+TINY = [
+    "--set",
+    'data.resolution=[16,16]', 'data.coords=[0,16,0,16]',
+    "data.lowres_scale=4",
+    'data.years_train=[1960,1961]', 'data.years_val=[1961,1962]',
+    'data.years_test=[1962,1963]',
+    'model.num_filters=[8,16]', "model.model_channels=8",
+    'model.channel_mult=[1,2]', "model.num_blocks=1", "model.latent_dim=4",
+]
+EVAL = ["--members", "4", "--batch-size", "16", "--max-items", "64"]
+EXTREMES = ["--pixels", "3,4", "8,8", "--members", "3", "--batch-size", "64",
+            "--days", "360", "--days-per-year", "30", "--n-boot", "10",
+            "--return-periods", "2", "5", "10"]
+
+
+def _jax_cfg(extra=()):
+    from probunet_tpu.cli import build_config
+
+    return build_config(argparse.Namespace(preset=PRESET, config=None,
+                                           set=TINY[1:] + list(extra)))
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """(JAX model, its noisy params, the port's checkpoint directory)."""
+    import jax
+    import jax.numpy as jnp
+    from flax.core import unfreeze
+
+    from probunet_tpu.cli import make_model
+
+    from probunet_tpu_torch.config import preset
+    from probunet_tpu_torch.convert import load_params
+    from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
+    from probunet_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = _jax_cfg()
+    jmodel = make_model(cfg)
+    x = jnp.zeros((1, 16, 16, 1))
+    shapes = jax.eval_shape(lambda k: jmodel.init({"params": k, "latent": k}, x, x),
+                            jax.random.key(0))
+    params = noisy_params(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype),
+                                       unfreeze(shapes["params"])), seed=3)
+    tcfg = preset(PRESET).override(tcli._parse_overrides(TINY[1:]))
+    model = ProbabilisticUNet.from_config(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    load_params(model, params)
+    ckpt = str(tmp_path_factory.mktemp("ckpt"))
+    CheckpointManager(ckpt).save_best(model.state_dict())
+    return jmodel, params, ckpt
+
+
+@pytest.fixture()
+def on_cpu(monkeypatch):
+    monkeypatch.setenv("PROBUNET_PLATFORM", "cpu")
+
+
+def _jax_sampler(jmodel, params, cfg, ds):
+    """jitted (hr batch, eps) -> (hr_pred, gt): the JAX CLI's sample step
+    with the prior noise given."""
+    import jax
+    import jax.numpy as jnp
+
+    from probunet_tpu.data.climex import lrinterp_from_batch, residual_to_hr
+    from probunet_tpu.data.transforms import invert_physical_transform
+
+    stats = jax.tree.map(jnp.asarray, ds.stats)
+    p = jax.tree.map(jnp.asarray, params)
+
+    def decode(mdl, x, eps):
+        feats, prior, _ = mdl.encode(x)
+        return mdl.decode(feats, prior.mu + prior.sigma * eps)
+
+    @jax.jit
+    def sample_hr(hr_batch, eps):
+        batch = ds.preprocess(hr_batch)
+        out = jmodel.apply({"params": p}, batch["inputs"], eps, method=decode)
+        lrinterp = lrinterp_from_batch(batch, cfg.data.lowres_scale, cfg.data.interp_mode)
+        hr_pred = residual_to_hr(out, lrinterp[:, None], stats, ds.pipeline,
+                                 cfg.data.epsilon, cfg.data.standardization)
+        gt = batch["hr"]
+        if cfg.data.transfo:
+            hr_pred = invert_physical_transform(hr_pred, cfg.data.variables)
+            gt = invert_physical_transform(gt, cfg.data.variables)
+        return hr_pred, gt
+
+    return lambda idx, eps: sample_hr(jnp.asarray(ds.get_hr_batch(idx)), jnp.asarray(eps))
+
+
+def _jax_ensembles(jmodel, params, n_items, bs, m, seed):
+    from probunet_tpu.cli import make_datasets
+    from probunet_tpu.data.loader import Batches
+
+    cfg = _jax_cfg()
+    _, _, ds = make_datasets(cfg, splits=(2,))
+    sample = _jax_sampler(jmodel, params, cfg, ds)
+    n = min(len(ds), n_items or len(ds))
+    for i, idx in enumerate(Batches(n, bs)):
+        eps = tcli.batch_noise(seed, i, m, len(idx), cfg.model.latent_dim).numpy()
+        yield sample(idx, eps)
+
+
+def _capture_results(monkeypatch):
+    """The port's ``EvalAccumulator.result`` outputs of the next commands."""
+    results = []
+    result = EvalAccumulator.result
+
+    def keep(self):
+        results.append(result(self))
+        return results[-1]
+
+    monkeypatch.setattr(EvalAccumulator, "result", keep)
+    return results
+
+
+def test_evaluate_matches_jax(served, on_cpu, tmp_path, monkeypatch, capsys):
+    from probunet_tpu.evals import EvalAccumulator as JaxAcc
+
+    jmodel, params, ckpt = served
+    results = _capture_results(monkeypatch)
+    out = str(tmp_path / "ev")
+    got, spans = tcli.main(["evaluate", "--preset", PRESET, "--outdir", out,
+                            "--ckpt", ckpt] + EVAL + TINY)
+    printed = capsys.readouterr().out
+    assert json.loads([ln for ln in printed.splitlines() if '"crps_mean"' in ln][-1]) == got
+    with open(os.path.join(out, "eval.json")) as f:
+        assert json.load(f) == got
+    assert list(spans) == ["dataset", "init", "metric_loop", "hist_loop", "figures"]
+    assert "[timing] dataset=" in printed
+
+    acc = JaxAcc()
+    for e, g in _jax_ensembles(jmodel, params, 64, 16, 4, tcli.EVAL_SEED):
+        acc.update(e, g)
+    for e, g in _jax_ensembles(jmodel, params, 64, 16, 4, tcli.EVAL_SEED):
+        acc.update_hist(e, g)
+    want = acc.result()
+    assert got["members"] == 4 and got["items"] == want["items"] == 64
+    for key, ref in (("crps_mean", want["crps"]["mean"]), ("crps_std", want["crps"]["std"]),
+                     ("mae_mean", want["mae"]["mean"]), ("spread", want["spread"])):
+        assert len(got[key]) == 1
+        assert_close(got[key], ref, RTOL, ATOL, key)
+    hist = results[-1]["hist"]
+    assert_close(hist["lo"], want["hist"]["lo"], RTOL, ATOL, "lo")
+    assert_close(hist["hi"], want["hist"]["hi"], RTOL, ATOL, "hi")
+    for key in ("gt_counts", "model_counts"):
+        assert np.array_equal(hist[key], want["hist"][key]), key
+    assert_close(results[-1]["psd_model"], want["psd_model"], RTOL,
+                 ATOL * float(np.abs(want["psd_model"]).max()), "psd_model")
+
+
+def test_two_pass_histogram_equals_the_materialized_ensembles(served, on_cpu, tmp_path,
+                                                              monkeypatch):
+    """The second pass regenerates the first pass's ensembles: its counts
+    equal the histogram of all batches' ensembles held at once."""
+    from probunet_tpu_torch.data.loader import Batches
+
+    _, _, ckpt = served
+    results = _capture_results(monkeypatch)
+    tcli.main(["evaluate", "--preset", PRESET, "--outdir", str(tmp_path),
+               "--ckpt", ckpt] + EVAL + TINY)
+    hist = results[-1]["hist"]
+    args = argparse.Namespace(preset=PRESET, config=None, set=TINY[1:])
+    cfg = tcli.build_config(args)
+    _, _, ds = tcli.make_datasets(cfg, splits=(2,), device="cpu")
+    model = tcli._load_model(cfg, ckpt, torch.device("cpu"))
+    ens, gts = [], []
+    with torch.inference_mode():
+        for i, idx in enumerate(Batches(64, 16)):
+            e, g = tcli._sample_hr(model, ds, cfg, idx,
+                                   tcli.batch_noise(tcli.EVAL_SEED, i, 4, 16, 4))
+            ens.append(e)
+            gts.append(g)
+    lo = torch.from_numpy(hist["lo"]).float()
+    hi = torch.from_numpy(hist["hi"]).float()
+    ens, gts = torch.cat(ens), torch.cat(gts)
+    assert float(torch.minimum(ens.amin(), gts.amin())) == float(lo.min())
+    assert np.array_equal(hist["model_counts"], _batch_hist(ens, lo, hi, 100).numpy())
+    assert np.array_equal(hist["gt_counts"], _batch_hist(gts, lo, hi, 100).numpy())
+    assert hist["gt_counts"].sum() == gts.numel()
+
+
+def _jax_extremes(jmodel, params, days, bs, m, pixels, periods, days_per_year, n_boot):
+    """(days served, {pixel: {"observed", "model"} analyses}) of the JAX
+    loop; its bootstrap intervals are not compared (module docstring)."""
+    from probunet_tpu.evals import model_ensemble_analysis, return_level_analysis
+
+    seed = _jax_cfg().train.seed
+    ys = np.array([p[0] for p in pixels])
+    xs = np.array([p[1] for p in pixels])
+    mv, gv = [], []
+    for e, g in _jax_ensembles(jmodel, params, days, bs, m, seed):
+        mv.append(np.asarray(e)[:, :, ys, xs, 0])
+        gv.append(np.asarray(g)[:, ys, xs, 0])
+    model_series, gt_series = np.concatenate(mv), np.concatenate(gv)
+    out = {}
+    for pi, (py, px) in enumerate(pixels):
+        obs = return_level_analysis(gt_series[:, pi], periods, days_per_year,
+                                    n_boot=n_boot, seed=seed)
+        mod = model_ensemble_analysis(model_series[:, :, pi], periods, days_per_year,
+                                      n_boot=n_boot, seed=seed)
+        out[f"pixel_{py}_{px}"] = {"observed": obs, "model": mod}
+    return model_series.shape[0], out
+
+
+def test_extremes_matches_jax(served, on_cpu, tmp_path, capsys):
+    from probunet_tpu.evals import gev as jgev
+
+    jmodel, params, ckpt = served
+    seed = _jax_cfg().train.seed
+    out = str(tmp_path / "ext")
+    got, spans = tcli.main(["extremes", "--preset", PRESET, "--outdir", out,
+                            "--ckpt", ckpt] + EXTREMES + TINY)
+    printed = capsys.readouterr().out
+    assert json.loads([ln for ln in printed.splitlines() if '"pixels"' in ln][-1]) == got
+    with open(os.path.join(out, "extremes.json")) as f:
+        assert json.load(f) == got
+    assert list(spans) == ["dataset", "init", "sample_loop", "gev_fits"]
+    # drop-last static batching: 5 batches of 64 of the 360 days asked
+    assert got["days"] == 320 and got["days_requested"] == 360
+    assert got["members"] == 3 and got["variable"] == "pr"
+    days, want = _jax_extremes(jmodel, params, 360, 64, 3, [(3, 4), (8, 8)], (2, 5, 10),
+                               30, n_boot=2)
+    assert days == got["days"]
+    assert set(got["pixels"]) == set(want)
+    for name, ref in want.items():
+        g = got["pixels"][name]
+        for side in ("observed", "model"):
+            r = ref[side]
+            assert_close(g[side]["block_maxima"], r["block_maxima"], RTOL, ATOL,
+                         f"{name} {side} block maxima")
+            assert_close(g[side]["gev_fit"], list(r["fit"]), RTOL, ATOL, f"{name} {side} fit")
+            assert_close(g[side]["return_levels"], r["return_levels"], RTOL, ATOL,
+                         f"{name} {side} levels")
+            n_fit = np.asarray(g[side]["block_maxima"]).size
+            boot = jgev.gev_parametric_bootstrap(jgev.GEVFit(*g[side]["gev_fit"]), n_fit,
+                                                 (2, 5, 10), n_boot=10, seed=seed)
+            assert g[side]["ci_lower"] == boot["lower"].tolist()
+            assert g[side]["ci_upper"] == boot["upper"].tolist()
+            assert g[side]["bootstrap_valid"] == boot["n_valid"]
+            assert g[side]["bootstrap_failed"] == boot["n_failed"]
+        assert_close(g["model"]["empirical_plateau"], r["empirical_levels"].max(), RTOL,
+                     ATOL, "plateau")
+    assert np.asarray(g["model"]["block_maxima"]).shape == (days // 30, 3)
+
+
+def test_pack_matches_jax(on_cpu, tmp_path, capsys):
+    from probunet_tpu.cli import main as jax_main
+
+    paths = {"torch": str(tmp_path / "t.npz"), "jax": str(tmp_path / "j.npz")}
+    got = tcli.main(["pack", "--preset", PRESET, "--split", "test",
+                     "--out", paths["torch"]] + TINY)
+    jax_main(["pack", "--preset", PRESET, "--split", "test", "--out", paths["jax"]] + TINY)
+    assert got == {"packed": paths["torch"], "shape": [365, 16, 16, 1]}
+    with np.load(paths["torch"]) as t, np.load(paths["jax"]) as j:
+        assert t.files == j.files
+        for key in j.files:
+            assert t[key].dtype == j[key].dtype and np.array_equal(t[key], j[key]), key
+    # the artifact serves: evaluate reads it through data.packed_test
+    got, _ = tcli.main(["evaluate", "--preset", PRESET, "--outdir", "", "--members", "2",
+                        "--max-items", "16"] + TINY + [f"data.packed_test={paths['torch']}"])
+    assert got["items"] == 16
+
+
+@pytest.mark.parametrize("cmd", ["evaluate", "extremes"])
+@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--member-mesh", "2"]])
+def test_unported_flags_raise(on_cpu, tmp_path, cmd, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main([cmd, "--preset", PRESET, "--outdir", str(tmp_path)] + flag + TINY)
+
+
+@pytest.mark.parametrize("pixel", ["16,3", "3,-1"])
+def test_pixels_outside_the_grid_raise(on_cpu, tmp_path, pixel):
+    with pytest.raises(ValueError, match="outside the 16x16 grid"):
+        tcli.main(["extremes", "--preset", PRESET, "--outdir", str(tmp_path),
+                   "--pixels", "3,4", pixel] + TINY)
+
+
+def test_checkpoint_without_best_params_raises(on_cpu, tmp_path):
+    for ckpt in (tmp_path, tmp_path / "absent"):
+        with pytest.raises(FileNotFoundError, match="best_params.pt"):
+            tcli.main(["evaluate", "--preset", PRESET, "--outdir", "",
+                       "--ckpt", str(ckpt)] + TINY)
+    assert not (tmp_path / "absent").exists()
+
+
+def test_runs_on_cuda_unless_told(monkeypatch, tmp_path):
+    """Without ``PROBUNET_PLATFORM=cpu`` the commands want the card and
+    raise without one; an unknown platform raises too."""
+    monkeypatch.delenv("PROBUNET_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        tcli.main(["pack", "--preset", PRESET, "--out", str(tmp_path / "p.npz")] + TINY)
+    monkeypatch.setenv("PROBUNET_PLATFORM", "tpu")
+    with pytest.raises(ValueError, match="PROBUNET_PLATFORM"):
+        tcli.main(["pack", "--preset", PRESET, "--out", str(tmp_path / "p.npz")] + TINY)
+
+
+def test_figures_are_guarded(served, on_cpu, tmp_path, monkeypatch, capsys):
+    """A figure that cannot be drawn is reported; the numbers are still
+    written. A failure outside the figures still raises."""
+    from probunet_tpu_torch.utils import plotting
+
+    _, _, ckpt = served
+
+    def no_matplotlib(*a, **k):
+        raise ImportError("No module named 'matplotlib'")
+
+    monkeypatch.setattr(plotting, "plot_psd", no_matplotlib)
+    monkeypatch.setattr(plotting, "plot_return_levels", no_matplotlib)
+    got, _ = tcli.main(["evaluate", "--preset", PRESET, "--outdir", str(tmp_path),
+                        "--ckpt", ckpt, "--members", "2", "--max-items", "16"] + TINY)
+    assert "figures skipped: ImportError" in capsys.readouterr().out
+    with open(tmp_path / "eval.json") as f:
+        assert json.load(f) == got
+    got, _ = tcli.main(["extremes", "--preset", PRESET, "--outdir", str(tmp_path),
+                        "--ckpt", ckpt, "--pixels", "3,4", "--days", "64",
+                        "--days-per-year", "16", "--n-boot", "5"] + TINY)
+    assert "plotting skipped for pixel_3_4: ImportError" in capsys.readouterr().out
+    with open(tmp_path / "extremes.json") as f:
+        assert json.load(f) == got
+    monkeypatch.setattr(EvalAccumulator, "update_hist", no_matplotlib)
+    with pytest.raises(ImportError):
+        tcli.main(["evaluate", "--preset", PRESET, "--outdir", str(tmp_path),
+                   "--members", "2", "--max-items", "16"] + TINY)
+
+
+def test_module_entry_point(tmp_path):
+    """``python -m probunet_tpu_torch`` runs the CLI: on the CPU when asked,
+    and without a card and without ``PROBUNET_PLATFORM`` it fails."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "probunet_tpu_torch", "pack", "--preset", PRESET,
+           "--split", "test", "--out", str(tmp_path / "p.npz")] + TINY
+    env = {k: v for k, v in os.environ.items() if k != "PROBUNET_PLATFORM"}
+    env["PYTHONPATH"] = repo
+    out = subprocess.run(cmd, env={**env, "PROBUNET_PLATFORM": "cpu"}, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1])["shape"] == [365, 16, 16, 1]
+    if not torch.cuda.is_available():
+        out = subprocess.run(cmd, env=env, cwd=tmp_path, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0 and "is_available" in out.stderr

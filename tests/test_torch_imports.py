@@ -4,8 +4,9 @@ with the GPU has no JAX, and the port keeps its own copy of what it needs.
 A fresh interpreter blocks ``jax``, ``flax`` and ``probunet_tpu``
 (``sys.modules[name] = None`` makes every import of them fail), then
 imports every module of ``probunet_tpu_torch`` and ``chip_smoke`` (the
-import only, not its run). The port's config copy must equal the JAX
-package's, preset by preset.
+import only, not its run); none of them may load matplotlib either (the
+card's host may not have it: figures import it when they are drawn). The
+port's config copy must equal the JAX package's, preset by preset.
 """
 
 import ast
@@ -29,7 +30,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "probunet_tpu")
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "probunet_tpu", "matplotlib")
                 and sys.modules[m] is not None)
 print(json.dumps({"names": names, "loaded": loaded}))
 """
@@ -45,6 +46,9 @@ def test_port_and_chip_smoke_import_without_jax():
     # every kernel module, the GroupNorm chain's (C, C′) included
     for kernel in ("afcrps", "fcomb_crps", "fused_gn", "dropout", "_build"):
         assert f"probunet_tpu_torch.ops.kernels.{kernel}" in res["names"], kernel
+    for name in ("cli", "__main__", "data.climex", "evals.gev", "evals.histograms",
+                 "evals.metrics", "utils.plotting"):
+        assert f"probunet_tpu_torch.{name}" in res["names"], name
     assert res["loaded"] == []
 
 
