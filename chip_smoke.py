@@ -41,14 +41,29 @@ route, and drives both paths at the full width of the flagship preset
   histogram pass, and ``extremes`` (M=8, bs=32, two pixels, 100 bootstrap
   draws): days served, metrics, phase times, days/s, peak host memory,
   57 C launches per U-Net forward; then ``evaluate`` and ``extremes`` on
-  32 days on the card against the CPU (``PROBUNET_PLATFORM=cpu``).
+  32 days on the card against the CPU (``PROBUNET_PLATFORM=cpu``);
+- the training CLI, through ``cli.main``: ``pack`` of the flagship's
+  train split cut to 1960-1962 and its validation split cut to 2021;
+  ``train`` at the preset (f32, bs=32, M=15, 2 epochs), at bf16 bs=128
+  and with the WMSE + MS-SSIM ELBO (A, A′, C and C′ launched; the
+  residual-contribution and final lines printed); ``deterministic_64`` at
+  its full widths: ``train`` with the L1 ELBO and ``train-det`` for each
+  U-Net type (C and C′; D on the asymmetric ones; the chains by route,
+  D, C and C′ held to their plain versions at each chain's shape and dtype),
+  ``linearcnn`` and ``bcsd`` (its test MAE on the card against the CPU);
+  one epoch of prefetched batches bit-equal to synchronous copies, the
+  host's work per batch and three warmed-up epochs' idle share (kernel
+  and wall time from the same profiled epochs). Before the phase the
+  new ELBO branches (WMSE + MS-SSIM, L1) and the deterministic step run
+  in f32 on the card against the CPU.
 
 Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
 nvcc; there is no CPU route. Any failed check raises, so the exit code is
 0 only when every phase passed. The line before the last is a JSON object
-with each kernel's launches on the training path (``launches``) and on the
-serve CLI's runs (``launches_cli``), error, times and bound; the last line
+with each kernel's launches on the training path (``launches``), on the
+serve CLI's runs (``launches_cli``) and on the training CLI's runs
+(``launches_train_cli``), error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -77,11 +92,13 @@ import torch.nn.functional as F
 from probunet_tpu_torch import cli
 from probunet_tpu_torch.config import preset
 from probunet_tpu_torch.data.climex import (
+    ClimexDataset,
     compute_stats,
     lrinterp_from_batch,
     preprocess_batch,
     residual_to_hr,
 )
+from probunet_tpu_torch.data.loader import Batches, prefetch_to_device
 from probunet_tpu_torch.data.synthetic import synthetic_climex_fields
 from probunet_tpu_torch.data.transforms import apply_physical_transform, invert_physical_transform
 from probunet_tpu_torch.evals.streaming import EvalAccumulator
@@ -91,8 +108,15 @@ from probunet_tpu_torch.models.unet import dropout_seeds
 from probunet_tpu_torch.ops import losses
 from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
 from probunet_tpu_torch.train.checkpoint import CheckpointManager
-from probunet_tpu_torch.train.loop import eval_model, make_eval_step, make_train_step
-from probunet_tpu_torch.train.state import create_train_state, global_norm
+from probunet_tpu_torch.train.loop import (
+    Trainer,
+    eval_model,
+    make_deterministic_train_step,
+    make_eval_step,
+    make_train_step,
+    train_epoch,
+)
+from probunet_tpu_torch.train.state import TrainState, create_train_state, global_norm
 
 BATCH = 128          # bench.py's serve batch
 N_BATCHES = 3
@@ -183,6 +207,39 @@ CLI_EXTREMES = ["--pixels", "20,45", "64,64", "--n-boot", "100"]
 CLI_CHECK_EVAL = ["--max-items", "32", "--batch-size", "16"]
 CLI_CHECK_EXTREMES = ["--pixels", "20,45", "64,64", "--days", "32", "--batch-size", "16",
                       "--days-per-year", "1", "--n-boot", "10"]
+# the training CLI phase: the flagship's train split cut to 3 years and its
+# validation split to 1 (packed), trained at the preset (f32, bs=32, M=15,
+# 2 epochs), at bf16 bs=128 and with the WMSE + MS-SSIM ELBO; the
+# deterministic baselines at deterministic_64's full widths (64x64, model
+# channels 64, mult 1,2,3,4, bs=8) on 2 packed training years, 1 synthetic
+# validation and test year (BCSD needs whole years), one epoch each; the asymmetric
+# U-Nets take the low-resolution field (pipeline lr_to_residuals), their
+# core at 8x8 -> 1x1
+TRAIN_CLI_YEARS = {"train": [1960, 1963], "val": [2021, 2022]}
+TRAIN_CLI_RUNS = (("f32 bs=32 M=15 (preset)", ["train.num_epochs=2"]),
+                  ("bf16 bs=128", ["model.compute_dtype=bfloat16", "train.batch_size=128",
+                                   "train.num_epochs=1"]),
+                  ("mse+ssim f32 bs=32", ["loss.loss_type=mse+ssim", "train.num_epochs=1"]))
+DET_PRESET = "deterministic_64"
+DET_YEARS = {"train": [1960, 1962], "val": [2021, 2022], "test": [2034, 2035]}
+DET_VARIANTS = (("unet symmetric", ["model.unet_type=symmetric", "train.num_epochs=1"]),
+                ("unet asymmetric_wskips", ["model.unet_type=asymmetric_wskips",
+                                            "data.pipeline=lr_to_residuals",
+                                            "train.num_epochs=1"]),
+                ("unet asymmetric_woskips", ["model.unet_type=asymmetric_woskips",
+                                             "data.pipeline=lr_to_residuals",
+                                             "train.num_epochs=1"]),
+                ("linearcnn", ["train.num_epochs=1"]))
+# BCSD's test MAE on the card vs the CPU: the storage transform and the
+# interpolation differ by an ulp or so between the devices, and BCSD divides
+# by the training years' interpolated precipitation, near 0 at dry pixels,
+# which multiplies those ulps (5.7e-5 between the port and the JAX package
+# on the CPU test split)
+BCSD_RTOL = 1e-3
+# warmed-up bf16 bs=128 epochs of 8 steps each, profiled together for the
+# idle share (24 steps), then timed together without the profiler
+IDLE_EPOCHS = 3
+PREFETCH_BUSY_N = 4096   # the consumer's work between prefetched batches: 4 products of n x n
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; FP32 CUDA core
 
@@ -443,6 +500,49 @@ def afcrps_cases(randn) -> None:
                 del ens, tgt
 
 
+def _dropout_vs_plain(randn, shape, dtype: str, p_drop: float, timed: bool = True):
+    """Kernel D against its plain version at one NHWC shape: forward (on x)
+    and backward (on a cotangent) bit for bit, the keep rate within 5
+    sigma of 1 - p. With ``timed``, the JSON row: its time beside the
+    plain version's, ``F.dropout``'s and its bound."""
+    tdt = getattr(torch, dtype)
+    x = randn(*shape).to(tdt).requires_grad_()
+    g = randn(*shape).to(tdt)
+    seed = torch.tensor([20250101, -7], dtype=torch.int32, device=x.device)
+    y = dropout.dropout(x, seed, p_drop)
+    (dx,) = torch.autograd.grad(y, x, g)
+    with torch.no_grad():
+        want_y = dropout.dropout_plain(x, seed, p_drop)
+        want_dx = dropout.dropout_plain(g, seed, p_drop)
+    fwd_exact, bwd_exact = torch.equal(y, want_y), torch.equal(dx, want_dx)
+    n = y.numel()
+    keep = float((y != 0).float().mean())
+    sigma = (p_drop * (1 - p_drop) / n) ** 0.5
+    line = (f"kernel dropout         shape={shape} {dtype} p={p_drop} fwd_exact={fwd_exact} "
+            f"bwd_exact={bwd_exact} keep_rate={keep:.6f} (1-p={1 - p_drop}, "
+            f"{abs(keep - (1 - p_drop)) / sigma:.2f} sigma)")
+    row = None
+    if timed:
+        with torch.no_grad():
+            xd = x.detach()
+            ms = _sync_ms(lambda: dropout.dropout(xd, seed, p_drop), 20)
+            plain_ms = _sync_ms(lambda: dropout.dropout_plain(xd, seed, p_drop), 3, 1)
+            library_ms = _sync_ms(lambda: F.dropout(xd, p_drop, training=True), 20)
+        line += f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} F.dropout_ms={library_ms:.4f}"
+        # read x, write y; ~16 integer operations per element for the hash
+        row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+               **_bound(2.0 * x.element_size() * n, 16.0 * n, "float32"),
+               "library_ms": library_ms}
+    print(line)
+    if not (fwd_exact and bwd_exact):
+        raise AssertionError(f"dropout kernel masks differ from the plain version's at "
+                             f"{shape} {dtype}")
+    if not abs(keep - (1 - p_drop)) <= 5 * sigma:
+        raise AssertionError(f"dropout keep rate {keep} at {shape} is not within 5 sigma of "
+                             f"{1 - p_drop}")
+    return row
+
+
 def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
     """Each kernel against its plain version at the serve and training
     shapes. The JSON row of a kernel carries its training-path shape: M=15
@@ -472,37 +572,7 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
     torch.cuda.empty_cache()
 
     # D at the flagship's largest activation, NHWC bf16
-    shape, p_drop = (BATCH, 128, 128, 32), 0.1
-    x = randn(*shape).to(torch.bfloat16).requires_grad_()
-    g = randn(*shape).to(torch.bfloat16)
-    seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
-    y = dropout.dropout(x, seed, p_drop)
-    (dx,) = torch.autograd.grad(y, x, g)
-    with torch.no_grad():
-        want_y = dropout.dropout_plain(x, seed, p_drop)
-        want_dx = dropout.dropout_plain(g, seed, p_drop)
-    fwd_exact, bwd_exact = torch.equal(y, want_y), torch.equal(dx, want_dx)
-    n = y.numel()
-    keep = float((y != 0).float().mean())
-    sigma = (p_drop * (1 - p_drop) / n) ** 0.5
-    with torch.no_grad():
-        xd = x.detach()
-        ms = _sync_ms(lambda: dropout.dropout(xd, seed, p_drop), 20)
-        plain_ms = _sync_ms(lambda: dropout.dropout_plain(xd, seed, p_drop), 3, 1)
-        library_ms = _sync_ms(lambda: F.dropout(xd, p_drop, training=True), 20)
-    print(f"kernel dropout         shape={shape} bf16 p={p_drop} fwd_exact={fwd_exact} "
-          f"bwd_exact={bwd_exact} keep_rate={keep:.6f} (1-p={1 - p_drop}, "
-          f"{abs(keep - (1 - p_drop)) / sigma:.2f} sigma) kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} F.dropout_ms={library_ms:.4f}")
-    if not (fwd_exact and bwd_exact):
-        raise AssertionError("dropout kernel masks differ from the plain version's")
-    if not abs(keep - (1 - p_drop)) <= 5 * sigma:
-        raise AssertionError(f"dropout keep rate {keep} is not within 5 sigma of {1 - p_drop}")
-    # read x, write y; ~16 integer operations per element for the hash
-    report["dropout"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                         **_bound(2.0 * 2 * n, 16.0 * n, "float32"),
-                         "library_ms": library_ms}
-    del x, g, y, dx, want_y, want_dx, xd
+    report["dropout"] = _dropout_vs_plain(randn, (BATCH, 128, 128, 32), "bfloat16", 0.1)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -543,7 +613,8 @@ def gn_preset_chains(randn, dev, name: str, batch: int) -> None:
     del model
 
 
-def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
+def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float,
+                 silu: bool = True, timed: bool = True) -> dict:
     """Kernels C and C′ against their plain versions at one shape: every
     output and the masks, each kernel on its planned route and on the
     other one (for C the three passes where the plan takes a cluster and
@@ -551,7 +622,7 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
     passes or the cluster layout), each run twice for identical bits;
     times, bounds, and ``F.group_norm``'s time at the shape as a note (it
     computes only the normalization, not the chain, so it is no
-    ``library_ms``)."""
+    ``library_ms``). Without ``timed`` the times read nan."""
     b, h, w, c = shape
     groups = min(32, c // 4)
     tdt = getattr(torch, dtype)
@@ -565,10 +636,10 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
         scale = shift = torch.zeros(b, c, device=dev)
     seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
     args = (x, gamma, beta, scale, shift, seed)
-    consts = (groups, 1e-5, p_drop, True)
+    consts = (groups, 1e-5, p_drop, silu)
     want = fused_gn.gn_film_silu_dropout_plain(*args, *consts)
     plan = fused_gn.fwd_plan(h * w, c, groups, size)
-    fwd = [_gn_fwd_route(args, consts, want, pl)
+    fwd = [_gn_fwd_route(args, consts, want, pl, timed)
            for pl in ((plan,) if plan == fused_gn.THREE_PASS else (plan, fused_gn.THREE_PASS))]
     y, mean, rstd = fwd[0].pop("result")
     for r in fwd[1:]:
@@ -578,21 +649,25 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
         raise AssertionError("kernel C's entry point left its planned route")
     # the backward of both on the kernel's statistics: C′ on the shape's plan
     # and on the other route, each held to the plain version
-    bwd_args = (x, g, gamma, beta, scale, shift, seed, mean, rstd, groups, p_drop, True)
+    bwd_args = (x, g, gamma, beta, scale, shift, seed, mean, rstd, groups, p_drop, silu)
     want_bwd = fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args)
     plan = fused_gn.bwd_plan(h * w, c, groups, size)
     other = (fused_gn.TWO_PASS if plan["route"] == "cluster"
              else fused_gn.cluster_plan(h * w, c, groups, size))
-    routes = [_gn_bwd_route(bwd_args, want_bwd, pl) for pl in (plan, other) if pl is not None]
-    plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_plain(*args, *consts), 2, 1)
-    bwd_plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args), 2, 1)
-    xr = x.detach().permute(0, 3, 1, 2).requires_grad_()  # NCHW view, channels_last
-    wr, br = gamma.to(tdt).requires_grad_(), beta.to(tdt).requires_grad_()
-    gr = g.permute(0, 3, 1, 2)
-    with torch.no_grad():
-        gn_ms = _sync_ms(lambda: F.group_norm(xr, groups, wr, br, 1e-5), 20)
-    gn_fb_ms = _sync_ms(lambda: torch.autograd.grad(F.group_norm(xr, groups, wr, br, 1e-5),
-                                                    (xr, wr, br), gr), 10)
+    routes = [_gn_bwd_route(bwd_args, want_bwd, pl, timed) for pl in (plan, other)
+              if pl is not None]
+    plain_ms = bwd_plain_ms = gn_ms = gn_fb_ms = math.nan
+    if timed:
+        plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_plain(*args, *consts), 2, 1)
+        bwd_plain_ms = _sync_ms(lambda: fused_gn.gn_film_silu_dropout_bwd_plain(*bwd_args),
+                                2, 1)
+        xr = x.detach().permute(0, 3, 1, 2).requires_grad_()  # NCHW view, channels_last
+        wr, br = gamma.to(tdt).requires_grad_(), beta.to(tdt).requires_grad_()
+        gr = g.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            gn_ms = _sync_ms(lambda: F.group_norm(xr, groups, wr, br, 1e-5), 20)
+        gn_fb_ms = _sync_ms(lambda: torch.autograd.grad(
+            F.group_norm(xr, groups, wr, br, 1e-5), (xr, wr, br), gr), 10)
     # bytes: read x, write y (C); read x and g, write dx (C′); the (C,) and
     # (B, C) vectors and (B, G) statistics once each. Operations per
     # element: ~10 f32 (statistics, affine, SiLU) forward and ~30 backward,
@@ -604,7 +679,7 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
                        "float32")
     for i, r in enumerate(fwd):
         print(f"kernel fused_gn        shape={shape} {dtype:8s} film={film} p={p_drop} "
-              f"{'planned' if i == 0 else 'other  '} plan={json.dumps(r['plan'])} "
+              f"silu={silu} {'planned' if i == 0 else 'other  '} plan={json.dumps(r['plan'])} "
               f"bit_reproducible=True masks_equal={r['masks_equal']} "
               f"kept_zeros={r['kept_zeros']} keep_rate={r['keep']:.6f} "
               f"max_err/max={json.dumps(r['err'])} max_abs_err={r['abs_err']:.3e} "
@@ -614,7 +689,7 @@ def _gn_vs_plain(randn, dev, shape, dtype, film: bool, p_drop: float) -> dict:
           f"F.group_norm_ms={gn_ms:.4f}")
     for i, r in enumerate(routes):
         print(f"kernel fused_gn_bwd    shape={shape} {dtype:8s} film={film} p={p_drop} "
-              f"{'planned' if i == 0 else 'other  '} plan={json.dumps(r['plan'])} "
+              f"silu={silu} {'planned' if i == 0 else 'other  '} plan={json.dumps(r['plan'])} "
               f"bit_reproducible=True max_err/max={json.dumps(r['err'])} "
               f"max_abs_err={r['abs_err']:.3e} kernel_ms={r['ms']:.4f} "
               f"no_silu_no_mask_ms={r['bare_ms']:.4f}")
@@ -647,11 +722,12 @@ def _cluster_occupancy(forward: bool, x: torch.Tensor, plan: dict) -> int:
     return clusters.value
 
 
-def _gn_fwd_route(args, consts, want, plan: dict) -> dict:
+def _gn_fwd_route(args, consts, want, plan: dict, timed: bool = True) -> dict:
     """Kernel C on one plan of its shape: run twice for identical bits; y,
-    mean, rstd and the dropout mask against the plain forward; its time,
-    and its time with the chain's SiLU and mask off (the route's memory
-    traffic and structure alone). ``result`` holds its outputs."""
+    mean, rstd and the dropout mask against the plain forward; with
+    ``timed`` its time, and its time with the chain's SiLU and mask off
+    (the route's memory traffic and structure alone), else nan.
+    ``result`` holds its outputs."""
     def run(cs=consts):
         return fused_gn._launch(*args, *cs, plan=plan)
 
@@ -672,8 +748,9 @@ def _gn_fwd_route(args, consts, want, plan: dict) -> dict:
            "abs_err": float((y.float() - want[0].float()).abs().max()),
            "masks_equal": bool((y[dropped] == 0).all()) and kept_zeros <= 1e-6 * y.numel(),
            "kept_zeros": kept_zeros, "keep": float((y != 0).float().mean()),
-           "ms": _sync_ms(run, 20),
-           "bare_ms": _sync_ms(lambda: run((consts[0], consts[1], 0.0, False)), 20)}
+           "ms": _sync_ms(run, 20) if timed else math.nan,
+           "bare_ms": (_sync_ms(lambda: run((consts[0], consts[1], 0.0, False)), 20)
+                       if timed else math.nan)}
     del dropped
     if plan["route"] == "cluster":
         out["plan"]["clusters_resident"] = _cluster_occupancy(True, args[0], plan)
@@ -732,11 +809,11 @@ def gn_fwd_routes(dev, chains) -> None:
     torch.cuda.empty_cache()
 
 
-def _gn_bwd_route(bwd_args, want, plan: dict) -> dict:
+def _gn_bwd_route(bwd_args, want, plan: dict, timed: bool = True) -> dict:
     """Kernel C′ on one plan of its shape: run twice for identical bits,
-    every output against the plain backward, its time, and its time with
-    the chain's SiLU and mask off (the route's memory traffic and
-    structure alone)."""
+    every output against the plain backward; with ``timed`` its time, and
+    its time with the chain's SiLU and mask off (the route's memory
+    traffic and structure alone), else nan."""
     def run(args=bwd_args):
         return fused_gn._launch_bwd(*args, plan=plan)
 
@@ -747,8 +824,9 @@ def _gn_bwd_route(bwd_args, want, plan: dict) -> dict:
     out = {"plan": dict(plan),
            "err": {k: _max_err_ratio(u.float(), v.float()) for k, u, v in zip(names, got, want)},
            "abs_err": max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want)),
-           "ms": _sync_ms(run, 20),
-           "bare_ms": _sync_ms(lambda: run((*bwd_args[:10], 0.0, False)), 20)}
+           "ms": _sync_ms(run, 20) if timed else math.nan,
+           "bare_ms": _sync_ms(lambda: run((*bwd_args[:10], 0.0, False)), 20) if timed
+           else math.nan}
     if plan["route"] == "cluster":
         out["plan"]["clusters_resident"] = _cluster_occupancy(False, bwd_args[0], plan)
     return out
@@ -868,10 +946,28 @@ def serve(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg,
             raise AssertionError(f"fused and unfused recon differ by {rel} > {FUSED_RTOL}")
         if m[True]["kl_mean"] != m[False]["kl_mean"]:
             raise AssertionError("the two routes encoded the batch differently")
+    # the eval steps on the device-resident batches, then eval_model over the
+    # same days as a host-side dataset, the batches prefetched to the card
+    # as the Trainer's validation reads them (its rate includes that ingest)
     for fused, step in steps.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = eval_model(step, batches, stats, cfg)
+        for i, hr in enumerate(batches):
+            step(hr, stats, torch.Generator(device=dev).manual_seed(100 + i))
+        torch.cuda.synchronize()
+        rate = len(batches) * BATCH / (time.perf_counter() - t0)
+        name = "fused" if fused else "unfused"
+        res[f"eval_{name}_device_resident_samples_per_s"] = rate
+        print(f"eval step {name} on device-resident batches: samples/s={rate:.2f}")
+    ds = ClimexDataset(hr=torch.cat(batches).cpu().numpy(), variables=cfg.data.variables,
+                       lowres_scale=cfg.data.lowres_scale, device=dev)
+    cfg = copy.deepcopy(cfg)
+    cfg.train.batch_size = BATCH
+    state = TrainState(model=model, optimizer=None)
+    for fused, step in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eval_model(step, state, ds, stats, cfg)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rate = len(batches) * BATCH / dt
@@ -1422,6 +1518,463 @@ def cli_phase(dev: torch.device, zero_counts, read_counts) -> dict:
     return launches
 
 
+def _prefetch_bit_equal(ds, bs: int, seed: int, dev: torch.device) -> int:
+    """One epoch of ``ds`` through ``prefetch_to_device``, the consumer's
+    stream kept busy between batches as a training step keeps it, each
+    prefetched batch held bit for bit against a synchronous copy of the
+    same indices. Returns the batches compared."""
+    batches = list(Batches(len(ds), bs, shuffle=True, seed=seed))
+    busy = torch.randn((PREFETCH_BUSY_N, PREFETCH_BUSY_N), device=dev)
+    n = 0
+    for idx, got in zip(batches, prefetch_to_device((ds.get_hr_batch(i) for i in batches),
+                                                    device=dev)):
+        for _ in range(4):      # ~1 ms of the consumer's stream, as a step holds it
+            busy = (busy @ busy).clamp_(-1, 1)
+        want = torch.from_numpy(np.ascontiguousarray(ds.get_hr_batch(idx))).to(dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"prefetched batch {n} differs from its synchronous copy")
+        n += 1
+    if n != len(batches):
+        raise AssertionError(f"the prefetch yielded {n} of {len(batches)} batches")
+    return n
+
+
+def _host_batch_ms(ds, bs: int, dev: torch.device) -> dict:
+    """The host's work per batch of one epoch: the random-row gather
+    (``get_hr_batch``) and the prefetch's pin and enqueue (each ``next`` of
+    the prefetch less the gather it pulls), in ms, mean and max."""
+    gather = []
+
+    def timed():
+        for idx in Batches(len(ds), bs, shuffle=True, seed=1):
+            t0 = time.perf_counter()
+            hr = ds.get_hr_batch(idx)
+            gather.append(time.perf_counter() - t0)
+            yield hr
+
+    nexts = []
+    it = prefetch_to_device(timed(), device=dev)
+    while True:
+        t0 = time.perf_counter()
+        n0 = len(gather)
+        try:
+            next(it)
+        except StopIteration:
+            break
+        dt = time.perf_counter() - t0
+        nexts.append(dt - sum(gather[n0:]))
+    torch.cuda.synchronize()
+    g, p = np.array(gather) * 1e3, np.array(nexts) * 1e3
+    return {"gather_ms_mean": float(g.mean()), "gather_ms_max": float(g.max()),
+            "pin_enqueue_ms_mean": float(p.mean()), "pin_enqueue_ms_max": float(p.max()),
+            "batches": len(nexts), "mb_per_batch": ds.get_hr_batch(np.arange(bs)).nbytes / 1e6}
+
+
+def _epoch_idle_share(trainer, cfg) -> dict:
+    """``IDLE_EPOCHS`` training epochs of ``trainer`` after the epochs
+    already run, under torch.profiler: the device's kernel time (copies and
+    memsets excluded) and the wall time of those same epochs, and the share
+    of it the device ran no kernel (the tracing's own host cost included).
+    Then as many epochs without the profiler, for the rate alone."""
+    steps = IDLE_EPOCHS * (len(trainer.dataset_train) // cfg.train.batch_size)
+
+    def epochs(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in range(IDLE_EPOCHS):
+            trainer.state, _ = train_epoch(trainer.train_step, trainer.state,
+                                           trainer.dataset_train, trainer.stats, cfg,
+                                           1.0, 0.0, seed + e)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # device activity only: recording every host op would lengthen the
+    # host-bound gaps the share measures
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall_prof = epochs(90)
+    busy = 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0.0)
+        if e.self_cpu_time_total != 0 or dev_us <= 0 or e.key.startswith(("Memcpy", "Memset")):
+            continue
+        busy += dev_us / 1e6
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time in the epochs")
+    wall = epochs(95)
+    samples = steps * cfg.train.batch_size
+    return {"epochs": IDLE_EPOCHS, "steps": steps, "kernel_s": busy,
+            "wall_s_profiled": wall_prof, "idle_share_profiled": 1 - busy / wall_prof,
+            "samples_per_s_profiled": samples / wall_prof, "wall_s": wall,
+            "samples_per_s": samples / wall, "step_ms": wall * 1e3 / steps}
+
+
+def _chain_routes(model: torch.nn.Module, x: torch.Tensor) -> tuple[dict, set]:
+    """The GroupNorm chains of one training forward of ``model`` by route:
+    ``C`` (kernel C, ``fused_gn.supported``), ``D`` (the composed chain with
+    kernel D's dropout), ``other_dropout`` (a shape D does not take),
+    ``composed`` (no dropout). Each chain's route follows the JAX module's
+    rule on its shape. Also each chain's (route, NHWC shape, dtype, FiLM,
+    p, SiLU), as a set."""
+    routes, specs = collections.Counter(), set()
+
+    def pre(mod, args, kwargs):
+        h, w, c = args[0].shape[2], args[0].shape[3], args[0].shape[1]
+        p = kwargs.get("drop_p", 0.0)
+        nhwc = (args[0].shape[0], h, w, c)
+        if mod.gn_impl == "kernel" and fused_gn.supported(h, w, c, mod.groups):
+            route = "C"
+        elif p > 0:
+            route = "D" if dropout.supported(nhwc) else "other_dropout"
+        else:
+            route = "composed"
+        routes[route] += 1
+        specs.add((route, nhwc, str(args[0].dtype).removeprefix("torch."),
+                   kwargs.get("film") is not None, p, bool(kwargs.get("silu", False))))
+
+    hooks = [m.register_forward_pre_hook(pre, with_kwargs=True) for m in model.modules()
+             if isinstance(m, EDMGroupNorm)]
+    with torch.no_grad():
+        model(x, train=True, generator=torch.Generator(device=x.device).manual_seed(3))
+    for h in hooks:
+        h.remove()
+    return dict(routes), specs
+
+
+def new_branches_device_vs_cpu(dev: torch.device) -> None:
+    """The ELBO branches and the step this slice adds, f32, on the card (TF32
+    off) against the CPU on the same weights, inputs, noise and seed words:
+    the WMSE + MS-SSIM ELBO on the flagship model (128x128, M=15) and the
+    L1 ELBO (beta_2 > 0) on the ``deterministic_64`` model, loss and every
+    parameter's gradient (two items, dropout on); one deterministic step of
+    each ``train-det`` model at ``deterministic_64``'s widths and batch (8
+    items, so every chain takes the route it takes in ``train-det``): its
+    per-variable losses, every parameter's gradient as the step hands it to
+    AdamW, and the share of weights that stepped the other way. Limits:
+    DEVICE_RTOL, GRAD_RTOL, FLIP_SHARE."""
+    gen = torch.Generator().manual_seed(31)
+    for name, loss_type, m in (("probunet_multivar_128", "mse+ssim", 15),
+                               ("deterministic_64", "l1", None)):
+        cfg = preset(name)
+        cfg.loss.loss_type = loss_type
+        model = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0),
+                                              device="cpu")
+        _fill_zero_params(model, gen)
+        hr = apply_physical_transform(torch.from_numpy(synthetic_climex_fields(
+            8, *cfg.data.resolution, cfg.data.variables, seed=5)), cfg.data.variables)
+        stats = compute_stats(hr, cfg.data.lowres_scale)
+        d = cfg.model.latent_dim
+        eps = torch.randn((m, 2, d) if m else (2, d), generator=gen)
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (len(model.unet.dropout_blocks), 2),
+                              generator=gen, dtype=torch.int32)
+        out = {}
+        for where in ("cpu", dev):
+            mdl = copy.deepcopy(model).to(where)
+            st = type(stats)(*[t.to(where) for t in stats])
+            batch = preprocess_batch(hr[:2].to(where), st, cfg.data.pipeline,
+                                     cfg.data.lowres_scale, cfg.data.interp_mode,
+                                     cfg.data.epsilon, cfg.data.standardization)
+            total, met = mdl.elbo(batch["inputs"], batch["targets"], M=m or 1,
+                                  loss_type=loss_type, beta_1=1.0, beta_2=0.5,
+                                  eps=eps.to(where), training=True, seeds=seeds.to(where))
+            params = list(mdl.parameters())
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            out[str(where)] = (float(total.detach()),
+                               {k: v.detach().cpu() for k, v in met.items()},
+                               [g.cpu() for g in grads])
+            del mdl, grads, total
+        (lc, mc, gc), (lg, mg, gg) = out["cpu"], out[str(dev)]
+        names = [n for n, _ in model.named_parameters()]
+        grad_err = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                    for n, a, b in zip(names, gg, gc) if b.norm() > 0}
+        worst = max(grad_err, key=grad_err.get)
+        met_err = {k: float(((mg[k] - mc[k]).abs() / mc[k].abs().clamp_min(1e-30)).max())
+                   for k in mc}
+        rel = abs(lg - lc) / abs(lc)
+        print(f"device vs cpu f32 {loss_type} ELBO ({name}): loss cuda={lg:.7g} cpu={lc:.7g} "
+              f"rel_err={rel:.3e}; metrics rel_err {json.dumps(met_err)}; grads ||dg||/||g|| "
+              f"max={grad_err[worst]:.3e} ({worst}), "
+              f"median={float(np.median(list(grad_err.values()))):.3e}")
+        if not rel <= DEVICE_RTOL or not max(met_err.values()) <= DEVICE_RTOL:
+            raise AssertionError(f"the {loss_type} ELBO on the card differs from the CPU")
+        if not grad_err[worst] <= GRAD_RTOL:
+            raise AssertionError(f"{loss_type}: gradient of {worst} differs from the CPU: "
+                                 f"{grad_err[worst]}")
+    det_steps_device_vs_cpu(dev, gen)
+
+
+def det_steps_device_vs_cpu(dev: torch.device, gen: torch.Generator) -> None:
+    """One f32 deterministic step of each ``train-det`` model on the card
+    against the CPU (see ``new_branches_device_vs_cpu``); weights and seed
+    words drawn from ``gen``."""
+    cfg0 = preset(DET_PRESET)
+    bs = cfg0.train.batch_size
+    hr = torch.from_numpy(synthetic_climex_fields(bs, *cfg0.data.resolution,
+                                                  cfg0.data.variables, seed=6))
+    hr = apply_physical_transform(hr, cfg0.data.variables)
+    stats = compute_stats(hr, cfg0.data.lowres_scale)
+    for name, sets in DET_VARIANTS:
+        cfg = cli.build_config(argparse.Namespace(preset=DET_PRESET, config=None, set=sets))
+        kind = "linearcnn" if name == "linearcnn" else "unet"
+        model = cli.make_det_model(cfg, kind, "cpu")
+        _fill_zero_params(model, gen)
+        seeds = (torch.randint(-2 ** 31, 2 ** 31, (len(model.dropout_blocks), 2),
+                               generator=gen, dtype=torch.int32)
+                 if model.dropout_blocks else None)
+        out = {}
+        for where in ("cpu", dev):
+            state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed,
+                                       lr=cfg.train.lr, weight_decay=cfg.train.weight_decay,
+                                       device=where)
+            # the step's own gradients, as it hands them to AdamW
+            grads, opt_step = [], state.optimizer.step
+
+            def capture(gs, grads=grads, opt_step=opt_step):
+                grads.extend(g.detach().cpu() for g in gs)
+                return opt_step(gs)
+
+            state.optimizer.step = capture
+            step = make_deterministic_train_step(state.model, cfg)
+            st = type(stats)(*[t.to(where) for t in stats])
+            state, met = step(state, hr.to(where), st,
+                              seeds=None if seeds is None else seeds.to(where))
+            out[str(where)] = (met["loss_per_var"].cpu(), grads,
+                               [p.detach().cpu() for p in state.optimizer.params])
+        (vc, gc, pc), (vg, gg, pg) = out["cpu"], out[str(dev)]
+        rel = float(((vg - vc).abs() / vc.abs()).max())
+        names = [n for n, _ in model.named_parameters()]
+        grad_err = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                    for n, a, b in zip(names, gg, gc) if b.norm() > 0}
+        worst = max(grad_err, key=grad_err.get)
+        step_diff = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+        flipped = float((step_diff > cfg.train.lr).float().mean())
+        print(f"device vs cpu f32 deterministic step {name} (bs={bs}): loss_per_var "
+              f"cuda={vg.tolist()} cpu={vc.tolist()} rel_err={rel:.3e}; grads ||dg||/||g|| "
+              f"max={grad_err[worst]:.3e} ({worst}), median="
+              f"{float(np.median(list(grad_err.values()))):.3e} over {len(grad_err)} of "
+              f"{len(names)} parameters; after AdamW max|dp|={float(step_diff.max()):.3e} "
+              f"(lr={cfg.train.lr}), share stepped the other way {flipped:.3e}")
+        # a leaf with no gradient on the CPU (the FiLM weights under the zero
+        # embedding) has none on the card either: products with 0 are exact
+        stray = [n for n, a, b in zip(names, gg, gc) if b.norm() == 0 and a.norm() != 0]
+        if stray:
+            raise AssertionError(f"{name}: gradients on the card where the CPU has 0: {stray}")
+        if not rel <= DEVICE_RTOL or not flipped <= FLIP_SHARE:
+            raise AssertionError(f"the deterministic step of {name} on the card differs "
+                                 "from the CPU")
+        if not grad_err[worst] <= GRAD_RTOL:
+            raise AssertionError(f"{name}: gradient of {worst} differs from the CPU: "
+                                 f"{grad_err[worst]}")
+
+
+def _epoch_rates(outdir: str) -> list[float]:
+    """Each epoch's ``train_samples_per_sec`` from the run's JSONL log."""
+    with open(os.path.join(outdir, "run.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [r["train_samples_per_sec"] for r in recs if r["kind"] == "epoch"]
+
+
+def train_cli_phase(dev: torch.device, zero_counts, read_counts) -> dict:
+    """The training CLI as users run it, through ``cli.main``: ``pack`` of the
+    flagship's train split cut to 1960-1962 (1,095 days) and of its
+    validation split cut to 2021; ``train`` at the preset (f32, bs=32,
+    M=15, 2 epochs), at bf16 bs=128 (1 epoch) and with the WMSE + MS-SSIM
+    ELBO (1 epoch), each checked for kernels A, A′ (afCRPS), C and C′, its
+    residual-contribution and final lines; one epoch of prefetched batches
+    bit-equal to synchronous copies; the host's work per batch and the
+    idle share of three warmed-up epochs at bf16 bs=128. Then
+    ``deterministic_64`` at its full widths on 2 packed training years (1
+    validation and 1 test year synthetic): ``train`` (the L1 ELBO), ``train-det
+    --model unet`` under each U-Net type (C and C′ on every one, D on the
+    asymmetric ones; the chains on each route printed, and D, C and C′
+    held to their plain versions at every shape and dtype of those
+    chains), ``linearcnn`` and ``bcsd`` (its test MAE on the card against
+    the CPU). Returns each run's kernel launches."""
+    launches = {}
+    # timed runs under torch's default math flags (TF32 convolutions), as a
+    # user's f32 run gets them
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    print("train_cli runs: matmul.allow_tf32=False cudnn.allow_tf32=True (torch defaults)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        def pack(preset_name, split, years):
+            path = os.path.join(tmp, f"{preset_name}_{split}.npz")
+            out = _run_cli(["pack", "--preset", preset_name, "--split", split, "--out", path,
+                            "--set", f"data.years_{split}={years}"])[0]
+            print(f"train_cli pack {preset_name} {split} {years}: {out['shape']}, "
+                  f"{os.path.getsize(path) / 1e6:.1f} MB")
+            return path
+
+        t0 = time.perf_counter()
+        flag_sets = [f"data.years_train={TRAIN_CLI_YEARS['train']}",
+                     f"data.years_val={TRAIN_CLI_YEARS['val']}"]
+        for split in ("train", "val"):
+            flag_sets.append(f"data.packed_{split}="
+                             + pack(CLI_PRESET, split, TRAIN_CLI_YEARS[split]))
+        # `pack` draws every split's synthetic fields from one seed, so only
+        # the training split is packed here: the validation and test years
+        # come from the dataset's own per-split seeds (a BCSD scored on its
+        # training fields would read 0)
+        det_sets = [f"data.years_{split}={DET_YEARS[split]}" for split in DET_YEARS]
+        det_sets.append("data.packed_train=" + pack(DET_PRESET, "train", DET_YEARS["train"]))
+        print(f"train_cli packs: {time.perf_counter() - t0:.3f} s")
+
+        have_mpl = importlib.util.find_spec("matplotlib") is not None
+        runs = [(f"train {name}", ["train", "--preset", CLI_PRESET, "--set", *flag_sets, *sets])
+                for name, sets in TRAIN_CLI_RUNS]
+        runs.append(("train deterministic_64 l1", ["train", "--preset", DET_PRESET, "--set",
+                                                   *det_sets, "train.num_epochs=1"]))
+        runs += [(f"train-det {name}", ["train-det", "--preset", DET_PRESET, "--model",
+                                        "linearcnn" if name == "linearcnn" else "unet",
+                                        "--set", *det_sets, *sets])
+                 for name, sets in DET_VARIANTS]
+        runs.append(("train-det bcsd", ["train-det", "--preset", DET_PRESET, "--model", "bcsd",
+                                        "--set", *det_sets]))
+        results = {}
+        for name, argv in runs:
+            outdir = os.path.join(tmp, name.replace(" ", "_"))
+            zero_counts()
+            (res, spans), text, sec, rss = _run_cli(argv + ["--outdir", outdir])
+            launches[name] = read_counts()
+            results[name] = res
+            cfg = cli.build_config(argparse.Namespace(
+                preset=argv[argv.index("--preset") + 1], config=None,
+                set=argv[argv.index("--set") + 1:]))
+            bs = cfg.train.batch_size
+            if name.startswith("train "):
+                rates = _epoch_rates(outdir)
+                lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+                if [next(iter(d)) for d in lines] != ["residual_contribution", "final"]:
+                    raise AssertionError(f"{name}: the residual_contribution and final lines "
+                                         f"were not printed: {lines}")
+                if not all(math.isfinite(v) for v in res["final"].values()):
+                    raise AssertionError(f"{name}: non-finite losses {res['final']}")
+                if ("plotting skipped" in text) == have_mpl:
+                    raise AssertionError(f"{name}: the loss curves and matplotlib disagree")
+                print(f"train_cli {name}: steps={res['steps']} final={json.dumps(res['final'])} "
+                      f"residual_contribution={json.dumps(res['residual_contribution'])}; "
+                      f"samples/s by epoch {rates}; timing "
+                      f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}; "
+                      f"host {sec:.3f} s; peak RSS {rss:.3f} GB; launches "
+                      f"{json.dumps(launches[name])}")
+                need = ["fused_gn", "fused_gn_bwd"]
+                if cfg.loss.loss_type == "afcrps":
+                    need += ["fcomb_crps", "fcomb_crps_bwd"]
+            else:
+                print(f"train_cli {name}: {json.dumps(res)}; timing "
+                      f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}; host "
+                      f"{sec:.3f} s; launches {json.dumps(launches[name])}")
+                if "bcsd" in name:
+                    if not math.isfinite(res["test_mae"]):
+                        raise AssertionError(f"bcsd test MAE {res['test_mae']}")
+                    continue
+                mae = res["test_mae_real_units"]
+                if not all(math.isfinite(v) for v in mae.values()):
+                    raise AssertionError(f"{name}: test MAE {mae}")
+                ds_len = 365 * (DET_YEARS["train"][1] - DET_YEARS["train"][0])
+                print(f"train_cli {name}: {ds_len // bs * bs / spans['fit']:.2f} samples/s "
+                      f"over the fit phase (bs={bs})")
+                need = [] if "linearcnn" in name else ["fused_gn", "fused_gn_bwd"]
+                if "asymmetric" in name:
+                    need.append("dropout")
+            for k in need:
+                if launches[name][k] <= 0:
+                    raise AssertionError(f"kernel {k} was not launched by {name}")
+
+        # the routes of the deterministic U-Nets' GroupNorm chains, and the
+        # launches of one training forward against them
+        specs = set()
+        for name, sets in DET_VARIANTS:
+            if name == "linearcnn":
+                continue
+            cfg = cli.build_config(argparse.Namespace(preset=DET_PRESET, config=None,
+                                                      set=det_sets + sets))
+            model = cli.make_det_model(cfg, "unet", dev)
+            _, _, ds = cli.make_datasets(cfg, splits=(2,), device=dev)
+            batch = ds.preprocess(torch.from_numpy(ds.get_hr_batch(
+                np.arange(cfg.train.batch_size))).to(dev))
+            zero_counts()
+            routes, chains = _chain_routes(model, batch["inputs"])
+            n = read_counts()
+            specs |= chains
+            print(f"train_cli chains of one {name} training forward (bs="
+                  f"{cfg.train.batch_size}) by route: {json.dumps(routes)}; launches "
+                  f"C={n['fused_gn']} D={n['dropout']}")
+            if n["fused_gn"] != routes.get("C", 0) or n["dropout"] != routes.get("D", 0):
+                raise AssertionError(f"{name}: launches do not follow the chains' routes")
+            if "asymmetric" in name and not routes.get("D"):
+                raise AssertionError(f"{name}: no chain on kernel D's route")
+        # kernels D, C and C′ against their plain versions at every shape and
+        # dtype those chains gave them
+        gen = torch.Generator(device=dev).manual_seed(4324)
+
+        def randn(*shape, scale=1.0):
+            return scale * torch.randn(shape, generator=gen, device=dev)
+
+        d_specs = sorted({(nhwc, dt, p) for route, nhwc, dt, _, p, _ in specs if route == "D"})
+        c_specs = sorted({sp[1:] for sp in specs if sp[0] == "C"})
+        print(f"train_cli deterministic chains: {len(d_specs)} (shape, dtype, p) on D, "
+              f"{len(c_specs)} (shape, dtype, FiLM, p, SiLU) on C and C′")
+        for nhwc, dt, p in d_specs:
+            _dropout_vs_plain(randn, nhwc, dt, p, timed=False)
+        for nhwc, dt, film, p, silu in c_specs:
+            _gn_vs_plain(randn, dev, nhwc, dt, film, p, silu, timed=False)
+        torch.cuda.empty_cache()
+
+        # prefetch, host work per batch, idle share: the flagship train split
+        cfg = cli.build_config(argparse.Namespace(preset=CLI_PRESET, config=None,
+                                                  set=flag_sets + TRAIN_CLI_RUNS[1][1]))
+        ds_train, ds_val, _ = cli.make_datasets(cfg, splits=(0, 1), device=dev)
+        n = _prefetch_bit_equal(ds_train, 32, cfg.train.seed + 1, dev)
+        print(f"train_cli prefetch: {n} batches of 32 of one epoch bit-equal to synchronous "
+              f"copies")
+        host = _host_batch_ms(ds_train, cfg.train.batch_size, dev)
+        trainer = Trainer(cfg, cli.make_model(cfg, dev), ds_train, ds_val, device=dev)
+        trainer.fit(1)                      # warm-up epoch
+        idle = _epoch_idle_share(trainer, cfg)
+        print(f"train_cli host per batch (bs={cfg.train.batch_size}, "
+              f"{host['mb_per_batch']:.1f} MB): {json.dumps(host)}; warmed-up epochs bf16 "
+              f"(idle share, kernel and wall time from the same profiled epochs): "
+              f"{json.dumps(idle)}")
+
+        # bcsd on the card against the CPU
+        bcsd = ["train-det", "--preset", DET_PRESET, "--model", "bcsd", "--set", *det_sets,
+                "--outdir", os.path.join(tmp, "bcsd_cpu")]
+        cpu = _run_cli(bcsd, "cpu")[0][0]
+        card = results["train-det bcsd"]
+        rel = abs(card["test_mae"] - cpu["test_mae"]) / abs(cpu["test_mae"])
+        print(f"train_cli bcsd test MAE card={card['test_mae']!r} cpu={cpu['test_mae']!r} "
+              f"rel_err={rel:.3e} (limit {BCSD_RTOL})")
+        if not rel <= BCSD_RTOL:
+            raise AssertionError(f"bcsd on the card differs from the CPU: {rel}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return launches
+
+
+def launch_counters():
+    """(the kernel wrappers by name, a function setting their launch counts
+    to 0, a function reading them after the device has finished)."""
+    counters = {"fcomb_crps": fcomb_crps.fcomb_crps_terms,
+                "fcomb_crps_bwd": fcomb_crps.fcomb_crps_terms_bwd,
+                "afcrps": afcrps.ensemble_crps_terms,
+                "afcrps_bwd": afcrps.ensemble_crps_terms_bwd,
+                "fused_gn": fused_gn.gn_film_silu_dropout,
+                "fused_gn_bwd": fused_gn.gn_film_silu_dropout_bwd,
+                "dropout": dropout.dropout}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    return counters, zero_counts, read_counts
+
+
 def _variant(model: ProbabilisticUNet, cfg, gn_impl: str = "kernel",
              remat=False) -> ProbabilisticUNet:
     """``model`` rebuilt on another GroupNorm route or remat mode (from the
@@ -1487,25 +2040,12 @@ def main() -> None:
     device_vs_cpu(model32.eval(), hr_cpu, stats_cpu, cfg32, dev)
     train_device_vs_cpu(model32, hr_cpu, stats_cpu, cfg32, dev)
     del model32
+    new_branches_device_vs_cpu(dev)
     model = model.to(dev).eval()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: probunet_multivar_128 bf16, {n_params} parameters")
 
-    counters = {"fcomb_crps": fcomb_crps.fcomb_crps_terms,
-                "fcomb_crps_bwd": fcomb_crps.fcomb_crps_terms_bwd,
-                "afcrps": afcrps.ensemble_crps_terms,
-                "afcrps_bwd": afcrps.ensemble_crps_terms_bwd,
-                "fused_gn": fused_gn.gn_film_silu_dropout,
-                "fused_gn_bwd": fused_gn.gn_film_silu_dropout_bwd,
-                "dropout": dropout.dropout}
-
-    def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {name: fn.launches for name, fn in counters.items()}
+    counters, zero_counts, read_counts = launch_counters()
 
     # the serve path: eval ELBO fused and unfused, prior ensemble; every
     # GroupNorm chain of every U-Net forward through kernel C
@@ -1601,6 +2141,9 @@ def main() -> None:
     # the serve CLI: pack, evaluate (f32 and bf16), extremes, card vs CPU
     cli_launches = cli_phase(dev, zero_counts, read_counts)
     print(f"launches on the serve CLI's runs: {json.dumps(cli_launches)}")
+    # the training CLI: pack, train (three settings), the deterministic baselines
+    train_cli_launches = train_cli_phase(dev, zero_counts, read_counts)
+    print(f"launches on the training CLI's runs: {json.dumps(train_cli_launches)}")
 
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
                "dropout": dropout}
@@ -1610,7 +2153,9 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                         "replaces": mod.REPLACES_BWD if name.endswith("_bwd") else mod.REPLACES,
                         "launches": launches[name], **report[name],
-                        "launches_cli": sum(r[name] for r in cli_launches.values())})
+                        "launches_cli": sum(r[name] for r in cli_launches.values()),
+                        "launches_train_cli": sum(r[name]
+                                                  for r in train_cli_launches.values())})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,11 @@ training ELBO with dropout, its backward, AdamW as optax computes it,
 checkpoints and the epoch loop — and the serve command line: host ingest
 (``data.climex.ClimexDataset``, the packed artifact), the streamed
 evaluation and GEV extremes behind ``python -m probunet_tpu_torch
-pack|evaluate|extremes`` (``cli.py``). The TPU's Pallas kernels on those
+pack|evaluate|extremes`` (``cli.py``) — and the training command line:
+``train`` (``Trainer`` over packed splits, the batches prefetched from
+pinned memory) and ``train-det`` (the asymmetric U-Nets, ``LinearCNN``,
+BCSD), with all four ELBOs (afCRPS, CRPS, WMSE + MS-SSIM, L1). The TPU's
+Pallas kernels on those
 paths are hand-written CUDA C++ for Hopper in ``csrc/`` (see
 ``ops/kernels``). The entry points run on the CUDA device unless the
 caller passes ``device="cpu"`` (the CLI: ``PROBUNET_PLATFORM=cpu``).

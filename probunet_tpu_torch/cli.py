@@ -1,5 +1,8 @@
 """Command-line entry points of the port (port of ``probunet_tpu/cli.py``):
 
+    python -m probunet_tpu_torch train     --preset probunet_multivar_128 --outdir runs/a \
+        --set data.packed_train=train.npz data.packed_val=val.npz
+    python -m probunet_tpu_torch train-det --preset deterministic_64 --model unet|linearcnn|bcsd
     python -m probunet_tpu_torch pack     --preset probunet_multivar_128 --split test --out test.npz
     python -m probunet_tpu_torch evaluate --preset probunet_multivar_128 --ckpt DIR \
         --set data.packed_test=test.npz
@@ -22,8 +25,12 @@ Where they differ from the JAX CLI:
 - **Checkpoints.** ``--ckpt DIR`` reads the port's ``best_params.pt``
   (``train/checkpoint.py``); a directory without one raises. A model
   trained by the JAX package reaches the port through ``convert.py``.
-- ``--quant int8`` and ``--member-mesh N`` (N > 1) are not ported yet and
-  raise ``NotImplementedError``.
+- **Training noise.** ``train`` and ``train-det`` draw each step's
+  dropout seed words and posterior noise from a generator seeded from
+  (seed, step) on the device (``train.state.step_generator``), so a resumed
+  run redraws the same numbers; they are not the JAX CLI's.
+- ``--quant int8``, ``--member-mesh N`` (N > 1), ``--dp`` and ``--wandb``
+  are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -84,6 +91,12 @@ def batch_noise(seed: int, batch_index: int, members: int, batch_size: int,
 
 
 def _check_ported(args) -> None:
+    if getattr(args, "wandb", False):
+        raise NotImplementedError(
+            "--wandb is not ported yet (ROADMAP.md §1 item 8, the wandb hook in MetricLogger)")
+    if getattr(args, "dp", 0):
+        raise NotImplementedError(
+            "--dp is not ported yet (ROADMAP.md §1 item 7, the parallel paths)")
     if getattr(args, "quant", "none") != "none":
         raise NotImplementedError(
             "--quant int8 is not ported yet (ROADMAP.md §1 item 6, int8 PTQ serving)")
@@ -146,6 +159,35 @@ def make_datasets(cfg: Config, splits=(0, 1, 2), device: str | torch.device | No
             mk(cfg.data.years_test, 2))
 
 
+def make_model(cfg: Config, device: str | torch.device | None = "cuda"):
+    """The config's Probabilistic U-Net on ``device``, initialized from a
+    generator seeded with ``cfg.train.seed`` (``ProbabilisticUNet.from_config``:
+    compute dtype and remat from the config)."""
+    from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
+
+    return ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(cfg.train.seed),
+                                         device=device)
+
+
+def make_det_model(cfg: Config, name: str, device: str | torch.device | None = "cuda"):
+    """``train-det``'s model ``name`` (``"unet"``: ``UNetAll`` of
+    ``cfg.model.unet_type``; ``"linearcnn"``), in f32 as the JAX CLI
+    builds it, initialized from a generator seeded with ``cfg.train.seed``,
+    on ``device``."""
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    m = cfg.model
+    if name == "linearcnn":
+        from probunet_tpu_torch.models.baselines import LinearCNN
+        model = LinearCNN(in_channels=m.num_classes, input_channels=m.input_channels,
+                          generator=gen)
+    else:
+        from probunet_tpu_torch.models.unet import UNetAll
+        model = UNetAll(m.unet_type, cfg.data.resolution, m.input_channels,
+                        cfg.data.lowres_scale, m.num_blocks, m.channel_mult, m.num_classes,
+                        model_channels=m.model_channels, dropout=m.dropout, generator=gen)
+    return model.to(resolve_device(device))
+
+
 def _load_model(cfg: Config, ckpt: str | None, device: torch.device):
     """The config's model in eval mode on ``device``: the weights of
     ``ckpt``'s best slot, or the seeded initialization without ``ckpt``."""
@@ -189,6 +231,159 @@ def _sample_hr(model, ds, cfg: Config, idx: np.ndarray, eps: torch.Tensor):
 # ---------------------------------------------------------------------------
 # Subcommands
 # ---------------------------------------------------------------------------
+
+def cmd_train(args):
+    """Probabilistic U-Net ELBO training (the reference's src/main.py
+    script): ``config.json``, the train and validation splits, ``Trainer``
+    with checkpoints under ``ckpt/`` (``--resume`` restores the latest
+    one's full state and continues from its step; the epochs count from 1
+    again, as in the JAX CLI), ``losses.pkl``, the residual contribution
+    of a prior ensemble on the validation split, the loss curves (figures
+    guarded) and the ``{"final": ...}`` line. Returns (that line's object
+    with the residual contribution, the phase times in seconds)."""
+    import pickle
+
+    from probunet_tpu_torch.evals import residual_contribution
+    from probunet_tpu_torch.train.checkpoint import CheckpointManager
+    from probunet_tpu_torch.train.logging import MetricLogger
+    from probunet_tpu_torch.train.loop import Trainer
+
+    _check_ported(args)
+    timer = _PhaseTimer(args.device)
+    cfg = build_config(args)
+    os.makedirs(args.outdir, exist_ok=True)
+    with open(os.path.join(args.outdir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    ds_train, ds_val, _ = make_datasets(cfg, splits=(0, 1), device=args.device)
+    timer.mark("dataset")
+    model = make_model(cfg, args.device)
+    logger = MetricLogger(logdir=args.outdir)
+    ckpt = CheckpointManager(os.path.join(os.path.abspath(args.outdir), "ckpt"))
+    trainer = Trainer(cfg, model, ds_train, ds_val, logger=logger, checkpoint_manager=ckpt,
+                      plot_dir=args.outdir if args.plot_every else None,
+                      plot_every=args.plot_every or 1, device=args.device)
+    if args.resume:
+        latest = ckpt.latest_step()
+        if latest is not None:
+            trainer.state, _ = ckpt.restore(trainer.state, latest)
+            print(f"resumed from step {latest}")
+        else:
+            print("no checkpoint found; training from scratch")
+    timer.mark("init")
+    history = trainer.fit()
+    timer.mark("fit")
+    with open(os.path.join(args.outdir, "losses.pkl"), "wb") as f:
+        pickle.dump(history, f)
+    # improvement over plain interpolation (reference
+    # src/train_prob_unet_model.py:307-349)
+    ds = ds_val if ds_val is not None else ds_train
+    hr_pred, hr, lrinterp, *_ = trainer.sample_ensemble(num_items=min(32, len(ds)),
+                                                        num_samples=4)
+    contrib = residual_contribution(hr_pred, lrinterp, hr)
+    print(json.dumps({"residual_contribution": contrib}))
+    timer.mark("contribution")
+    try:
+        from probunet_tpu_torch.utils.plotting import plot_loss_curves
+        plot_loss_curves(history, save_path=os.path.join(args.outdir, "loss_curves.png"))
+    except Exception as e:  # the figure only: the numbers are written
+        print(f"plotting skipped: {type(e).__name__}: {e}")
+    timer.mark("figures")
+    logger.close()
+    out = {"final": {k: (v[-1] if v else None) for k, v in history.items()}}
+    print(json.dumps(out))
+    timer.report()
+    return {**out, "residual_contribution": contrib, "steps": trainer.state.step}, timer.spans
+
+
+def _chunked_lrinterp(ds, device: torch.device, days: int = 512) -> torch.Tensor:
+    """``preprocess``'s lrinterp of the whole split, ``days`` at a time (each
+    item's interpolation is its own, so the numbers are those of one call
+    over the split)."""
+    parts = [ds.preprocess(torch.from_numpy(ds.hr[s: s + days]).to(device))["lrinterp"]
+             for s in range(0, len(ds), days)]
+    return torch.cat(parts)
+
+
+def cmd_train_det(args):
+    """The deterministic baselines (the reference's src/baseline/main.py):
+    ``--model unet`` (``UNetAll`` of ``model.unet_type``) or ``linearcnn``
+    trained with the MSE step for ``train.num_epochs`` epochs (Batches and
+    the prefetch, one ``epoch N: mse=...`` line each), then the
+    per-variable MAE in physical units on the first 512 test days,
+    drop-last batches; ``bcsd`` fits and scores whole splits (whole years
+    needed). Returns (the printed JSON object, the phase times)."""
+    from probunet_tpu_torch.data.climex import lrinterp_from_batch
+    from probunet_tpu_torch.data.loader import Batches, prefetch_to_device
+    from probunet_tpu_torch.data.transforms import invert_physical_transform
+    from probunet_tpu_torch.train.loop import make_deterministic_train_step
+    from probunet_tpu_torch.train.state import create_train_state
+
+    timer = _PhaseTimer(args.device)
+    dev = args.device
+    cfg = build_config(args)
+    os.makedirs(args.outdir, exist_ok=True)
+    ds_train, _, ds_test = make_datasets(cfg, splits=(0, 2), device=dev)
+    timer.mark("dataset")
+
+    if args.model == "bcsd":
+        from probunet_tpu_torch.models.baselines import bcsd
+
+        with torch.no_grad():
+            test_hr = torch.from_numpy(ds_test.hr).to(dev)
+            pred = bcsd(torch.from_numpy(ds_train.hr).to(dev), _chunked_lrinterp(ds_train, dev),
+                        _chunked_lrinterp(ds_test, dev))
+            mae = float(torch.abs(pred - test_hr[: pred.shape[0]]).mean())
+        out = {"model": "bcsd", "test_mae": mae}
+        print(json.dumps(out))
+        timer.mark("bcsd")
+        timer.report()
+        return out, timer.spans
+
+    model = make_det_model(cfg, args.model, dev)
+    state = create_train_state(model, seed=cfg.train.seed, lr=cfg.train.lr,
+                               weight_decay=cfg.train.weight_decay, device=dev)
+    step = make_deterministic_train_step(model, cfg)
+    stats = ds_train.device_stats(dev)
+    timer.mark("init")
+    for epoch in range(1, cfg.train.num_epochs + 1):
+        batches = Batches(len(ds_train), cfg.train.batch_size, shuffle=True,
+                          seed=cfg.train.seed + epoch)
+        losses = []
+        hrs = (ds_train.get_hr_batch(i) for i in batches)
+        for hr in prefetch_to_device(hrs, device=dev):
+            state, metrics = step(state, hr, stats)
+            losses.append(metrics["loss"])
+        print(f"epoch {epoch}: mse={float(torch.stack(losses).mean()):.5f}")
+    timer.mark("fit")
+
+    # the real-units per-variable MAE on the test split: HR = lrinterp +
+    # unstandardized residual, the physical transforms inverted (reference
+    # trainmodel.py:237-305 and baseline/main.py:113-117)
+    @torch.no_grad()
+    def mae_per_var(hr_batch):
+        batch = ds_test.preprocess(hr_batch)
+        pred = model(batch["inputs"], train=False)
+        hr_pred = ds_test.residual_to_hr(
+            pred, lrinterp_from_batch(batch, cfg.data.lowres_scale, cfg.data.interp_mode),
+            batch.get("stand_stats"))
+        gt = batch["hr"]
+        if cfg.data.transfo:
+            hr_pred = invert_physical_transform(hr_pred, cfg.data.variables)
+            gt = invert_physical_transform(gt, cfg.data.variables)
+        err = torch.abs(hr_pred - gt)
+        return err.mean(dim=tuple(range(err.dim() - 1)))             # (C,)
+
+    batches = Batches(min(len(ds_test), 512), cfg.train.batch_size)
+    maes = [mae_per_var(hr) for hr in prefetch_to_device(
+        (ds_test.get_hr_batch(i) for i in batches), device=dev)]
+    mae = torch.stack(maes).mean(dim=0).cpu().numpy()
+    out = {"model": args.model, "epochs": cfg.train.num_epochs,
+           "test_mae_real_units": dict(zip(cfg.data.variables, mae.tolist()))}
+    print(json.dumps(out))
+    timer.mark("test_mae")
+    timer.report()
+    return out, timer.spans
+
 
 def cmd_evaluate(args):
     """Ensemble test-set evaluation: CRPS / MAE / spread / PSD, streamed:
@@ -411,6 +606,22 @@ def main(argv=None):
         sp.add_argument("--quant-skip", nargs="*", default=None,
                         help="regexes of conv module paths kept in float under "
                              "--quant int8")
+
+    sp = sub.add_parser("train", help="probabilistic U-Net ELBO training")
+    common(sp)
+    sp.add_argument("--wandb", action="store_true", help="not ported yet: raises")
+    sp.add_argument("--resume", action="store_true",
+                    help="resume the full train state from the latest checkpoint")
+    sp.add_argument("--plot-every", type=int, default=0,
+                    help="save ensemble/residual figures every N epochs (0 = off)")
+    sp.add_argument("--dp", type=int, default=0,
+                    help="data-parallel over N devices (not ported yet: nonzero raises)")
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("train-det", help="deterministic baselines")
+    common(sp)
+    sp.add_argument("--model", default="unet", choices=("unet", "linearcnn", "bcsd"))
+    sp.set_defaults(fn=cmd_train_det)
 
     sp = sub.add_parser("evaluate", help="ensemble CRPS/MAE/PSD eval")
     common(sp)

@@ -1,11 +1,15 @@
 """Carry the JAX package's parameter tree into the port's ``state_dict``.
 
-The Flax tree of ``probunet_tpu.models.prob_unet.ProbabilisticUNet``,
-given as nested dicts of numpy arrays (``jax.device_get(params)``), maps
-leaf by leaf onto the port's parameters, whose module names follow the
-Flax names:
+The Flax tree of a JAX model (``ProbabilisticUNet``, ``UNetAll`` with
+its ``PostUNet*`` variants, ``LinearCNN``), given as nested dicts of
+numpy arrays (``jax.device_get(params)``), maps leaf by leaf onto the
+port's parameters, whose module names follow the Flax names
+(``unet/core_unet/...``, ``post{l}_up``, ``post{l}_skipconv{i}``,
+``post{l}_block{i}``, ``out_norm``, ``out_conv``, ``first_conv``):
 
 - conv kernels (``EDMConv``, the Gaussians' ``_Conv3x3``): HWIO -> OIHW;
+  a Flax ``nn.Conv``'s ``kernel`` leaf likewise, into the port's
+  ``nn.Conv2d`` ``weight``;
 - ``EDMLinear`` weights: (in, out) -> (out, in);
 - ``EDMGroupNorm``'s ``gn/{scale,bias}`` -> ``weight``/``bias``;
 - Fcomb's ``layer{0,1,2}_weight``: the (1, 1, cin, cout) 1x1-conv shape ->
@@ -42,8 +46,8 @@ def _convert_leaf(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarr
         if arr.ndim != 4 or arr.shape[:2] != (1, 1):
             raise ValueError(f"{'/'.join(path)}: expected (1, 1, cin, cout), got {arr.shape}")
         return ".".join(path), arr[0, 0]
-    if name == "weight" and arr.ndim == 4:
-        return ".".join(path), arr.transpose(3, 2, 0, 1)
+    if name in ("weight", "kernel") and arr.ndim == 4:
+        return ".".join(path[:-1] + ("weight",)), arr.transpose(3, 2, 0, 1)
     if name == "weight" and arr.ndim == 2:
         return ".".join(path), arr.T
     if name == "bias" or name.endswith("_bias"):
@@ -89,6 +93,8 @@ def flax_params(model: nn.Module) -> dict:
                 path += ("gn", "scale" if pname == "weight" else "bias")
             elif isinstance(mod, Fcomb) and pname.endswith("_weight"):
                 path, arr = path + (pname,), arr[None, None]
+            elif isinstance(mod, nn.Conv2d) and pname == "weight":  # Flax nn.Conv
+                path, arr = path + ("kernel",), arr.transpose(2, 3, 1, 0)
             elif pname == "weight" and arr.ndim == 4:
                 path, arr = path + (pname,), arr.transpose(2, 3, 1, 0)
             elif pname == "weight" and arr.ndim == 2:

@@ -1,7 +1,6 @@
 """Evaluation suite (port of ``probunet_tpu/evals``): the ensemble metrics,
-the PSD and histogram analyses, the streamed accumulator and the GEV
-extreme-value toolkit. ``weight_function_analysis`` is not ported yet (it
-needs the WMSE weights of the ``mse+ssim`` ELBO)."""
+the PSD and histogram analyses, the streamed accumulator, the GEV
+extreme-value toolkit and the WMSE weight-function analysis."""
 
 from probunet_tpu_torch.evals.metrics import (
     compute_mae,
@@ -22,6 +21,7 @@ from probunet_tpu_torch.evals.gev import (
     model_ensemble_analysis,
     return_level_analysis,
 )
+from probunet_tpu_torch.evals.weights import weight_function_analysis
 
 __all__ = [
     "crps_over_groundtruth",
@@ -40,4 +40,5 @@ __all__ = [
     "get_empirical_return_periods",
     "model_ensemble_analysis",
     "return_level_analysis",
+    "weight_function_analysis",
 ]

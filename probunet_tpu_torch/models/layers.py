@@ -23,6 +23,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -30,6 +31,8 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from probunet_tpu_torch.ops.kernels import fused_gn
 from probunet_tpu_torch.ops.kernels.dropout import dropout as hash_dropout
+from probunet_tpu_torch.ops.kernels.dropout import apply_keep, hash_uniform
+from probunet_tpu_torch.ops.kernels.dropout import supported as dropout_supported
 from probunet_tpu_torch.ops.precision import matmul_f32
 
 # "kernel": kernels C/C′, the JAX package under PROBUNET_GN_IMPL=pallas;
@@ -80,6 +83,20 @@ def save_convs_checkpoint(fn, *args, **kwargs):
     context_fn = functools.partial(create_selective_checkpoint_contexts,
                                    [torch.ops.aten.convolution.default])
     return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
+
+
+def other_shape_dropout(y: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
+    """Inverted dropout of a tensor kernel D does not take (numel not a
+    multiple of 1024, such as a 1x1 chain of 192 channels at batch 8),
+    where the JAX module switches to ``jax.random.bernoulli``: plain torch
+    operations on either device, the mask the same hash of the seed words
+    at each element's row-major index (so a recompute regenerates it). No
+    TPU kernel computes this in the JAX package, and no launch counter
+    counts it."""
+    pos = torch.arange(y.numel(), dtype=torch.int64, device=y.device)
+    keep = hash_uniform(pos, seed2.to(y.device),
+                        torch.zeros((), dtype=torch.int64, device=y.device))
+    return apply_keep(y, (keep >= np.float32(p_drop)).reshape(y.shape), p_drop)
 
 
 class EDMLinear(nn.Module):
@@ -170,8 +187,8 @@ class EDMGroupNorm(nn.Module):
       default (XLA's GN fusion): f32 statistics with the fast variance
       E[x^2] - E[x]^2 (clipped at 0, as flax computes it), normalization in
       f32, output in ``dtype``, and with ``drop_p > 0`` kernel D's dropout
-      on the NHWC view. The JAX default with
-      ``PROBUNET_DROPOUT_IMPL=pallas``.
+      on the NHWC view (:func:`other_shape_dropout` for a shape D does not
+      take). The JAX default with ``PROBUNET_DROPOUT_IMPL=pallas``.
 
     A shape the kernel does not take (``fused_gn.supported``) runs the
     composed route on either setting, as the JAX module decides; the
@@ -214,7 +231,13 @@ class EDMGroupNorm(nn.Module):
             y = shift[:, :, None, None] + y * (scale[:, :, None, None] + 1)
         y = F.silu(y) if silu else y
         if drop_p > 0.0:
-            y = hash_dropout(y.permute(0, 2, 3, 1), drop_seed, drop_p).permute(0, 3, 1, 2)
+            # the masks follow the row-major NHWC index: contiguous() copies
+            # only a tensor that is not channels_last (a 1x1 map upsampled
+            # on the card comes back NCHW-contiguous)
+            yn = y.permute(0, 2, 3, 1).contiguous()
+            yn = (hash_dropout(yn, drop_seed, drop_p) if dropout_supported(yn.shape)
+                  else other_shape_dropout(yn, drop_seed, drop_p))
+            y = yn.permute(0, 3, 1, 2)
         return y
 
     def _kernel_chain(self, x, silu, film, drop_p, drop_seed):
@@ -234,8 +257,9 @@ class EDMGroupNorm(nn.Module):
 
 
 class UNetBlock(nn.Module):
-    """Residual U-Net block as the U-Net builds it (EDM init, zero-init
-    second conv, skip scale 1, no attention):
+    """Residual U-Net block (``init`` for its convs and FiLM layer, EDM by
+    default as the U-Net builds it; zero-init second conv, skip scale 1, no
+    attention):
     GN -> SiLU -> conv(up/down) -> FiLM from the embedding -> SiLU ->
     dropout (``train`` only) -> conv -> + skip. ``in_channels`` counts the
     skip tensor that the decoder's blocks take as ``skip_in``. ``gn_impl``:
@@ -244,21 +268,21 @@ class UNetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  generator: torch.Generator, up: bool = False, down: bool = False,
                  dropout: float = 0.0, dtype: torch.dtype | None = None,
-                 gn_impl: str = "kernel"):
+                 gn_impl: str = "kernel", init=INIT_EDM):
         super().__init__()
         self.dropout = dropout
         kw = dict(generator=generator, dtype=dtype)
         self.norm0 = EDMGroupNorm(in_channels, dtype=dtype, gn_impl=gn_impl)
         self.conv0 = EDMConv(in_channels, out_channels, 3, up=up, down=down,
-                             init=INIT_EDM, **kw)
-        self.affine = EDMLinear(emb_channels, out_channels * 2, init=INIT_EDM, **kw)
+                             init=init, **kw)
+        self.affine = EDMLinear(emb_channels, out_channels * 2, init=init, **kw)
         self.norm1 = EDMGroupNorm(out_channels, dtype=dtype, gn_impl=gn_impl)
         self.conv1 = EDMConv(out_channels, out_channels, 3, init=INIT_ZERO, **kw)
         self.skip = None
         if out_channels != in_channels or up or down:
             kernel = 1 if out_channels != in_channels else 0
             self.skip = EDMConv(in_channels, out_channels, kernel, up=up, down=down,
-                                init=INIT_EDM, **kw)
+                                init=init, **kw)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 skip_in: torch.Tensor | None = None, train: bool = False,

@@ -2,9 +2,10 @@
 U-Net backbone + prior/posterior Gaussians + Fcomb.
 
 Ported: ``sample`` (prior ensemble with shared U-Net features),
-``encode``, ``decode`` and the afCRPS / CRPS branches of ``elbo``, for
-evaluation and for training (``training=True``: U-Net dropout on,
-gradients through both reconstruction routes). Every random draw takes an
+``encode``, ``decode`` and the four branches of ``elbo`` (afCRPS, CRPS,
+WMSE + MS-SSIM, L1), for evaluation and for training
+(``training=True``: U-Net dropout on, gradients through both
+reconstruction routes). Every random draw takes an
 explicit ``torch.Generator`` or the values themselves (the posterior
 noise ``eps``, the dropout seed words ``seeds``), since JAX's and torch's
 generators never give the same numbers.
@@ -34,9 +35,15 @@ from probunet_tpu_torch.device import resolve_device
 from probunet_tpu_torch.models.fcomb import Fcomb
 from probunet_tpu_torch.models.gaussian import AxisAlignedConvGaussian
 from probunet_tpu_torch.models.unet import UNet
-from probunet_tpu_torch.ops.distributions import kl_diag_gaussians
+from probunet_tpu_torch.ops.distributions import kl_diag_gaussians, kl_to_standard_normal
 from probunet_tpu_torch.ops.kernels import fcomb_crps
-from probunet_tpu_torch.ops.losses import afcrps_loss, crps_loss
+from probunet_tpu_torch.ops.losses import (
+    afcrps_loss,
+    crps_loss,
+    l1_loss,
+    l1_loss_per_channel,
+    wmse_ms_ssim_loss,
+)
 
 LOSS_TYPES = ("afcrps", "crps", "mse+ssim", "l1")
 
@@ -109,43 +116,72 @@ class ProbabilisticUNet(nn.Module):
 
     def elbo(self, x: torch.Tensor, target: torch.Tensor, M: int = 1,
              loss_type: str = "afcrps", beta_0: float = 1.0, beta_1: float = 0.0,
-             alpha: float = 0.95, generator: torch.Generator | None = None,
-             eps: torch.Tensor | None = None, fused: bool = True,
-             training: bool = False, seeds: torch.Tensor | None = None):
-        """ELBO = beta_0 * recon + beta_1 * KL(q || p), with M posterior
-        draws (noise ``eps`` (M, B, D) or drawn from ``generator``).
+             beta_2: float = 0.0, alpha: float = 0.95, alpha_w: float = 0.007,
+             beta_w: float = 0.048, lam_w: float = 0.0,
+             generator: torch.Generator | None = None, eps: torch.Tensor | None = None,
+             fused: bool = True, training: bool = False,
+             seeds: torch.Tensor | None = None):
+        """ELBO = beta_0 * recon + beta_1 * KL(q || p) [+ beta_2 * KL(q || N(0, I))
+        for ``"l1"``], the posterior noise ``eps`` or drawn from
+        ``generator``: (M, B, D) for the ensemble losses, (B, D) for
+        ``"l1"`` (one draw).
 
         ``training``: the U-Net's dropout on, its seed words ``seeds``
         ((n_blocks, 2) int32, block order) or drawn from ``generator``
         first, before the noise. Unlike the JAX method, the default is
-        False (evaluation). Differentiable on both routes: fused (kernels
-        A and A′) and unfused (``Fcomb.ensemble``, kernels B and B′).
-        ``fused`` takes the unfused route where kernel A does not take the
-        shape (``fcomb_crps.supported``: Fcomb width other than 32, M above
-        32, more than 4 classes), on the CPU as on the card.
+        False (evaluation).
 
-        Returns (total, metrics) with metrics {"recon", "kl", "kl_mean"}.
+        - ``"afcrps"`` / ``"crps"``: M >= 2 draws scored as an ensemble,
+          fused (kernels A and A′) or unfused (``Fcomb.ensemble``, kernels
+          B and B′). ``fused`` takes the unfused route where kernel A does
+          not take the shape (``fcomb_crps.supported``: Fcomb width other
+          than 32, M above 32, more than 4 classes), on the CPU as on the
+          card.
+        - ``"mse+ssim"``: M draws through ``Fcomb.ensemble``, each scored
+          by WMSE + MS-SSIM on its own and averaged; metrics ``wmse`` and
+          ``msssim`` are the last draw's, as the reference logs them.
+        - ``"l1"``: one draw through ``Fcomb``; metrics
+          ``recon_per_channel`` and ``kl2_mean``.
+
+        Returns (total, metrics) with metrics {"recon", "kl", "kl_mean", ...}.
         """
         if loss_type not in LOSS_TYPES:
             raise ValueError(f"unknown loss_type {loss_type!r}")
-        if loss_type not in ("afcrps", "crps"):
-            raise NotImplementedError(f"the {loss_type!r} ELBO is not ported yet")
-        if M < 2:
+        if loss_type in ("afcrps", "crps") and M < 2:
             raise ValueError(f"M must be >= 2 for {loss_type}, got {M}")
         feats = self.unet(x, train=training, seeds=seeds, generator=generator)
         prior = self.prior(x)
         posterior = self.posterior(x, target)
         kl = kl_diag_gaussians(posterior, prior)                    # (B,)
-        zs = posterior.rsample(generator, (M,), eps)                # (M, B, D)
-        if fused and fcomb_crps.supported(self.fcomb.channels, M, target.shape[-1],
-                                          target.shape[0]):
-            params = dict(self.fcomb.named_parameters())
-            recon = fcomb_crps.fused_fcomb_crps_loss(
-                feats, zs, params, target, loss_type, alpha,
-                "bfloat16" if self.dtype == torch.bfloat16 else "float32")
-        else:
+        metrics = {}
+        if loss_type in ("afcrps", "crps"):
+            zs = posterior.rsample(generator, (M,), eps)            # (M, B, D)
+            if fused and fcomb_crps.supported(self.fcomb.channels, M, target.shape[-1],
+                                              target.shape[0]):
+                params = dict(self.fcomb.named_parameters())
+                recon = fcomb_crps.fused_fcomb_crps_loss(
+                    feats, zs, params, target, loss_type, alpha,
+                    "bfloat16" if self.dtype == torch.bfloat16 else "float32")
+            else:
+                ensemble = self.fcomb.ensemble(feats, zs)           # (B, M, H, W, K)
+                recon = (afcrps_loss(ensemble, target, alpha=alpha)
+                         if loss_type == "afcrps" else crps_loss(ensemble, target))
+            total = beta_0 * recon + beta_1 * kl.mean()
+        elif loss_type == "mse+ssim":
+            zs = posterior.rsample(generator, (M,), eps)
             ensemble = self.fcomb.ensemble(feats, zs)               # (B, M, H, W, K)
-            recon = (afcrps_loss(ensemble, target, alpha=alpha) if loss_type == "afcrps"
-                     else crps_loss(ensemble, target))
-        total = beta_0 * recon + beta_1 * kl.mean()
-        return total, {"recon": recon, "kl": kl, "kl_mean": kl.mean()}
+            per_draw = [wmse_ms_ssim_loss(ensemble[:, i], target, alpha=alpha_w,
+                                          beta=beta_w, lam=lam_w, return_components=True)
+                        for i in range(M)]
+            recon = torch.stack([d[0] for d in per_draw]).mean()
+            metrics["wmse"], metrics["msssim"] = per_draw[-1][1], per_draw[-1][2]
+            total = beta_0 * recon + beta_1 * kl.mean()
+        else:  # l1: one draw
+            pred = self.fcomb(feats, posterior.rsample(generator, (), eps))
+            recon = l1_loss(pred, target)
+            metrics["recon_per_channel"] = l1_loss_per_channel(pred, target)
+            kl2 = kl_to_standard_normal(posterior)
+            metrics["kl2_mean"] = kl2.mean()
+            total = beta_0 * recon + beta_1 * kl.mean() + beta_2 * kl2.mean()
+        metrics.update(recon=recon, kl=kl, kl_mean=kl.mean())
+        return total, metrics

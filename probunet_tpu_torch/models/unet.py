@@ -1,4 +1,6 @@
-"""Symmetric ADM U-Net backbone (port of ``probunet_tpu/models/unet.py:UNet``).
+"""ADM U-Net backbone and the asymmetric post-U-Nets (port of
+``probunet_tpu/models/unet.py``): :class:`UNet`, :class:`PostUNetWithSkips`,
+:class:`PostUNetWithoutSkips` and the dispatcher :class:`UNetAll`.
 
 ``use_diffuse=False`` with the constant-zero label embedding: no labels
 are passed, so a zero dummy flows through ``map_label`` and each block's
@@ -34,6 +36,7 @@ the chain's kernels again, and their launch counters count it.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -42,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from probunet_tpu_torch.models.layers import (
+    INIT_DEFAULT,
     INIT_EDM,
     INIT_ZERO,
     EDMConv,
@@ -128,6 +132,7 @@ class UNet(nn.Module):
                 cout = mc * mult
                 self.encoder.append(name)
                 skip_ch.append(cout)
+        self.skip_channels = tuple(skip_ch[:3])   # of forward(return_skips=True)
 
         # decoder: (name, pops a skip)
         self.decoder: list[tuple[str, bool]] = []
@@ -151,9 +156,11 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 seeds: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, return_skips: bool = False):
         """``train``: dropout on. ``seeds``: (len(dropout_blocks), 2) int32
-        seed words in block order; drawn from ``generator`` when None."""
+        seed words in block order; drawn from ``generator`` when None.
+        ``return_skips``: also return the first three encoder outputs (NHWC
+        views in the compute dtype), which the asymmetric U-Nets inject."""
         out_dtype = x.dtype
         if self.dtype is not None:
             x = x.to(self.dtype)
@@ -186,7 +193,136 @@ class UNet(nn.Module):
             mod = self.get_submodule(name)
             h = mod(h) if isinstance(mod, EDMConv) else run(name, h)
             skips.append(h)
+        skips_postunet = [s.permute(0, 2, 3, 1) for s in skips[:3]]
         for name, takes_skip in self.decoder:
             h = run(name, h, skips.pop() if takes_skip else None)
         h = self.out_conv(self.out_norm(h, silu=True))
-        return h.permute(0, 2, 3, 1).to(out_dtype)
+        out = h.permute(0, 2, 3, 1).to(out_dtype)
+        return (out, skips_postunet) if return_skips else out
+
+
+class _PostUNet(nn.Module):
+    """The asymmetric U-Nets (``probunet_tpu/models/unet.py:238-347``): a
+    core U-Net at the low-resolution grid with ``base_channels`` channels
+    (not the config's ``model_channels``) and the core's default dropout of
+    0.1, then log2(ds_scale) stages of a 2x up block and
+    ``num_res_blocks + 1`` blocks halving the channels each stage (EDM
+    default init, no dropout, the zero embedding: FiLM is bias-only).
+    ``with_skips``: each stage block also takes an early encoder output
+    (``skips[-(i + 1)]`` of the core's first three), nearest-upsampled,
+    through a 3x3 conv and SiLU, as its ``skip_in``. NHWC in and out."""
+
+    def __init__(self, img_resolution: Sequence[int], in_channels: int, ds_scale: int,
+                 num_res_blocks: int, channel_mult: Sequence[int], out_channels: int, *,
+                 generator: torch.Generator, with_skips: bool, base_channels: int = 64,
+                 dtype: torch.dtype | None = None, gn_impl: str = "kernel"):
+        super().__init__()
+        base = base_channels
+        emb = base * 4
+        self.levels = int(math.log2(ds_scale))
+        self.with_skips = with_skips
+        self.num_res_blocks = num_res_blocks
+        kw = dict(generator=generator, dtype=dtype)
+        self.core_unet = UNet(tuple(img_resolution), in_channels, base, model_channels=base,
+                              channel_mult=tuple(channel_mult), num_blocks=num_res_blocks,
+                              gn_impl=gn_impl, **kw)
+        self.emb_channels = emb
+        c = base
+        for lvl in range(1, self.levels + 1):
+            self.add_module(f"post{lvl}_up", UNetBlock(c, c, emb, up=True, init=INIT_DEFAULT,
+                                                       gn_impl=gn_impl, **kw))
+            out = base // 2 ** lvl
+            for i in range(num_res_blocks + 1):
+                cin = c
+                if with_skips:
+                    skip_c = self.core_unet.skip_channels[-(i + 1)]
+                    self.add_module(f"post{lvl}_skipconv{i}",
+                                    EDMConv(skip_c, out, 3, init=INIT_DEFAULT, **kw))
+                    cin += out
+                self.add_module(f"post{lvl}_block{i}", UNetBlock(cin, out, emb,
+                                                                 init=INIT_DEFAULT,
+                                                                 gn_impl=gn_impl, **kw))
+                c = out
+        self.out_norm = EDMGroupNorm(c, gn_impl=gn_impl)
+        self.out_conv = EDMConv(c, out_channels, 3, init=INIT_DEFAULT, **kw)
+
+    @property
+    def dropout_blocks(self) -> list[str]:
+        return self.core_unet.dropout_blocks
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                seeds: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``seeds``/``generator``: the core U-Net's dropout seed words."""
+        if self.with_skips:
+            x, skips = self.core_unet(x, train, seeds, generator, return_skips=True)
+            skips = [s.permute(0, 3, 1, 2) for s in skips]
+        else:
+            x = self.core_unet(x, train, seeds, generator)
+        h = x.permute(0, 3, 1, 2)
+        emb = torch.zeros((h.shape[0], self.emb_channels), dtype=h.dtype, device=h.device)
+        for lvl in range(1, self.levels + 1):
+            h = self.get_submodule(f"post{lvl}_up")(h, emb, train=train)
+            for i in range(self.num_res_blocks + 1):
+                skip_in = None
+                if self.with_skips:
+                    up = F.interpolate(skips[-(i + 1)], scale_factor=2 ** lvl, mode="nearest")
+                    skip_in = F.silu(self.get_submodule(f"post{lvl}_skipconv{i}")(up))
+                h = self.get_submodule(f"post{lvl}_block{i}")(h, emb, skip_in, train=train)
+        h = self.out_conv(F.silu(self.out_norm(h)))
+        return h.permute(0, 2, 3, 1)
+
+
+class PostUNetWithSkips(_PostUNet):
+    """Asymmetric U-Net with injected early-encoder skips
+    (``probunet_tpu/models/unet.py:238``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, with_skips=True, **kwargs)
+
+
+class PostUNetWithoutSkips(_PostUNet):
+    """Asymmetric U-Net without extra skips (``probunet_tpu/models/unet.py:302``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, with_skips=False, **kwargs)
+
+
+UNET_TYPES = ("symmetric", "asymmetric_wskips", "asymmetric_woskips")
+
+
+class UNetAll(nn.Module):
+    """The deterministic baselines' U-Net, one of three variants
+    (``probunet_tpu/models/unet.py:350``), held as ``unet``:
+    ``"symmetric"`` (:class:`UNet` at the full grid, ``model_channels``
+    and ``dropout``), ``"asymmetric_wskips"`` / ``"asymmetric_woskips"``
+    (the post-U-Nets at the grid divided by ``ds_scale``). NHWC in and
+    out."""
+
+    def __init__(self, type: str, img_resolution: Sequence[int], in_channels: int,
+                 ds_scale: int, num_res_blocks: int, channel_mult: Sequence[int],
+                 out_channels: int, model_channels: int = 16, dropout: float = 0.10,
+                 dtype: torch.dtype | None = None, *, generator: torch.Generator,
+                 gn_impl: str = "kernel"):
+        super().__init__()
+        if type not in UNET_TYPES:
+            raise ValueError(f'Invalid UNet type "{type}"')
+        kw = dict(generator=generator, dtype=dtype, gn_impl=gn_impl)
+        if type == "symmetric":
+            self.unet = UNet(tuple(img_resolution), in_channels, out_channels,
+                             model_channels=model_channels, channel_mult=tuple(channel_mult),
+                             num_blocks=num_res_blocks, dropout=dropout, **kw)
+        else:
+            cls = PostUNetWithSkips if type == "asymmetric_wskips" else PostUNetWithoutSkips
+            lr_res = (img_resolution[0] // ds_scale, img_resolution[1] // ds_scale)
+            self.unet = cls(lr_res, in_channels, ds_scale, num_res_blocks,
+                            tuple(channel_mult), out_channels, **kw)
+
+    @property
+    def dropout_blocks(self) -> list[str]:
+        return self.unet.dropout_blocks
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                seeds: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.unet(x, train, seeds, generator)

@@ -93,11 +93,16 @@ def dropout_keep(shape, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
     return (u >= np.float32(p_drop)).reshape(shape)
 
 
-def dropout_plain(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
-    """The plain PyTorch version, on the row-major order of ``x``'s shape."""
-    keep = dropout_keep(x.shape, seed2, p_drop)
+def apply_keep(x: torch.Tensor, keep: torch.Tensor, p_drop: float) -> torch.Tensor:
+    """Inverted dropout of ``x`` under the bool mask ``keep``: survivors
+    scaled by f32(1 / (1 - p)) in f32, the rest 0, in ``x``'s dtype."""
     scaled = x.float() * torch.tensor(_scale(p_drop), device=x.device)
     return torch.where(keep, scaled, torch.zeros((), device=x.device)).to(x.dtype)
+
+
+def dropout_plain(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
+    """The plain PyTorch version, on the row-major order of ``x``'s shape."""
+    return apply_keep(x, dropout_keep(x.shape, seed2, p_drop), p_drop)
 
 
 def _apply(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Ensemble CRPS losses (port of the afCRPS/CRPS part of
-``probunet_tpu/ops/losses.py``).
+"""The ELBOs' reconstruction losses (port of ``probunet_tpu/ops/losses.py``):
+the ensemble CRPS losses, their O(M^2) oracles, WMSE + MS-SSIM and L1.
 
 Both losses reduce to two per-batch sums over the ensemble x (B, M, P)
 and target y (B, P):
@@ -15,7 +15,9 @@ is the analytic sign-count backward (kernel B′ on the card), never
 autograd through the sort, whose gradient is a scatter.
 
 Ensembles are ``(B, M, *spatial)``, targets ``(B, *spatial)``; reductions
-cover all trailing axes.
+cover all trailing axes. WMSE + MS-SSIM and L1 take NHWC predictions and
+plain torch operations (the JAX package computes them with XLA, outside
+any TPU kernel).
 """
 
 from __future__ import annotations
@@ -123,3 +125,68 @@ def crps_empirical(pred: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
         * torch.arange(n - 1, 0, -1, dtype=pred.dtype, device=pred.device)
     ).reshape((n - 1,) + (1,) * truth.ndim)
     return torch.abs(pred - truth).mean(dim=0) - torch.sum(diff * weight, dim=0) / n**2
+
+
+def afcrps_loss_pairwise(ensemble: torch.Tensor, target: torch.Tensor,
+                         alpha: float = 0.95) -> torch.Tensor:
+    """The literal O(M^2) afCRPS, the reference's tensor algebra: a test
+    oracle."""
+    m = ensemble.shape[1]
+    eps = (1.0 - alpha) / m
+    p = math.prod(ensemble.shape[2:])
+    ens = _flatten_spatial(ensemble, 2)
+    tgt = _flatten_spatial(target, 1)[:, None, :]
+    xy = torch.abs(ens - tgt)                                   # (B, M, P)
+    term_jy_ky = xy[:, :, None, :] + xy[:, None, :, :]          # (B, M, M, P)
+    term_jk = (1.0 - eps) * torch.abs(ens[:, :, None, :] - ens[:, None, :, :])
+    mask = (1.0 - torch.eye(m, dtype=ensemble.dtype, device=ensemble.device)).reshape(
+        1, m, m, 1)
+    s = torch.sum((term_jy_ky - term_jk) * mask, dim=(1, 2, 3))
+    return (s / (2.0 * m * (m - 1)) / p).mean()
+
+
+def crps_loss_pairwise(ensemble: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The literal O(M^2) ensemble CRPS: a test oracle."""
+    ens = _flatten_spatial(ensemble, 2)
+    tgt = _flatten_spatial(target, 1)[:, None, :]
+    first = torch.abs(ens - tgt).mean(dim=1)                               # (B, P)
+    second = torch.abs(ens[:, :, None, :] - ens[:, None, :, :]).mean(dim=(1, 2))
+    return (first - 0.5 * second).mean()
+
+
+def wmse_weights(target: torch.Tensor, alpha: float = 0.007,
+                 beta: float = 0.048) -> torch.Tensor:
+    """w(y) = min(alpha * exp(beta * y), 1)."""
+    return torch.clamp(alpha * torch.exp(beta * target), max=1.0)
+
+
+def wmse_ms_ssim_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 0.007,
+                      beta: float = 0.048, lam: float = 0.0,
+                      return_components: bool = False, data_range=None):
+    """lam * WMSE + (1 - lam) * (1 - MS-SSIM) of (B, H, W, C) tensors; a
+    (B, M, H, W, C) ensemble collapses to its mean, as in the reference.
+    ``data_range`` defaults to the target's max - min of this call, at
+    least 1e-5. MS-SSIM takes win_size 7 (sides above 96)."""
+    from probunet_tpu_torch.ops.msssim import ms_ssim
+
+    if pred.dim() == 5:
+        pred = pred.mean(dim=1)
+    if data_range is None:
+        data_range = torch.clamp(target.max() - target.min(), min=1e-5)
+    w = wmse_weights(target, alpha=alpha, beta=beta)
+    wmse = torch.mean(w * (pred - target) ** 2)
+    msssim_loss = 1.0 - ms_ssim(pred, target, data_range=data_range, win_size=7)
+    combined = lam * wmse + (1.0 - lam) * msssim_loss
+    if return_components:
+        return combined, wmse, msssim_loss
+    return combined
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error (the L1 ELBO's reconstruction)."""
+    return torch.mean(torch.abs(pred - target))
+
+
+def l1_loss_per_channel(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error per channel (last axis, NHWC), for logging."""
+    return torch.mean(torch.abs(pred - target), dim=tuple(range(pred.dim() - 1)))

@@ -1,0 +1,105 @@
+"""SSIM / MS-SSIM over NHWC tensors (port of ``probunet_tpu/ops/msssim.py``).
+
+The subset of ``pytorch_msssim`` the reference's WMSE-MS-SSIM loss calls
+(``ms_ssim(pred, target, data_range=..., size_average=True, win_size=7)``),
+with the JAX module's semantics and dtypes:
+
+- separable Gaussian window (``win_sigma`` 1.5) built in x's dtype, VALID
+  depthwise filtering, each operand filtered in its own dtype (the window
+  cast to it);
+- K = (0.01, 0.03), biased covariance estimates;
+- 2x2 average pooling between levels with zero padding on odd sides,
+  ``count_include_pad``;
+- the 5-level power weights in x's dtype, ``relu`` on the cs values and
+  the last ssim before their weighted product.
+
+The depthwise filter is ``F.conv2d`` with ``groups=C`` on the NCHW view:
+the JAX package computes it with XLA's grouped convolution, outside any
+TPU kernel. Under the bf16 compute dtype the ELBO's members reach it in
+f32 in both packages (the U-Net casts its output back to the input's
+dtype), so the window and the maps are f32 there.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_DEFAULT_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
+
+def _gaussian_window(win_size: int, sigma: float, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    coords = torch.arange(win_size, dtype=dtype, device=device) - win_size // 2
+    g = torch.exp(-(coords ** 2) / (2.0 * sigma ** 2))
+    return g / g.sum()
+
+
+def _gaussian_filter(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
+    """VALID depthwise filtering of (N, H, W, C) along H, then W."""
+    c, k = x.shape[-1], win.shape[0]
+    w = win.to(x.dtype)
+    h = x.permute(0, 3, 1, 2)
+    h = F.conv2d(h, w.reshape(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
+    h = F.conv2d(h, w.reshape(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
+    return h.permute(0, 2, 3, 1)
+
+
+def _avg_pool2_padded(x: torch.Tensor) -> torch.Tensor:
+    """2x2 / stride-2 average pool, zero-padding odd sides, count_include_pad."""
+    h, w = x.shape[1], x.shape[2]
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 2, padding=(h % 2, w % 2),
+                     count_include_pad=True)
+    return y.permute(0, 2, 3, 1)
+
+
+def _ssim_components(x, y, data_range, win, k1: float = 0.01, k2: float = 0.03):
+    """(ssim per channel, cs per channel), each (N, C). A tensor
+    ``data_range`` takes part in type promotion as a JAX array does (a bf16
+    map plus an f32 constant is f32), hence its (1,) shape."""
+    if torch.is_tensor(data_range):
+        data_range = data_range.reshape(1)
+    c1 = (k1 * data_range) ** 2
+    c2 = (k2 * data_range) ** 2
+    mu1 = _gaussian_filter(x, win)
+    mu2 = _gaussian_filter(y, win)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = _gaussian_filter(x * x, win) - mu1_sq
+    sigma2_sq = _gaussian_filter(y * y, win) - mu2_sq
+    sigma12 = _gaussian_filter(x * y, win) - mu1_mu2
+    cs_map = (2.0 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)
+    ssim_map = ((2.0 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)) * cs_map
+    return ssim_map.mean(dim=(1, 2)), cs_map.mean(dim=(1, 2))
+
+
+def ssim(x: torch.Tensor, y: torch.Tensor, data_range, win_size: int = 11,
+         win_sigma: float = 1.5, size_average: bool = True) -> torch.Tensor:
+    """Single-scale SSIM of (N, H, W, C) tensors."""
+    win = _gaussian_window(win_size, win_sigma, x.dtype, x.device)
+    s, _ = _ssim_components(x, y, data_range, win)
+    s = torch.relu(s)
+    return s.mean() if size_average else s.mean(dim=1)
+
+
+def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range, win_size: int = 11,
+            win_sigma: float = 1.5, weights=_DEFAULT_WEIGHTS,
+            size_average: bool = True) -> torch.Tensor:
+    """Multi-scale SSIM of (N, H, W, C) tensors. The shorter side must
+    exceed (win_size - 1) * 2**(levels - 1): 96 at win_size 7 and five
+    levels, so the ELBO's MS-SSIM runs at 128x128."""
+    smaller = min(x.shape[1], x.shape[2])
+    if not smaller > (win_size - 1) * 2 ** (len(weights) - 1):
+        raise ValueError(f"image side {smaller} too small for {len(weights)}-level MS-SSIM "
+                         f"with win_size={win_size}")
+    win = _gaussian_window(win_size, win_sigma, x.dtype, x.device)
+    w = torch.tensor(weights, dtype=x.dtype, device=x.device)
+    levels = len(weights)
+    vals = []  # cs of each level, then ssim of the last; each (N, C)
+    for i in range(levels):
+        s, cs = _ssim_components(x, y, data_range, win)
+        if i < levels - 1:
+            vals.append(torch.relu(cs))
+            x, y = _avg_pool2_padded(x), _avg_pool2_padded(y)
+    vals.append(torch.relu(s))
+    msv = torch.prod(torch.stack(vals) ** w.reshape(-1, 1, 1), dim=0)  # (N, C)
+    return msv.mean() if size_average else msv.mean(dim=1)

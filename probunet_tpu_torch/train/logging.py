@@ -1,6 +1,7 @@
 """Structured metric logging (port of ``probunet_tpu/train/logging.py``):
 a JSONL sink, one line per logical event, and an optional stdout echo.
-The wandb passthrough is not ported.
+The wandb passthrough is not ported: ``train --wandb`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations

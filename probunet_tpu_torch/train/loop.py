@@ -9,22 +9,32 @@ GroupNorm route), and AdamW as optax
 computes it. Its random numbers come from a generator seeded from
 (seed, step) on the batch's device. ``make_eval_step`` is the no-grad
 ELBO users call between epochs and in ``bench.py``'s eval mode (M =
-``eval_ensemble_size``, beta_1 = 0, no dropout). ``train_epoch``,
-``eval_model`` and :class:`Trainer` loop them over in-memory HR tensors
-(N, H, W, C); taking a ``data.climex.ClimexDataset`` as the JAX loop does,
-prefetch, sample plots and mesh steps are not ported yet.
+``eval_ensemble_size``, beta_1 = 0, no dropout).
+``make_deterministic_train_step`` is the deterministic baselines' MSE
+step. ``train_epoch``, ``eval_model`` and :class:`Trainer` loop them over
+``ClimexDataset`` splits as the JAX loop does, the batches copied to the
+device ahead of the step by ``data.loader.prefetch_to_device``; the
+``Trainer`` also draws the per-epoch sample figures. The JAX loop's mesh
+steps (``Trainer(mesh=...)``) are not ported: they raise.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, Iterable
+from typing import Callable
 
+import numpy as np
 import torch
+from torch import nn
 
 from probunet_tpu_torch.config import Config
-from probunet_tpu_torch.data.climex import Standardization, preprocess_batch
-from probunet_tpu_torch.data.loader import Batches, to_device
+from probunet_tpu_torch.data.climex import (
+    Standardization,
+    lrinterp_from_batch,
+    preprocess_batch,
+)
+from probunet_tpu_torch.data.loader import Batches, prefetch_to_device
 from probunet_tpu_torch.device import resolve_device
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 from probunet_tpu_torch.train.early_stop import EarlyStopper
@@ -56,7 +66,9 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
             data_cfg.interp_mode, data_cfg.epsilon, data_cfg.standardization)
         return model.elbo(batch["inputs"], batch["targets"], M=m_size,
                           loss_type=loss_cfg.loss_type, beta_0=beta_0, beta_1=beta_1,
-                          alpha=loss_cfg.alpha, generator=generator, eps=eps,
+                          beta_2=loss_cfg.beta_2, alpha=loss_cfg.alpha,
+                          alpha_w=loss_cfg.alpha_w, beta_w=loss_cfg.beta_w,
+                          lam_w=loss_cfg.lam_w, generator=generator, eps=eps,
                           fused=fused, training=training, seeds=seeds)
 
     return loss_fn
@@ -66,7 +78,10 @@ def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True) -
     """The ELBO train step:
 
         step(state, hr_batch, stats, beta_0, beta_1[, eps, seeds])
-            -> (state, {"loss", "recon", "kl_mean", "grad_norm"})
+            -> (state, {"loss", "recon", "kl_mean", "grad_norm", ...})
+
+    with the loss's own metrics besides (``wmse`` and ``msssim`` for
+    ``"mse+ssim"``, ``recon_per_channel`` and ``kl2_mean`` for ``"l1"``).
 
     ``hr_batch`` is the raw HR window (B, H, W, C) in storage space, on the
     state's device. The state's model is updated in place and its step
@@ -87,8 +102,9 @@ def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True) -
         grad_norm = global_norm(grads)
         state.optimizer.step(grads)
         state.step += 1
-        return state, {"loss": loss.detach(), "recon": metrics["recon"].detach(),
-                       "kl_mean": metrics["kl_mean"].detach(), "grad_norm": grad_norm}
+        out = {"loss": loss.detach(), "grad_norm": grad_norm}
+        out.update({k: v.detach() for k, v in metrics.items() if k != "kl"})
+        return state, out
 
     return step
 
@@ -107,49 +123,67 @@ def make_eval_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True) ->
     return step
 
 
-def eval_model(eval_step_fn: Callable, hr_batches: Iterable[torch.Tensor],
-               stats: Standardization, cfg: Config, epoch: int = 0) -> dict[str, float]:
-    """Mean recon / KL over in-memory HR batches. The posterior noise comes
-    from one generator on the batches' device, seeded from
-    (cfg.train.seed + 7919, epoch) and drawn in batch order."""
-    recon_vals, kl_vals = [], []
-    gen = None
-    for hr in hr_batches:
-        if gen is None:
-            gen = torch.Generator(device=hr.device)
-            gen.manual_seed((cfg.train.seed + 7919) * 1_000_003 + epoch)
-        metrics = eval_step_fn(hr, stats, gen)
-        recon_vals.append(metrics["recon"])
-        kl_vals.append(metrics["kl_mean"])
-    if not recon_vals:
-        raise ValueError("eval_model: no batches")
-    return {"recon": float(torch.stack(recon_vals).mean()),
-            "kl": float(torch.stack(kl_vals).mean())}
+def make_deterministic_train_step(model: nn.Module, cfg: Config) -> Callable:
+    """The MSE train step of the deterministic baselines (``UNetAll``,
+    ``LinearCNN``) on ``preprocess_batch``'s targets:
+
+        step(state, hr_batch, stats[, seeds]) -> (state, {"loss", "loss_per_var"})
+
+    ``loss_per_var`` is the (C,) MSE per variable, ``loss`` their mean. The
+    U-Net's dropout seed words come from the step's generator, seeded from
+    (seed, step) as the ELBO step's, unless ``seeds`` gives them."""
+    data_cfg = cfg.data
+
+    def step(state: TrainState, hr_batch: torch.Tensor, stats: Standardization,
+             seeds: torch.Tensor | None = None):
+        gen = step_generator(state.seed, state.step, hr_batch.device)
+        batch = preprocess_batch(
+            hr_batch, stats, data_cfg.pipeline, data_cfg.lowres_scale,
+            data_cfg.interp_mode, data_cfg.epsilon, data_cfg.standardization)
+        pred = model(batch["inputs"], train=True, seeds=seeds, generator=gen)
+        err = (pred - batch["targets"]) ** 2
+        per_var = err.mean(dim=tuple(range(err.dim() - 1)))         # (C,)
+        loss = per_var.mean()
+        params = state.optimizer.params
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        state.optimizer.step(grads)
+        state.step += 1
+        return state, {"loss": loss.detach(), "loss_per_var": per_var.detach()}
+
+    return step
 
 
-def _hr_batches(hr: torch.Tensor, batch_size: int, device: torch.device,
-                shuffle: bool = False, seed: int = 0):
-    """Drop-last batches of the HR windows ``hr`` (N, H, W, C), copied to
-    ``device``."""
-    for idx in Batches(len(hr), batch_size, shuffle=shuffle, seed=seed):
-        yield to_device(hr[torch.from_numpy(idx)], device)
+# ---------------------------------------------------------------------------
+# Epoch runners
+# ---------------------------------------------------------------------------
+
+def _device(state: TrainState) -> torch.device:
+    return next(state.model.parameters()).device
 
 
-def train_epoch(step_fn: Callable, state: TrainState, hr_train: torch.Tensor,
-                stats: Standardization, cfg: Config, beta_0: float, beta_1: float,
-                epoch: int, logger=None, ckpt=None) -> tuple[TrainState, dict[str, float]]:
-    """One training epoch over the HR windows ``hr_train`` (N, H, W, C),
-    shuffled from ``cfg.train.seed + epoch``, drop-last (reference
+def _hr_batches(dataset, batches: Batches, device: torch.device):
+    """The dataset's raw HR batches of ``batches`` on ``device``, prefetched."""
+    return prefetch_to_device((dataset.get_hr_batch(idx) for idx in batches),
+                              device=device)
+
+
+def train_epoch(step_fn: Callable, state: TrainState, dataset, stats: Standardization,
+                cfg: Config, beta_0: float, beta_1: float, epoch: int, logger=None,
+                ckpt=None) -> tuple[TrainState, dict[str, float]]:
+    """One training epoch over ``dataset`` (a ``ClimexDataset``: its
+    ``get_hr_batch``), shuffled from ``cfg.train.seed + epoch``, drop-last,
+    the batches prefetched to the state's device (reference
     src/train_prob_unet_model.py:105-158). With ``ckpt`` and
     ``cfg.train.checkpoint_every`` > 0 a checkpoint is written every N
     steps."""
-    dev = next(state.model.parameters()).device
+    batches = Batches(len(dataset), cfg.train.batch_size, shuffle=True,
+                      seed=cfg.train.seed + epoch)
     recon_vals, kl_vals = [], []
     every = cfg.train.checkpoint_every
     t0 = time.time()
     n = 0
-    for hr in _hr_batches(hr_train, cfg.train.batch_size, dev, shuffle=True,
-                          seed=cfg.train.seed + epoch):
+    for hr in _hr_batches(dataset, batches, _device(state)):
         state, metrics = step_fn(state, hr, stats, beta_0, beta_1)
         n += 1
         if logger is not None and n % cfg.train.log_every == 0:
@@ -168,38 +202,57 @@ def train_epoch(step_fn: Callable, state: TrainState, hr_train: torch.Tensor,
                    "samples_per_sec": n * cfg.train.batch_size / dt}
 
 
-class Trainer:
-    """Training with beta annealing, per-epoch validation, early stopping
-    and checkpointing (the reference's training script, src/main.py:107-238), over
-    in-memory HR windows. Runs on the CUDA device unless the caller passes
-    ``device="cpu"``; builds the model from ``cfg`` (seeded from
-    ``cfg.train.seed``, with ``cfg.train``'s remat setting) unless it is
-    given one or a ``state``; a caller who wants the composed GroupNorm
-    route builds the model with ``gn_impl="composed"`` and passes it."""
+def eval_model(eval_step_fn: Callable, state: TrainState, dataset, stats: Standardization,
+               cfg: Config, epoch: int = 0) -> dict[str, float]:
+    """Mean recon / KL over ``dataset`` in order, drop-last (reference
+    src/train_prob_unet_model.py:161-210). The posterior noise comes from
+    one generator on the state's device, seeded from (cfg.train.seed +
+    7919, epoch) and drawn in batch order."""
+    dev = _device(state)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed((cfg.train.seed + 7919) * 1_000_003 + epoch)
+    recon_vals, kl_vals = [], []
+    for hr in _hr_batches(dataset, Batches(len(dataset), cfg.train.batch_size), dev):
+        metrics = eval_step_fn(hr, stats, gen)
+        recon_vals.append(metrics["recon"])
+        kl_vals.append(metrics["kl_mean"])
+    if not recon_vals:
+        raise ValueError("eval_model: fewer items than one batch")
+    return {"recon": float(torch.stack(recon_vals).mean()),
+            "kl": float(torch.stack(kl_vals).mean())}
 
-    def __init__(self, cfg: Config, hr_train: torch.Tensor, stats: Standardization,
-                 hr_val: torch.Tensor | None = None, val_stats: Standardization | None = None,
-                 model: ProbabilisticUNet | None = None, logger=None,
-                 checkpoint_manager=None, state: TrainState | None = None,
-                 fused: bool = True, device: str | torch.device | None = "cuda"):
+
+class Trainer:
+    """Training with beta annealing, per-epoch validation on the validation
+    split's own statistics, early stopping, checkpointing and sample
+    figures (the reference's training script, src/main.py:107-238), over
+    ``ClimexDataset`` splits. Runs on the CUDA device unless the caller
+    passes ``device="cpu"``; trains ``model`` from a new state unless it is
+    given a ``state`` (``cli.make_model`` builds the config's model).
+    ``mesh`` (the data-parallel step) is not ported and raises."""
+
+    def __init__(self, cfg: Config, model: ProbabilisticUNet, dataset_train,
+                 dataset_val=None, logger=None, checkpoint_manager=None,
+                 state: TrainState | None = None, plot_dir: str | None = None,
+                 plot_every: int = 1, mesh=None, fused: bool = True,
+                 device: str | torch.device | None = "cuda"):
+        if mesh is not None:
+            raise NotImplementedError("Trainer(mesh=...) is not ported yet (ROADMAP.md §1 "
+                                      "item 7, the parallel paths)")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.hr_train, self.hr_val = hr_train, hr_val
+        self.dataset_train, self.dataset_val = dataset_train, dataset_val
         self.logger = logger
         self.ckpt = checkpoint_manager
+        self.plot_dir, self.plot_every = plot_dir, plot_every
         if state is None:
-            if model is None:
-                model = ProbabilisticUNet.from_config(
-                    cfg, torch.Generator().manual_seed(cfg.train.seed), device=self.device)
             state = create_train_state(model, seed=cfg.train.seed, lr=cfg.train.lr,
                                        weight_decay=cfg.train.weight_decay,
                                        grad_clip=cfg.train.grad_clip, accum=cfg.train.accum,
                                        device=self.device)
         self.state = state
         self.model = state.model
-        self.stats = Standardization(*[s.to(self.device) for s in stats])
-        self.val_stats = (Standardization(*[s.to(self.device) for s in val_stats])
-                          if val_stats is not None else self.stats)
+        self.stats = dataset_train.device_stats(self.device)
         self.train_step = make_train_step(self.model, cfg, fused=fused)
         self.eval_step = make_eval_step(self.model, cfg, fused=fused)
         self.stopper = EarlyStopper(cfg.train.patience, cfg.train.min_delta)
@@ -212,16 +265,15 @@ class Trainer:
             beta_0, beta_1 = beta_schedule(epoch, num_epochs, cfg.loss.warmup_epochs,
                                            cfg.loss.max_beta_1)
             self.state, summary = train_epoch(
-                self.train_step, self.state, self.hr_train, self.stats, cfg, beta_0,
+                self.train_step, self.state, self.dataset_train, self.stats, cfg, beta_0,
                 beta_1, epoch, logger=self.logger, ckpt=self.ckpt)
             self.history["train_crps"].append(summary["recon"])
             self.history["train_kl"].append(summary["kl"])
             rec = {"epoch": epoch, "beta_0": beta_0, "beta_1": beta_1,
                    **{f"train_{k}": v for k, v in summary.items()}}
-            if self.hr_val is not None:
-                val = eval_model(self.eval_step,
-                                 _hr_batches(self.hr_val, cfg.train.batch_size, self.device),
-                                 self.val_stats, cfg, epoch)
+            if self.dataset_val is not None:
+                val = eval_model(self.eval_step, self.state, self.dataset_val,
+                                 self.dataset_val.device_stats(self.device), cfg, epoch)
                 self.history["val_crps"].append(val["recon"])
                 self.history["val_kl"].append(val["kl"])
                 rec.update({f"val_{k}": v for k, v in val.items()})
@@ -238,4 +290,55 @@ class Trainer:
             if self.ckpt is not None:
                 self.ckpt.save(self.state.step, self.state,
                                extra={"epoch": epoch, "beta_0": beta_0, "beta_1": beta_1})
+            if self.plot_dir and epoch % self.plot_every == 0:
+                try:
+                    self.save_sample_plots(epoch)
+                except Exception as e:  # plotting must never kill training
+                    if self.logger:
+                        self.logger.log({"plot_error": f"{type(e).__name__}: {e}"},
+                                        kind="info")
         return self.history
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def sample_ensemble(self, dataset=None, num_items: int = 3, num_samples: int = 3,
+                        seed: int = 0):
+        """Prior-ensemble HR fields of the first ``num_items`` items of
+        ``dataset`` (by default the validation split, else the training
+        split): (hr_pred (B, M, H, W, C), hr, lrinterp, residual ensemble,
+        residual targets), the noise from a generator on the model's
+        device seeded with ``seed`` (reference
+        src/train_prob_unet_model.py:213-305)."""
+        ds = next(d for d in (dataset, self.dataset_val, self.dataset_train) if d is not None)
+        idx = np.arange(num_items)
+        batch = ds.preprocess(torch.from_numpy(ds.get_hr_batch(idx)).to(self.device))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        out = self.model.sample(batch["inputs"], num_samples, generator=gen)
+        lrinterp = lrinterp_from_batch(batch, ds.lowres_scale, ds.interp_mode)
+        ist = batch.get("stand_stats")
+        if ist is not None:  # the member axis of (B, M, H, W, C) outputs
+            ist = {k: v[:, None] for k, v in ist.items()}
+        hr_pred = ds.residual_to_hr(out, lrinterp[:, None], ist)
+        return hr_pred, batch["hr"], lrinterp, out, batch["targets"]
+
+    def save_sample_plots(self, epoch: int) -> None:
+        """The per-epoch ensemble, residual and member-difference figures
+        (reference src/main.py:171-203); matplotlib is imported here."""
+        from probunet_tpu_torch.utils.plotting import (
+            plot_residual_differences,
+            plot_residual_sample_batch,
+            plot_sample_batch,
+        )
+
+        hr_pred, hr, lrinterp, resid, resid_tgt = (
+            t.float().cpu().numpy() for t in self.sample_ensemble())
+        d = self.plot_dir
+        variables = self.cfg.data.variables
+        ds = self.dataset_val if self.dataset_val is not None else self.dataset_train
+        lat, lon = getattr(ds, "lat", None), getattr(ds, "lon", None)
+        plot_sample_batch(hr_pred, hr, lrinterp, variables=variables, lat=lat, lon=lon,
+                          save_path=os.path.join(d, f"samples_ep{epoch:03d}.png"))
+        plot_residual_sample_batch(resid, resid_tgt, variables=variables, lat=lat, lon=lon,
+                                   save_path=os.path.join(d, f"residuals_ep{epoch:03d}.png"))
+        plot_residual_differences(resid, variables=variables, lat=lat, lon=lon,
+                                  save_path=os.path.join(d, f"residual_diffs_ep{epoch:03d}.png"))

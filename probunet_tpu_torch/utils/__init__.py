@@ -1,1 +1,21 @@
-"""Host-side utilities: figures."""
+"""Utilities: the figures (matplotlib imported when one is drawn)."""
+
+from probunet_tpu_torch.utils.plotting import (
+    plot_histograms,
+    plot_loss_curves,
+    plot_psd,
+    plot_residual_differences,
+    plot_residual_sample_batch,
+    plot_return_levels,
+    plot_sample_batch,
+)
+
+__all__ = [
+    "plot_sample_batch",
+    "plot_residual_sample_batch",
+    "plot_residual_differences",
+    "plot_loss_curves",
+    "plot_psd",
+    "plot_histograms",
+    "plot_return_levels",
+]

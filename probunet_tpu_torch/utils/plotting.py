@@ -1,10 +1,12 @@
-"""Evaluation figures (port of the serve-path figures of
-``probunet_tpu/utils/plotting.py``): the GT-vs-model PSD, the pooled
-pixel-value log-histograms and the return-level curves.
+"""Figures (port of ``probunet_tpu/utils/plotting.py``): the training
+loop's ensemble, residual and member-difference grids and loss curves,
+and the evaluation's GT-vs-model PSD, pooled pixel-value log-histograms
+and return-level curves.
 
-matplotlib is imported when a figure is drawn, not with the module: a
+matplotlib (and cartopy, for the ClimEx RotatedPole map panels, when it
+is importable) is imported when a figure is drawn, not with the module: a
 host without it still imports every module of the port, and the commands
-that draw figures report them skipped.
+that draw figures report them skipped. Inputs are NHWC numpy arrays.
 """
 
 from __future__ import annotations
@@ -26,6 +28,222 @@ def _save(fig, save_path):
         fig.savefig(save_path, bbox_inches="tight", dpi=110)
         _pyplot().close(fig)
     return fig
+
+
+_CMAPS = {"pr": "Blues", "tasmin": "coolwarm", "tasmax": "coolwarm"}
+_UNITS = {"pr": "mm/day", "tasmin": "°C", "tasmax": "°C"}
+
+
+def _cartopy():
+    """(cartopy.crs, the ClimEx RotatedPole CRS), or (None, None) when
+    cartopy is missing or broken: panels then fall back to plain axes."""
+    try:
+        import cartopy.crs as ccrs
+        return ccrs, ccrs.RotatedPole(pole_longitude=83.0, pole_latitude=42.5)
+    except Exception:
+        return None, None
+
+
+def _subplots(nrows, ncols, scale=2.4):
+    plt = _pyplot()
+    _, crs = _cartopy()
+    kw = {"subplot_kw": {"projection": crs}} if crs is not None else {}
+    return plt.subplots(nrows, ncols, figsize=(scale * ncols, scale * nrows),
+                        squeeze=False, **kw)
+
+
+def _imshow(ax, field, cmap, vmin=None, vmax=None, lat=None, lon=None, labels=None):
+    """One map panel: geo-referenced ``pcolormesh(lon, lat, ...)`` with
+    ``lat``/``lon`` (2-D or 1-D coordinates of the NetCDF ingest, block-
+    averaged to a coarser field's grid), with the reference's dashed
+    lat/lon gridlines when ``labels`` is ``"left"`` or ``"bottom"``;
+    index-space ``imshow`` without coordinates or when they do not fit."""
+    ccrs, _ = _cartopy()
+    field = np.asarray(field)
+    coords = None
+    if lat is not None and lon is not None:
+        lat, lon = np.asarray(lat), np.asarray(lon)
+        if lat.ndim == 1 and lon.ndim == 1:
+            lon, lat = np.meshgrid(lon, lat)
+        try:
+            coords = _coarsen_coords(lat, lon, field.shape)
+        except (ValueError, IndexError):
+            coords = None
+    if coords is not None:
+        lat, lon = coords
+        kw = {"transform": ccrs.PlateCarree()} if ccrs is not None else {}
+        im = ax.pcolormesh(lon, lat, field, cmap=cmap, vmin=vmin, vmax=vmax, **kw)
+        if ccrs is not None:
+            ax.coastlines(linewidth=0.4)
+        if labels is not None:
+            _gridline_furniture(ax, lat, lon, labels)
+            return im
+    else:
+        im = ax.imshow(field, origin="lower", cmap=cmap, vmin=vmin, vmax=vmax)
+    ax.set_xticks([])
+    ax.set_yticks([])
+    return im
+
+
+def _gridline_furniture(ax, lat, lon, labels):
+    """Dashed labeled lat/lon gridlines, top and right labels off, left
+    labels only where ``labels == "left"``."""
+    ccrs, _ = _cartopy()
+    if ccrs is not None:
+        gl = ax.gridlines(crs=ccrs.PlateCarree(), draw_labels=True, x_inline=False,
+                          y_inline=False, linestyle="--", linewidth=0.3)
+        gl.top_labels = False
+        gl.right_labels = False
+        gl.left_labels = labels == "left"
+        gl.xlabel_style = {"size": 6}
+        gl.ylabel_style = {"size": 6}
+        return
+    ax.grid(linestyle="--", linewidth=0.3)
+    xt = np.linspace(lon.min(), lon.max(), 5)[1:-1]
+    ax.set_xticks(xt)
+    ax.set_xticklabels([f"{v:.1f}°" for v in xt], fontsize=6)
+    if labels == "left":
+        yt = np.linspace(lat.min(), lat.max(), 5)[1:-1]
+        ax.set_yticks(yt)
+        ax.set_yticklabels([f"{v:.1f}°" for v in yt], fontsize=6)
+    else:
+        ax.set_yticks([])
+
+
+def _coords_at(lat, lon, i):
+    """Item ``i``'s coordinates from (B, H, W) stacks; static ones as they are."""
+    if lat is None or lon is None:
+        return lat, lon
+    lat, lon = np.asarray(lat), np.asarray(lon)
+    if lat.ndim == 3:
+        lat = lat[min(i, lat.shape[0] - 1)]
+    if lon.ndim == 3:
+        lon = lon[min(i, lon.shape[0] - 1)]
+    return lat, lon
+
+
+def _coarsen_coords(lat, lon, field_shape):
+    """HR lat/lon block-averaged down to a coarser field's grid."""
+    fh, fw = field_shape[-2], field_shape[-1]
+    if lat.ndim != 2 or lon.ndim != 2:
+        raise ValueError(f"lat/lon must be 2-D grids, got {lat.shape}")
+    if lat.shape == (fh, fw):
+        return lat, lon
+    kh, kw = lat.shape[0] // fh, lat.shape[1] // fw
+    if kh < 1 or kw < 1 or lat.shape != (fh * kh, fw * kw):
+        raise ValueError(f"lat/lon shape {lat.shape} incompatible with field {field_shape}")
+
+    def pool(a):
+        return a.reshape(fh, kh, fw, kw).mean(axis=(1, 3))
+
+    return pool(lat), pool(lon)
+
+
+def plot_sample_batch(samples, hr, lrinterp=None,
+                      variables: Sequence[str] = ("pr", "tasmin", "tasmax"),
+                      max_items: int = 3, save_path: str | None = None, lat=None, lon=None):
+    """Ensemble-member grid per variable: rows = items, columns =
+    [lrinterp?, HR, member_1..member_M]. samples: (B, M, H, W, C)."""
+    samples, hr = np.asarray(samples), np.asarray(hr)
+    b, m = min(max_items, samples.shape[0]), samples.shape[1]
+    figs = {}
+    for ci, var in enumerate(variables[: samples.shape[-1]]):
+        fig, axes = _subplots(b, m + (1 if lrinterp is None else 2))
+        cmap = _CMAPS.get(var, "viridis")
+        for i in range(b):
+            vmin = min(hr[i, ..., ci].min(), samples[i, ..., ci].min())
+            vmax = max(hr[i, ..., ci].max(), samples[i, ..., ci].max())
+            la, lo = _coords_at(lat, lon, i)
+            col = 0
+            if lrinterp is not None:
+                _imshow(axes[i, col], np.asarray(lrinterp)[i, ..., ci], cmap, vmin, vmax,
+                        la, lo, "left")
+                if i == 0:
+                    axes[i, col].set_title("lrinterp", fontsize=8)
+                col += 1
+            _imshow(axes[i, col], hr[i, ..., ci], cmap, vmin, vmax, la, lo,
+                    "left" if col == 0 else "bottom")
+            if i == 0:
+                axes[i, col].set_title("HR", fontsize=8)
+            for j in range(m):
+                im = _imshow(axes[i, col + 1 + j], samples[i, j, ..., ci], cmap, vmin, vmax,
+                             la, lo, "bottom")
+                if i == 0:
+                    axes[i, col + 1 + j].set_title(f"member {j + 1}", fontsize=8)
+        fig.colorbar(im, ax=axes, shrink=0.6, label=f"{var} [{_UNITS.get(var, '')}]")
+        fig.suptitle(f"{var} — {m}-member ensemble")
+        figs[var] = _save(fig, save_path and save_path.replace(".png", f"_{var}.png"))
+    return figs
+
+
+def plot_residual_sample_batch(residual_samples, residual_target,
+                               variables: Sequence[str] = ("pr", "tasmin", "tasmax"),
+                               max_items: int = 3, save_path: str | None = None,
+                               lat=None, lon=None):
+    """Residual-space ensemble grid, a diverging colormap symmetric about 0."""
+    s, t = np.asarray(residual_samples), np.asarray(residual_target)
+    b, m = min(max_items, s.shape[0]), s.shape[1]
+    figs = {}
+    for ci, var in enumerate(variables[: s.shape[-1]]):
+        fig, axes = _subplots(b, m + 1)
+        for i in range(b):
+            v = max(np.abs(t[i, ..., ci]).max(), np.abs(s[i, ..., ci]).max())
+            la, lo = _coords_at(lat, lon, i)
+            _imshow(axes[i, 0], t[i, ..., ci], "RdBu_r", -v, v, la, lo, "left")
+            if i == 0:
+                axes[i, 0].set_title("target residual", fontsize=8)
+            for j in range(m):
+                im = _imshow(axes[i, 1 + j], s[i, j, ..., ci], "RdBu_r", -v, v, la, lo,
+                             "bottom")
+                if i == 0:
+                    axes[i, 1 + j].set_title(f"member {j + 1}", fontsize=8)
+        fig.colorbar(im, ax=axes, shrink=0.6)
+        fig.suptitle(f"{var} — residual ensemble")
+        figs[var] = _save(fig, save_path and save_path.replace(".png", f"_{var}.png"))
+    return figs
+
+
+def plot_residual_differences(samples, variables: Sequence[str] = ("pr", "tasmin", "tasmax"),
+                              item: int = 0, save_path: str | None = None, lat=None,
+                              lon=None):
+    """(M, M) grid of member_i - member_j panels of one item."""
+    s = np.asarray(samples)[item]  # (M, H, W, C)
+    m = s.shape[0]
+    figs = {}
+    for ci, var in enumerate(variables[: s.shape[-1]]):
+        fig, axes = _subplots(m, m, scale=1.8)
+        diffs = s[:, None, ..., ci] - s[None, :, ..., ci]
+        v = max(np.abs(diffs).max(), 1e-12)
+        la, lo = _coords_at(lat, lon, item)
+        for i in range(m):
+            for j in range(m):
+                im = _imshow(axes[i, j], diffs[i, j], "RdBu_r", -v, v, la, lo,
+                             "left" if j == 0 else "bottom")
+        fig.colorbar(im, ax=axes, shrink=0.6)
+        fig.suptitle(f"{var} — pairwise member differences")
+        figs[var] = _save(fig, save_path and save_path.replace(".png", f"_{var}.png"))
+    return figs
+
+
+def plot_loss_curves(history: dict, save_path: str | None = None):
+    """Train/val reconstruction and KL curves over the epochs."""
+    plt = _pyplot()
+    fig, axes = plt.subplots(1, 2, figsize=(10, 4))
+    epochs = np.arange(1, len(history.get("train_crps", [])) + 1)
+    for ax, key, ylabel in ((axes[0], "crps", "reconstruction"), (axes[1], "kl", "KL(q||p)")):
+        ax.plot(epochs, history.get(f"train_{key}", []), label="train")
+        if history.get(f"val_{key}"):
+            ax.plot(np.arange(1, len(history[f"val_{key}"]) + 1), history[f"val_{key}"],
+                    label="val")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel(ylabel)
+    axes[0].set_title("reconstruction loss")
+    axes[1].set_yscale("log")
+    axes[1].set_title("KL")
+    for ax in axes:
+        ax.legend()
+    fig.tight_layout()
+    return _save(fig, save_path)
 
 
 def plot_psd(

@@ -30,9 +30,12 @@ import pytest
 import torch
 
 from torch_parity import assert_close, noisy_params
+from torch_parity import torch_one_thread  # noqa: F401  (fixture)
 
 from probunet_tpu_torch import cli as tcli
 from probunet_tpu_torch.evals.streaming import EvalAccumulator, _batch_hist
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 RTOL, ATOL = 1e-4, 1e-5
 PRESET = "probunet_latent6_64"
@@ -380,3 +383,98 @@ def test_module_entry_point(tmp_path):
         out = subprocess.run(cmd, env=env, cwd=tmp_path, capture_output=True, text=True,
                              timeout=120)
         assert out.returncode != 0 and "is_available" in out.stderr
+
+
+TRAIN = ["--set", "train.num_epochs=2", "train.batch_size=64", "train.ensemble_size=4",
+         "train.eval_ensemble_size=3"]
+DET = ["--preset", "deterministic_64", "--set",
+       'data.resolution=[16,16]', 'data.coords=[0,16,0,16]', "data.lowres_scale=4",
+       'data.years_train=[1960,1962]', 'data.years_val=[1962,1963]',
+       'data.years_test=[1963,1964]', "model.model_channels=8", 'model.channel_mult=[1,2]',
+       "model.num_blocks=1", "train.num_epochs=1", "train.batch_size=64"]
+
+
+def _train(outdir, extra=(), resume=False):
+    argv = ["train", "--preset", PRESET, "--outdir", str(outdir)] + TINY + TRAIN[1:] + list(
+        extra)
+    if resume:
+        argv.insert(1, "--resume")
+    return tcli.main(argv)
+
+
+def test_train_then_evaluate_from_its_checkpoint(on_cpu, tmp_path, capsys):
+    """``train`` writes config.json, ckpt/ (the full state each epoch and the
+    best weights), losses.pkl, the residual-contribution and final lines
+    and the loss curves; ``--resume`` continues from the latest step;
+    ``evaluate`` serves the best weights."""
+    import pickle
+
+    (out, spans) = _train(tmp_path / "run")
+    text = capsys.readouterr().out
+    lines = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    assert [next(iter(d)) for d in lines] == ["residual_contribution", "final"]
+    assert set(lines[0]["residual_contribution"]) == {"mae_model", "mae_interp", "improvement"}
+    assert out["final"] == lines[1]["final"] and out["steps"] == 2 * (365 // 64)
+    assert {"dataset", "init", "fit", "contribution", "figures"} <= set(spans)
+    with open(tmp_path / "run" / "losses.pkl", "rb") as f:
+        hist = pickle.load(f)
+    assert {k: v[-1] for k, v in hist.items()} == out["final"]
+    assert all(len(v) == 2 for v in hist.values())
+    with open(tmp_path / "run" / "config.json") as f:
+        assert json.load(f)["train"]["num_epochs"] == 2
+    ckpt = tmp_path / "run" / "ckpt"
+    assert (ckpt / "best_params.pt").exists() and (tmp_path / "run" / "loss_curves.png").exists()
+    (again, _) = _train(tmp_path / "run", ["train.num_epochs=1"], resume=True)
+    assert f"resumed from step {out['steps']}" in capsys.readouterr().out
+    assert again["steps"] == out["steps"] + 365 // 64
+    got, _ = tcli.main(["evaluate", "--preset", PRESET, "--outdir", "", "--ckpt", str(ckpt)]
+                       + EVAL + TINY)
+    assert got["items"] == 64 and all(np.isfinite(got["crps_mean"]))
+
+
+def test_pack_feeds_train(on_cpu, tmp_path, capsys):
+    """The packed train split trains the model the synthetic split trains,
+    to the same losses bit for bit (``pack`` draws the training split's
+    synthetic fields; the validation split, drawn from another seed, is the
+    synthetic one in both runs)."""
+    path = str(tmp_path / "train.npz")
+    tcli.main(["pack", "--preset", PRESET, "--split", "train", "--out", path] + TINY)
+    direct, _ = _train(tmp_path / "a", ["train.num_epochs=1"])
+    packed, _ = _train(tmp_path / "b", ["train.num_epochs=1", f"data.packed_train={path}"])
+    assert packed["final"] == direct["final"]
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("unet", []), ("unet", ["model.unet_type=asymmetric_wskips", "model.num_blocks=2",
+                            "data.pipeline=lr_to_residuals"]),
+    ("linearcnn", []), ("bcsd", [])], ids=["unet", "unet-asymmetric_wskips", "linearcnn",
+                                           "bcsd"])
+def test_train_det(on_cpu, tmp_path, capsys, model, extra):
+    """Each ``--model`` trains (one ``epoch N: mse=`` line) and reports the
+    test MAE in physical units; the BCSD MAE equals the JAX CLI's on the same
+    synthetic split within rtol 1e-4. Each package applies the storage
+    transform to the raw fields itself, which leaves the stored fields an
+    ulp apart, and BCSD divides by the training years' interpolated
+    precipitation, near 0 at dry pixels, which multiplies those ulps (the
+    ratio itself is held to 1e-6 in ``test_torch_baselines.py``)."""
+    argv = ["train-det", "--model", model, "--outdir", str(tmp_path)] + DET + extra
+    out, spans = tcli.main(argv)
+    text = capsys.readouterr().out
+    assert json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1]) == out
+    if model == "bcsd":
+        from probunet_tpu.cli import main as jax_main
+
+        jax_main(argv)
+        want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert want["model"] == "bcsd"
+        assert_close(out["test_mae"], want["test_mae"], 1e-4, 0.0, "bcsd test MAE")
+        return
+    assert "epoch 1: mse=" in text and {"fit", "test_mae"} <= set(spans)
+    mae = out["test_mae_real_units"]
+    assert list(mae) == ["pr"] and np.isfinite(mae["pr"]) and mae["pr"] > 0
+
+
+@pytest.mark.parametrize("flag", [["--wandb"], ["--dp", "2"]])
+def test_train_flags_not_ported_raise(on_cpu, tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main(["train", "--preset", PRESET, "--outdir", str(tmp_path)] + flag + TINY)

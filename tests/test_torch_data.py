@@ -121,3 +121,21 @@ def test_preprocess_and_residual_to_hr_match(fields, pipeline, standardization):
                              standardization, want.get("stand_stats"))
     assert_close(hr_g, hr_w, 1e-5, 1e-5, "residual_to_hr")
     assert_close(hr_g, hr, 1e-4, 1e-4, "round trip to the HR field")
+
+
+def test_prefetch_to_device_on_the_cpu_keeps_order_and_values():
+    """On the CPU the prefetch passes every batch through as a tensor, in
+    order, for any look-ahead; without a card the CUDA default raises."""
+    from probunet_tpu_torch.data import Batches, prefetch_to_device
+
+    hr = np.random.default_rng(3).standard_normal((11, 4, 5, 2)).astype(np.float32)
+    for size in (1, 2, 5):
+        batches = list(Batches(len(hr), 3, shuffle=True, seed=size))
+        got = list(prefetch_to_device((hr[i] for i in batches), size=size, device="cpu"))
+        assert len(got) == len(batches) == 3
+        for g, idx in zip(got, batches):
+            assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
+            assert np.array_equal(g.numpy(), hr[idx])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            next(prefetch_to_device(iter([hr])))

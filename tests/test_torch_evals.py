@@ -135,8 +135,11 @@ def test_gev_bit_equal():
 
 
 def test_evals_exports_match_jax_but_weights():
+    """The port's ``evals`` exports are the JAX package's, in order
+    (``weight_function_analysis`` included since the WMSE weights are
+    ported)."""
     import probunet_tpu.evals as jevals
 
-    assert tevals.__all__ == [n for n in jevals.__all__ if n != "weight_function_analysis"]
+    assert tevals.__all__ == jevals.__all__
     for name in tevals.__all__:
         assert callable(getattr(tevals, name)), name

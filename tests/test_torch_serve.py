@@ -108,7 +108,11 @@ def test_eval_step_and_eval_model(setup):
         total, met = tmodel.elbo(tb["inputs"], tb["targets"], M=M, eps=eps)
     assert float(got["loss"]) == float(total) == float(got["recon"])  # beta_1 = 0
     assert float(got["kl_mean"]) == float(met["kl_mean"])
-    out = eval_model(step, list(torch.from_numpy(stored).split(B)), tstats, cfg)
+    from probunet_tpu_torch.train.state import TrainState
+
+    cfg.train.batch_size = B
+    ds = tclimex.ClimexDataset(hr=stored, lowres_scale=K_LOW, device="cpu")
+    out = eval_model(step, TrainState(model=tmodel, optimizer=None), ds, tstats, cfg)
     assert np.isfinite(out["recon"]) and out["kl"] > 0
 
 

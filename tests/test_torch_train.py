@@ -22,6 +22,7 @@
   against the JAX functions, and ``Trainer.fit`` on the CPU.
 """
 
+import copy
 import math
 
 import jax
@@ -31,10 +32,13 @@ import pytest
 import torch
 
 from torch_parity import TINY, assert_close, jax_elbo_grads, jax_tiny_model, torch_tiny_model
+from torch_parity import torch_one_thread  # noqa: F401  (fixture)
 
 from probunet_tpu_torch.convert import convert_params, flax_params
 from probunet_tpu_torch.data import climex as tclimex
 from probunet_tpu_torch.data.synthetic import synthetic_climex_fields
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 RTOL, ATOL = 1e-4, 1e-5
 DROPOUT, B, M = 0.1, 2, 4
@@ -177,7 +181,7 @@ def _tiny_cfg():
 @pytest.fixture(scope="module")
 def tiny_data():
     cfg = _tiny_cfg()
-    phys = synthetic_climex_fields(4 * B, *cfg.data.resolution, seed=9)
+    phys = synthetic_climex_fields(5 * B, *cfg.data.resolution, seed=9)
     from probunet_tpu_torch.data.transforms import apply_physical_transform
 
     hr = apply_physical_transform(torch.from_numpy(phys), cfg.data.variables)
@@ -278,6 +282,15 @@ def test_beta_schedule_and_early_stopper_match_jax():
                 break
 
 
+def _datasets(hr, cfg):
+    """Training and validation ClimexDatasets over the first 3 and the last
+    2 batches of ``hr``, each with its own statistics."""
+    kw = dict(variables=cfg.data.variables, pipeline=cfg.data.pipeline,
+              lowres_scale=cfg.data.lowres_scale, device="cpu")
+    return (tclimex.ClimexDataset(hr=hr[:3 * B].numpy(), **kw),
+            tclimex.ClimexDataset(hr=hr[3 * B:].numpy(), **kw))
+
+
 def test_trainer_fit_two_epochs_on_cpu(dropout_models, tiny_data, tmp_path):
     from probunet_tpu_torch.train.checkpoint import CheckpointManager
     from probunet_tpu_torch.train.logging import MetricLogger
@@ -288,9 +301,9 @@ def test_trainer_fit_two_epochs_on_cpu(dropout_models, tiny_data, tmp_path):
     cfg.train.log_every = 1
     logger = MetricLogger(str(tmp_path / "logs"), stdout=False)
     ckpt = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=1)
-    trainer = Trainer(cfg, hr[:3 * B], stats, hr_val=hr[3 * B:], logger=logger,
-                      checkpoint_manager=ckpt,
-                      model=torch_tiny_model(params, dropout=DROPOUT), device="cpu")
+    ds_train, ds_val = _datasets(hr, cfg)
+    trainer = Trainer(cfg, torch_tiny_model(params, dropout=DROPOUT), ds_train, ds_val,
+                      logger=logger, checkpoint_manager=ckpt, device="cpu")
     hist = trainer.fit(2)
     assert all(len(v) == 2 and all(math.isfinite(x) for x in v) for v in hist.values())
     assert trainer.state.step == 6 and ckpt.steps() == [6]
@@ -312,8 +325,75 @@ def test_entry_points_default_to_cuda():
     model = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_train_state(model)
-    hr = torch.zeros((B, *cfg.data.resolution, 3))
-    stats = tclimex.compute_stats(hr + 1.0, cfg.data.lowres_scale)
+    hr = np.ones((B, *cfg.data.resolution, 3), np.float32)
+    ds = tclimex.ClimexDataset(hr=hr, lowres_scale=cfg.data.lowres_scale, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        Trainer(cfg, hr, stats, model=model)
+        Trainer(cfg, model, ds)
     assert flax_params(model)  # the CPU model is whole
+
+
+def test_trainer_resumes_and_validates_on_the_validation_stats(dropout_models, tiny_data,
+                                                                tmp_path, monkeypatch):
+    """A Trainer restored from the first one's checkpoint continues from its
+    step (the epochs count from 1 again, as in the JAX CLI); validation
+    scores the validation split with that split's own statistics; the
+    per-epoch figures are drawn; ``mesh=`` raises."""
+    from probunet_tpu_torch.train import loop
+    from probunet_tpu_torch.train.checkpoint import CheckpointManager
+
+    _, params, _ = dropout_models
+    cfg, hr, _ = tiny_data
+    ds_train, ds_val = _datasets(hr, cfg)
+    seen = []
+    real = loop.eval_model
+    monkeypatch.setattr(loop, "eval_model",
+                        lambda fn, st, ds, stats, *a: seen.append((ds, stats)) or real(
+                            fn, st, ds, stats, *a))
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    first = loop.Trainer(cfg, torch_tiny_model(params, dropout=DROPOUT), ds_train, ds_val,
+                         checkpoint_manager=ckpt, plot_dir=str(tmp_path), device="cpu")
+    hist = first.fit(1)
+    assert set(hist) == {"train_crps", "train_kl", "val_crps", "val_kl"}
+    assert seen[0][0] is ds_val and seen[0][1] is ds_val.device_stats(torch.device("cpu"))
+    assert not torch.equal(ds_val.device_stats(torch.device("cpu")).hr_mean,
+                           ds_train.device_stats(torch.device("cpu")).hr_mean)
+    assert sorted(p.name for p in tmp_path.glob("*_ep001_*.png")) == sorted(
+        f"{k}_ep001_{v}.png" for k in ("residual_diffs", "residuals", "samples")
+        for v in cfg.data.variables)
+    assert ckpt.latest_step() == 3 and (tmp_path / "ckpt" / "best_params.pt").exists()
+    second = loop.Trainer(cfg, torch_tiny_model(params, dropout=DROPOUT), ds_train, ds_val,
+                          checkpoint_manager=ckpt, device="cpu")
+    second.state, extra = ckpt.restore(second.state, ckpt.latest_step())
+    assert second.state.step == 3 and extra["epoch"] == 1
+    second.fit(1)
+    assert second.state.step == 6 and ckpt.latest_step() == 6
+    for a, b in zip(first.model.parameters(), torch_tiny_model(params).parameters()):
+        assert not torch.equal(a, b)
+    hr_pred, hr_b, lrinterp, resid, tgt = first.sample_ensemble(num_items=2, num_samples=3)
+    assert hr_pred.shape == (2, 3, *cfg.data.resolution, 3) and hr_b.shape == lrinterp.shape
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        loop.Trainer(cfg, first.model, ds_train, mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("loss_type", ["l1", "mse+ssim"])
+def test_train_step_returns_the_loss_metrics(dropout_models, tiny_data, loss_type):
+    """The step passes the loss config's fields on and returns each ELBO's
+    own metrics (mse+ssim at 128x128: a 16x16 grid raises)."""
+    from probunet_tpu_torch.train.loop import make_train_step
+
+    _, params, _ = dropout_models
+    cfg, hr, stats = tiny_data
+    cfg = copy.deepcopy(cfg)
+    cfg.loss.loss_type, cfg.loss.beta_2 = loss_type, 0.5
+    state = _tiny_state(cfg, params)
+    step = make_train_step(state.model, cfg)
+    if loss_type == "mse+ssim":
+        with pytest.raises(ValueError, match="too small"):
+            step(state, hr[:B], stats, 1.0, 0.1)
+        return
+    state, met = step(state, hr[:B], stats, 1.0, 0.1)
+    assert set(met) == {"loss", "grad_norm", "recon", "kl_mean", "recon_per_channel",
+                        "kl2_mean"}
+    assert met["recon_per_channel"].shape == (3,)
+    total = met["recon"] + 0.1 * met["kl_mean"] + 0.5 * met["kl2_mean"]
+    assert float(met["loss"]) == pytest.approx(float(total), rel=1e-6)

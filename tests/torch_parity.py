@@ -14,6 +14,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import pytest
 
 TINY = dict(input_channels=3, num_classes=3, latent_dim=4, num_filters=(8, 16),
             model_channels=8, channel_mult=(1, 2), img_resolution=(16, 16),
@@ -47,11 +48,12 @@ def noisy_params(params, seed: int):
 
 @functools.lru_cache(maxsize=4)
 def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 0.0,
-                   num_filters: tuple[int, ...] = TINY["num_filters"]):
+                   num_filters: tuple[int, ...] = TINY["num_filters"],
+                   img_resolution: tuple[int, int] = TINY["img_resolution"]):
     """(flax module, noisy numpy params) of the tiny Probabilistic U-Net
     (``dropout``: the U-Net blocks' rate in training mode; ``num_filters``:
     the encoders' widths, the first also the U-Net's output and Fcomb's
-    width)."""
+    width; ``img_resolution``: the grid, 128x128 for the MS-SSIM ELBO)."""
     import jax
     import jax.numpy as jnp
     from flax.core import unfreeze
@@ -59,9 +61,9 @@ def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 
     from probunet_tpu.models.prob_unet import ProbabilisticUNet
 
     model = ProbabilisticUNet(
-        **{**TINY, "num_filters": num_filters}, dropout=dropout,
-        dtype=jnp.bfloat16 if dtype_name == "bfloat16" else None)
-    h, w = TINY["img_resolution"]
+        **{**TINY, "num_filters": num_filters, "img_resolution": img_resolution},
+        dropout=dropout, dtype=jnp.bfloat16 if dtype_name == "bfloat16" else None)
+    h, w = img_resolution
     x = jnp.zeros((1, h, w, TINY["input_channels"]))
     y = jnp.zeros((1, h, w, TINY["num_classes"]))
     # the tree's structure and shapes only (tracing, no compile): every
@@ -75,7 +77,8 @@ def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 
 
 def torch_tiny_model(params, dtype_name: str = "float32", dropout: float = 0.0,
                      gn_impl: str = "kernel", remat=False,
-                     num_filters: tuple[int, ...] = TINY["num_filters"]):
+                     num_filters: tuple[int, ...] = TINY["num_filters"],
+                     img_resolution: tuple[int, int] = TINY["img_resolution"]):
     """The port's tiny Probabilistic U-Net loaded with ``params``, its
     GroupNorm chains on route ``gn_impl``. Every activation the composed
     route's dropout sees is one kernel D takes (numel a multiple of 1024 at
@@ -88,7 +91,8 @@ def torch_tiny_model(params, dtype_name: str = "float32", dropout: float = 0.0,
     from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 
     model = ProbabilisticUNet(
-        generator=torch.Generator().manual_seed(0), **{**TINY, "num_filters": num_filters},
+        generator=torch.Generator().manual_seed(0),
+        **{**TINY, "num_filters": num_filters, "img_resolution": img_resolution},
         dropout=dropout,
         dtype=torch.bfloat16 if dtype_name == "bfloat16" else None, gn_impl=gn_impl,
         remat=remat)
@@ -102,7 +106,7 @@ GN_ENV = {"kernel": {"PROBUNET_GN_IMPL": "pallas", "PROBUNET_DROPOUT_IMPL": "pal
 
 
 def jax_elbo_grads(monkeypatch, jmodel, params, x, y, eps, loss_type, fused, beta_1, m,
-                   gn_impl="composed", record=True):
+                   gn_impl="composed", record=True, **elbo_kw):
     """(loss, metrics, grads, seed words) of the JAX training ELBO on the
     GroupNorm route ``gn_impl``, with the posterior noise ``eps`` and the
     seed words each U-Net block hands its dropout recorded, in block order
@@ -112,7 +116,8 @@ def jax_elbo_grads(monkeypatch, jmodel, params, x, y, eps, loss_type, fused, bet
     on its own, which takes several times longer. ``record=False`` records
     nothing and returns None for the seed words: inside ``nn.remat`` a
     recorded value would leak a tracer (``jax_dropout_seeds`` gives the
-    same words)."""
+    same words). ``elbo_kw``: further ``elbo`` arguments (``beta_2``,
+    ``alpha_w``, ...)."""
     import jax
     import jax.numpy as jnp
 
@@ -143,7 +148,7 @@ def jax_elbo_grads(monkeypatch, jmodel, params, x, y, eps, loss_type, fused, bet
         seeds.clear()
         total, metrics = jmodel.apply(
             {"params": p}, jnp.asarray(x), jnp.asarray(y), M=m, loss_type=loss_type,
-            beta_1=beta_1, training=True, method=type(jmodel).elbo,
+            beta_1=beta_1, training=True, method=type(jmodel).elbo, **elbo_kw,
             rngs={"latent": jax.random.key(1), "dropout": jax.random.key(2)})
         return total, (metrics, jnp.stack(seeds) if record else None)
 
@@ -190,3 +195,53 @@ def jax_dropout_seeds(monkeypatch, jmodel, params, x):
 def assert_close(got, want, rtol, atol=0.0, what=""):
     np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
                                rtol=rtol, atol=atol, err_msg=what)
+
+
+def jax_grads_recording(monkeypatch, loss, params, gn_impl="kernel"):
+    """(value, aux, grads, seed words) of ``loss(params) -> (value, aux)``
+    traced and compiled once under the JAX environment of the port's
+    GroupNorm route ``gn_impl``, with the seed words the U-Net blocks hand
+    kernel C (or kernel D) recorded in call order, as ``jax_elbo_grads``
+    records them."""
+    import jax
+    import jax.numpy as jnp
+
+    from probunet_tpu.ops.pallas import dropout as jdrop
+    from probunet_tpu.ops.pallas import fused_gn as jgn
+
+    seeds = []
+
+    def recording(kernel, p_at, seed_at):
+        def run(*args):
+            if args[p_at] > 0.0:
+                seeds.append(args[seed_at])
+            return kernel(*args)
+        return run
+
+    for k, v in GN_ENV[gn_impl].items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(jgn, "gn_film_silu_dropout", recording(jgn.gn_film_silu_dropout, 8, 5))
+    monkeypatch.setattr(jdrop, "dropout", recording(jdrop.dropout, 2, 1))
+
+    def wrapped(p):
+        seeds.clear()
+        value, aux = loss(p)
+        return value, (aux, jnp.stack(seeds) if seeds else jnp.zeros((0, 2), jnp.int32))
+
+    (value, (aux, words)), grads = jax.jit(jax.value_and_grad(wrapped, has_aux=True))(
+        jax.tree.map(jnp.asarray, params))
+    return value, aux, jax.device_get(grads), np.array(words)
+
+
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """torch on one intra-op thread for a module's tests. The suite runs
+    in parallel processes on few cores; torch's default of one thread a
+    core, each waiting on the others at every small operation, slowed the
+    CLI's training loops twenty-fold there."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
