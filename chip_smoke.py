@@ -55,15 +55,33 @@ route, and drives both paths at the full width of the flagship preset
   host's work per batch and three warmed-up epochs' idle share (kernel
   and wall time from the same profiled epochs). Before the phase the
   new ELBO branches (WMSE + MS-SSIM, L1) and the deterministic step run
-  in f32 on the card against the CPU.
+  in f32 on the card against the CPU;
+- EDM (``edm``): ``EDMPrecond`` at the reference baseline's widths
+  (64 channels, mult 1,2,3,4, two blocks, dropout 0.1, the noise
+  embedding; 28 blocks, 57 GroupNorm chains a pass, all on C), f32, on
+  the flagship's data conditioned on the standardized lrinterp: one
+  ``edm_loss`` with its gradients and one AdamW step on the card against
+  the CPU (TF32 off); ``make_edm_train_step`` at bs=32 (samples/s, peak
+  memory, 57 C and 57 C′ launches a step, the step's device time by
+  kernel family); ``edm_sample`` (18 steps, 35 denoiser calls, 1,995 C
+  launches) over 8 days and ``edm_ensemble`` with 16 members
+  (member-fields/s, finite HR fields); C and C′ against their plain
+  versions at every chain shape of a bs=32 pass, per-sample FiLM, on
+  each route of their plans;
+- ``explore`` through ``cli.main`` on the flagship checkpoint the training
+  CLI's preset run wrote, over the serve CLI's packed test split: the
+  default command, ``--posterior`` and ``--single`` (seconds, files, the
+  ``[timing]`` phases, 57 C launches a U-Net forward), then
+  ``collapse_diagnostics`` on the card against the CPU, probe by probe.
 
 Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
 nvcc; there is no CPU route. Any failed check raises, so the exit code is
 0 only when every phase passed. The line before the last is a JSON object
 with each kernel's launches on the training path (``launches``), on the
-serve CLI's runs (``launches_cli``) and on the training CLI's runs
-(``launches_train_cli``), error, times and bound; the last line
+serve CLI's runs (``launches_cli``), on the training CLI's runs
+(``launches_train_cli``), on the EDM runs (``launches_edm``) and on the
+``explore`` runs (``launches_explore``), error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -90,10 +108,12 @@ import torch
 import torch.nn.functional as F
 
 from probunet_tpu_torch import cli
+from probunet_tpu_torch.analysis.latent import collapse_diagnostics, format_summary
 from probunet_tpu_torch.config import preset
 from probunet_tpu_torch.data.climex import (
     ClimexDataset,
     compute_stats,
+    load_packed,
     lrinterp_from_batch,
     preprocess_batch,
     residual_to_hr,
@@ -102,12 +122,14 @@ from probunet_tpu_torch.data.loader import Batches, prefetch_to_device
 from probunet_tpu_torch.data.synthetic import synthetic_climex_fields
 from probunet_tpu_torch.data.transforms import apply_physical_transform, invert_physical_transform
 from probunet_tpu_torch.evals.streaming import EvalAccumulator
+from probunet_tpu_torch.models.edm import EDMPrecond
 from probunet_tpu_torch.models.layers import EDMGroupNorm
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
-from probunet_tpu_torch.models.unet import dropout_seeds
+from probunet_tpu_torch.models.unet import UNet, dropout_seeds
 from probunet_tpu_torch.ops import losses
 from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
 from probunet_tpu_torch.train.checkpoint import CheckpointManager
+from probunet_tpu_torch.train.edm import edm_ensemble, edm_loss, edm_sample, make_edm_train_step
 from probunet_tpu_torch.train.loop import (
     Trainer,
     eval_model,
@@ -242,6 +264,34 @@ IDLE_EPOCHS = 3
 PREFETCH_BUSY_N = 4096   # the consumer's work between prefetched batches: 4 products of n x n
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; FP32 CUDA core
+# the EDM phase: EDMPrecond at the reference baseline's widths (its
+# deterministic_unet.py defaults: 64 channels, mult 1,2,3,4, two blocks,
+# dropout 0.1, the noise embedding, no labels), f32, on the flagship's data
+# (128x128 pr/tasmin/tasmax, residual pipeline) conditioned on the
+# standardized lrinterp: 6 input channels, 3 out
+EDM_WIDTHS = dict(model_channels=64, channel_mult=(1, 2, 3, 4), num_blocks=2, dropout=0.1,
+                  use_diffuse=True, label_dim=0, sigma_data=1.0)
+# GroupNorm chains of one pass of the flagship's or EDM's U-Net: 28 blocks
+# of two chains each and out_norm
+UNET_CHAINS = 57
+EDM_TRAIN_BS, EDM_TRAIN_WARMUP, EDM_TRAIN_STEPS = 32, 2, 6
+EDM_SAMPLE_DAYS, EDM_MEMBERS, EDM_STEPS = 8, 16, 18
+# f32 EDM loss on the card (kernels, TF32 off) vs the CPU (plain versions),
+# two items with the same sigma, noise and seed words: a smooth loss (no
+# sign flips as in the CRPS), convolution and reduction orders differing
+# through 28 blocks forward and back: the loss within DEVICE_RTOL, each
+# parameter's gradient ||g - g_cpu|| / ||g_cpu|| within EDM_GRAD_RTOL
+EDM_GRAD_RTOL = 1e-3
+# collapse_diagnostics on the card vs the CPU (f32, TF32 off, the same
+# weights, contexts and draws): each probe max |card - cpu| over the
+# largest |cpu| value; the probes are differences and ratios of f32 decodes
+# and gradients, which amplify the decodes' ENSEMBLE_RTOL-sized differences;
+# the output and target means held to their std. Probe 8 (the gradient
+# ratio) goes through Fcomb's ReLUs, whose masks flip where a hidden value
+# lies within the two devices' f32 differences: GRAD_RTOL, as the CRPS
+# step's gradients (3.9e-4 reached on an H100, the other probes 1.4e-6)
+EXPLORE_RTOL = 1e-3
+EXPLORE_CHECK = dict(max_items=64, n_contexts=8)
 
 
 def _sync_ms(fn, iters: int, warmup: int = 2, spin: bool = True) -> float:
@@ -1383,17 +1433,27 @@ def cli_breakdown(name: str, sets: list[str], ckpt: str, bs: int, m: int,
           f"{bs * 1e3 / batch_ms:.2f} days/s, {bs * m * 1e3 / batch_ms:.2f} member-fields/s")
 
 
-def cli_phase(dev: torch.device, zero_counts, read_counts) -> dict:
+def _workdir(path: str | None, prefix: str):
+    """``path`` (kept after the phase) or a temporary directory."""
+    if path is not None:
+        os.makedirs(path, exist_ok=True)
+        return contextlib.nullcontext(path)
+    return tempfile.TemporaryDirectory(prefix=prefix)
+
+
+def cli_phase(dev: torch.device, zero_counts, read_counts, workdir: str | None = None) -> dict:
     """The serve CLI as users run it, through ``cli.main``: ``pack`` of the
     flagship's test split, a checkpoint of a seeded flagship model,
     ``evaluate`` at the defaults (f32, M=16, bs=16) and as ``bench.py``
     serves (bf16, bs=128), ``extremes``, then ``evaluate`` and ``extremes``
     on 32 days on the card against the CPU. Every U-Net chain of every
-    served batch goes through kernel C. Returns each run's kernel launches."""
+    served batch goes through kernel C. Returns each run's kernel launches.
+    ``workdir``: where the packed split (``test.npz``) is written and kept,
+    else a temporary directory."""
     have_mpl = importlib.util.find_spec("matplotlib") is not None
     print(f"cli: matplotlib {'present' if have_mpl else 'absent'} on this host")
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+    with _workdir(workdir, "chip_smoke_cli_") as tmp:
         packed = os.path.join(tmp, "test.npz")
         cfg = cli.build_config(argparse.Namespace(preset=CLI_PRESET, config=None, set=[]))
         # pack in a process of its own, as a user runs it: the synthetic
@@ -1776,7 +1836,13 @@ def _epoch_rates(outdir: str) -> list[float]:
     return [r["train_samples_per_sec"] for r in recs if r["kind"] == "epoch"]
 
 
-def train_cli_phase(dev: torch.device, zero_counts, read_counts) -> dict:
+def _run_dir(workdir: str, name: str) -> str:
+    """The output directory of the training CLI's run ``name``."""
+    return os.path.join(workdir, name.replace(" ", "_"))
+
+
+def train_cli_phase(dev: torch.device, zero_counts, read_counts,
+                    workdir: str | None = None) -> dict:
     """The training CLI as users run it, through ``cli.main``: ``pack`` of the
     flagship's train split cut to 1960-1962 (1,095 days) and of its
     validation split cut to 2021; ``train`` at the preset (f32, bs=32,
@@ -1791,14 +1857,16 @@ def train_cli_phase(dev: torch.device, zero_counts, read_counts) -> dict:
     asymmetric ones; the chains on each route printed, and D, C and C′
     held to their plain versions at every shape and dtype of those
     chains), ``linearcnn`` and ``bcsd`` (its test MAE on the card against
-    the CPU). Returns each run's kernel launches."""
+    the CPU). Returns each run's kernel launches. ``workdir``: where the runs
+    write (``_run_dir``) and what they write is kept, else a temporary
+    directory."""
     launches = {}
     # timed runs under torch's default math flags (TF32 convolutions), as a
     # user's f32 run gets them
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
     print("train_cli runs: matmul.allow_tf32=False cudnn.allow_tf32=True (torch defaults)")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+    with _workdir(workdir, "chip_smoke_train_") as tmp:
         def pack(preset_name, split, years):
             path = os.path.join(tmp, f"{preset_name}_{split}.npz")
             out = _run_cli(["pack", "--preset", preset_name, "--split", split, "--out", path,
@@ -1834,7 +1902,7 @@ def train_cli_phase(dev: torch.device, zero_counts, read_counts) -> dict:
                                         "--set", *det_sets]))
         results = {}
         for name, argv in runs:
-            outdir = os.path.join(tmp, name.replace(" ", "_"))
+            outdir = _run_dir(tmp, name)
             zero_counts()
             (res, spans), text, sec, rss = _run_cli(argv + ["--outdir", outdir])
             launches[name] = read_counts()
@@ -1951,6 +2019,334 @@ def train_cli_phase(dev: torch.device, zero_counts, read_counts) -> dict:
             raise AssertionError(f"bcsd on the card differs from the CPU: {rel}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     return launches
+
+
+def _edm_model(device) -> EDMPrecond:
+    """EDMPrecond at EDM_WIDTHS from a seeded generator, its zero-initialized
+    parameters filled (``_fill_zero_params``), on ``device``."""
+    gen = torch.Generator().manual_seed(5)
+    model = EDMPrecond((128, 128), 6, 3, generator=gen, **EDM_WIDTHS)
+    _fill_zero_params(model, gen)
+    return model.to(device)
+
+
+def edm_device_vs_cpu(model_cpu: EDMPrecond, hr: torch.Tensor, stats, cfg,
+                      dev: torch.device) -> None:
+    """One f32 ``edm_loss`` with its gradients at bs=2, then one
+    ``make_edm_train_step`` AdamW step, on the card (kernels C and C′, TF32
+    off) against the CPU (plain versions): the same weights, sigma, unit
+    noise and dropout seed words."""
+    rng = np.random.default_rng(31)
+    b = 2
+    sigma = torch.from_numpy(np.exp(-1.2 + 1.2 * rng.standard_normal(b)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((b, 128, 128, 3)).astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (len(model_cpu.dropout_blocks), 2),
+                                          dtype=np.int32))
+    out = {}
+    for where in ("cpu", dev):
+        model = copy.deepcopy(model_cpu).to(where)
+        st = type(stats)(*[t.to(where) for t in stats])
+        hb = hr[:b].to(where)
+        batch = preprocess_batch(hb, st, cfg.data.pipeline, cfg.data.lowres_scale,
+                                 cfg.data.interp_mode, cfg.data.epsilon, cfg.data.standardization)
+        loss = edm_loss(model, batch["targets"], batch["inputs"], sigma=sigma, noise=noise,
+                        seeds=seeds)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        state = create_train_state(model, seed=cfg.train.seed, lr=cfg.train.lr,
+                                   weight_decay=cfg.train.weight_decay, device=where)
+        state, met = make_edm_train_step(model, cfg)(state, hb, st, sigma=sigma, noise=noise,
+                                                     seeds=seeds)
+        out[str(where)] = (float(loss.detach()), [g.cpu() for g in grads], float(met["loss"]),
+                           float(met["grad_norm"]), [p.detach().cpu() for p in model.parameters()])
+        del model, state, grads, loss
+    (lc, gc, slc, nc, pc), (lg, gg, slg, ng, pg) = out["cpu"], out[str(dev)]
+    names = [n for n, _ in model_cpu.named_parameters()]
+    grad_err = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for n, a, b in zip(names, gg, gc)}
+    worst = max(grad_err, key=grad_err.get)
+    film = {n: e for n, e in grad_err.items() if "map_layer" in n}
+    lr = cfg.train.lr
+    step_diff = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+    flipped = float((step_diff > lr).float().mean())
+    rel, step_rel = abs(lg - lc) / abs(lc), abs(slg - slc) / abs(slc)
+    norm_rel = abs(ng - nc) / abs(nc)
+    print(f"edm device vs cpu f32 bs={b} (TF32 off): loss cuda={lg:.7g} cpu={lc:.7g} "
+          f"rel_err={rel:.3e}; grads ||dg||/||g|| max={grad_err[worst]:.3e} ({worst}), "
+          f"median={float(np.median(list(grad_err.values()))):.3e}, mapping network "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in film.items()})}; train step loss "
+          f"rel_err={step_rel:.3e} grad_norm cuda={ng:.7g} cpu={nc:.7g} rel_err={norm_rel:.3e}; "
+          f"after AdamW max|dp|={float(step_diff.max()):.3e} (lr={lr}), share stepped the "
+          f"other way (|dp|>lr): {flipped:.3e} (limits: loss {DEVICE_RTOL}, grads "
+          f"{EDM_GRAD_RTOL}, share {FLIP_SHARE})")
+    if not (rel <= DEVICE_RTOL and step_rel <= DEVICE_RTOL and norm_rel <= EDM_GRAD_RTOL):
+        raise AssertionError(f"the EDM loss on the card differs from the CPU: {rel}, {step_rel}, "
+                             f"grad norm {norm_rel}")
+    if not grad_err[worst] <= EDM_GRAD_RTOL:
+        raise AssertionError(f"EDM gradient of {worst} differs from the CPU: {grad_err[worst]}")
+    if not flipped <= FLIP_SHARE:
+        raise AssertionError(f"{flipped} of the EDM weights stepped the other way than on the "
+                             f"CPU (limit {FLIP_SHARE})")
+
+
+def edm_phase(dev: torch.device, hr: torch.Tensor, stats, zero_counts, read_counts) -> dict:
+    """EDMPrecond at the reference baseline's widths on the flagship's data
+    (``hr``, raw storage-space days on the card, and their statistics):
+    the f32 loss, gradients and AdamW step on the card against the CPU;
+    ``make_edm_train_step`` at bs=32 (samples/s, peak memory, 57 C and 57
+    C′ launches a step); ``edm_sample`` (18 steps, 35 denoiser calls) over
+    8 days and ``edm_ensemble`` with 16 members over the same days
+    (member-fields/s, finite fields after ``residual_to_hr``, 35 x 57 C
+    launches a sampler call); then C and C′ against their plain versions at
+    every chain shape of a bs=32 training pass, on each route their plans
+    have there, with random per-sample FiLM. Returns the launches of the
+    training and sampler runs."""
+    cfg = preset("probunet_multivar_128")
+    model_cpu = _edm_model("cpu")
+    n_params = sum(p.numel() for p in model_cpu.parameters())
+    print(f"edm: EDMPrecond {json.dumps(EDM_WIDTHS)}, 128x128, 6 -> 3 channels, f32, "
+          f"{n_params} parameters, {len(model_cpu.dropout_blocks)} blocks")
+    t0 = time.perf_counter()
+    edm_device_vs_cpu(model_cpu, hr.cpu(), type(stats)(*[t.cpu() for t in stats]), cfg, dev)
+    print(f"edm device vs cpu: {time.perf_counter() - t0:.3f} s")
+    launches = {}
+
+    # training at bs=32 under torch's default math flags (TF32 convolutions)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    model = model_cpu.to(dev)
+    state = create_train_state(model, seed=cfg.train.seed, lr=cfg.train.lr,
+                               weight_decay=cfg.train.weight_decay, device=dev)
+    step = make_edm_train_step(model, cfg)
+    batches = list(hr.split(EDM_TRAIN_BS))
+    for i in range(EDM_TRAIN_WARMUP):
+        state, _ = step(state, batches[i % len(batches)], stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(EDM_TRAIN_STEPS):
+        state, met = step(state, batches[(EDM_TRAIN_WARMUP + i) % len(batches)], stats)
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["train"] = n = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    rate = EDM_TRAIN_STEPS * EDM_TRAIN_BS / dt
+    print(f"edm train bs={EDM_TRAIN_BS} f32 (cudnn TF32 on, torch defaults): {EDM_TRAIN_STEPS} "
+          f"steps in {dt:.3f} s, samples/s={rate:.2f}, step_ms={dt * 1e3 / EDM_TRAIN_STEPS:.3f}, "
+          f"peak memory {peak:.3f} GB; losses {losses}; launches {json.dumps(n)}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite EDM losses {losses}")
+    want = {"fused_gn": UNET_CHAINS * EDM_TRAIN_STEPS, "fused_gn_bwd": UNET_CHAINS * EDM_TRAIN_STEPS}
+    if {k: v for k, v in n.items() if v} != want:
+        raise AssertionError(f"EDM training launches {n}, want {want}: 57 C and 57 C′ a step")
+    hb = batches[0]
+    _print_groups(f"edm breakdown train bs={EDM_TRAIN_BS}",
+                  *_kernel_ms_by_group(lambda: step(state, hb, stats), 2), dt * 1e3 / EDM_TRAIN_STEPS)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the sampler and the ensemble, conditioned on the standardized lrinterp
+    model.eval()
+    days = hr[:EDM_SAMPLE_DAYS]
+    batch = preprocess_batch(days, stats, cfg.data.pipeline, cfg.data.lowres_scale,
+                             cfg.data.interp_mode, cfg.data.epsilon, cfg.data.standardization)
+    cond = batch["inputs"]
+    lrinterp = lrinterp_from_batch(batch, cfg.data.lowres_scale, cfg.data.interp_mode)
+    shape = (EDM_SAMPLE_DAYS, 128, 128, 3)
+    calls = 2 * EDM_STEPS - 1
+    gen = torch.Generator(device=dev).manual_seed(41)
+    edm_sample(model, shape, cond, num_steps=EDM_STEPS, generator=gen)   # warm-up
+    for name, run, fields in (
+            ("sample", lambda: edm_sample(model, shape, cond, num_steps=EDM_STEPS,
+                                          generator=gen), EDM_SAMPLE_DAYS),
+            ("ensemble", lambda: edm_ensemble(model, shape, cond, EDM_MEMBERS,
+                                              num_steps=EDM_STEPS, generator=gen),
+             EDM_SAMPLE_DAYS * EDM_MEMBERS)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[name] = n = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        res = out if name == "sample" else out.reshape(-1, *shape[1:])
+        lri = lrinterp if name == "sample" else lrinterp.repeat_interleave(EDM_MEMBERS, 0)
+        fields_hr = residual_to_hr(res, lri, stats, cfg.data.pipeline, cfg.data.epsilon,
+                                   cfg.data.standardization)
+        finite = int(torch.isfinite(fields_hr).flatten(1).all(1).sum())
+        spread = float(out.std(dim=1).mean()) if name == "ensemble" else math.nan
+        print(f"edm {name}: {tuple(out.shape)} in {dt:.3f} s ({EDM_STEPS} steps, {calls} "
+              f"denoiser calls of bs={res.shape[0]}), member-fields/s={fields / dt:.2f}, peak "
+              f"memory {peak:.3f} GB; {finite} of {res.shape[0]} HR fields finite; residual "
+              f"mean {float(out.mean()):.5g} std {float(out.std()):.5g}"
+              + (f", member spread {spread:.5g}" if name == "ensemble" else "")
+              + f"; launches {json.dumps(n)}")
+        if finite != res.shape[0]:
+            raise AssertionError(f"edm {name}: {res.shape[0] - finite} non-finite fields")
+        if {k: v for k, v in n.items() if v} != {"fused_gn": UNET_CHAINS * calls}:
+            raise AssertionError(f"edm {name}: launches {n}, want {UNET_CHAINS * calls} C")
+    # one denoiser call at the sampler's and the ensemble's batch
+    for b in (EDM_SAMPLE_DAYS, EDM_SAMPLE_DAYS * EDM_MEMBERS):
+        xb = torch.randn((b, 128, 128, 3), generator=gen, device=dev)
+        cb, sb = cond.repeat(b // EDM_SAMPLE_DAYS, 1, 1, 1), torch.full((b,), 2.5, device=dev)
+        with torch.no_grad():
+            call_ms = _sync_ms(lambda: model(xb, sb, condition_img=cb), 3, 1, spin=False)
+            _print_groups(f"edm breakdown denoiser call bs={b}",
+                          *_kernel_ms_by_group(lambda: model(xb, sb, condition_img=cb), 2),
+                          call_ms)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+    # C and C′ at every chain shape of a bs=32 training pass, f32, random FiLM
+    routes, specs = _chain_routes(model.model, torch.zeros(EDM_TRAIN_BS, 128, 128, 6,
+                                                           device=dev))
+    if routes != {"C": UNET_CHAINS}:
+        raise AssertionError(f"EDM chains by route {routes}")
+    gen = torch.Generator(device=dev).manual_seed(4325)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    # every case with FiLM (norm0 and out_norm take scale = shift = 0 in
+    # the model; the kernels' general form is held here)
+    cases = sorted({(nhwc, dt_name, p, silu) for _, nhwc, dt_name, _, p, silu in specs})
+    print(f"edm chains: {len(cases)} (shape, dtype, p, SiLU) cases on C and C′, random "
+          f"per-sample FiLM: {cases}")
+    t0 = time.perf_counter()
+    for nhwc, dt_name, p, silu in cases:
+        _gn_vs_plain(randn, dev, nhwc, dt_name, True, p, silu, timed=False)
+        torch.cuda.empty_cache()
+    print(f"edm chains checked in {time.perf_counter() - t0:.3f} s")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _packed_days(path: str, n: int) -> np.ndarray:
+    hr, _, _ = load_packed(path)
+    return np.ascontiguousarray(hr[:n])
+
+
+def explore_phase(dev: torch.device, packed: str, ckpt: str, zero_counts, read_counts) -> dict:
+    """``explore`` as users run it, through ``cli.main``, on the flagship
+    checkpoint the training CLI wrote, over the packed test split: the
+    default command, ``--posterior`` and ``--single`` (seconds, files
+    written, the ``[timing]`` phases; every U-Net forward through 57 C
+    launches), then ``collapse_diagnostics`` on the card against the CPU
+    (f32, TF32 off, the same weights, contexts and draws), probe by probe.
+    Returns each command's launches."""
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    launches = {}
+    forwards = [0]
+
+    def count_unets(mod, *_):
+        if isinstance(mod, UNet):
+            forwards[0] += 1
+
+    base = ["explore", "--preset", CLI_PRESET, "--ckpt", ckpt, "--set",
+            f"data.packed_test={packed}"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_explore_") as tmp:
+        for name, flags in (("explore", []), ("explore --posterior", ["--posterior"]),
+                            ("explore --single", ["--single"])):
+            outdir = os.path.join(tmp, name.replace(" ", "_"))
+            forwards[0] = 0
+            hook = torch.nn.modules.module.register_module_forward_hook(count_unets)
+            zero_counts()
+            try:
+                (res, spans), text, sec, rss = _run_cli(base + flags + ["--outdir", outdir])
+            finally:
+                hook.remove()
+            launches[name] = n = read_counts()
+            files = sorted(os.listdir(outdir))
+            print(f"{name}: {json.dumps(res)}; host {sec:.3f} s; files {files}; timing "
+                  f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}; U-Net forwards "
+                  f"{forwards[0]}, launches {json.dumps(n)}; peak RSS {rss:.3f} GB")
+            need = ({"prior_sweep.npz"} if "single" in name
+                    else {"summary.txt", "pca_artifacts.pkl", "grids.npz"})
+            if not need <= set(files):
+                raise AssertionError(f"{name} did not write {need - set(files)}")
+            if ("figures skipped" in text) == have_mpl:
+                raise AssertionError(f"{name}: figures and matplotlib disagree")
+            arrays = np.load(os.path.join(outdir, "prior_sweep.npz" if "single" in name
+                                          else "grids.npz"))
+            bad = [k for k in arrays.files if not np.isfinite(arrays[k]).all()]
+            if bad:
+                raise AssertionError(f"{name}: non-finite {bad}")
+            if not forwards[0] or {k: v for k, v in n.items() if v} != {
+                    "fused_gn": UNET_CHAINS * forwards[0]}:
+                raise AssertionError(f"{name}: launches {n} for {forwards[0]} U-Net forwards")
+
+    # collapse_diagnostics on the card against the CPU
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = cli.build_config(argparse.Namespace(preset=CLI_PRESET, config=None, set=[]))
+    hr = _packed_days(packed, EXPLORE_CHECK["max_items"])
+    got = {}
+    t0 = time.perf_counter()
+    for where in ("cpu", dev):
+        ds = ClimexDataset(hr=hr, years=range(*cfg.data.years_test),
+                           variables=cfg.data.variables, coords=cfg.data.coords,
+                           pipeline=cfg.data.pipeline, lowres_scale=cfg.data.lowres_scale,
+                           transfo=cfg.data.transfo, interp_mode=cfg.data.interp_mode,
+                           epsilon=cfg.data.epsilon, standardization=cfg.data.standardization,
+                           device=where)
+        model = cli._load_model(cfg, ckpt, torch.device(where))
+        got[str(where)] = collapse_diagnostics(model, ds, **EXPLORE_CHECK)
+        del model, ds
+    print(f"explore collapse_diagnostics card and cpu: {time.perf_counter() - t0:.3f} s")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    want, card = got["cpu"], got[str(dev)]
+    errs = {}
+    for key, v in want.items():
+        if key in ("latent_dim", "n_contexts", "collapsed"):
+            if card[key] != v:
+                raise AssertionError(f"collapse_diagnostics {key}: card {card[key]} cpu {v}")
+        elif key in ("output_stats", "target_stats"):
+            errs[f"{key}/std"] = _rel(card[key]["std"], v["std"])
+            errs[f"{key}/mean"] = abs(card[key]["mean"] - v["mean"]) / v["std"]
+        elif key == "ablation_mean_abs":
+            errs.update({f"ablation/{k}": _rel(card[key][k], x) for k, x in v.items()})
+        else:
+            errs[key] = _rel(card[key], v)
+    print(f"explore collapse_diagnostics card vs cpu ({json.dumps(EXPLORE_CHECK)}, f32, TF32 "
+          f"off), max|err|/max|cpu| (means: /std; limit {EXPLORE_RTOL}, grad ratio {GRAD_RTOL}): "
+          f"{json.dumps(errs)}; "
+          f"verdict card={card['collapsed']} cpu={want['collapsed']}; summary:")
+    print(format_summary(card))
+    bad = {k: v for k, v in errs.items()
+           if not v <= (GRAD_RTOL if k == "grad_ratio_z_over_feat" else EXPLORE_RTOL)}
+    if bad:
+        raise AssertionError(f"collapse_diagnostics on the card differs from the CPU: {bad}")
+    return launches
+
+
+def edm_and_explore_alone(dev: torch.device) -> None:
+    """The ``edm`` and ``explore`` phases without the rest of the run: the
+    flagship's 384 synthetic days for EDM; ``pack`` of the test split and
+    one epoch of ``train`` at the preset on one year for ``explore``'s
+    checkpoint. Builds the kernels first."""
+    _build.build()
+    _build.library()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = preset(CLI_PRESET)
+    hr = apply_physical_transform(torch.from_numpy(synthetic_climex_fields(
+        N_BATCHES * BATCH, *cfg.data.resolution, cfg.data.variables, seed=0)).to(dev),
+        cfg.data.variables)
+    _, zero_counts, read_counts = launch_counters()
+    edm_phase(dev, hr, compute_stats(hr, cfg.data.lowres_scale), zero_counts, read_counts)
+    del hr
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_explore_inputs_") as tmp:
+        packed, run = os.path.join(tmp, "test.npz"), os.path.join(tmp, "train")
+        _run_cli(["pack", "--preset", CLI_PRESET, "--split", "test", "--out", packed])
+        _run_cli(["train", "--preset", CLI_PRESET, "--outdir", run, "--set",
+                  "data.years_train=[1960,1961]", f"data.years_val={TRAIN_CLI_YEARS['val']}",
+                  "train.num_epochs=1"])
+        explore_phase(dev, packed, os.path.join(run, "ckpt"), zero_counts, read_counts)
 
 
 def launch_counters():
@@ -2138,12 +2534,33 @@ def main() -> None:
     print("train rates: " + json.dumps(
         {name: {k: v for k, v in r.items() if k != "losses"} for name, r in train.items()}))
 
-    # the serve CLI: pack, evaluate (f32 and bf16), extremes, card vs CPU
-    cli_launches = cli_phase(dev, zero_counts, read_counts)
-    print(f"launches on the serve CLI's runs: {json.dumps(cli_launches)}")
-    # the training CLI: pack, train (three settings), the deterministic baselines
-    train_cli_launches = train_cli_phase(dev, zero_counts, read_counts)
-    print(f"launches on the training CLI's runs: {json.dumps(train_cli_launches)}")
+    # EDM at the reference baseline's widths on the flagship's data
+    del model, model_composed, remats, routes, m
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    edm_launches = edm_phase(dev, hr, stats, zero_counts, read_counts)
+    print(f"launches on the EDM runs: {json.dumps(edm_launches)}; edm phase "
+          f"{time.perf_counter() - t0:.3f} s")
+    del hr, hr_phys, batches
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        # the serve CLI: pack, evaluate (f32 and bf16), extremes, card vs CPU
+        cli_launches = cli_phase(dev, zero_counts, read_counts, os.path.join(work, "cli"))
+        print(f"launches on the serve CLI's runs: {json.dumps(cli_launches)}")
+        # the training CLI: pack, train (three settings), the deterministic baselines
+        train_dir = os.path.join(work, "train")
+        train_cli_launches = train_cli_phase(dev, zero_counts, read_counts, train_dir)
+        print(f"launches on the training CLI's runs: {json.dumps(train_cli_launches)}")
+        # explore on the flagship checkpoint of the training CLI's preset run,
+        # over the packed test split of the serve CLI phase
+        t0 = time.perf_counter()
+        explore_launches = explore_phase(
+            dev, os.path.join(work, "cli", "test.npz"),
+            os.path.join(_run_dir(train_dir, f"train {TRAIN_CLI_RUNS[0][0]}"), "ckpt"),
+            zero_counts, read_counts)
+        print(f"launches on the explore runs: {json.dumps(explore_launches)}; explore phase "
+              f"{time.perf_counter() - t0:.3f} s")
 
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
                "dropout": dropout}
@@ -2155,7 +2572,9 @@ def main() -> None:
                         "launches": launches[name], **report[name],
                         "launches_cli": sum(r[name] for r in cli_launches.values()),
                         "launches_train_cli": sum(r[name]
-                                                  for r in train_cli_launches.values())})
+                                                  for r in train_cli_launches.values()),
+                        "launches_edm": sum(r[name] for r in edm_launches.values()),
+                        "launches_explore": sum(r[name] for r in explore_launches.values())})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

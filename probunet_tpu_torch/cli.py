@@ -7,6 +7,8 @@
     python -m probunet_tpu_torch evaluate --preset probunet_multivar_128 --ckpt DIR \
         --set data.packed_test=test.npz
     python -m probunet_tpu_torch extremes --preset probunet_multivar_128 --ckpt DIR --pixels 20,45
+    python -m probunet_tpu_torch explore  --preset probunet_multivar_128 --ckpt DIR \
+        --set data.packed_test=test.npz [--posterior | --single]
 
 Config = named preset + dotted overrides (``--set model.compute_dtype=bfloat16``),
 with the JAX CLI's flags and defaults. The commands run on the CUDA device;
@@ -22,6 +24,11 @@ Where they differ from the JAX CLI:
   JAX CLI's (``jax.random`` draws other numbers).
 - **Figures.** A figure that cannot be drawn (no matplotlib on the host)
   is reported as skipped; the numbers are still computed and written.
+  ``explore`` also writes the decoded grids it draws as arrays
+  (``grids.npz``, and ``prior_sweep.npz`` under ``--single``).
+- **Collapse probes.** ``explore``'s probe draws come from a CPU
+  generator seeded with 0 (``analysis.latent.collapse_diagnostics``), the
+  same on every device, not the JAX CLI's.
 - **Checkpoints.** ``--ckpt DIR`` reads the port's ``best_params.pt``
   (``train/checkpoint.py``); a directory without one raises. A model
   trained by the JAX package reaches the port through ``convert.py``.
@@ -385,6 +392,140 @@ def cmd_train_det(args):
     return out, timer.spans
 
 
+def cmd_explore(args):
+    """Latent exploration of a trained model over the test split (the
+    reference's src/latent_exploration*.py): the prior (or, with
+    ``--posterior``, posterior) means of the first ``--max-items`` items,
+    their PCA, the ten collapse probes over ``--probe-contexts`` items
+    (``summary.txt``, ``pca_artifacts.pkl``), the PC1 x PC2 joint-marginal
+    figure, and the decile and sigma grids (7x7, 10x10 with
+    ``--posterior``) decoded against item 0's frozen features in residual
+    and HR space (figures and ``grids.npz``). ``--single``: the
+    single-sample prior sweep of the top-2 sigma dims instead (four
+    figures, ``prior_sweep.npz``, the ``{"dims": [...]}`` line). Returns
+    (a summary object, the phase times in seconds)."""
+    from probunet_tpu_torch.analysis import (
+        LatentPCA, collapse_diagnostics, collect_latents, decode_latent_grid,
+        format_summary, pc_grid_deciles, pc_grid_sigma, single_prior_sweep,
+    )
+    from probunet_tpu_torch.analysis.latent import grid_to_z, save_artifacts
+    from probunet_tpu_torch.data.climex import lrinterp_from_batch
+
+    timer = _PhaseTimer(args.device)
+    cfg = build_config(args)
+    os.makedirs(args.outdir, exist_ok=True)
+    _, _, ds_test = make_datasets(cfg, splits=(2,), device=args.device)
+    timer.mark("dataset")
+    model = _load_model(cfg, args.ckpt, args.device)
+    timer.mark("init")
+
+    def outpath(name):
+        return os.path.join(args.outdir, name)
+
+    def item0():
+        """(item 0's batch, its lrinterp) for the HR-space grids."""
+        batch = ds_test.preprocess(torch.from_numpy(
+            ds_test.get_hr_batch(np.array([0]))).to(args.device))
+        return batch, lrinterp_from_batch(batch, cfg.data.lowres_scale, cfg.data.interp_mode)
+
+    def to_hr(residual: np.ndarray, lrinterp: torch.Tensor) -> np.ndarray:
+        return ds_test.residual_to_hr(torch.from_numpy(residual).to(args.device),
+                                      lrinterp).cpu().numpy()
+
+    def figures(draw) -> None:
+        try:
+            draw()
+        except Exception as e:  # figures only: the numbers are written
+            print(f"figures skipped: {type(e).__name__}: {e}")
+
+    if args.single:
+        sweep = single_prior_sweep(model, ds_test, n=6, span=6.0)
+        _, lrinterp0 = item0()
+        dec = sweep["decoded"]
+        n = dec.shape[0]
+        hr_grid = to_hr(dec.reshape(n * n, *dec.shape[2:]), lrinterp0).reshape(dec.shape)
+        hr_center = to_hr(sweep["center"][None], lrinterp0)[0]
+        np.savez(outpath("prior_sweep.npz"), dims=sweep["dims"], decoded=dec,
+                 hr=hr_grid, hr_center=hr_center)
+        timer.mark("sweep")
+        dims = sweep["dims"]
+
+        def draw():
+            from probunet_tpu_torch.utils.plotting import plot_latent_grid
+            plot_latent_grid(dec, title=f"prior sweep dims {dims}",
+                             save_path=outpath("prior_sweep.png"))
+            plot_latent_grid(hr_grid, symmetric=False, cmap="viridis",
+                             title=f"prior sweep HR (global norm) dims {dims}",
+                             save_path=outpath("prior_sweep_hr.png"))
+            plot_latent_grid(hr_grid, symmetric=False, cmap="viridis", per_panel_norm=True,
+                             title=f"prior sweep HR (per-panel norm) dims {dims}",
+                             save_path=outpath("prior_sweep_hr_perpanel.png"))
+            plot_latent_grid(hr_grid - hr_center[None, None],
+                             title=f"prior sweep HR delta-to-center dims {dims}",
+                             save_path=outpath("prior_sweep_delta.png"))
+
+        figures(draw)
+        timer.mark("figures")
+        out = {"dims": np.asarray(dims).tolist()}
+        print(json.dumps(out))
+        timer.report()
+        return out, timer.spans
+
+    lat = collect_latents(model, ds_test, use_posterior=args.posterior,
+                          max_items=args.max_items)
+    pca = LatentPCA.fit(lat["mu"])
+    scores = pca.transform(lat["mu"])
+    timer.mark("latents")
+    diag = collapse_diagnostics(model, ds_test, max_items=args.max_items,
+                                n_contexts=args.probe_contexts)
+    report = format_summary(diag)
+    print(report)
+    with open(outpath("summary.txt"), "w") as f:
+        f.write(report + "\n")
+    save_artifacts(outpath("pca_artifacts.pkl"), pca, lat, diag)
+    timer.mark("diagnostics")
+
+    # decile and sigma grids decoded against item 0's frozen features, in
+    # residual space and in HR space
+    batch, lrinterp0 = item0()
+    with torch.no_grad():
+        feats, _, _ = model.encode(batch["inputs"])
+    n = 10 if args.posterior else 7
+    grids = {}
+    for name, grid in (("decile", pc_grid_deciles(scores, n)),
+                       ("sigma", pc_grid_sigma(scores, n))):
+        dec = decode_latent_grid(model, feats, grid_to_z(pca, grid, fill_scores=scores))
+        h, w, k = dec.shape[1:]
+        grids[name] = dec.reshape(n, n, h, w, k)
+        grids[f"{name}_hr"] = to_hr(dec, lrinterp0).reshape(n, n, h, w, k)
+    np.savez(outpath("grids.npz"), **grids)
+    timer.mark("grids")
+
+    def draw():
+        from probunet_tpu_torch.utils.plotting import (
+            plot_latent_grid, plot_latent_joint_marginal)
+        if scores.shape[1] >= 2:
+            plot_latent_joint_marginal(
+                scores, pca.explained_variance_ratio,
+                title_prefix=("Latent space (posterior)" if args.posterior
+                              else "Latent space (prior)"),
+                save_path=outpath("latent_joint_marginal.png"))
+        for name in ("decile", "sigma"):
+            plot_latent_grid(grids[name], title=f"{name} grid (PC1 x PC2)",
+                             save_path=outpath(f"grid_{name}.png"))
+            plot_latent_grid(grids[f"{name}_hr"], symmetric=False, cmap="viridis",
+                             title=f"{name} grid, HR space (PC1 x PC2)",
+                             save_path=outpath(f"grid_{name}_hr.png"))
+
+    figures(draw)
+    timer.mark("figures")
+    timer.report()
+    out = {"items": int(lat["mu"].shape[0]), "latent_dim": int(diag["latent_dim"]),
+           "n_contexts": diag["n_contexts"], "collapsed": diag["collapsed"],
+           "explained_variance_ratio": pca.explained_variance_ratio.tolist()}
+    return out, timer.spans
+
+
 def cmd_evaluate(args):
     """Ensemble test-set evaluation: CRPS / MAE / spread / PSD, streamed:
     every metric is reduced on the device per batch and only (B, C) and
@@ -622,6 +763,18 @@ def main(argv=None):
     common(sp)
     sp.add_argument("--model", default="unet", choices=("unet", "linearcnn", "bcsd"))
     sp.set_defaults(fn=cmd_train_det)
+
+    sp = sub.add_parser("explore", help="latent exploration")
+    common(sp)
+    sp.add_argument("--ckpt", default=None,
+                    help="checkpoint directory holding best_params.pt")
+    sp.add_argument("--posterior", action="store_true")
+    sp.add_argument("--single", action="store_true")
+    sp.add_argument("--max-items", type=int, default=512)
+    sp.add_argument("--probe-contexts", type=int, default=32,
+                    help="items the collapse probes 5-10 aggregate over "
+                         "(1 = single-context fast path)")
+    sp.set_defaults(fn=cmd_explore)
 
     sp = sub.add_parser("evaluate", help="ensemble CRPS/MAE/PSD eval")
     common(sp)

@@ -1,7 +1,8 @@
 """Carry the JAX package's parameter tree into the port's ``state_dict``.
 
 The Flax tree of a JAX model (``ProbabilisticUNet``, ``UNetAll`` with
-its ``PostUNet*`` variants, ``LinearCNN``), given as nested dicts of
+its ``PostUNet*`` variants, ``LinearCNN``, ``EDMPrecond`` with its
+``model/map_*`` mapping network), given as nested dicts of
 numpy arrays (``jax.device_get(params)``), maps leaf by leaf onto the
 port's parameters, whose module names follow the Flax names
 (``unet/core_unet/...``, ``post{l}_up``, ``post{l}_skipconv{i}``,
@@ -14,7 +15,7 @@ port's parameters, whose module names follow the Flax names
 - ``EDMGroupNorm``'s ``gn/{scale,bias}`` -> ``weight``/``bias``;
 - Fcomb's ``layer{0,1,2}_weight``: the (1, 1, cin, cout) 1x1-conv shape ->
   the (cin, cout) matrix;
-- biases as they are.
+- biases and ``FourierEmbedding``'s ``freqs`` as they are.
 
 Every leaf must be consumed and every port parameter filled, with equal
 shapes; anything else raises.
@@ -50,7 +51,7 @@ def _convert_leaf(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarr
         return ".".join(path[:-1] + ("weight",)), arr.transpose(3, 2, 0, 1)
     if name == "weight" and arr.ndim == 2:
         return ".".join(path), arr.T
-    if name == "bias" or name.endswith("_bias"):
+    if name == "bias" or name.endswith("_bias") or name == "freqs":
         return ".".join(path), arr
     raise ValueError(f"no conversion rule for {'/'.join(path)} {arr.shape}")
 

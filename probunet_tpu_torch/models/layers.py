@@ -14,8 +14,12 @@ package's rounding points. The GroupNorm chain between the convs runs
 through kernels C/C′ (``ops.kernels.fused_gn``, ``gn_impl="kernel"``) or
 as a torch composition followed by kernel D (``ops.kernels.dropout``,
 ``gn_impl="composed"``); either way the dropout seed words come from the
-caller and the masks are the JAX kernels'. The attention block is not
-ported: neither the serve nor the training path runs it.
+caller and the masks are the JAX kernels'. ``UNetBlock(attention=True)``
+adds the JAX block's self-attention (a plain GroupNorm chain, 1x1 qkv and
+projection convs, an f32 softmax in plain torch); the JAX U-Net never
+enables it, so no model path runs it. ``PositionalEmbedding`` and
+``FourierEmbedding`` are the noise-level embeddings of the diffusion
+U-Net (``UNet(use_diffuse=True)``).
 """
 
 from __future__ import annotations
@@ -171,7 +175,7 @@ class EDMConv(nn.Module):
 
 
 class EDMGroupNorm(nn.Module):
-    """GroupNorm with groups = min(32, C // 4), eps 1e-5, evaluated with the
+    """GroupNorm with groups = min(32, C // 4), ``eps`` 1e-5, evaluated with the
     UNetBlock chain that follows it:
 
         dropout(silu((gn(x) * gamma + beta) * (scale + 1) + shift))
@@ -197,11 +201,12 @@ class EDMGroupNorm(nn.Module):
     """
 
     def __init__(self, num_channels: int, *, dtype: torch.dtype | None = None,
-                 gn_impl: str = "kernel"):
+                 gn_impl: str = "kernel", eps: float = 1e-5):
         super().__init__()
         if gn_impl not in GN_IMPLS:
             raise ValueError(f"gn_impl must be one of {GN_IMPLS}, got {gn_impl!r}")
         self.groups = min(32, num_channels // 4)
+        self.eps = eps
         self.dtype = dtype
         self.gn_impl = gn_impl
         self.weight = nn.Parameter(torch.ones(num_channels))
@@ -222,7 +227,7 @@ class EDMGroupNorm(nn.Module):
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         gamma = self.weight.reshape(1, g, c // g, 1, 1)
         beta = self.bias.reshape(1, g, c // g, 1, 1)
-        y = (xf - mean) * (torch.rsqrt(var + 1e-5) * gamma) + beta
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * gamma) + beta
         out_dt = self.dtype if self.dtype is not None else torch.promote_types(
             x.dtype, torch.float32)
         y = y.flatten(1, 2).to(out_dt)
@@ -252,37 +257,100 @@ class EDMGroupNorm(nn.Module):
         if drop_p <= 0.0:
             drop_seed = torch.zeros(2, dtype=torch.int32, device=x.device)
         y = fused_gn.gn_film_silu_dropout(xn, self.weight, self.bias, scale, shift, drop_seed,
-                                          self.groups, 1e-5, drop_p, silu)
+                                          self.groups, self.eps, drop_p, silu)
         return y.permute(0, 3, 1, 2)
 
 
+class PositionalEmbedding(nn.Module):
+    """The DDPM++/ADM noise-level embedding (``layers.py:381`` in the JAX
+    package): (N,) -> (N, num_channels) f32, the cosines of x times the
+    frequencies (1 / max_positions) ** (i / (half - endpoint)) and then
+    their sines. No parameters."""
+
+    def __init__(self, num_channels: int, max_positions: int = 10000,
+                 endpoint: bool = False):
+        super().__init__()
+        self.num_channels, self.max_positions, self.endpoint = (
+            num_channels, max_positions, endpoint)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        half = self.num_channels // 2
+        freqs = torch.arange(half, dtype=torch.float32, device=x.device)
+        freqs = freqs / (half - (1 if self.endpoint else 0))
+        freqs = (1.0 / self.max_positions) ** freqs
+        args = torch.outer(x.float(), freqs)
+        return torch.cat([torch.cos(args), torch.sin(args)], dim=1)
+
+
+class FourierEmbedding(nn.Module):
+    """The NCSN++ Fourier embedding (``layers.py:397`` in the JAX package):
+    (N,) -> (N, num_channels) f32, cosines then sines of x * 2 pi * freqs,
+    with ``freqs`` a parameter of num_channels // 2 standard normal draws
+    times ``scale``."""
+
+    def __init__(self, num_channels: int, scale: float = 16.0, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.freqs = nn.Parameter(torch.randn(num_channels // 2, generator=generator,
+                                              device=generator.device) * scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        args = torch.outer(x.float(), 2 * math.pi * self.freqs)
+        return torch.cat([torch.cos(args), torch.sin(args)], dim=1)
+
+
 class UNetBlock(nn.Module):
-    """Residual U-Net block (``init`` for its convs and FiLM layer, EDM by
-    default as the U-Net builds it; zero-init second conv, skip scale 1, no
-    attention):
-    GN -> SiLU -> conv(up/down) -> FiLM from the embedding -> SiLU ->
-    dropout (``train`` only) -> conv -> + skip. ``in_channels`` counts the
-    skip tensor that the decoder's blocks take as ``skip_in``. ``gn_impl``:
-    the route of both GroupNorm chains (:class:`EDMGroupNorm`)."""
+    """Residual U-Net block (``layers.py:414`` in the JAX package; ``init``
+    for its convs and FiLM layer, EDM by default as the U-Net builds it,
+    ``init_zero`` for the second conv and the attention projection):
+
+        GN -> SiLU -> conv(up/down) -> FiLM from the embedding -> SiLU ->
+        dropout (``train`` only) -> conv -> (+ skip) * skip_scale
+
+    ``adaptive_scale=False`` adds the embedding's projection to the conv
+    output before the second GroupNorm instead of the FiLM (scale, shift).
+    ``attention`` then adds self-attention over the pixels: ``num_heads``
+    heads (or out_channels // ``channels_per_head``), a plain GroupNorm
+    chain (no SiLU, no FiLM), 1x1 qkv conv (``init_attn``, else ``init``),
+    the logits q.k / sqrt(ch) and their softmax in f32, the weights cast
+    to x's type, a 1x1 projection added to x and scaled by ``skip_scale``.
+    It runs in plain torch: the JAX package computes it outside any TPU
+    kernel. ``in_channels`` counts the skip tensor that the decoder's
+    blocks take as ``skip_in``. ``gn_impl``: the route of the GroupNorm
+    chains (:class:`EDMGroupNorm`)."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  generator: torch.Generator, up: bool = False, down: bool = False,
-                 dropout: float = 0.0, dtype: torch.dtype | None = None,
-                 gn_impl: str = "kernel", init=INIT_EDM):
+                 attention: bool = False, num_heads: int | None = None,
+                 channels_per_head: int = 64, dropout: float = 0.0,
+                 skip_scale: float = 1.0, eps: float = 1e-5, adaptive_scale: bool = True,
+                 dtype: torch.dtype | None = None, gn_impl: str = "kernel",
+                 init=INIT_EDM, init_zero=INIT_ZERO, init_attn=None):
         super().__init__()
         self.dropout = dropout
+        self.skip_scale = skip_scale
+        self.adaptive_scale = adaptive_scale
+        self.num_heads = 0 if not attention else (
+            num_heads if num_heads is not None else out_channels // channels_per_head)
         kw = dict(generator=generator, dtype=dtype)
-        self.norm0 = EDMGroupNorm(in_channels, dtype=dtype, gn_impl=gn_impl)
+        gn = dict(dtype=dtype, gn_impl=gn_impl, eps=eps)
+        self.norm0 = EDMGroupNorm(in_channels, **gn)
         self.conv0 = EDMConv(in_channels, out_channels, 3, up=up, down=down,
                              init=init, **kw)
-        self.affine = EDMLinear(emb_channels, out_channels * 2, init=init, **kw)
-        self.norm1 = EDMGroupNorm(out_channels, dtype=dtype, gn_impl=gn_impl)
-        self.conv1 = EDMConv(out_channels, out_channels, 3, init=INIT_ZERO, **kw)
+        self.affine = EDMLinear(emb_channels, out_channels * (2 if adaptive_scale else 1),
+                                init=init, **kw)
+        self.norm1 = EDMGroupNorm(out_channels, **gn)
+        self.conv1 = EDMConv(out_channels, out_channels, 3, init=init_zero, **kw)
         self.skip = None
         if out_channels != in_channels or up or down:
             kernel = 1 if out_channels != in_channels else 0
             self.skip = EDMConv(in_channels, out_channels, kernel, up=up, down=down,
                                 init=init, **kw)
+        if self.num_heads:
+            self.norm2 = EDMGroupNorm(out_channels, **gn)
+            self.qkv = EDMConv(out_channels, out_channels * 3, 1,
+                               init=init_attn if init_attn is not None else init, **kw)
+            self.proj = EDMConv(out_channels, out_channels, 1, init=init_zero, **kw)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 skip_in: torch.Tensor | None = None, train: bool = False,
@@ -292,14 +360,41 @@ class UNetBlock(nn.Module):
         x_in = x
         full = x if skip_in is None else torch.cat([x, skip_in.to(x.dtype)], dim=1)
         h = self.conv0(self.norm0(full, silu=True))
-        scale, shift = self.affine(emb).chunk(2, dim=-1)
+        params = self.affine(emb)
         drop_p = self.dropout if train else 0.0
-        h = self.conv1(self.norm1(h, silu=True, film=(scale, shift), drop_p=drop_p,
-                                  drop_seed=drop_seed))
+        if self.adaptive_scale:
+            scale, shift = params.chunk(2, dim=-1)
+            h = self.norm1(h, silu=True, film=(scale, shift), drop_p=drop_p,
+                           drop_seed=drop_seed)
+        else:
+            h = self.norm1(h + params[:, :, None, None], silu=True, drop_p=drop_p,
+                           drop_seed=drop_seed)
+        h = self.conv1(h)
         if self.skip is None:
             skip = full
         elif skip_in is not None:
             skip = self.skip(x_in, skip_in.to(x_in.dtype))
         else:
             skip = self.skip(full)
-        return h + skip
+        x = h + skip
+        if self.skip_scale != 1.0:
+            x = x * self.skip_scale
+        if self.num_heads:
+            x = self._attention(x)
+        return x
+
+    def _attention(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention branch on the NCHW (channels_last) view ``x``."""
+        b, c, h, w = x.shape
+        heads = self.num_heads
+        ch = c // heads
+        qkv = self.qkv(self.norm2(x)).permute(0, 2, 3, 1)            # (B, H, W, 3C)
+        # (B, HW, heads, 3ch) -> (B * heads, 3, ch, HW), the JAX split
+        qkv = qkv.reshape(b, h * w, heads, 3 * ch).permute(0, 2, 3, 1)
+        qkv = qkv.reshape(b * heads, 3, ch, h * w)
+        q, k, v = qkv.unbind(1)                                       # (B * heads, ch, HW)
+        logits = torch.einsum("ncq,nck->nqk", q.float(), k.float() / math.sqrt(ch))
+        wgt = torch.softmax(logits, dim=2).to(x.dtype)
+        a = torch.einsum("nqk,nck->ncq", wgt, v)
+        a = a.reshape(b, heads, ch, h * w).permute(0, 3, 1, 2).reshape(b, h, w, c)
+        return (x + self.proj(a.permute(0, 3, 1, 2))) * self.skip_scale

@@ -2,17 +2,30 @@
 ``probunet_tpu/models/unet.py``): :class:`UNet`, :class:`PostUNetWithSkips`,
 :class:`PostUNetWithoutSkips` and the dispatcher :class:`UNetAll`.
 
-``use_diffuse=False`` with the constant-zero label embedding: no labels
-are passed, so a zero dummy flows through ``map_label`` and each block's
-FiLM affine contributes only its learned bias. Submodules carry the JAX
-package's names (``enc_128x128_conv``, ``dec_16x16_in0``, ...) so the
-weight converter maps parameter paths one to one. No attention.
+The mapping network (``unet.py:131-169`` in the JAX package) builds the
+embedding every block's FiLM affine reads:
+
+- ``label_dim`` (default 1): ``map_label`` of the class labels, or of a
+  zero dummy label when none are passed — the reference's current stack,
+  where the embedding is exactly zero and each FiLM contributes only its
+  learned bias. ``label_dim=0`` builds no ``map_label``.
+  ``label_dropout``: in training, each sample's labels are zeroed with
+  that probability, from a (B, 1) ``label_keep`` mask the caller passes
+  or drawn from the caller's generator after the seed words.
+- ``use_diffuse``: the noise labels (zeros when none are passed) through
+  ``map_noise`` (:class:`PositionalEmbedding`, f32), ``map_layer0``, SiLU
+  and ``map_layer1``, added to the embedding; a bf16 zero embedding plus
+  this f32 one is f32, as in JAX.
+- ``augment_dim``: ``map_augment`` of the augment labels, when passed.
+
+Submodules carry the JAX package's names (``enc_128x128_conv``,
+``dec_16x16_in0``, ``map_layer0``, ...) so the weight converter maps
+parameter paths one to one. No block of the U-Net has attention, as in
+the JAX module (its ``attn_resolutions`` is never read).
 
 ``train=True`` turns on each block's dropout (in kernel C, or kernel D on
 the composed route; ``gn_impl`` picks the GroupNorm chains' route, see
-``layers.EDMGroupNorm``). The JAX module's ``label_dropout`` is not
-ported: it only ever multiplies the all-zero dummy label, and no
-configuration sets it. Every block takes its own (2,) int32 seed words:
+``layers.EDMGroupNorm``). Every block takes its own (2,) int32 seed words:
 the caller passes them as one (n_blocks, 2) tensor in block order
 (``dropout_blocks``) or they are drawn from the caller's generator, as the
 JAX U-Net draws one ``dropout`` key per block.
@@ -51,6 +64,7 @@ from probunet_tpu_torch.models.layers import (
     EDMConv,
     EDMGroupNorm,
     EDMLinear,
+    PositionalEmbedding,
     UNetBlock,
     save_convs_checkpoint,
 )
@@ -89,14 +103,17 @@ class UNet(nn.Module):
     """NHWC in, NHWC out: (B, H, W, in_channels) -> (B, H, W, out_channels)."""
 
     def __init__(self, img_resolution: Sequence[int], in_channels: int, out_channels: int,
-                 *, generator: torch.Generator, model_channels: int = 16,
-                 channel_mult: Sequence[int] = (1, 4, 8, 16), channel_mult_emb: int = 4,
-                 num_blocks: int = 2, dropout: float = 0.10,
+                 *, generator: torch.Generator, label_dim: int = 1, augment_dim: int = 0,
+                 model_channels: int = 16, channel_mult: Sequence[int] = (1, 4, 8, 16),
+                 channel_mult_emb: int = 4, num_blocks: int = 2, dropout: float = 0.10,
+                 label_dropout: float = 0.0, use_diffuse: bool = False,
                  dtype: torch.dtype | None = None, gn_impl: str = "kernel", remat=False):
         super().__init__()
         mc = model_channels
         self.dtype = dtype
         self.dropout = dropout
+        self.label_dim, self.label_dropout = label_dim, label_dropout
+        self.use_diffuse, self.augment_dim = use_diffuse, augment_dim
         self.emb_channels = emb = mc * channel_mult_emb
         kw = dict(generator=generator, dtype=dtype)
         self.dropout_blocks: list[str] = []  # every UNetBlock, in call order
@@ -108,9 +125,18 @@ class UNet(nn.Module):
             self.dropout_blocks.append(name)
             self.block_remat[name] = block_remat(remat, level)
 
-        # label_dim = 1: the zero dummy label of the reference's current stack
-        self.map_label = EDMLinear(1, emb, use_bias=False, init=("kaiming_normal", 1.0, 0.0),
-                                   generator=generator)
+        # the mapping network, in the JAX module's order
+        if label_dim:
+            self.map_label = EDMLinear(label_dim, emb, use_bias=False,
+                                       init=("kaiming_normal", math.sqrt(label_dim), 0.0),
+                                       generator=generator)
+        if use_diffuse:
+            self.map_noise = PositionalEmbedding(mc)
+            self.map_layer0 = EDMLinear(mc, emb, init=INIT_EDM, generator=generator)
+            self.map_layer1 = EDMLinear(emb, emb, init=INIT_EDM, generator=generator)
+        if augment_dim:
+            self.map_augment = EDMLinear(augment_dim, mc, use_bias=False, init=INIT_ZERO,
+                                         generator=generator)
         # encoder: (name, pushes a skip); channels tracked as in the JAX module
         self.encoder: list[str] = []
         skip_ch = []
@@ -154,17 +180,54 @@ class UNet(nn.Module):
         self.out_norm = EDMGroupNorm(cout, dtype=dtype, gn_impl=gn_impl)
         self.out_conv = EDMConv(cout, out_channels, 3, init=INIT_ZERO, **kw)
 
+    def embedding(self, x: torch.Tensor, train: bool = False,
+                  generator: torch.Generator | None = None,
+                  noise_labels: torch.Tensor | None = None,
+                  class_labels: torch.Tensor | None = None,
+                  augment_labels: torch.Tensor | None = None,
+                  label_keep: torch.Tensor | None = None) -> torch.Tensor:
+        """The mapping network's (B, emb_channels) embedding before its
+        SiLU, for the U-Net input ``x`` (in the compute dtype)."""
+        b = x.shape[0]
+        emb = torch.zeros((b, self.emb_channels), dtype=x.dtype, device=x.device)
+        if self.label_dim:
+            labels = (class_labels if class_labels is not None
+                      else torch.zeros((b, self.label_dim), dtype=x.dtype, device=x.device))
+            if train and self.label_dropout:
+                if label_keep is None:
+                    if generator is None:
+                        raise ValueError("label dropout needs label_keep or a generator")
+                    u = torch.rand((b, 1), generator=generator, device=generator.device)
+                    label_keep = u >= self.label_dropout
+                labels = labels * label_keep.to(device=labels.device, dtype=labels.dtype)
+            emb = emb + self.map_label(labels)
+        if self.use_diffuse:
+            nl = (noise_labels if noise_labels is not None
+                  else torch.zeros((b,), dtype=x.dtype, device=x.device))
+            emb_n = F.silu(self.map_layer0(self.map_noise(nl)))
+            emb = emb + self.map_layer1(emb_n)
+        if self.augment_dim and augment_labels is not None:
+            emb = emb + self.map_augment(augment_labels)
+        return emb
+
     def forward(self, x: torch.Tensor, train: bool = False,
                 seeds: torch.Tensor | None = None,
-                generator: torch.Generator | None = None, return_skips: bool = False):
+                generator: torch.Generator | None = None, return_skips: bool = False,
+                noise_labels: torch.Tensor | None = None,
+                class_labels: torch.Tensor | None = None,
+                augment_labels: torch.Tensor | None = None,
+                label_keep: torch.Tensor | None = None):
         """``train``: dropout on. ``seeds``: (len(dropout_blocks), 2) int32
         seed words in block order; drawn from ``generator`` when None.
         ``return_skips``: also return the first three encoder outputs (NHWC
-        views in the compute dtype), which the asymmetric U-Nets inject."""
+        views in the compute dtype), which the asymmetric U-Nets inject.
+        ``noise_labels`` (B,), ``class_labels`` (B, label_dim),
+        ``augment_labels`` (B, augment_dim): the mapping network's inputs.
+        ``label_keep``: the (B, 1) label-dropout keep mask (bool), drawn
+        from ``generator`` when None."""
         out_dtype = x.dtype
         if self.dtype is not None:
             x = x.to(self.dtype)
-        b = x.shape[0]
         block_seeds = {}
         if train and self.dropout > 0:
             if seeds is None:
@@ -173,9 +236,8 @@ class UNet(nn.Module):
                 raise ValueError(f"seeds must be ({len(self.dropout_blocks)}, 2), got "
                                  f"{tuple(seeds.shape)}")
             block_seeds = dict(zip(self.dropout_blocks, seeds.to(x.device).unbind()))
-        labels = torch.zeros((b, 1), dtype=x.dtype, device=x.device)
-        emb = torch.zeros((b, self.emb_channels), dtype=x.dtype, device=x.device)
-        emb = F.silu(emb + self.map_label(labels))
+        emb = F.silu(self.embedding(x, train, generator, noise_labels, class_labels,
+                                    augment_labels, label_keep))
 
         def run(name, h, skip=None):
             block = self.get_submodule(name)

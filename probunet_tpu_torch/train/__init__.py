@@ -1,6 +1,7 @@
 """Training: the train state and AdamW, the beta schedule, early stopping,
 the ELBO, eval and deterministic steps, the epoch loop and ``Trainer``,
-checkpoints and metric logging."""
+checkpoints and metric logging; the EDM diffusion loss, train step, Heun
+sampler and ensembles."""
 
 from probunet_tpu_torch.train.state import TrainState, create_train_state
 from probunet_tpu_torch.train.schedule import beta_schedule
@@ -15,6 +16,12 @@ from probunet_tpu_torch.train.loop import (
 )
 from probunet_tpu_torch.train.checkpoint import CheckpointManager
 from probunet_tpu_torch.train.logging import MetricLogger
+from probunet_tpu_torch.train.edm import (
+    edm_loss,
+    make_edm_train_step,
+    edm_sample,
+    edm_ensemble,
+)
 
 __all__ = [
     "TrainState",
@@ -29,4 +36,8 @@ __all__ = [
     "Trainer",
     "CheckpointManager",
     "MetricLogger",
+    "edm_loss",
+    "make_edm_train_step",
+    "edm_sample",
+    "edm_ensemble",
 ]

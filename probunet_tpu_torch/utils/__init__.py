@@ -2,6 +2,8 @@
 
 from probunet_tpu_torch.utils.plotting import (
     plot_histograms,
+    plot_latent_grid,
+    plot_latent_joint_marginal,
     plot_loss_curves,
     plot_psd,
     plot_residual_differences,
@@ -18,4 +20,6 @@ __all__ = [
     "plot_psd",
     "plot_histograms",
     "plot_return_levels",
+    "plot_latent_grid",
+    "plot_latent_joint_marginal",
 ]

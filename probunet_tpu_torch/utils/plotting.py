@@ -1,7 +1,8 @@
 """Figures (port of ``probunet_tpu/utils/plotting.py``): the training
 loop's ensemble, residual and member-difference grids and loss curves,
-and the evaluation's GT-vs-model PSD, pooled pixel-value log-histograms
-and return-level curves.
+the evaluation's GT-vs-model PSD, pooled pixel-value log-histograms
+and return-level curves, and ``explore``'s latent grids and PC1 x PC2
+joint-marginal histogram.
 
 matplotlib (and cartopy, for the ClimEx RotatedPole map panels, when it
 is importable) is imported when a figure is drawn, not with the module: a
@@ -347,4 +348,79 @@ def plot_return_levels(
     ax.set_ylabel("return level")
     ax.legend(fontsize=7)
     fig.tight_layout()
+    return _save(fig, save_path)
+
+
+def plot_latent_grid(
+    decoded: np.ndarray,
+    channel: int = 0,
+    per_panel_norm: bool = False,
+    symmetric: bool = True,
+    cmap: str = "RdBu_r",
+    title: str = "latent grid",
+    save_path: str | None = None,
+):
+    """(n1, n2, H, W, C) decoded latent grid -> an n1 x n2 panel of one
+    channel. ``symmetric`` (residual and delta fields) centers the scale
+    on zero; otherwise (HR fields) the data range with a sequential cmap.
+    ``per_panel_norm`` scales each panel to its own range."""
+    d = np.asarray(decoded)[..., channel]
+    n1, n2 = d.shape[:2]
+    fig, axes = _subplots(n1, n2, scale=1.6)
+    v = np.abs(d).max()
+    glo, ghi = d.min(), d.max()
+    for i in range(n1):
+        for j in range(n2):
+            if symmetric:
+                vmax = (max(np.abs(d[i, j]).max(), 1e-12)
+                        if per_panel_norm else v)
+                vmin = -vmax
+            elif per_panel_norm:
+                vmin, vmax = d[i, j].min(), d[i, j].max()
+            else:
+                vmin, vmax = glo, ghi
+            im = _imshow(axes[i, j], d[i, j], cmap, vmin, vmax)
+    fig.colorbar(im, ax=axes, shrink=0.6)
+    fig.suptitle(title)
+    return _save(fig, save_path)
+
+
+def plot_latent_joint_marginal(
+    scores: np.ndarray,
+    explained_variance_ratio=None,
+    bins: int = 80,
+    title_prefix: str = "Latent space (prior)",
+    save_path: str | None = None,
+):
+    """PC1 x PC2 joint 2-D histogram with the marginal histograms.
+    ``scores``: (N, >= 2) PCA scores; ``explained_variance_ratio``: the
+    PCA's, for the title."""
+    plt = _pyplot()
+    s1, s2 = np.asarray(scores[:, 0]), np.asarray(scores[:, 1])
+    fig = plt.figure(figsize=(7.5, 7.5))
+    ax_joint = fig.add_axes([0.1, 0.1, 0.65, 0.65])
+    ax_right = fig.add_axes([0.78, 0.1, 0.17, 0.65], sharey=ax_joint)
+    ax_top = fig.add_axes([0.1, 0.78, 0.65, 0.17], sharex=ax_joint)
+
+    h = ax_joint.hist2d(s1, s2, bins=bins, cmap="viridis")
+    ax_joint.set_xlabel("PC1 score (s1)")
+    ax_joint.set_ylabel("PC2 score (s2)")
+    cb = fig.colorbar(h[3], ax=ax_joint, fraction=0.046, pad=0.04)
+    cb.set_label("Counts")
+
+    ax_top.hist(s1, bins=bins)
+    ax_right.hist(s2, bins=bins, orientation="horizontal")
+    plt.setp(ax_top.get_xticklabels(), visible=False)
+    plt.setp(ax_right.get_yticklabels(), visible=False)
+    ax_top.set_ylabel("Count")
+    ax_right.set_xlabel("Count")
+
+    if explained_variance_ratio is not None and len(explained_variance_ratio) >= 2:
+        evr = np.asarray(explained_variance_ratio)
+        fig.suptitle(
+            f"{title_prefix} — PC1: {evr[0] * 100:.1f}%  |  "
+            f"PC2: {evr[1] * 100:.1f}%", y=0.98,
+        )
+    else:
+        fig.suptitle(title_prefix, y=0.98)
     return _save(fig, save_path)

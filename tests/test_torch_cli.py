@@ -478,3 +478,83 @@ def test_train_det(on_cpu, tmp_path, capsys, model, extra):
 def test_train_flags_not_ported_raise(on_cpu, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["train", "--preset", PRESET, "--outdir", str(tmp_path)] + flag + TINY)
+
+
+EXPLORE = ["--max-items", "40", "--probe-contexts", "4"]
+
+
+@pytest.fixture(scope="module")
+def trained_ckpt(tmp_path_factory):
+    """The checkpoint directory of one epoch of the port's own ``train``."""
+    outdir = tmp_path_factory.mktemp("explore_train")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PROBUNET_PLATFORM", "cpu")
+        _train(outdir, ["train.num_epochs=1"])
+    return str(outdir / "ckpt")
+
+
+@pytest.mark.parametrize("mode", ["prior", "posterior", "single"])
+def test_explore_from_the_trained_checkpoint(trained_ckpt, on_cpu, tmp_path, capsys,
+                                            monkeypatch, mode):
+    """``explore`` on the weights ``train`` wrote: the default run writes
+    the collapse report (printed and in summary.txt), pca_artifacts.pkl,
+    the decile and sigma grids (7x7; 10x10 with ``--posterior``) in
+    residual and HR space as arrays and figures, and the joint-marginal
+    figure; ``--single`` the prior sweep (arrays, four figures and the
+    ``{"dims": [...]}`` line). Under ``--posterior`` the figures' inputs are
+    recorded instead of drawn."""
+    import pickle
+
+    from probunet_tpu_torch.utils import plotting
+
+    flags = {"prior": [], "posterior": ["--posterior"], "single": ["--single"]}[mode]
+    drawn = []
+    if mode == "posterior":  # the figures' inputs only: drawing 400 panels takes ~10 s
+        for name in ("plot_latent_grid", "plot_latent_joint_marginal"):
+            monkeypatch.setattr(plotting, name, lambda *a, save_path=None, **k: (
+                drawn.append(np.shape(a[0])), open(save_path, "w").close()))
+    out, spans = tcli.main(["explore", "--preset", PRESET, "--outdir", str(tmp_path),
+                            "--ckpt", trained_ckpt] + flags + EXPLORE + TINY)
+    text = capsys.readouterr().out
+    files = set(os.listdir(tmp_path))
+    assert "[timing]" in text and "figures skipped" not in text
+    if mode == "single":
+        assert json.loads(text.strip().splitlines()[-2]) == out
+        assert len(out["dims"]) == 2 and len(set(out["dims"])) == 2
+        assert {"prior_sweep.npz", "prior_sweep.png", "prior_sweep_hr.png",
+                "prior_sweep_hr_perpanel.png", "prior_sweep_delta.png"} <= files
+        sweep = np.load(tmp_path / "prior_sweep.npz")
+        assert sweep["decoded"].shape == sweep["hr"].shape == (6, 6, 16, 16, 1)
+        assert np.isfinite(sweep["hr"]).all() and list(sweep["dims"]) == out["dims"]
+        return
+    with open(tmp_path / "summary.txt") as f:
+        summary = f.read()
+    assert summary.startswith("latent collapse diagnostics") and summary.strip() in text
+    assert "probe contexts             : 4" in summary
+    with open(tmp_path / "pca_artifacts.pkl", "rb") as f:
+        art = pickle.load(f)
+    assert set(art) == {"pca", "latents", "diagnostics"}
+    assert art["latents"]["mu"].shape == (40, 4) and out["items"] == 40
+    assert art["diagnostics"]["collapsed"] == out["collapsed"]
+    n = 10 if mode == "posterior" else 7
+    grids = np.load(tmp_path / "grids.npz")
+    for name in ("decile", "sigma", "decile_hr", "sigma_hr"):
+        assert grids[name].shape == (n, n, 16, 16, 1) and np.isfinite(grids[name]).all()
+        assert f"grid_{name}.png" in files
+    assert "latent_joint_marginal.png" in files
+    if mode == "posterior":  # the joint-marginal scores, then the four grids
+        assert drawn == [(40, 4)] + [(10, 10, 16, 16, 1)] * 4
+    assert {"dataset", "init", "latents", "diagnostics", "grids", "figures"} <= set(spans)
+
+
+def test_explore_figures_are_guarded(trained_ckpt, on_cpu, tmp_path, monkeypatch, capsys):
+    from probunet_tpu_torch.utils import plotting
+
+    def no_matplotlib(*a, **k):
+        raise ImportError("No module named 'matplotlib'")
+
+    monkeypatch.setattr(plotting, "plot_latent_grid", no_matplotlib)
+    out, _ = tcli.main(["explore", "--preset", PRESET, "--outdir", str(tmp_path), "--single",
+                        "--ckpt", trained_ckpt] + TINY)
+    assert "figures skipped: ImportError" in capsys.readouterr().out
+    assert (tmp_path / "prior_sweep.npz").exists() and len(out["dims"]) == 2

@@ -94,3 +94,52 @@ def test_parameter_counts_match(size):
                                              device="cpu")
     n_port = sum(p.numel() for p in port.parameters())
     assert n_port == _jax_param_count(res, **kw)
+
+
+@pytest.mark.parametrize("size", ["tiny", "full"])
+def test_edm_precond_tree(size):
+    """The ``EDMPrecond`` tree (``model/...``, ``model/map_layer0``, ...):
+    leaf for leaf, a round trip through the port is exact (tiny, seeded
+    noise); at the reference baseline's widths (128x128, 64 channels,
+    (1, 2, 3, 4), two blocks, a 3-channel condition) both packages have
+    22,794,307 parameters (the JAX side traced by ``jax.eval_shape``)."""
+    from flax.core import unfreeze
+
+    from probunet_tpu.models.edm import EDMPrecond as JEDM
+
+    from probunet_tpu_torch.convert import load_params
+    from probunet_tpu_torch.models.edm import EDMPrecond
+    from torch_parity import noisy_params
+
+    res, kw = ((16, 16), dict(model_channels=8, channel_mult=(1, 2), num_blocks=1)) \
+        if size == "tiny" else ((128, 128), {})
+    jm = JEDM(img_resolution=res, in_channels=6, out_channels=3, **kw)
+    x = jnp.zeros((1, *res, 3))
+    shapes = jax.eval_shape(lambda k: jm.init(k, x, jnp.ones((1,)), condition_img=x),
+                            jax.random.key(0))
+    tm = EDMPrecond(res, 6, 3, generator=torch.Generator().manual_seed(0), **kw)
+    n_jax = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes["params"]))
+    assert sum(p.numel() for p in tm.parameters()) == n_jax
+    if size == "full":
+        assert n_jax == 22_794_307
+        return
+    params = noisy_params(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype),
+                                       unfreeze(shapes["params"])), 1)
+    back = flax_params(load_params(tm, params))
+    got, want = dict(_leaves(back)), dict(_leaves(params))
+    assert set(got) == set(want)
+    assert {("model", "map_layer0", "weight"), ("model", "map_layer1", "bias")} <= set(want)
+    assert ("model", "map_label", "weight") not in want           # label_dim = 0
+    for path, arr in want.items():
+        assert np.array_equal(got[path], arr), path
+
+
+def test_fourier_freqs_convert():
+    """``FourierEmbedding``'s ``freqs`` leaf carries over as it is."""
+    from probunet_tpu_torch.convert import convert_params
+    from probunet_tpu_torch.models.layers import FourierEmbedding
+
+    freqs = np.arange(8, dtype=np.float32)
+    sd = convert_params({"freqs": freqs},
+                        FourierEmbedding(16, generator=torch.Generator().manual_seed(0)))
+    assert np.array_equal(sd["freqs"].numpy(), freqs)
