@@ -7,8 +7,10 @@ Builds the hand-written CUDA kernels from ``probunet_tpu_torch/csrc`` with
 nvcc (sm_90a) and holds each against its plain PyTorch version on the card,
 at the shapes of the serve and training paths: the fcomb-CRPS forward (A)
 and backward (A′), the afCRPS-terms forward (B) and backward (B′), the
-GroupNorm chain's forward (C) and backward (C′), and the hash dropout (D),
-with each kernel's time beside its plain version's and its bound; A and
+GroupNorm chain's forward (C) and backward (C′), the hash dropout (D)
+and the int8 convolution of the int8 serving path (E, which no TPU kernel
+computes: the JAX package leaves it to XLA), with each kernel's time
+beside its plain version's and its bound; A and
 A′ on both of their kernels (bf16 operands on the tensor cores, f32 on
 the FP32 pipes), C and C′ on their per-shape plans and on the other
 route (a cluster per slab, or three passes for C and two for C′) with
@@ -34,14 +36,31 @@ route, and drives both paths at the full width of the flagship preset
   Train samples/s, peak memory and a breakdown of the step's device time;
   how many GroupNorm chains get an input or gradient that is not
   channels_last;
+- int8 serving (``int8``): the f32 int8 prior ensemble (bs=2) on the card
+  against the CPU, then, on the bf16 flagship, ``calibrate_sample`` on 4
+  batches of other synthetic days (99 scales, 97 with the latent heads
+  kept in float), kernel E bit for bit against its plain version (int32
+  sums and outputs) at every hooked convolution of a sample call at
+  bs=128 bf16 and bs=16 f32, on the call's own activations, with E's
+  time, its plain version's, its bound and two yardsticks the port never
+  calls (cuDNN's bf16 convolution, ``torch._int_mm`` over ``F.unfold``);
+  the prior ensemble (M=16) float against int8 (member-fields/s, 87 E and
+  57 C launches a call, 85 E with the heads in float, E's share of the
+  call's device time) and the eval ELBO (M=5) calibrated by
+  ``calibrate_elbo``, float against int8;
 - the serve CLI, through ``cli.main`` as ``python -m probunet_tpu_torch``
   runs it: ``pack`` of the flagship's test split (4,380 synthetic days),
   a checkpoint of a seeded flagship model, ``evaluate`` over the packed
   split at the defaults (f32, M=16, bs=16) and at bf16, bs=128, with the
-  histogram pass, and ``extremes`` (M=8, bs=32, two pixels, 100 bootstrap
+  histogram pass, and ``extremes`` (M=8, bs=32, two pixels, 30 bootstrap
   draws): days served, metrics, phase times, days/s, peak host memory,
-  57 C launches per U-Net forward; then ``evaluate`` and ``extremes`` on
-  32 days on the card against the CPU (``PROBUNET_PLATFORM=cpu``);
+  57 C launches per U-Net forward; under ``--quant int8 --quant-skip
+  heads``, ``evaluate`` at bf16 bs=128, ``extremes``, and ``infer-domain
+  --preset fulldomain_dp8`` (the 280x280 domain in 9 tiles a day, 4 days,
+  32 members, 16 tiles a chunk) in float and int8 (85 E launches a U-Net
+  forward served int8); then ``evaluate`` and ``extremes`` on 32 days and
+  ``infer-domain`` on a 140x140 domain (float and int8) on the card
+  against the CPU (``PROBUNET_PLATFORM=cpu``);
 - the training CLI, through ``cli.main``: ``pack`` of the flagship's
   train split cut to 1960-1962 and its validation split cut to 2021;
   ``train`` at the preset (f32, bs=32, M=15, 2 epochs), at bf16 bs=128
@@ -78,8 +97,9 @@ Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
 nvcc; there is no CPU route. Any failed check raises, so the exit code is
 0 only when every phase passed. The line before the last is a JSON object
-with each kernel's launches on the training path (``launches``), on the
-serve CLI's runs (``launches_cli``), on the training CLI's runs
+with each kernel's launches on its main path (``launches``: the training
+path for A to D, the int8 serve runs for E), on the int8 serve runs
+(``launches_int8``), on the serve CLI's runs (``launches_cli``), on the training CLI's runs
 (``launches_train_cli``), on the EDM runs (``launches_edm``) and on the
 ``explore`` runs (``launches_explore``), error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -126,8 +146,9 @@ from probunet_tpu_torch.models.edm import EDMPrecond
 from probunet_tpu_torch.models.layers import EDMGroupNorm
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 from probunet_tpu_torch.models.unet import UNet, dropout_seeds
-from probunet_tpu_torch.ops import losses
+from probunet_tpu_torch.ops import losses, quantize
 from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
+from probunet_tpu_torch.ops.kernels import int8_conv as int8_e
 from probunet_tpu_torch.train.checkpoint import CheckpointManager
 from probunet_tpu_torch.train.edm import edm_ensemble, edm_loss, edm_sample, make_edm_train_step
 from probunet_tpu_torch.train.loop import (
@@ -220,13 +241,22 @@ GN_CASES = (((128, 128, 128, 32), "bfloat16", True, 0.1),
             ((128, 64, 64, 64), "float32", True, 0.1))
 # the serve CLI phase: the flagship's test split (2034-2046, 12 synthetic
 # years of 365 days), served from its packed artifact; extremes at its
-# defaults but for two pixels and 100 bootstrap draws (1,000 take ~10x the
-# host time); the card-vs-CPU check on 32 days at bs=16, with one day a
-# "year" so that extremes.json's annual maxima are the pixel series itself
+# defaults but for two pixels and 30 bootstrap draws (the fits run on one
+# host process: 100 draws took 43.6 s on the card's host, 1,000 take ~10x
+# that); the card-vs-CPU check on 32 days at bs=16, with one day a "year"
+# so that extremes.json's annual maxima are the pixel series itself
 CLI_PRESET = "probunet_multivar_128"
 CLI_TEST_DAYS = 4380
-CLI_EXTREMES = ["--pixels", "20,45", "64,64", "--n-boot", "100"]
+CLI_EXTREMES = ["--pixels", "20,45", "64,64", "--n-boot", "30"]
 CLI_CHECK_EVAL = ["--max-items", "32", "--batch-size", "16"]
+CLI_VARIABLES = ("pr", "tasmin", "tasmax")
+# the int8 serve CLI runs: the flags, a two-year validation split to
+# calibrate on (4 batches of 128 days), extremes with fewer bootstrap draws than the float run, and
+# infer-domain's synthetic domain generated for one test year (4 days served)
+INT8_FLAGS = ["--quant", "int8", "--quant-skip", "heads"]
+INT8_VAL_YEARS = [2021, 2023]
+INT8_EXTREMES = ["--pixels", "20,45", "64,64", "--n-boot", "20"]
+INFER_DOMAIN_YEARS = [2034, 2035]
 CLI_CHECK_EXTREMES = ["--pixels", "20,45", "64,64", "--days", "32", "--batch-size", "16",
                       "--days-per-year", "1", "--n-boot", "10"]
 # the training CLI phase: the flagship's train split cut to 3 years and its
@@ -263,7 +293,19 @@ BCSD_RTOL = 1e-3
 IDLE_EPOCHS = 3
 PREFETCH_BUSY_N = 4096   # the consumer's work between prefetched batches: 4 products of n x n
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; FP32 CUDA core
+# dense bf16 tensor core; FP32 CUDA core; dense int8 tensor core
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# int8 serving (kernel E, the `int8` phase): the flagship sample path's
+# scales tree (87 in_scale leaves, 12 of them with an in_scale2: 73 U-Net
+# EDMConvs, 12 split, and 14 prior _Conv3x3s), one E launch a convolution
+INT8_SAMPLE_LEAVES, INT8_SAMPLE_SPLIT, INT8_HEADS = 99, 12, 2
+INT8_CALIB_BATCHES = 4
+# int8 `infer-domain` on the card against the CPU: the metrics' difference
+# over the CPU's int8-vs-float gap (the CPU tests' serving bound,
+# tests/test_torch_quantize.py)
+SERVE_SHARE = 0.1
+# the main row of kernel E: the flagship's 128x128x32 -> 32 3x3 convolution
+E_MAIN = (3, 32, 0, 32, 128, 128)
 # the EDM phase: EDMPrecond at the reference baseline's widths (its
 # deterministic_unet.py defaults: 64 channels, mult 1,2,3,4, two blocks,
 # dropout 0.1, the noise embedding, no labels), f32, on the flagship's data
@@ -344,7 +386,8 @@ PTXAS_KERNELS = ("fcomb_crps_fwd_mma_kernel", "fcomb_crps_tile_kernel",
                  "afcrps_tile_kernel", "afcrps_tile_smem_kernel", "afcrps_reduce_kernel",
                  "afcrps_bwd_kernel", "afcrps_bwd_smem_kernel",
                  "gn_fwd_cluster_kernel", "gn_fwd_stats_kernel", "gn_fwd_apply_kernel",
-                 "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel")
+                 "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel",
+                 "int8_conv_kernel")
 
 
 def _ptxas_report(log: str, names) -> dict:
@@ -1197,6 +1240,7 @@ _KERNEL_GROUPS = (("A fcomb_crps fwd", ("fcomb_crps_fwd_mma_kernel", "fcomb_crps
                   ("C fused_gn fwd", ("gn_fwd_",)),
                   ("C' fused_gn bwd", ("gn_bwd_",)),
                   ("D dropout", ("dropout_kernel",)),
+                  ("E int8_conv", ("int8_conv_kernel",)),
                   ("AdamW (foreach)", ("multi_tensor_apply", "foreach")),
                   ("cuDNN/cuBLAS (convs, matmuls)", ("cudnn", "xmma", "gemm", "conv", "cutlass")))
 
@@ -1551,6 +1595,8 @@ def cli_phase(dev: torch.device, zero_counts, read_counts, workdir: str | None =
         if ("plotting skipped" in text) == have_mpl:
             raise AssertionError("extremes: figures and matplotlib disagree")
 
+        launches.update(cli_int8_runs(serve, ckpt, tmp, chains, zero_counts, read_counts))
+
         # f32 on the card (kernels, TF32 off) against the CPU (plain versions)
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         got = {}
@@ -1574,8 +1620,148 @@ def cli_phase(dev: torch.device, zero_counts, read_counts, workdir: str | None =
         bad = {k: v for k, v in errs.items() if not v <= ENSEMBLE_RTOL}
         if bad:
             raise AssertionError(f"the CLI on the card differs from the CPU: {bad}")
+        infer_domain_device_vs_cpu(ckpt, tmp)
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     return launches
+
+
+def _domain_argv(ckpt: str, outdir: str, extra: list[str]) -> list[str]:
+    return ["infer-domain", "--preset", "fulldomain_dp8", "--ckpt", ckpt, "--outdir", outdir,
+            *extra, "--set", f"data.years_test={json.dumps(INFER_DOMAIN_YEARS)}"]
+
+
+def cli_int8_runs(serve: list[str], ckpt: str, tmp: str, chains: int, zero_counts,
+                  read_counts) -> dict:
+    """``--quant int8 --quant-skip heads`` through ``cli.main``: ``evaluate``
+    at bf16 bs=128 over the packed split (calibrated on a two-year
+    validation split), ``extremes`` at its defaults, and ``infer-domain
+    --preset fulldomain_dp8`` (4 days, 32 members, 16 tiles a chunk) in
+    float and int8: metrics, seconds, tiles/s, E and C launches (85 E a
+    U-Net forward served int8; the calibration's forwards run float).
+    Returns each run's launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    val = [f"data.years_val={json.dumps(INT8_VAL_YEARS)}"]
+    per_fwd = INT8_SAMPLE_LEAVES - INT8_SAMPLE_SPLIT - INT8_HEADS
+    bs = 128
+    zero_counts()
+    (res, spans), text, sec, rss = _run_cli(
+        ["evaluate", *serve, "model.compute_dtype=bfloat16", *val, *INT8_FLAGS,
+         "--batch-size", str(bs), "--outdir", os.path.join(tmp, "int8_eval")])
+    launches["evaluate int8 bf16 bs=128"] = n = read_counts()
+    forwards = 2 * res["items"] // bs
+    print(f"cli int8 evaluate bf16 bs={bs}: items={res['items']}; "
+          + "; ".join(f"{v} crps={c:.6g} mae={a:.6g}" for v, c, a in
+                      zip(CLI_VARIABLES, res["crps_mean"], res["mae_mean"]))
+          + f"; timing {json.dumps({k: round(v, 4) for k, v in spans.items()})}; metric loop "
+          f"{res['items'] / spans['metric_loop']:.2f} days/s, "
+          f"{res['items'] * res['members'] / spans['metric_loop']:.2f} member-fields/s; "
+          f"E launches {n['int8_conv']}, C {n['fused_gn']} for {forwards} served forwards "
+          f"and the calibration's; host {sec:.3f} s")
+    calib = _int8_lines(text, "val-split batches")
+    if not all(math.isfinite(v) for k in ("crps_mean", "mae_mean", "spread") for v in res[k]):
+        raise AssertionError(f"int8 evaluate: non-finite metrics {res}")
+    if calib != INT8_CALIB_BATCHES or n["int8_conv"] != per_fwd * forwards or \
+            n["fused_gn"] != chains * (forwards + calib):
+        raise AssertionError(f"int8 evaluate: {n['int8_conv']} E, {n['fused_gn']} C launches")
+
+    zero_counts()
+    (res, spans), text, sec, rss = _run_cli(
+        ["extremes", *serve, *val, *INT8_FLAGS, *INT8_EXTREMES,
+         "--outdir", os.path.join(tmp, "int8_extremes")])
+    launches["extremes int8 f32 bs=32"] = n = read_counts()
+    forwards = res["days"] // 32
+    print(f"cli int8 extremes: days={res['days']} timing "
+          f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}; sample loop "
+          f"{res['days'] / spans['sample_loop']:.2f} days/s; E launches {n['int8_conv']}, C "
+          f"{n['fused_gn']}; host {sec:.3f} s")
+    calib = _int8_lines(text, "val-split batches")
+    for name, px in res["pixels"].items():
+        r = px["model"]
+        print(f"cli int8 extremes {name} model: gev {r['gev_fit']}, return levels "
+              f"{r['return_levels']}")
+        if not np.isfinite(r["return_levels"]).all():
+            raise AssertionError(f"int8 extremes {name}: non-finite return levels")
+    if calib != INT8_CALIB_BATCHES or n["int8_conv"] != per_fwd * forwards or \
+            n["fused_gn"] != chains * (forwards + calib):
+        raise AssertionError(f"int8 extremes: {n['int8_conv']} E, {n['fused_gn']} C launches")
+
+    m, days, chunk = 32, 4, 16
+    domain = {}
+    for name, flags in (("float", []), ("int8", INT8_FLAGS)):
+        zero_counts()
+        (res, spans), text, sec, rss = _run_cli(_domain_argv(
+            ckpt, os.path.join(tmp, f"domain_{name}"),
+            ["--days", str(days), "--members", str(m), "--batch-tiles", str(chunk), *flags]))
+        launches[f"infer-domain {name}"] = n = read_counts()
+        tiles = res["days"] * res["tiles_per_day"]
+        chunks = -(-tiles // chunk)
+        calib = _int8_lines(text, "tile chunks") if flags else 0
+        domain[name] = res
+        print(f"cli infer-domain fulldomain_dp8 {name}: domain {res['domain']}, {res['days']} "
+              f"days x {res['tiles_per_day']} tiles, M={res['members']}; crps "
+              f"{res['crps_mean']} mae {res['mae_mean']}; timing "
+              f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}; "
+              f"{tiles / spans['sample']:.2f} tiles/s, "
+              f"{tiles * m / spans['sample']:.2f} member-fields/s; E launches "
+              f"{n['int8_conv']}, C {n['fused_gn']} ({chunks} chunks, {calib} calibration "
+              f"chunks); host {sec:.3f} s")
+        if (res["tiles_per_day"], res["days"], res["members"]) != (9, days, m) or \
+                calib != (min(INT8_CALIB_BATCHES, chunks) if flags else 0):
+            raise AssertionError(f"infer-domain {name}: {res}")
+        if not all(math.isfinite(v) for k in ("crps_mean", "mae_mean") for v in res[k]):
+            raise AssertionError(f"infer-domain {name}: non-finite metrics {res}")
+        if n["int8_conv"] != (per_fwd * chunks if flags else 0) or \
+                n["fused_gn"] != chains * (chunks + calib):
+            raise AssertionError(f"infer-domain {name}: {n['int8_conv']} E, {n['fused_gn']} C")
+    rel = _rel(domain["int8"]["crps_mean"], domain["float"]["crps_mean"])
+    print(f"cli infer-domain int8 vs float crps max rel {rel:.4g}; cli int8 runs "
+          f"{time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+def _int8_lines(text: str, where: str) -> int:
+    """The JAX CLI's two calibration lines, with the flagship's counts;
+    returns the number of calibration batches they name."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("int8 serve")]
+    n0 = INT8_SAMPLE_LEAVES
+    want = [f"int8 serve: --quant-skip ['heads'] pruned {INT8_HEADS} of {n0} scales",
+            f"int8 serve: calibrated {n0 - INT8_HEADS} conv scales on "]
+    if len(lines) != 2 or lines[0] != want[0] or not lines[1].startswith(want[1]) \
+            or not lines[1].endswith(where):
+        raise AssertionError(f"int8 calibration lines {lines}")
+    return int(lines[1][len(want[1]):].split()[0])
+
+
+def infer_domain_device_vs_cpu(ckpt: str, tmp: str) -> None:
+    """``infer-domain`` on a 140x140 domain (4 tiles a day, 2 days, M=4),
+    float and int8, on the card (TF32 off) against the CPU: float within
+    ENSEMBLE_RTOL; the int8 metrics within SERVE_SHARE of the CPU's
+    int8-vs-float gap (a flipped rounding moves a domain mean little), finite,
+    with the same calibration lines."""
+    t0 = time.perf_counter()
+    extra = ["--domain", "140", "--days", "2", "--members", "4", "--batch-tiles", "4"]
+    got = {}
+    for where in (None, "cpu"):
+        for name, flags in (("float", []), ("int8", INT8_FLAGS)):
+            (res, _), text, _, _ = _run_cli(_domain_argv(
+                ckpt, os.path.join(tmp, f"domain_check_{where}_{name}"), extra + flags), where)
+            got[(where, name)] = res
+            if flags:
+                _int8_lines(text, "tile chunks")
+    nums = {k: np.array(v["crps_mean"] + v["mae_mean"], np.float64) for k, v in got.items()}
+    err_f = _rel(nums[(None, "float")], nums[("cpu", "float")])
+    err_q = float(np.abs(nums[(None, "int8")] - nums[("cpu", "int8")]).max())
+    gap = float(np.abs(nums[("cpu", "int8")] - nums[("cpu", "float")]).max())
+    print(f"cli infer-domain card vs cpu (140x140, f32): float max|err|/max|cpu|={err_f:.3e} "
+          f"(limit {ENSEMBLE_RTOL}); int8 max|err|={err_q:.4g}, cpu int8-vs-float gap "
+          f"{gap:.4g}, share {err_q / gap:.4g} (limit {SERVE_SHARE}); "
+          f"{time.perf_counter() - t0:.3f} s")
+    if not err_f <= ENSEMBLE_RTOL:
+        raise AssertionError(f"infer-domain float on the card differs from the CPU: {err_f}")
+    if not (np.isfinite(nums[(None, "int8")]).all() and gap > 0 and err_q <= SERVE_SHARE * gap):
+        raise AssertionError(f"infer-domain int8 on the card against the CPU: {err_q} over a "
+                             f"gap of {gap}: {got[(None, 'int8')]}")
 
 
 def _prefetch_bit_equal(ds, bs: int, seed: int, dev: torch.device) -> int:
@@ -2349,6 +2535,336 @@ def edm_and_explore_alone(dev: torch.device) -> None:
         explore_phase(dev, packed, os.path.join(run, "ckpt"), zero_counts, read_counts)
 
 
+def _e_yardsticks(mod, x: torch.Tensor, x2, q: dict) -> dict:
+    """Two PyTorch calls the port never makes, timed at the shape of one
+    hooked convolution (bf16 only): cuDNN's bf16 convolution of the same
+    (concatenated) input and weight, and ``torch._int_mm`` over the
+    quantized input unfolded by ``F.unfold`` (the quantization itself not
+    timed; input channels zero-padded to a multiple of 8; None where
+    ``_int_mm`` takes no such shape: 16 rows or fewer)."""
+    w = mod.weight.detach()
+    k = w.shape[-1]
+    xin = x if x2 is None else torch.cat([x, x2], dim=1)
+    xb = xin.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    out = {"cudnn_bf16_ms": _sync_ms(lambda: F.conv2d(xb, wb, padding=k // 2), 10)}
+    n, cin, h, wd = xin.shape
+    rows = n * h * wd
+    if rows <= 16:
+        out["int_mm_unfold_ms"] = None
+        return out
+    c1 = x.shape[1]
+    xq = quantize.quantize_int8(x, q["in_scale"])
+    if x2 is not None:
+        xq = torch.cat([xq, quantize.quantize_int8(x2, q["in_scale2"])], dim=1)
+    pad = (-cin) % 8
+    xq = F.pad(xq.to(torch.bfloat16), (0, 0, 0, 0, 0, pad))
+    qws = quantize._qweights(mod, None if x2 is None else c1)
+    wq = torch.cat([qw.q for qw in qws], dim=1)
+    wq = F.pad(wq, (0, 0, 0, 0, 0, pad)).reshape(wq.shape[0], -1).t().contiguous()
+
+    def run():
+        cols = F.unfold(xq, k, padding=k // 2)                  # (N, C*k*k, H*W)
+        a = cols.transpose(1, 2).reshape(rows, -1).to(torch.int8)
+        return torch._int_mm(a, wq)
+
+    out["int_mm_unfold_ms"] = _sync_ms(run, 3, 1)
+    return out
+
+
+def e_vs_plain(model: ProbabilisticUNet, run, what: str, n_convs: int, yardsticks: bool,
+               timed: dict | None = None) -> dict:
+    """Kernel E against its plain version at every hooked convolution that
+    ``run()`` (one int8 call of ``model``: a ``sample`` call with its scales
+    attached, or an int8 eval step) takes int8, on the call's own
+    activations: the int32 sums and the outputs bit for bit, a second
+    launch equal to the first; there must be ``n_convs`` of them. At the
+    first convolution of each distinct shape not in ``timed`` (rows of an
+    earlier call) E's time, the plain version's, the bound and
+    (``yardsticks``) the cuDNN bf16 and ``_int_mm`` times. Returns {shape
+    key: row} of this call's shapes; the row of E_MAIN is the kernels
+    line's."""
+    forward = quantize.int8_forward
+    paths = {id(m): p for p, m in quantize.hooked_convs(model).items()}
+    timed = timed or {}
+    rows = {}
+
+    def checking(mod, xin, x2=None):
+        y = forward(mod, xin, x2)
+        q = mod.quant_scales
+        qws = quantize._qweights(mod, None if x2 is None else xin.shape[1])
+        xn = xin.permute(0, 2, 3, 1).contiguous()
+        x2n = None if x2 is None else x2.permute(0, 2, 3, 1).contiguous()
+        args = (xn, qws[0], q["in_scale"], mod.bias)
+        kw = dict(x2=x2n, qw2=qws[1] if x2 is not None else None,
+                  in_scale2=q.get("in_scale2"), out_dtype=xin.dtype)
+        got, acc = int8_e.int8_conv(*args, **kw, return_acc=True)
+        want, acc_p = int8_e.int8_conv_plain(*args, **kw, return_acc=True)
+        path = paths[id(mod)]
+        if not (torch.equal(acc, acc_p) and torch.equal(got, want)
+                and torch.equal(got, y.permute(0, 2, 3, 1))):
+            raise AssertionError(
+                f"kernel E differs from its plain version at {path} {tuple(xn.shape)}: max "
+                f"|acc diff| {int((acc.long() - acc_p.long()).abs().max())}, max |y diff| "
+                f"{float((got.float() - want.float()).abs().max())}")
+        n, h, w, cin = xn.shape
+        cin2 = 0 if x2 is None else x2n.shape[3]
+        k, cout = mod.weight.shape[-1], mod.weight.shape[0]
+        key = (k, cin, cin2, cout, h, w)
+        if key not in rows and key in timed:
+            rows[key] = {**timed[key], "path": path, "calls": 0}
+        elif key not in rows:
+            macs = n * h * w * cout * (cin + cin2) * k * k
+            n_bytes = (xn.numel() + (0 if x2 is None else x2n.numel())) * xn.element_size() \
+                + got.numel() * got.element_size() + sum(qw.words.numel() * 4 for qw in qws)
+            row = {"path": path, "calls": 0,
+                   "ms": _sync_ms(lambda: int8_e.int8_conv(*args, **kw), 10),
+                   "plain_ms": _sync_ms(lambda: int8_e.int8_conv_plain(*args, **kw), 2, 1),
+                   **_bound(n_bytes, 2.0 * macs, "int8")}
+            if yardsticks:
+                row.update(_e_yardsticks(mod, xin, x2, q))
+            rows[key] = row
+        rows[key]["calls"] += 1
+        return y
+
+    quantize.int8_forward = checking
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        quantize.int8_forward = forward
+    torch.cuda.synchronize()
+    for key, r in rows.items():
+        k, cin, cin2, cout, h, w = key
+        extra = "".join(f" {name}={r[name]:.4f}" if r[name] is not None else f" {name}=None"
+                        for name in ("cudnn_bf16_ms", "int_mm_unfold_ms") if name in r)
+        print(f"kernel int8_conv {what} {h}x{w}x{cin}{f'+{cin2}' if cin2 else ''}->{cout} "
+              f"k={k} ({r['path']}, {r['calls']} calls): bits exact; "
+              + ("timed above" if key in timed else
+                 f"E_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){extra}"))
+    n_calls = sum(r["calls"] for r in rows.values())
+    if n_calls != n_convs:
+        raise AssertionError(f"{n_calls} hooked convolutions ran int8 in one {what} call, "
+                             f"not {n_convs}")
+    print(f"kernel int8_conv {what}: E equal to its plain version bit for bit (int32 sums and "
+          f"outputs) at {n_calls} convolutions, {len(rows)} distinct shapes, "
+          f"{len(set(rows) - set(timed))} new")
+    return rows
+
+
+def _e_tree_counts(scales: dict) -> tuple[int, int]:
+    """(leaves, in_scale2 leaves) of a scales tree."""
+    n = len(quantize.tree_leaves(scales))
+    return n, n - len(quantize.tree_leaves(quantize.quant_skip(scales, ["in_scale2$"])))
+
+
+def int8_device_vs_cpu(model32: ProbabilisticUNet, hr: torch.Tensor, stats, cfg,
+                       dev: torch.device) -> None:
+    """The f32 int8 serve path (bs=2) on the card (kernel E, TF32 off)
+    against the CPU (plain version), with the same scales (calibrated on
+    the CPU) and prior noise:
+
+    - held: every hooked convolution of the CPU's int8 sample call, fed the
+      CPU's own inputs on the card, gives the CPU's output bit for bit;
+    - printed: the two devices' end-to-end results, beside the CPU's own
+      change when its float path alone changes in the last bits (the
+      composed GroupNorm route): a float value within those bits of a
+      rounding boundary quantizes to the neighbouring int8 value, and
+      through the flagship's 87 quantized convolutions such flips cascade
+      to a large share of the int8-vs-float gap at random weights (0.66 on
+      the card's host CPU between its two GroupNorm routes, the share this
+      function prints), so no end-to-end bound is held here.
+
+    Then E against its plain version at every hooked convolution of a
+    bs=16 f32 sample call on the card."""
+    t0 = time.perf_counter()
+    eps = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (3, 2, cfg.model.latent_dim)).astype(np.float32))
+
+    def inputs(where, n):
+        st = type(stats)(*[s.to(where) for s in stats])
+        return preprocess_batch(hr[:n].to(where), st, cfg.data.pipeline, cfg.data.lowres_scale,
+                                cfg.data.interp_mode, cfg.data.epsilon,
+                                cfg.data.standardization)["inputs"]
+
+    model32.to("cpu")
+    composed = _variant(model32, cfg, gn_impl="composed")
+    x = inputs("cpu", 2)
+    scales = quantize.calibrate_sample(model32, [x], 3)
+    forward = quantize.int8_forward
+    records = []
+
+    def recording(mod, xin, x2=None):
+        y = forward(mod, xin, x2)
+        records.append((mod, xin.clone(), None if x2 is None else x2.clone(), y.clone()))
+        return y
+
+    with torch.no_grad():
+        float_cpu = model32.sample(x, 3, eps=eps)
+        with quantize.attached(composed, scales):
+            int8_composed = composed.sample(x, 3, eps=eps)
+        with quantize.attached(model32, scales):
+            quantize.int8_forward = recording
+            try:
+                int8_cpu = model32.sample(x, 3, eps=eps)
+            finally:
+                quantize.int8_forward = forward
+    del composed
+    model32.to(dev)
+    with torch.no_grad(), quantize.attached(model32, scales):
+        int8_card = model32.sample(inputs(dev, 2), 3, eps=eps.to(dev)).cpu()
+        paths = {id(m): p for p, m in quantize.hooked_convs(model32).items()}
+        for mod, xin, x2, y in records:
+            got = forward(mod, xin.to(dev), None if x2 is None else x2.to(dev)).cpu()
+            if not torch.equal(got, y):
+                raise AssertionError(f"int8 convolution {paths[id(mod)]} on the card differs "
+                                     f"from the CPU on the CPU's inputs: max |diff| "
+                                     f"{float((got - y).abs().max())}")
+    gap = float((int8_cpu - float_cpu).abs().max())
+    err = float((int8_card - int8_cpu).abs().max())
+    own = float((int8_composed - int8_cpu).abs().max())
+    print(f"int8 device vs cpu f32 bs=2: {len(records)} convolutions fed the CPU's inputs equal "
+          f"the CPU's outputs bit for bit; end to end max|card - cpu|={err:.6g}, the CPU's own "
+          f"change under the composed GroupNorm route {own:.6g}, cpu int8-vs-float gap "
+          f"{gap:.6g} (shares {err / gap:.4g} and {own / gap:.4g}; printed, not held)")
+    if len(records) != INT8_SAMPLE_LEAVES - INT8_SAMPLE_SPLIT or not bool(
+            torch.isfinite(int8_card).all()):
+        raise AssertionError(f"{len(records)} int8 convolutions, or non-finite card results")
+    x16 = inputs(dev, 16)
+    eps16 = eps[:, :1].expand(3, 16, -1).contiguous().to(dev)
+    with quantize.attached(model32, quantize.calibrate_sample(model32, [x16], 3)):
+        e_vs_plain(model32, lambda: model32.sample(x16, 3, eps=eps16), "float32 bs=16 sample",
+                   INT8_SAMPLE_LEAVES - INT8_SAMPLE_SPLIT, yardsticks=False)
+    model32.to("cpu")
+    torch.cuda.empty_cache()
+    print(f"int8 device vs cpu and f32 E checks: {time.perf_counter() - t0:.3f} s")
+
+
+def int8_phase(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg,
+               dev: torch.device, zero_counts, read_counts) -> tuple[dict, dict]:
+    """int8 serving of the flagship (bf16, random weights): calibration on
+    INT8_CALIB_BATCHES batches of other synthetic days, kernel E against its
+    plain version at every hooked convolution of a bs=128 sample call with
+    its times and yardsticks, the prior ensemble (M=16) float against int8
+    (member-fields/s; 87 E and 57 C launches a call, 85 E with the heads
+    kept in float), E's share of a call's device time, and the eval ELBO
+    (M=5) calibrated by ``calibrate_elbo``, float against int8, with E held
+    against its plain version at every convolution of one int8 eval step
+    (the posterior's included). Returns
+    (E's kernels-line row, the launches of the int8 serve runs)."""
+    t0 = time.perf_counter()
+    days = INT8_CALIB_BATCHES * BATCH
+    hr_cal = apply_physical_transform(torch.from_numpy(synthetic_climex_fields(
+        days, *cfg.data.resolution, cfg.data.variables, seed=1)).to(dev), cfg.data.variables)
+
+    def prep(h):
+        return preprocess_batch(h, stats, cfg.data.pipeline, cfg.data.lowres_scale,
+                                cfg.data.interp_mode, cfg.data.epsilon,
+                                cfg.data.standardization)["inputs"]
+
+    cal = list(hr_cal.split(BATCH))
+    t1 = time.perf_counter()
+    scales = quantize.calibrate_sample(model, [prep(h) for h in cal], ENSEMBLE_M)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t1
+    heads = quantize.quant_skip(scales, ["heads"])
+    counts = (_e_tree_counts(scales), _e_tree_counts(heads))
+    print(f"int8 calibrate_sample: {counts[0][0]} scales ({counts[0][1]} in_scale2) on "
+          f"{len(cal)} batches of {BATCH} in {calib_s:.3f} s; --quant-skip heads leaves "
+          f"{counts[1][0]}")
+    if counts != ((INT8_SAMPLE_LEAVES, INT8_SAMPLE_SPLIT),
+                  (INT8_SAMPLE_LEAVES - INT8_HEADS, INT8_SAMPLE_SPLIT)):
+        raise AssertionError(f"scales trees of {counts}")
+
+    eps = torch.randn((ENSEMBLE_M, BATCH, cfg.model.latent_dim),
+                      generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    xs = [prep(h) for h in batches]
+    with quantize.attached(model, scales):
+        rows = e_vs_plain(model, lambda: model.sample(xs[0], ENSEMBLE_M, eps=eps),
+                          f"bfloat16 bs={BATCH} sample", INT8_SAMPLE_LEAVES - INT8_SAMPLE_SPLIT,
+                          yardsticks=True)
+    main = rows[E_MAIN]
+
+    res, launches, outs = {}, {}, {}
+    e_calls = INT8_SAMPLE_LEAVES - INT8_SAMPLE_SPLIT
+    for name, tree, per_call in (("float", None, 0), ("int8", scales, e_calls),
+                                 ("int8 heads float", heads, e_calls - INT8_HEADS)):
+        with quantize.attached(model, tree), torch.no_grad():
+            model.sample(xs[0], ENSEMBLE_M, eps=eps)                    # warm-up
+            zero_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            outs[name] = [model.sample(x, ENSEMBLE_M, eps=eps) for x in xs]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            launches[f"sample {name}"] = n = read_counts()
+            if tree is not None:
+                _print_groups(f"int8 breakdown sample {name}",
+                              *_kernel_ms_by_group(lambda: model.sample(xs[0], ENSEMBLE_M,
+                                                                        eps=eps), 2),
+                              dt * 1e3 / len(xs))
+        res[f"sample_{name.replace(' ', '_')}_member_fields_per_s"] = \
+            len(xs) * BATCH * ENSEMBLE_M / dt
+        print(f"int8 prior ensemble {name}: M={ENSEMBLE_M} bs={BATCH} {len(xs)} calls, "
+              f"{dt * 1e3 / len(xs):.3f} ms a call, member-fields/s="
+              f"{len(xs) * BATCH * ENSEMBLE_M / dt:.2f}; E launches {n['int8_conv']}, C "
+              f"{n['fused_gn']}")
+        if n["int8_conv"] != per_call * len(xs) or n["fused_gn"] != UNET_CHAINS * len(xs):
+            raise AssertionError(f"{name}: {n['int8_conv']} E and {n['fused_gn']} C launches "
+                                 f"for {len(xs)} sample calls")
+        if not all(bool(torch.isfinite(o).all()) for o in outs[name]):
+            raise AssertionError(f"{name}: non-finite ensemble members")
+    for name in ("int8", "int8 heads float"):
+        d = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                for a, b in zip(outs[name], outs["float"]))
+        print(f"int8 prior ensemble {name} vs float: max |diff| / max |float| = {d:.4g}")
+
+    # the eval ELBO (M=5), calibrated on its own path (posterior included)
+    t1 = time.perf_counter()
+    elbo_scales = quantize.calibrate_elbo(model, cal, cfg, stats)
+    leaves = _e_tree_counts(elbo_scales)
+    steps = {"float": make_eval_step(model, cfg), "int8": make_eval_step(model, cfg,
+                                                                          quant=elbo_scales)}
+    # every convolution of one int8 eval step (the posterior's 128x128x6 -> 32
+    # first convolution included) bit for bit against the plain version
+    e_vs_plain(model, lambda: steps["int8"](batches[0], stats,
+                                            torch.Generator(device=dev).manual_seed(100)),
+               f"bfloat16 bs={BATCH} eval ELBO", leaves[0] - leaves[1], yardsticks=True,
+               timed=rows)
+    recon = {}
+    for name, step in steps.items():
+        step(batches[0], stats, torch.Generator(device=dev).manual_seed(100))
+        zero_counts()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ms = [step(hr, stats, torch.Generator(device=dev).manual_seed(100 + i))
+              for i, hr in enumerate(batches)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t2
+        launches[f"eval {name}"] = n = read_counts()
+        recon[name] = [float(m["recon"]) for m in ms]
+        res[f"eval_{name}_samples_per_s"] = len(batches) * BATCH / dt
+        print(f"int8 eval ELBO {name}: recon {recon[name]}, samples/s="
+              f"{len(batches) * BATCH / dt:.2f}; E launches {n['int8_conv']}")
+        if not all(math.isfinite(v) for m in ms for v in map(float, m.values())):
+            raise AssertionError(f"eval {name}: non-finite metrics")
+        want = (leaves[0] - leaves[1]) * len(batches) if name == "int8" else 0
+        if n["int8_conv"] != want:
+            raise AssertionError(f"eval {name}: {n['int8_conv']} E launches, not {want}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(recon["int8"], recon["float"]))
+    print(f"int8 calibrate_elbo: {leaves[0]} scales ({leaves[1]} in_scale2), "
+          f"{leaves[0] - leaves[1]} E launches a step; eval recon int8 vs float max rel "
+          f"{rel:.4g}; eval part {time.perf_counter() - t1:.3f} s")
+    print(f"int8 rates: {json.dumps(res)}; int8 phase {time.perf_counter() - t0:.3f} s")
+    row = {"max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": main["cudnn_bf16_ms"], "int_mm_unfold_ms": main["int_mm_unfold_ms"]}
+    del hr_cal, cal, xs, outs
+    torch.cuda.empty_cache()
+    return row, launches
+
+
 def launch_counters():
     """(the kernel wrappers by name, a function setting their launch counts
     to 0, a function reading them after the device has finished)."""
@@ -2358,7 +2874,8 @@ def launch_counters():
                 "afcrps_bwd": afcrps.ensemble_crps_terms_bwd,
                 "fused_gn": fused_gn.gn_film_silu_dropout,
                 "fused_gn_bwd": fused_gn.gn_film_silu_dropout_bwd,
-                "dropout": dropout.dropout}
+                "dropout": dropout.dropout,
+                "int8_conv": int8_e.int8_conv}
 
     def zero_counts():
         for fn in counters.values():
@@ -2434,6 +2951,7 @@ def main() -> None:
     model32.load_state_dict(model.state_dict())
     hr_cpu, stats_cpu = hr.cpu(), type(stats)(*[t.cpu() for t in stats])
     device_vs_cpu(model32.eval(), hr_cpu, stats_cpu, cfg32, dev)
+    int8_device_vs_cpu(model32, hr_cpu, stats_cpu, cfg32, dev)
     train_device_vs_cpu(model32, hr_cpu, stats_cpu, cfg32, dev)
     del model32
     new_branches_device_vs_cpu(dev)
@@ -2485,6 +3003,12 @@ def main() -> None:
     for name, m in (("kernel", model), ("composed", model_composed)):
         serve_breakdown(m, batches[0], stats, cfg, dev, name)
 
+    # int8 serving: kernel E on the sample and eval-ELBO paths
+    e_row, int8_launches = int8_phase(model, batches, stats, cfg, dev, zero_counts,
+                                      read_counts)
+    print(f"launches on the int8 serve runs: {json.dumps(int8_launches)}")
+    report["int8_conv"] = e_row
+
     # the training path: bs=128, M=15, dropout 0.1, on six routes
     cfg_train = copy.deepcopy(cfg)
     cfg_train.train.ensemble_size = TRAIN_M
@@ -2501,7 +3025,7 @@ def main() -> None:
     print(f"launches on the training path ({n_steps} steps on {len(routes)} routes): "
           f"{json.dumps(launches)}")
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name != "int8_conv":   # E serves only: no gradient
             raise AssertionError(f"kernel {name} was not launched on the training path")
     plain = train[kernel_fused]
     for name in remats:
@@ -2563,13 +3087,16 @@ def main() -> None:
               f"{time.perf_counter() - t0:.3f} s")
 
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
-               "dropout": dropout}
+               "dropout": dropout, "int8_conv": int8_e}
     kernels = []
     for name in counters:
         mod = modules[name.removesuffix("_bwd")]
+        int8_n = sum(r[name] for r in int8_launches.values())
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                         "replaces": mod.REPLACES_BWD if name.endswith("_bwd") else mod.REPLACES,
-                        "launches": launches[name], **report[name],
+                        # each kernel's own main path: training for A to D, int8 serving for E
+                        "launches": int8_n if name == "int8_conv" else launches[name],
+                        **report[name], "launches_int8": int8_n,
                         "launches_cli": sum(r[name] for r in cli_launches.values()),
                         "launches_train_cli": sum(r[name]
                                                   for r in train_cli_launches.values()),

@@ -7,6 +7,8 @@
     python -m probunet_tpu_torch evaluate --preset probunet_multivar_128 --ckpt DIR \
         --set data.packed_test=test.npz
     python -m probunet_tpu_torch extremes --preset probunet_multivar_128 --ckpt DIR --pixels 20,45
+    python -m probunet_tpu_torch infer-domain --preset fulldomain_dp8 --ckpt DIR \
+        [--quant int8 --quant-skip heads]
     python -m probunet_tpu_torch explore  --preset probunet_multivar_128 --ckpt DIR \
         --set data.packed_test=test.npz [--posterior | --single]
 
@@ -36,8 +38,15 @@ Where they differ from the JAX CLI:
   dropout seed words and posterior noise from a generator seeded from
   (seed, step) on the device (``train.state.step_generator``), so a resumed
   run redraws the same numbers; they are not the JAX CLI's.
-- ``--quant int8``, ``--member-mesh N`` (N > 1), ``--dp`` and ``--wandb``
-  are not ported yet and raise ``NotImplementedError``.
+- **int8 serving.** ``--quant int8`` on ``evaluate``, ``extremes`` and
+  ``infer-domain`` calibrates per-convolution input scales as the JAX CLI
+  does (``ops/quantize.py``; ``--calib-batches``, ``--quant-skip``) and
+  serves them through kernel E; the calibration's latent draws come from a
+  CPU generator (the scales do not depend on them).
+- ``infer-domain`` draws each tile chunk's noise with :func:`batch_noise`
+  (seed ``train.seed``, the chunk's index), not the JAX CLI's ``fold_in``.
+- ``--member-mesh N`` (N > 1), ``--dp`` and ``--wandb`` are not ported yet
+  and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -104,9 +113,6 @@ def _check_ported(args) -> None:
     if getattr(args, "dp", 0):
         raise NotImplementedError(
             "--dp is not ported yet (ROADMAP.md §1 item 7, the parallel paths)")
-    if getattr(args, "quant", "none") != "none":
-        raise NotImplementedError(
-            "--quant int8 is not ported yet (ROADMAP.md §1 item 6, int8 PTQ serving)")
     if (getattr(args, "member_mesh", 0) or 0) > 1:
         raise NotImplementedError(
             "--member-mesh N > 1 is not ported yet (ROADMAP.md §1 item 7, the parallel paths)")
@@ -233,6 +239,52 @@ def _sample_hr(model, ds, cfg: Config, idx: np.ndarray, eps: torch.Tensor):
         hr_pred = invert_physical_transform(hr_pred, cfg.data.variables)
         gt = invert_physical_transform(gt, cfg.data.variables)
     return hr_pred, gt
+
+
+def _calibrate(args, model, inputs, where: str):
+    """``--quant int8``: the scales tree of the prior-sample path over the
+    preprocessed ``inputs``, pruned by ``--quant-skip``, the JAX CLI's lines
+    printed; None under ``--quant none``."""
+    from probunet_tpu_torch.ops.quantize import calibrate_sample, quant_skip, tree_leaves
+
+    scales = calibrate_sample(model, inputs, num_samples=args.members)
+    skip = getattr(args, "quant_skip", None)
+    if skip:
+        n0 = len(tree_leaves(scales))
+        scales = quant_skip(scales, skip)
+        print(f"int8 serve: --quant-skip {skip} pruned "
+              f"{n0 - len(tree_leaves(scales))} of {n0} scales")
+    print(f"int8 serve: calibrated {len(tree_leaves(scales))} conv scales on {len(inputs)} "
+          f"{where}")
+    return scales
+
+
+def _serve_scales(args, cfg: Config, model, ds, n_items: int, batch_size: int):
+    """``--quant int8``: calibrate the convolutions' input scales on the
+    first ``--calib-batches`` batches of the validation split (calibrating
+    on the split whose metrics are reported would leak), or of the serve
+    split ``ds`` when the validation split cannot be built (said on a
+    line); returns the scales tree, None under ``--quant none``."""
+    if getattr(args, "quant", "none") != "int8":
+        return None
+    from probunet_tpu_torch.data.loader import Batches
+
+    calib_ds, split = ds, "serve"
+    try:  # built only here: the float path never pays for the validation split
+        val = make_datasets(cfg, splits=(1,), device=args.device)[1]
+        if val is not None and len(val) > 0:
+            calib_ds, split = val, "val"
+    except Exception as e:
+        print(f"int8 serve: val split unavailable ({e}); calibrating on the serve split")
+    n_avail = len(calib_ds) if split == "val" else n_items
+    n_calib = max(1, args.calib_batches)
+    inputs = []
+    for i, idx in enumerate(Batches(n_avail, batch_size)):
+        if i >= n_calib:
+            break
+        hr = torch.from_numpy(calib_ds.get_hr_batch(idx)).to(args.device)
+        inputs.append(calib_ds.preprocess(hr)["inputs"])
+    return _calibrate(args, model, inputs, f"{split}-split batches")
 
 
 # ---------------------------------------------------------------------------
@@ -535,6 +587,7 @@ def cmd_evaluate(args):
     phase times in seconds)."""
     from probunet_tpu_torch.data.loader import Batches
     from probunet_tpu_torch.evals import EvalAccumulator
+    from probunet_tpu_torch.ops.quantize import attached
 
     _check_ported(args)
     timer = _PhaseTimer(args.device)
@@ -546,6 +599,10 @@ def cmd_evaluate(args):
 
     m = args.members
     n_items = min(len(ds_test), args.max_items or len(ds_test))
+    with torch.inference_mode():
+        scales = _serve_scales(args, cfg, model, ds_test, n_items, args.batch_size)
+    if scales is not None:
+        timer.mark("calib")
 
     def ensembles():
         for i, idx in enumerate(Batches(n_items, args.batch_size)):
@@ -553,7 +610,7 @@ def cmd_evaluate(args):
             yield _sample_hr(model, ds_test, cfg, idx, eps)
 
     acc = EvalAccumulator()
-    with torch.inference_mode():
+    with torch.inference_mode(), attached(model, scales):
         for e, g in ensembles():
             acc.update(e, g)
         timer.mark("metric_loop")
@@ -603,6 +660,7 @@ def cmd_extremes(args):
     JSON object, the phase times in seconds)."""
     from probunet_tpu_torch.data.loader import Batches
     from probunet_tpu_torch.evals import model_ensemble_analysis, return_level_analysis
+    from probunet_tpu_torch.ops.quantize import attached
 
     _check_ported(args)
     timer = _PhaseTimer(args.device)
@@ -624,8 +682,12 @@ def cmd_extremes(args):
     m = args.members
 
     days = len(ds_test) if not args.days else min(args.days, len(ds_test))
-    model_vals, gt_vals = [], []
     with torch.inference_mode():
+        scales = _serve_scales(args, cfg, model, ds_test, days, args.batch_size)
+    if scales is not None:
+        timer.mark("calib")
+    model_vals, gt_vals = [], []
+    with torch.inference_mode(), attached(model, scales):
         for i, idx in enumerate(Batches(days, args.batch_size)):
             eps = batch_noise(cfg.train.seed, i, m, len(idx), cfg.model.latent_dim)
             e, g = _sample_hr(model, ds_test, cfg, idx, eps)
@@ -697,6 +759,127 @@ def cmd_extremes(args):
     return out, timer.spans
 
 
+def cmd_infer_domain(args):
+    """Full-domain tiled ensemble inference (BASELINE config 5, one device):
+    the domain (``--domain``, 280 for ClimEx; synthetic unless
+    ``data.datadir``) edge-padded to a pooling multiple, cut into tiles of
+    the model's window aligned to the pooling grid (overlap ``--overlap``),
+    every (day, tile) pair a batch row, ``--batch-tiles`` a chunk, the
+    statistics sliced per tile from the domain's; each tile's HR ensemble
+    (noise from :func:`batch_noise` per chunk) is stitched with cosine-ramp
+    blending, cropped, brought to physical units and scored (CRPS, MAE).
+    ``--quant int8`` calibrates on the first ``--calib-batches`` chunks
+    (the model serves at tile resolution; there is no held-out tile
+    source). Writes ``infer_domain.json`` and the guarded figure. Returns
+    (the printed JSON object, the phase times in seconds: ``sample`` holds
+    the tiles' sampling and their stitch, :func:`tiled_ensemble`)."""
+    from probunet_tpu_torch.data.climex import (
+        ClimexDataset, Standardization, lrinterp_from_batch, preprocess_batch, residual_to_hr)
+    from probunet_tpu_torch.evals import compute_mae, crps_over_groundtruth
+    from probunet_tpu_torch.ops.quantize import attached
+    from probunet_tpu_torch.parallel.spatial import extract_tiles, tile_positions, tiled_ensemble
+
+    _check_ported(args)
+    timer = _PhaseTimer(args.device)
+    dev = args.device
+    cfg = build_config(args)
+    d = cfg.data
+    k = d.lowres_scale
+    tile = d.resolution[0]
+    dom = args.domain
+    os.makedirs(args.outdir, exist_ok=True)
+    # the dataset edge-pads the domain to a pooling multiple (280 is not
+    # divisible by 16): inference runs on the padded grid, the stitched
+    # result is cropped back to `dom`
+    ds = ClimexDataset(datadir=d.datadir or None, years=range(*d.years_test),
+                       variables=d.variables, coords=(0, dom, 0, dom), pipeline=d.pipeline,
+                       lowres_scale=k, transfo=d.transfo, interp_mode=d.interp_mode,
+                       synthetic=d.synthetic or not d.datadir, pad_to_multiple=True, device=dev)
+    days = min(args.days, len(ds))
+    hr_days = torch.from_numpy(ds.get_hr_batch(np.arange(days))).to(dev)
+    dom_pad = hr_days.shape[1]
+    timer.mark("dataset")
+    model = _load_model(cfg, args.ckpt, dev)
+    timer.mark("init")
+
+    positions = tile_positions(dom_pad, dom_pad, tile, args.overlap, align=k)
+    ntiles = len(positions)
+    g = ds.device_stats(dev)
+
+    def stat_tiles(arr, scale):
+        if arr is None:
+            return None
+        s = torch.stack([arr[y // scale:(y + tile) // scale, x // scale:(x + tile) // scale]
+                         for (y, x) in positions])
+        return s.repeat(days, 1, 1, 1)            # day-major, as the tiles
+
+    stats_t = Standardization(*(stat_tiles(a, k if name.startswith("lr") else 1)
+                                for name, a in zip(Standardization._fields, g)))
+
+    def chunk_stats(i, n):
+        return Standardization(*(None if a is None else a[i:i + n] for a in stats_t))
+
+    def preprocess(tiles, i):
+        return preprocess_batch(tiles, chunk_stats(i, tiles.shape[0]), d.pipeline, k,
+                                d.interp_mode, d.epsilon, d.standardization)
+
+    m = args.members
+    bs = args.batch_tiles
+    scales = None
+    if getattr(args, "quant", "none") == "int8":
+        with torch.inference_mode():
+            n_calib = min(max(1, args.calib_batches) * bs, days * ntiles)
+            first, _ = extract_tiles(hr_days[:-(-n_calib // ntiles)], tile, args.overlap,
+                                     align=k)
+            inputs = [preprocess(first[i:min(i + bs, n_calib)], i)["inputs"]
+                      for i in range(0, n_calib, bs)]
+            scales = _calibrate(args, model, inputs, "tile chunks")
+            del first, inputs
+        timer.mark("calib")
+
+    def sample_hr(tiles, i):
+        batch = preprocess(tiles, i)
+        n = tiles.shape[0]
+        eps = batch_noise(cfg.train.seed, i // bs, m, n, cfg.model.latent_dim)
+        out = model.sample(batch["inputs"], m, eps=eps.to(dev))
+        st_b = Standardization(*(None if a is None else a[:, None] for a in chunk_stats(i, n)))
+        ist = batch.get("stand_stats")
+        if ist is not None:                           # the member axis
+            ist = {key: v[:, None] for key, v in ist.items()}
+        lrinterp = lrinterp_from_batch(batch, k, d.interp_mode)
+        return residual_to_hr(out, lrinterp[:, None], st_b, d.pipeline, d.epsilon,
+                              d.standardization, ist)
+
+    with torch.inference_mode(), attached(model, scales):
+        full = tiled_ensemble(sample_hr, hr_days, tile, args.overlap, bs, align=k)
+        timer.mark("sample")
+        full = full[:, :, :dom, :dom]                 # (T, M, H, W, C), padding cropped
+        gt = hr_days[:, :dom, :dom]
+        if d.transfo:
+            from probunet_tpu_torch.data.transforms import invert_physical_transform
+            full = invert_physical_transform(full, d.variables)
+            gt = invert_physical_transform(gt, d.variables)
+        crps = crps_over_groundtruth(full, gt)
+        mae = compute_mae(full, gt)
+        result = {"domain": dom, "days": days, "tiles_per_day": ntiles, "members": m,
+                  "crps_mean": crps["mean"].cpu().numpy().tolist(),
+                  "mae_mean": mae["mean"].cpu().numpy().tolist()}
+    timer.mark("metrics")
+    print(json.dumps(result))
+    with open(os.path.join(args.outdir, "infer_domain.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    try:
+        from probunet_tpu_torch.utils.plotting import plot_sample_batch
+        plot_sample_batch(full[:1, :3].cpu().numpy(), gt[:1].cpu().numpy(),
+                          variables=d.variables,
+                          save_path=os.path.join(args.outdir, "domain.png"))
+    except Exception as e:  # the figure only: the numbers are written
+        print(f"plotting skipped: {type(e).__name__}: {e}")
+    timer.mark("figures")
+    timer.report()
+    return result, timer.spans
+
+
 def cmd_pack(args):
     """One-time conversion of a split to the packed artifact (raw physical
     fields; the transforms apply when it is loaded)."""
@@ -740,13 +923,16 @@ def main(argv=None):
         sp.add_argument("--member-mesh", type=int, default=0, metavar="N",
                         help="member-parallel serving over N devices (not ported "
                              "yet: N > 1 raises)")
+        quant_flags(sp)
+
+    def quant_flags(sp):
         sp.add_argument("--quant", choices=("none", "int8"), default="none",
-                        help="int8 conv serving (not ported yet: int8 raises)")
+                        help="serve the ensemble with int8 convs (kernel E)")
         sp.add_argument("--calib-batches", type=int, default=4,
                         help="serve batches the int8 calibration pass sees")
         sp.add_argument("--quant-skip", nargs="*", default=None,
                         help="regexes of conv module paths kept in float under "
-                             "--quant int8")
+                             "--quant int8; alias 'heads' = the latent heads")
 
     sp = sub.add_parser("train", help="probabilistic U-Net ELBO training")
     common(sp)
@@ -783,6 +969,20 @@ def main(argv=None):
     sp.add_argument("--batch-size", type=int, default=16)
     sp.add_argument("--max-items", type=int, default=None)
     sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("infer-domain", help="full-domain tiled ensemble inference")
+    common(sp)
+    sp.add_argument("--ckpt", default=None,
+                    help="checkpoint directory holding best_params.pt")
+    sp.add_argument("--domain", type=int, default=280)
+    sp.add_argument("--days", type=int, default=4)
+    sp.add_argument("--members", type=int, default=8)
+    sp.add_argument("--overlap", type=int, default=16)
+    sp.add_argument("--batch-tiles", type=int, default=16)
+    sp.add_argument("--dp", type=int, default=0,
+                    help="tile batches over N devices (not ported yet: nonzero raises)")
+    quant_flags(sp)
+    sp.set_defaults(fn=cmd_infer_domain)
 
     sp = sub.add_parser("extremes",
                         help="observed-vs-model GEV return-level comparison")

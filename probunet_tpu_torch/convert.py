@@ -18,7 +18,8 @@ port's parameters, whose module names follow the Flax names
 - biases and ``FourierEmbedding``'s ``freqs`` as they are.
 
 Every leaf must be consumed and every port parameter filled, with equal
-shapes; anything else raises.
+shapes; anything else raises. ``convert_quant`` and ``flax_quant`` carry
+the int8 serving scales tree (the JAX "quant" collection) both ways.
 """
 
 from __future__ import annotations
@@ -113,3 +114,36 @@ def load_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Load the Flax tree ``params`` into ``model`` in place (strict)."""
     model.load_state_dict(convert_params(params, model), strict=True)
     return model
+
+
+def convert_quant(tree: Mapping, model: nn.Module) -> dict:
+    """The JAX package's "quant" collection (nested dicts of f32 scalars,
+    ``{"unet": {"enc_128x128_conv": {"in_scale": s}}}``) as the port's
+    scales tree for ``model`` (0-d f32 tensors, ``ops.quantize``): every
+    path must name a hooked convolution of ``model`` and every leaf be
+    ``in_scale`` or ``in_scale2``, else it raises."""
+    from probunet_tpu_torch.ops.quantize import SCALE_NAMES, hooked_convs
+
+    convs = hooked_convs(model)
+    out: dict = {}
+    bad = []
+    for path, arr in _flatten(tree):
+        if "/".join(path[:-1]) not in convs or path[-1] not in SCALE_NAMES.values() \
+                or arr.size != 1:
+            bad.append("/".join(path))
+            continue
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = torch.tensor(float(np.asarray(arr, np.float32).reshape(())),
+                                      dtype=torch.float32)
+    if bad:
+        raise ValueError(f"quant scales naming no hooked convolution of the model: {bad}")
+    return out
+
+
+def flax_quant(scales: Mapping) -> dict:
+    """The inverse of :func:`convert_quant`: a port scales tree as the JAX
+    package's nested dict of f32 numpy scalars."""
+    return {k: flax_quant(v) if isinstance(v, Mapping)
+            else np.float32(torch.as_tensor(v).item()) for k, v in scales.items()}

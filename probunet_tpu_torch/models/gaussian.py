@@ -5,7 +5,8 @@ Per filter level: [2x2 max pool +] 3 x (conv3x3 + ReLU); then a global
 average pool and two 1x1 convs giving (mu, log_sigma), returned in f32 as
 a :class:`DiagGaussian`. The posterior concatenates the target onto the
 input channels. Init: kaiming-normal (fan-in, ReLU) weights and
-truncated-normal(0.001) biases. ``save_convs=True`` (the JAX package's
+truncated-normal(0.001) biases. The convolutions carry the int8 serving
+hooks (``ops.quantize``). ``save_convs=True`` (the JAX package's
 ``remat="save_convs_all"``) runs the encoder under selective
 checkpointing while autograd records: conv outputs are stored, the ReLU
 and pooling chains recomputed in the backward.
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from probunet_tpu_torch.models.layers import save_convs_checkpoint
+from probunet_tpu_torch.ops import quantize
 from probunet_tpu_torch.ops.distributions import DiagGaussian
 
 
@@ -38,7 +40,8 @@ def trunc_normal_bias_init(shape: tuple[int, ...], generator: torch.Generator,
 
 
 class _Conv3x3(nn.Module):
-    """k x k conv (OIHW weight) + bias, computed in ``dtype``."""
+    """k x k conv (OIHW weight) + bias, computed in ``dtype``; the int8
+    serving hooks of ``layers.EDMConv`` (``ops.quantize``)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3, *,
                  generator: torch.Generator, dtype: torch.dtype | None = None):
@@ -48,8 +51,12 @@ class _Conv3x3(nn.Module):
         self.weight = nn.Parameter(kaiming_relu_init(
             (features, in_channels, kernel, kernel), fan_in, generator))
         self.bias = nn.Parameter(trunc_normal_bias_init((features,), generator))
+        self.quant_scales = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        quantize.observe(self, x)
+        if quantize.takes_int8(self, False):
+            return quantize.int8_forward(self, x)
         dt = self.dtype if self.dtype is not None else x.dtype
         k = self.weight.shape[-1]
         y = F.conv2d(x.to(dt), self.weight.to(dt), padding=k // 2)

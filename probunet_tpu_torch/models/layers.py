@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from probunet_tpu_torch.ops import quantize
 from probunet_tpu_torch.ops.kernels import fused_gn
 from probunet_tpu_torch.ops.kernels.dropout import dropout as hash_dropout
 from probunet_tpu_torch.ops.kernels.dropout import apply_keep, hash_uniform
@@ -132,7 +133,12 @@ def _conv(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 class EDMConv(nn.Module):
     """k x k conv (k = 3 or 1) with optional fixed 2x resampling before it:
     nearest 2x upsampling (``up``) or 2x2 mean pooling (``down``).
-    ``kernel=0`` resamples only (the channel-preserving skip path)."""
+    ``kernel=0`` resamples only (the channel-preserving skip path).
+
+    int8 serving (``ops.quantize``): a convolution records the absmax of its
+    input after the resampling (and of ``x2``) under ``record_absmax``, and
+    runs kernel E when ``quant_scales`` holds every scale its call needs,
+    else its float path."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3, *,
                  generator: torch.Generator, up: bool = False, down: bool = False,
@@ -142,6 +148,7 @@ class EDMConv(nn.Module):
             raise ValueError("EDMConv: up and down are exclusive")
         self.up, self.down, self.kernel, self.dtype = up, down, kernel, dtype
         self.weight = self.bias = None
+        self.quant_scales = None
         if kernel:
             mode, w_scale, b_scale = init
             fan_in = in_channels * kernel * kernel
@@ -165,6 +172,11 @@ class EDMConv(nn.Module):
             x = F.avg_pool2d(x, 2)
         if not self.kernel:
             return x
+        quantize.observe(self, x)
+        if x2 is not None:
+            quantize.observe(self, x2, "absmax2")
+        if quantize.takes_int8(self, x2 is not None):
+            return quantize.int8_forward(self, x, x2)
         dt = _out_dtype(x, self.dtype)
         if x2 is None:
             y = _conv(x, self.weight, dt)

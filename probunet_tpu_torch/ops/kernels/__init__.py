@@ -10,7 +10,10 @@ Each module holds one kernel's wrapper and its plain PyTorch version:
   chain, forward and backward, replacing
   ``probunet_tpu/ops/pallas/fused_gn.py``;
 - :mod:`.dropout` — zero-storage hash dropout, replacing
-  ``probunet_tpu/ops/pallas/dropout.py``.
+  ``probunet_tpu/ops/pallas/dropout.py``;
+- :mod:`.int8_conv` — the int8 serving path's convolution (kernel E),
+  which no TPU kernel computes: the JAX package leaves it to XLA
+  (``probunet_tpu/ops/quantize.py:int8_conv``).
 
 A wrapper runs the plain version for a CPU tensor and launches its kernel
 for a CUDA tensor, or raises: there is no fallback from the kernel. Each

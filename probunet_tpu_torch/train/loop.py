@@ -9,7 +9,8 @@ GroupNorm route), and AdamW as optax
 computes it. Its random numbers come from a generator seeded from
 (seed, step) on the batch's device. ``make_eval_step`` is the no-grad
 ELBO users call between epochs and in ``bench.py``'s eval mode (M =
-``eval_ensemble_size``, beta_1 = 0, no dropout).
+``eval_ensemble_size``, beta_1 = 0, no dropout), in float or, with a
+calibrated scales tree (``quant=``), on int8 convolutions (kernel E).
 ``make_deterministic_train_step`` is the deterministic baselines' MSE
 step. ``train_epoch``, ``eval_model`` and :class:`Trainer` loop them over
 ``ClimexDataset`` splits as the JAX loop does, the batches copied to the
@@ -20,6 +21,7 @@ steps (``Trainer(mesh=...)``) are not ported: they raise.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable
@@ -37,6 +39,7 @@ from probunet_tpu_torch.data.climex import (
 from probunet_tpu_torch.data.loader import Batches, prefetch_to_device
 from probunet_tpu_torch.device import resolve_device
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
+from probunet_tpu_torch.ops import quantize
 from probunet_tpu_torch.train.early_stop import EarlyStopper
 from probunet_tpu_torch.train.schedule import beta_schedule
 from probunet_tpu_torch.train.state import (
@@ -48,13 +51,20 @@ from probunet_tpu_torch.train.state import (
 
 
 def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = True,
-                      fused: bool = True) -> Callable:
+                      fused: bool = True, quant: dict | None = None,
+                      collect_stats: bool = False) -> Callable:
     """ELBO loss of (hr_batch, stats, generator, beta_0, beta_1[, eps,
     seeds]) -> (total, metrics). ``training``: M = ``ensemble_size`` and
     the U-Net's dropout on; else M = ``eval_ensemble_size``, no dropout.
     ``fused`` selects the reconstruction route (kernel A, or
     ``Fcomb.ensemble`` + kernel B). ``eps``/``seeds`` override the draws
-    from ``generator`` (the tests hand both packages the same values)."""
+    from ``generator`` (the tests hand both packages the same values).
+
+    ``quant``: a scales tree (``ops.quantize``), attached to the model for
+    the call: the convolutions that find their scale run int8 (kernel E; no
+    gradient, so eval use only). ``collect_stats``: the call records each
+    hooked convolution's input absmax and returns the tree in
+    ``metrics["quant_stats"]``, the calibration pass of this exact path."""
     data_cfg, loss_cfg = cfg.data, cfg.loss
     m_size = cfg.train.ensemble_size if training else cfg.train.eval_ensemble_size
 
@@ -64,12 +74,17 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
         batch = preprocess_batch(
             hr_batch, stats, data_cfg.pipeline, data_cfg.lowres_scale,
             data_cfg.interp_mode, data_cfg.epsilon, data_cfg.standardization)
-        return model.elbo(batch["inputs"], batch["targets"], M=m_size,
-                          loss_type=loss_cfg.loss_type, beta_0=beta_0, beta_1=beta_1,
-                          beta_2=loss_cfg.beta_2, alpha=loss_cfg.alpha,
-                          alpha_w=loss_cfg.alpha_w, beta_w=loss_cfg.beta_w,
-                          lam_w=loss_cfg.lam_w, generator=generator, eps=eps,
-                          fused=fused, training=training, seeds=seeds)
+        recorder = (quantize.record_absmax(model) if collect_stats
+                    else contextlib.nullcontext())
+        with quantize.attached(model, quant), recorder:
+            total, metrics = model.elbo(
+                batch["inputs"], batch["targets"], M=m_size, loss_type=loss_cfg.loss_type,
+                beta_0=beta_0, beta_1=beta_1, beta_2=loss_cfg.beta_2, alpha=loss_cfg.alpha,
+                alpha_w=loss_cfg.alpha_w, beta_w=loss_cfg.beta_w, lam_w=loss_cfg.lam_w,
+                generator=generator, eps=eps, fused=fused, training=training, seeds=seeds)
+        if collect_stats:
+            metrics = {**metrics, "quant_stats": recorder.stats()}
+        return total, metrics
 
     return loss_fn
 
@@ -109,10 +124,13 @@ def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True) -
     return step
 
 
-def make_eval_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True) -> Callable:
+def make_eval_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
+                   quant: dict | None = None) -> Callable:
     """No-grad posterior ELBO: step(hr_batch, stats, generator) ->
-    {"recon", "kl_mean", "loss"} (0-d tensors on the batch's device)."""
-    loss_fn = make_elbo_loss_fn(model, cfg, training=False, fused=fused)
+    {"recon", "kl_mean", "loss"} (0-d tensors on the batch's device).
+    ``quant``: a calibrated scales tree
+    (``ops.quantize.calibrate_elbo``): the step serves int8 convolutions."""
+    loss_fn = make_elbo_loss_fn(model, cfg, training=False, fused=fused, quant=quant)
 
     @torch.no_grad()
     def step(hr_batch: torch.Tensor, stats: Standardization,

@@ -1,4 +1,5 @@
-"""The port's command line (``pack``, ``evaluate``, ``extremes``) against the
+"""The port's command line (``pack``, ``evaluate``, ``extremes``,
+``infer-domain``, the int8 serving flags) against the
 JAX package, on the tiny overrides of ``tests/test_cli.py`` (16x16,
 preset ``probunet_latent6_64``) under ``PROBUNET_PLATFORM=cpu``.
 
@@ -302,10 +303,156 @@ def test_pack_matches_jax(on_cpu, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd", ["evaluate", "extremes"])
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--member-mesh", "2"]])
+@pytest.mark.parametrize("flag", [["--member-mesh", "2"]])
 def test_unported_flags_raise(on_cpu, tmp_path, cmd, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main([cmd, "--preset", PRESET, "--outdir", str(tmp_path)] + flag + TINY)
+
+
+def test_infer_domain_dp_raises(on_cpu, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
+        tcli.main(["infer-domain", "--preset", PRESET, "--outdir", str(tmp_path), "--dp", "2"]
+                  + INFER + TINY)
+
+
+# infer-domain on a 38x38 domain (padded to 40 for the 4x pooling: 9 tiles of
+# 16 a day, overlap 4), 3 days, chunks of 8 tiles
+INFER = ["--domain", "38", "--days", "3", "--members", "3", "--overlap", "4",
+         "--batch-tiles", "8"]
+QUANT = ["--quant", "int8", "--quant-skip", "heads"]
+# int8 against float on the noisy checkpoint: the metrics move by at most
+# 15%, the eval-ELBO bound of tests/test_quantize.py (measured: 0.28%
+# evaluate, 1.8% extremes' return levels, 0.36% infer-domain)
+INT8_RTOL = 0.15
+# port-vs-JAX int8 metrics over the JAX loop's int8-vs-float gap
+SERVE_SHARE = 0.1
+SERVE_ARGS = {"evaluate": EVAL, "extremes": EXTREMES, "infer-domain": INFER}
+
+
+@pytest.mark.parametrize("cmd", ["evaluate", "extremes", "infer-domain"])
+def test_int8_serving_prints_the_jax_scale_counts(served, on_cpu, tmp_path, capsys, cmd):
+    """``--quant int8 --quant-skip heads``: the calibration lines of the JAX
+    CLI on the same preset, the same counts (the tree's structure does not
+    depend on the weights); finite metrics close to the float run's."""
+    from probunet_tpu.cli import main as jax_main
+
+    _, _, ckpt = served
+    argv = [cmd, "--preset", PRESET] + SERVE_ARGS[cmd] + TINY
+    got, spans = tcli.main(argv[:1] + ["--outdir", str(tmp_path / "q"), "--ckpt", ckpt]
+                           + argv[1:] + QUANT)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("int8 serve")]
+    jax_main(argv[:1] + ["--outdir", str(tmp_path / "jax")] + argv[1:] + QUANT)
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("int8 serve")]
+    assert lines == want and len(lines) == 2
+    assert lines[0] == "int8 serve: --quant-skip ['heads'] pruned 2 of 39 scales"
+    assert "calib" in spans
+    ref, _ = tcli.main(argv[:1] + ["--outdir", str(tmp_path / "f"), "--ckpt", ckpt] + argv[1:])
+    if cmd == "extremes":
+        got = {k: got["pixels"][k]["model"]["return_levels"] for k in got["pixels"]}
+        ref = {k: ref["pixels"][k]["model"]["return_levels"] for k in ref["pixels"]}
+    else:
+        got = {k: got[k] for k in ("crps_mean", "mae_mean")}
+        ref = {k: ref[k] for k in ("crps_mean", "mae_mean")}
+    for key in ref:
+        assert np.isfinite(got[key]).all(), key
+        assert_close(got[key], ref[key], INT8_RTOL, what=key)
+    # the int8 route served: its metrics are not the float run's
+    assert any(not np.array_equal(got[key], ref[key]) for key in ref)
+
+
+@pytest.mark.parametrize("quant", ["float", "int8"])
+def test_infer_domain_matches_jax(served, on_cpu, tmp_path, capsys, quant):
+    """``infer-domain`` against a loop of the JAX package's functions (its
+    dataset, tiles, per-tile statistics, preprocessing, model,
+    ``residual_to_hr``, stitch and metrics) fed the port's chunk noise.
+    Float: the JSON at the module's tolerances. ``--quant int8
+    --quant-skip heads``: the JAX loop serves the tree the JAX package
+    calibrates on the same first chunks (the JAX CLI's calibration); the
+    port's metrics must lie within SERVE_SHARE of the JAX loop's int8-vs-
+    float gap from its int8 metrics (``tests/test_torch_quantize.py``'s
+    serving bound; a flipped rounding moves a domain mean little).
+    Measured: 0.034 of the gap (CRPS), 0.0025 (MAE)."""
+    import jax
+    import jax.numpy as jnp
+
+    from probunet_tpu.data.climex import (
+        ClimexDataset, Standardization, lrinterp_from_batch, preprocess_batch, residual_to_hr)
+    from probunet_tpu.data.transforms import invert_physical_transform
+    from probunet_tpu.evals import compute_mae, crps_over_groundtruth
+    from probunet_tpu.ops.quantize import calibrate_sample, quant_skip
+    from probunet_tpu.parallel.spatial import extract_tiles, stitch_tiles
+
+    jmodel, params, ckpt = served
+    out = tmp_path / "id"
+    got, spans = tcli.main(["infer-domain", "--preset", PRESET, "--outdir", str(out),
+                            "--ckpt", ckpt] + INFER + TINY + (QUANT if quant == "int8" else []))
+    assert list(spans) == ["dataset", "init"] + (["calib"] if quant == "int8" else []) + [
+        "sample", "metrics", "figures"]
+    with open(out / "infer_domain.json") as f:
+        assert json.load(f) == got
+    assert json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                       if ln.startswith('{"domain"')][-1]) == got
+
+    cfg = _jax_cfg()
+    d = cfg.data
+    ds = ClimexDataset(years=range(*d.years_test), variables=d.variables, coords=(0, 38, 0, 38),
+                       pipeline=d.pipeline, lowres_scale=4, transfo=d.transfo,
+                       interp_mode=d.interp_mode, synthetic=True, pad_to_multiple=True)
+    hr = jnp.asarray(ds.get_hr_batch(np.arange(3)))
+    tiles, positions = extract_tiles(hr, 16, 4, align=4)
+    g = jax.tree.map(jnp.asarray, ds.stats)
+
+    def stat_tiles(arr, scale):
+        return jnp.tile(jnp.stack([arr[y // scale:(y + 16) // scale, x // scale:(x + 16) // scale]
+                                   for (y, x) in positions]), (3, 1, 1, 1))
+
+    st = Standardization(*(stat_tiles(a, 4 if n.startswith("lr") else 1)
+                           for n, a in zip(Standardization._fields, g)))
+    p = jax.tree.map(jnp.asarray, params)
+    starts = range(0, tiles.shape[0], 8)
+
+    def batch(i):
+        sti = jax.tree.map(lambda a: a[i:i + 8], st)
+        return sti, preprocess_batch(tiles[i:i + 8], sti, d.pipeline, 4, d.interp_mode,
+                                     d.epsilon, d.standardization)
+
+    def decode(mdl, x, eps):
+        feats, prior, _ = mdl.encode(x)
+        return mdl.decode(feats, prior.mu + prior.sigma * eps)
+
+    def metrics(variables):
+        sample = jax.jit(lambda x, eps: jmodel.apply(variables, x, eps, method=decode))
+        outs = []
+        for c, i in enumerate(starts):
+            sti, b = batch(i)
+            n = b["inputs"].shape[0]
+            eps = tcli.batch_noise(cfg.train.seed, c, 3, n, cfg.model.latent_dim).numpy()
+            res = sample(b["inputs"], jnp.asarray(eps))
+            outs.append(residual_to_hr(res, lrinterp_from_batch(b, 4, d.interp_mode)[:, None],
+                                       jax.tree.map(lambda a: a[:, None], sti), d.pipeline,
+                                       d.epsilon, d.standardization))
+        full = stitch_tiles(jnp.concatenate(outs), positions, (40, 40))[:, :, :38, :38]
+        gt = hr[:, :38, :38]
+        if d.transfo:
+            full = invert_physical_transform(full, d.variables)
+            gt = invert_physical_transform(gt, d.variables)
+        return {"crps_mean": crps_over_groundtruth(full, gt)["mean"],
+                "mae_mean": compute_mae(full, gt)["mean"]}
+
+    assert got["domain"] == 38 and got["days"] == 3 and got["tiles_per_day"] == 9
+    assert got["members"] == 3
+    want = metrics({"params": p})
+    if quant == "float":
+        for key in want:
+            assert_close(got[key], want[key], RTOL, ATOL, key)
+        return
+    scales = calibrate_sample(jmodel, p, [batch(i)[1]["inputs"] for i in starts][:4], 3,
+                              key=jax.random.key(cfg.train.seed))
+    want_q = metrics({"params": p, "quant": quant_skip(scales, ["heads"])})
+    for key in want:
+        gap = float(np.abs(np.asarray(want_q[key]) - np.asarray(want[key])).max())
+        err = float(np.abs(np.asarray(got[key]) - np.asarray(want_q[key])).max())
+        assert gap > 0 and err <= SERVE_SHARE * gap, (key, err, gap)
 
 
 @pytest.mark.parametrize("pixel", ["16,3", "3,-1"])
