@@ -36,18 +36,24 @@ route, and drives both paths at the full width of the flagship preset
   Train samples/s, peak memory and a breakdown of the step's device time;
   how many GroupNorm chains get an input or gradient that is not
   channels_last;
-- int8 serving (``int8``): the f32 int8 prior ensemble (bs=2) on the card
-  against the CPU, then, on the bf16 flagship, ``calibrate_sample`` on 4
-  batches of other synthetic days (99 scales, 97 with the latent heads
-  kept in float), kernel E bit for bit against its plain version (int32
-  sums and outputs) at every hooked convolution of a sample call at
-  bs=128 bf16 and bs=16 f32, on the call's own activations, with E's
-  time, its plain version's, its bound and two yardsticks the port never
-  calls (cuDNN's bf16 convolution, ``torch._int_mm`` over ``F.unfold``);
-  the prior ensemble (M=16) float against int8 (member-fields/s, 87 E and
-  57 C launches a call, 85 E with the heads in float, E's share of the
-  call's device time) and the eval ELBO (M=5) calibrated by
-  ``calibrate_elbo``, float against int8;
+- int8 serving (``int8``): kernel E's two routes (``int8_conv.plan``:
+  the s8 ``wgmma`` kernel, and the first design, ``mma.sync``, for inputs
+  TMA cannot address) bit for bit against the plain version at shapes
+  beyond the flagship's (E_CASES) and at 128x128x32 -> 32 on both routes,
+  the first design's time beside the new one's; the f32 int8 prior
+  ensemble (bs=2) on the card against the CPU, then, on the bf16
+  flagship, ``calibrate_sample`` on 4 batches of other synthetic days (99
+  scales, 97 with the latent heads kept in float), kernel E bit for bit
+  against its plain version (int32 sums and outputs) at every hooked
+  convolution of a sample call at bs=128 bf16 and bs=16 f32, on the
+  call's own activations, with E's route and plan, its time, its plain
+  version's, its bound and two yardsticks the port never calls (cuDNN's
+  bf16 convolution, ``torch._int_mm`` over ``F.unfold``), and their sums
+  over the call; the prior ensemble (M=16) float against int8
+  (member-fields/s, 87 E launches a call, 2 of them on the first design,
+  and 57 C, 85 E with the heads in float, E's share of the call's device
+  time) and the eval ELBO (M=5) calibrated by ``calibrate_elbo``, float
+  against int8 (101 E a step, 3 on the first design);
 - the serve CLI, through ``cli.main`` as ``python -m probunet_tpu_torch``
   runs it: ``pack`` of the flagship's test split (4,380 synthetic days),
   a checkpoint of a seeded flagship model, ``evaluate`` over the packed
@@ -91,14 +97,18 @@ route, and drives both paths at the full width of the flagship preset
   CLI's preset run wrote, over the serve CLI's packed test split: the
   default command, ``--posterior`` and ``--single`` (seconds, files, the
   ``[timing]`` phases, 57 C launches a U-Net forward), then
-  ``collapse_diagnostics`` on the card against the CPU, probe by probe.
+  ``collapse_diagnostics`` on the card against the CPU, probe by probe;
+  then the f32 int8 sample path on that trained checkpoint, card against
+  CPU within SERVE_SHARE of the CPU's int8-vs-float gap, with the first
+  convolution whose int8 input differs between them.
 
 Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
 nvcc; there is no CPU route. Any failed check raises, so the exit code is
 0 only when every phase passed. The line before the last is a JSON object
 with each kernel's launches on its main path (``launches``: the training
-path for A to D, the int8 serve runs for E), on the int8 serve runs
+path for A to D, the int8 serve runs for E's two routes, ``int8_conv``
+and ``int8_conv_mma_sync``), on the int8 serve runs
 (``launches_int8``), on the serve CLI's runs (``launches_cli``), on the training CLI's runs
 (``launches_train_cli``), on the EDM runs (``launches_edm``) and on the
 ``explore`` runs (``launches_explore``), error, times and bound; the last line
@@ -299,13 +309,38 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # scales tree (87 in_scale leaves, 12 of them with an in_scale2: 73 U-Net
 # EDMConvs, 12 split, and 14 prior _Conv3x3s), one E launch a convolution
 INT8_SAMPLE_LEAVES, INT8_SAMPLE_SPLIT, INT8_HEADS = 99, 12, 2
+# of those, E's first design (route "mma_sync") takes the cin = 3 first
+# convolutions (the U-Net's and the prior's) a sample call, and the
+# posterior's cin = 6 one besides an eval step
+E_MMA_SYNC_SAMPLE, E_MMA_SYNC_EVAL = 2, 3
 INT8_CALIB_BATCHES = 4
 # int8 `infer-domain` on the card against the CPU: the metrics' difference
 # over the CPU's int8-vs-float gap (the CPU tests' serving bound,
 # tests/test_torch_quantize.py)
 SERVE_SHARE = 0.1
-# the main row of kernel E: the flagship's 128x128x32 -> 32 3x3 convolution
+# the main row of kernel E: the flagship's 128x128x32 -> 32 3x3 convolution;
+# the main row of its first design, route "mma_sync": the 128x128x3 -> 32
+# first convolutions (the U-Net's and the prior's)
 E_MAIN = (3, 32, 0, 32, 128, 128)
+E_MMA_SYNC_MAIN = (3, 3, 0, 32, 128, 128)
+# kernel E beyond the flagship's shapes, each on its planned route, bit for
+# bit against the plain version: (k, cin, cin2, cout, n, h, w, dtype, out
+# dtype, ties). Input channels off a multiple of 32 (TMA's zero fill) and 8
+# wide (a box wider than the tensor), cout off a block, images smaller than
+# a tile and 8 or fewer wide (16 x 8 tiles), a split 3x3, three channel
+# blocks of a split 1x1, f32 at 256 channels (two stages), f32 out of
+# bf16, f32 on the first design, and quotients at exact ties (inputs on a
+# grid of half-integer multiples of a power-of-two scale)
+E_CASES = ((3, 40, 0, 24, 3, 13, 21, "bfloat16", "bfloat16", True),
+           (3, 8, 0, 8, 2, 10, 10, "bfloat16", "float32", False),
+           (3, 20, 0, 48, 2, 7, 6, "float32", "bfloat16", True),
+           (1, 24, 16, 264, 2, 9, 11, "bfloat16", "float32", False),
+           (3, 64, 32, 40, 2, 12, 12, "bfloat16", "bfloat16", False),
+           (3, 16, 0, 256, 2, 5, 5, "float32", "float32", False),
+           (3, 3, 0, 32, 2, 17, 9, "float32", "float32", False))
+# the f32 int8 sample path on trained weights (the training CLI's preset
+# checkpoint), card against CPU: days of the packed test split
+INT8_TRAINED_DAYS = 2
 # the EDM phase: EDMPrecond at the reference baseline's widths (its
 # deterministic_unet.py defaults: 64 channels, mult 1,2,3,4, two blocks,
 # dropout 0.1, the noise embedding, no labels), f32, on the flagship's data
@@ -387,7 +422,7 @@ PTXAS_KERNELS = ("fcomb_crps_fwd_mma_kernel", "fcomb_crps_tile_kernel",
                  "afcrps_bwd_kernel", "afcrps_bwd_smem_kernel",
                  "gn_fwd_cluster_kernel", "gn_fwd_stats_kernel", "gn_fwd_apply_kernel",
                  "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel",
-                 "int8_conv_kernel")
+                 "int8_conv_kernel", "int8_conv_wgmma_kernel")
 
 
 def _ptxas_report(log: str, names) -> dict:
@@ -675,7 +710,86 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
             report.update(rows)
         torch.cuda.empty_cache()
     gn_preset_chains(randn, dev, "probunet_latent6_64", batch=8)
+    report["int8_conv_mma_sync_at_main"] = e_routes_vs_plain(gen, dev)
+    torch.cuda.empty_cache()
     return report
+
+
+def _e_plan_text(key, n: int, dtype: torch.dtype) -> str:
+    """Kernel E's plan for a shape, with the blocks an SM holds on the card."""
+    k, cin, cin2, cout, h, w = key
+    pl = int8_e.plan(k, cin, cin2, cout, h, w, dtype)
+    if pl.route != "wgmma":
+        return f"route={pl.route}"
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.library().int8_conv_wgmma_occupancy(
+        n, h, w, cout, k, int(dtype == torch.bfloat16), pl.n_tile, int(cin2 > 0), pl.tile_w,
+        pl.stages, out), "int8_conv_wgmma_occupancy")
+    if out[0] != pl.smem:
+        raise AssertionError(f"E plan {pl} against the kernel's {out[0]} bytes")
+    return (f"route=wgmma n_tile={pl.n_tile} tile_w={pl.tile_w} stages={pl.stages} "
+            f"smem={pl.smem} blocks_per_sm={out[1]} (planned {pl.blocks_per_sm})")
+
+
+def _e_case(gen, dev, key, n: int, dtype: str, out_dtype: str, ties: bool, route=None):
+    """One convolution's inputs, seeded, and E (on its plan's route, or
+    ``route``) against the plain version: int32 sums and outputs bit for bit,
+    twice the same bits. Returns (args, kw) for timing."""
+    k, cin, cin2, cout, h, w = key
+    dt = getattr(torch, dtype)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x, x2 = rand(n, h, w, cin) * 2, rand(n, h, w, cin2) if cin2 else None
+    weight, bias = rand(cout, cin + cin2, k, k) * 0.3, rand(cout)
+    if ties:   # x / s on the half-integers: every other quotient an exact tie
+        s1 = s2 = torch.tensor(0.125)
+        x = (torch.round(x * 40).clamp(-254, 254) / 2 * 0.125)
+    else:
+        s1 = int8_e.over_qmax(x.to(dt).float().abs().max()).cpu()
+        s2 = int8_e.over_qmax(x2.to(dt).float().abs().max()).cpu() * 0.9 if cin2 else None
+    nt = int8_e.block_channels(cout, cin2 > 0)
+    qws = [int8_e.quantize_weight(weight[:, :cin], nt)]
+    kw = dict(out_dtype=getattr(torch, out_dtype))
+    if cin2:
+        qws.append(int8_e.quantize_weight(weight[:, cin:], nt))
+        kw.update(x2=x2.to(dt), qw2=qws[1], in_scale2=s2)
+    args = (x.to(dt), qws[0], s1, bias)
+    runs = [int8_e._launch(*args, kw.get("x2"), kw.get("qw2"), kw.get("in_scale2"),
+                           kw["out_dtype"], True, route=route) for _ in range(2)]
+    want, acc_p = int8_e.int8_conv_plain(*args, **kw, return_acc=True)
+    for got, acc in runs:
+        if not (torch.equal(acc, acc_p) and torch.equal(got, want)):
+            raise AssertionError(
+                f"kernel E ({route or 'planned route'}) differs from its plain version at "
+                f"{key} n={n} {dtype}->{out_dtype}: max |acc diff| "
+                f"{int((acc.long() - acc_p.long()).abs().max())}, max |y diff| "
+                f"{float((got.float() - want.float()).abs().max())}")
+    return args, kw
+
+
+def e_routes_vs_plain(gen, dev) -> dict:
+    """Kernel E's two routes against the plain version, bit for bit: at
+    E_CASES on their planned routes, and at E_MAIN (bs=128 bf16, random
+    inputs) on both, the first design's time beside the new one's. Returns
+    the first design's row at E_MAIN."""
+    for k, cin, cin2, cout, n, h, w, dtype, out_dtype, ties in E_CASES:
+        key = (k, cin, cin2, cout, h, w)
+        _e_case(gen, dev, key, n, dtype, out_dtype, ties)
+        print(f"kernel int8_conv case {h}x{w}x{cin}{f'+{cin2}' if cin2 else ''}->{cout} k={k} "
+              f"n={n} {dtype}->{out_dtype}{' ties' if ties else ''}: bits exact twice; "
+              f"{_e_plan_text(key, n, getattr(torch, dtype))}")
+    times = {}
+    for route in ("wgmma", "mma_sync"):
+        args, kw = _e_case(gen, dev, E_MAIN, BATCH, "bfloat16", "bfloat16", False, route)
+        times[route] = _sync_ms(lambda: int8_e._launch(
+            *args, None, None, None, kw["out_dtype"], False, route=route), 10)
+    plain = _sync_ms(lambda: int8_e.int8_conv_plain(*args, **kw), 2, 1)
+    print(f"kernel int8_conv routes at {E_MAIN[4]}x{E_MAIN[5]}x{E_MAIN[1]}->{E_MAIN[3]} "
+          f"bs={BATCH} bf16: bits exact on both; wgmma {times['wgmma']:.4f} ms, mma_sync "
+          f"{times['mma_sync']:.4f} ms, plain {plain:.4f} ms")
+    return {"ms": times["mma_sync"], "wgmma_ms": times["wgmma"], "plain_ms": plain}
 
 
 def gn_preset_chains(randn, dev, name: str, batch: int) -> None:
@@ -1240,7 +1354,7 @@ _KERNEL_GROUPS = (("A fcomb_crps fwd", ("fcomb_crps_fwd_mma_kernel", "fcomb_crps
                   ("C fused_gn fwd", ("gn_fwd_",)),
                   ("C' fused_gn bwd", ("gn_bwd_",)),
                   ("D dropout", ("dropout_kernel",)),
-                  ("E int8_conv", ("int8_conv_kernel",)),
+                  ("E int8_conv", ("int8_conv_kernel", "int8_conv_wgmma_kernel")),
                   ("AdamW (foreach)", ("multi_tensor_apply", "foreach")),
                   ("cuDNN/cuBLAS (convs, matmuls)", ("cudnn", "xmma", "gemm", "conv", "cutlass")))
 
@@ -2510,6 +2624,78 @@ def explore_phase(dev: torch.device, packed: str, ckpt: str, zero_counts, read_c
     return launches
 
 
+def int8_trained_device_vs_cpu(dev: torch.device, packed: str, ckpt: str) -> dict:
+    """The f32 int8 sample path (bs=INT8_TRAINED_DAYS, M=3) on trained
+    weights, the flagship checkpoint of the training CLI's preset run, on
+    the card (kernel E, TF32 off) against the CPU, over days of the packed
+    test split: the same scales (calibrated on the CPU), inputs and prior
+    noise. Held: max|card - cpu| at most SERVE_SHARE of the CPU's
+    int8-vs-float gap, as ``infer-domain``'s. Printed either way: the first
+    hooked convolution whose int8 input (its input quantized with its
+    scale) differs between the two devices, with how many elements
+    differ, or that none does. Returns the numbers."""
+    t0 = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = cli.build_config(argparse.Namespace(preset=CLI_PRESET, config=None, set=[]))
+    ds = ClimexDataset(hr=_packed_days(packed, INT8_TRAINED_DAYS),
+                       years=range(*cfg.data.years_test), variables=cfg.data.variables,
+                       coords=cfg.data.coords, pipeline=cfg.data.pipeline,
+                       lowres_scale=cfg.data.lowres_scale, transfo=cfg.data.transfo,
+                       interp_mode=cfg.data.interp_mode, epsilon=cfg.data.epsilon,
+                       standardization=cfg.data.standardization, device="cpu")
+    x = ds.batch(np.arange(INT8_TRAINED_DAYS))["inputs"]
+    eps = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        (3, INT8_TRAINED_DAYS, cfg.model.latent_dim)).astype(np.float32))
+    forward = quantize.int8_forward
+    inputs = ([], [])   # the CPU's, the card's: (path, int8 inputs) a convolution
+
+    def recording(seen, paths):
+        def run(mod, xin, x2=None):
+            q = mod.quant_scales
+            xq = [quantize.quantize_int8(xin, q["in_scale"])]
+            if x2 is not None:
+                xq.append(quantize.quantize_int8(x2, q["in_scale2"]))
+            seen.append((paths[id(mod)], [t.cpu() for t in xq]))
+            return forward(mod, xin, x2)
+        return run
+
+    out = []
+    for where, seen in zip(("cpu", dev), inputs):
+        model = cli._load_model(cfg, ckpt, torch.device(where))
+        if not out:
+            scales = quantize.calibrate_sample(model, [x], 3)
+            with torch.no_grad():
+                float_cpu = model.sample(x, 3, eps=eps)
+        quantize.int8_forward = recording(
+            seen, {id(m): p for p, m in quantize.hooked_convs(model).items()})
+        try:
+            with torch.no_grad(), quantize.attached(model, scales):
+                out.append(model.sample(x.to(where), 3, eps=eps.to(where)).cpu())
+        finally:
+            quantize.int8_forward = forward
+        del model
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    first = "none"
+    for i, ((path, cpu_q), (_, card_q)) in enumerate(zip(*inputs)):
+        n_diff = sum(int((a != b).sum()) for a, b in zip(cpu_q, card_q))
+        if n_diff:
+            first = (f"#{i} {path} ({n_diff} of {sum(a.numel() for a in cpu_q)} int8 input "
+                     f"elements differ)")
+            break
+    gap = float((out[0] - float_cpu).abs().max())
+    err = float((out[1] - out[0]).abs().max())
+    res = {"convolutions": len(inputs[0]), "max_abs_card_minus_cpu": err,
+           "cpu_int8_vs_float_gap": gap, "share": err / gap if gap else float("inf")}
+    print(f"int8 trained weights device vs cpu f32 bs={INT8_TRAINED_DAYS} ({ckpt}): "
+          f"{json.dumps(res)} (limit {SERVE_SHARE}); first convolution whose int8 input "
+          f"differs: {first}; {time.perf_counter() - t0:.3f} s")
+    if len(inputs[0]) != len(inputs[1]) or not (
+            torch.isfinite(out[1]).all() and gap > 0 and err <= SERVE_SHARE * gap):
+        raise AssertionError(f"int8 on trained weights, card against CPU: {res}")
+    return res
+
+
 def edm_and_explore_alone(dev: torch.device) -> None:
     """The ``edm`` and ``explore`` phases without the rest of the run: the
     flagship's 384 synthetic days for EDM; ``pack`` of the test split and
@@ -2617,7 +2803,7 @@ def e_vs_plain(model: ProbabilisticUNet, run, what: str, n_convs: int, yardstick
             macs = n * h * w * cout * (cin + cin2) * k * k
             n_bytes = (xn.numel() + (0 if x2 is None else x2n.numel())) * xn.element_size() \
                 + got.numel() * got.element_size() + sum(qw.words.numel() * 4 for qw in qws)
-            row = {"path": path, "calls": 0,
+            row = {"path": path, "calls": 0, "plan": _e_plan_text(key, n, xn.dtype),
                    "ms": _sync_ms(lambda: int8_e.int8_conv(*args, **kw), 10),
                    "plain_ms": _sync_ms(lambda: int8_e.int8_conv_plain(*args, **kw), 2, 1),
                    **_bound(n_bytes, 2.0 * macs, "int8")}
@@ -2642,14 +2828,18 @@ def e_vs_plain(model: ProbabilisticUNet, run, what: str, n_convs: int, yardstick
               f"k={k} ({r['path']}, {r['calls']} calls): bits exact; "
               + ("timed above" if key in timed else
                  f"E_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){extra}"))
+                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){extra}; {r['plan']}"))
     n_calls = sum(r["calls"] for r in rows.values())
     if n_calls != n_convs:
         raise AssertionError(f"{n_calls} hooked convolutions ran int8 in one {what} call, "
                              f"not {n_convs}")
+    sums = {name: sum(r[name] * r["calls"] for r in rows.values())
+            for name in ("ms", "bound_ms", "cudnn_bf16_ms")
+            if all(r.get(name) is not None for r in rows.values())}
     print(f"kernel int8_conv {what}: E equal to its plain version bit for bit (int32 sums and "
           f"outputs) at {n_calls} convolutions, {len(rows)} distinct shapes, "
-          f"{len(set(rows) - set(timed))} new")
+          f"{len(set(rows) - set(timed))} new; summed over the {n_calls} at their shapes (ms): "
+          f"{json.dumps({k: round(v, 4) for k, v in sums.items()})}")
     return rows
 
 
@@ -2751,8 +2941,9 @@ def int8_phase(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg
     kept in float), E's share of a call's device time, and the eval ELBO
     (M=5) calibrated by ``calibrate_elbo``, float against int8, with E held
     against its plain version at every convolution of one int8 eval step
-    (the posterior's included). Returns
-    (E's kernels-line row, the launches of the int8 serve runs)."""
+    (the posterior's included); E's launches by route are held too. Returns
+    (the kernels-line rows of E's two routes, the launches of the int8 serve
+    runs)."""
     t0 = time.perf_counter()
     days = INT8_CALIB_BATCHES * BATCH
     hr_cal = apply_physical_transform(torch.from_numpy(synthetic_climex_fields(
@@ -2810,9 +3001,13 @@ def int8_phase(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg
               f"{dt * 1e3 / len(xs):.3f} ms a call, member-fields/s="
               f"{len(xs) * BATCH * ENSEMBLE_M / dt:.2f}; E launches {n['int8_conv']}, C "
               f"{n['fused_gn']}")
-        if n["int8_conv"] != per_call * len(xs) or n["fused_gn"] != UNET_CHAINS * len(xs):
-            raise AssertionError(f"{name}: {n['int8_conv']} E and {n['fused_gn']} C launches "
-                                 f"for {len(xs)} sample calls")
+        first = E_MMA_SYNC_SAMPLE * len(xs) if tree is not None else 0
+        if n["int8_conv"] != per_call * len(xs) or n["fused_gn"] != UNET_CHAINS * len(xs) or \
+                n["int8_conv_mma_sync"] != first or \
+                n["int8_conv_wgmma"] != per_call * len(xs) - first:
+            raise AssertionError(f"{name}: {n['int8_conv']} E ({n['int8_conv_wgmma']} wgmma, "
+                                 f"{n['int8_conv_mma_sync']} mma_sync) and {n['fused_gn']} C "
+                                 f"launches for {len(xs)} sample calls")
         if not all(bool(torch.isfinite(o).all()) for o in outs[name]):
             raise AssertionError(f"{name}: non-finite ensemble members")
     for name in ("int8", "int8 heads float"):
@@ -2850,19 +3045,23 @@ def int8_phase(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg
         if not all(math.isfinite(v) for m in ms for v in map(float, m.values())):
             raise AssertionError(f"eval {name}: non-finite metrics")
         want = (leaves[0] - leaves[1]) * len(batches) if name == "int8" else 0
-        if n["int8_conv"] != want:
-            raise AssertionError(f"eval {name}: {n['int8_conv']} E launches, not {want}")
+        first = E_MMA_SYNC_EVAL * len(batches) if name == "int8" else 0
+        if n["int8_conv"] != want or n["int8_conv_mma_sync"] != first or \
+                n["int8_conv_wgmma"] != want - first:
+            raise AssertionError(f"eval {name}: {n['int8_conv']} E launches ("
+                                 f"{n['int8_conv_mma_sync']} mma_sync), not {want} ({first})")
     rel = max(abs(a - b) / abs(b) for a, b in zip(recon["int8"], recon["float"]))
     print(f"int8 calibrate_elbo: {leaves[0]} scales ({leaves[1]} in_scale2), "
           f"{leaves[0] - leaves[1]} E launches a step; eval recon int8 vs float max rel "
           f"{rel:.4g}; eval part {time.perf_counter() - t1:.3f} s")
     print(f"int8 rates: {json.dumps(res)}; int8 phase {time.perf_counter() - t0:.3f} s")
-    row = {"max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
-           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-           "library_ms": main["cudnn_bf16_ms"], "int_mm_unfold_ms": main["int_mm_unfold_ms"]}
+    e_rows = {name: {"max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["cudnn_bf16_ms"], "int_mm_unfold_ms": r["int_mm_unfold_ms"]}
+              for name, r in (("int8_conv", main), ("int8_conv_mma_sync", rows[E_MMA_SYNC_MAIN]))}
     del hr_cal, cal, xs, outs
     torch.cuda.empty_cache()
-    return row, launches
+    return e_rows, launches
 
 
 def launch_counters():
@@ -2875,7 +3074,9 @@ def launch_counters():
                 "fused_gn": fused_gn.gn_film_silu_dropout,
                 "fused_gn_bwd": fused_gn.gn_film_silu_dropout_bwd,
                 "dropout": dropout.dropout,
-                "int8_conv": int8_e.int8_conv}
+                "int8_conv": int8_e.int8_conv,                  # E, either route
+                "int8_conv_wgmma": int8_e.launch_wgmma,
+                "int8_conv_mma_sync": int8_e.launch_mma_sync}
 
     def zero_counts():
         for fn in counters.values():
@@ -3004,10 +3205,11 @@ def main() -> None:
         serve_breakdown(m, batches[0], stats, cfg, dev, name)
 
     # int8 serving: kernel E on the sample and eval-ELBO paths
-    e_row, int8_launches = int8_phase(model, batches, stats, cfg, dev, zero_counts,
-                                      read_counts)
+    e_rows, int8_launches = int8_phase(model, batches, stats, cfg, dev, zero_counts,
+                                       read_counts)
     print(f"launches on the int8 serve runs: {json.dumps(int8_launches)}")
-    report["int8_conv"] = e_row
+    report.update(e_rows)
+    report["int8_conv"]["mma_sync_ms_at_main"] = report.pop("int8_conv_mma_sync_at_main")["ms"]
 
     # the training path: bs=128, M=15, dropout 0.1, on six routes
     cfg_train = copy.deepcopy(cfg)
@@ -3025,7 +3227,7 @@ def main() -> None:
     print(f"launches on the training path ({n_steps} steps on {len(routes)} routes): "
           f"{json.dumps(launches)}")
     for name, n in launches.items():
-        if n <= 0 and name != "int8_conv":   # E serves only: no gradient
+        if n <= 0 and not name.startswith("int8_conv"):   # E serves only: no gradient
             raise AssertionError(f"kernel {name} was not launched on the training path")
     plain = train[kernel_fused]
     for name in remats:
@@ -3085,23 +3287,31 @@ def main() -> None:
             zero_counts, read_counts)
         print(f"launches on the explore runs: {json.dumps(explore_launches)}; explore phase "
               f"{time.perf_counter() - t0:.3f} s")
+        # int8 serving on that trained checkpoint, card against CPU
+        int8_trained_device_vs_cpu(
+            dev, os.path.join(work, "cli", "test.npz"),
+            os.path.join(_run_dir(train_dir, f"train {TRAIN_CLI_RUNS[0][0]}"), "ckpt"))
 
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
-               "dropout": dropout, "int8_conv": int8_e}
+               "dropout": dropout}
     kernels = []
-    for name in counters:
-        mod = modules[name.removesuffix("_bwd")]
-        int8_n = sum(r[name] for r in int8_launches.values())
+    # E's entries are its two routes' kernels, each counted by its route
+    e_counters = {"int8_conv": "int8_conv_wgmma", "int8_conv_mma_sync": "int8_conv_mma_sync"}
+    for name in [n for n in counters if not n.startswith("int8_conv")] + list(e_counters):
+        counter = e_counters.get(name, name)
+        mod = int8_e if name in e_counters else modules[name.removesuffix("_bwd")]
+        int8_n = sum(r[counter] for r in int8_launches.values())
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                         "replaces": mod.REPLACES_BWD if name.endswith("_bwd") else mod.REPLACES,
                         # each kernel's own main path: training for A to D, int8 serving for E
-                        "launches": int8_n if name == "int8_conv" else launches[name],
+                        "launches": int8_n if name in e_counters else launches[counter],
                         **report[name], "launches_int8": int8_n,
-                        "launches_cli": sum(r[name] for r in cli_launches.values()),
-                        "launches_train_cli": sum(r[name]
+                        "launches_cli": sum(r[counter] for r in cli_launches.values()),
+                        "launches_train_cli": sum(r[counter]
                                                   for r in train_cli_launches.values()),
-                        "launches_edm": sum(r[name] for r in edm_launches.values()),
-                        "launches_explore": sum(r[name] for r in explore_launches.values())})
+                        "launches_edm": sum(r[counter] for r in edm_launches.values()),
+                        "launches_explore": sum(r[counter]
+                                                for r in explore_launches.values())})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

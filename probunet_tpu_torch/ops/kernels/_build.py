@@ -48,7 +48,10 @@ _SIGNATURES = {
     "fused_gn_bwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "fused_gn_cluster_occupancy": (_I, _I, _I, _I, _I, _I, _P),
     "int8_conv_fwd": (_P, _P, _P, _F, _I, _P, _P, _P, _F, _I, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _P),
+                      _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "int8_conv_wgmma": (_P, _P, _P, _F, _I, _P, _P, _P, _F, _I, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "int8_conv_wgmma_occupancy": (_I,) * 10 + (_P,),
 }
 
 

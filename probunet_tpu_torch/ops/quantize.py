@@ -241,8 +241,11 @@ def _qweights(mod: torch.nn.Module, c1: int | None) -> tuple:
     cache = getattr(mod, "_int8_weights", None)
     if cache is None or cache[0] != key:
         with torch.no_grad():
-            qws = ((_e.quantize_weight(w),) if c1 is None else
-                   (_e.quantize_weight(w[:, :c1]), _e.quantize_weight(w[:, c1:])))
+            if c1 is None:
+                qws = (_e.quantize_weight(w),)
+            else:   # two accumulators: the slices' slabs in blocks of as many channels
+                nt = _e.block_channels(w.shape[0], True)
+                qws = (_e.quantize_weight(w[:, :c1], nt), _e.quantize_weight(w[:, c1:], nt))
         cache = (key, qws)
         mod._int8_weights = cache
     return cache[1]

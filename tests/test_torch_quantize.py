@@ -110,6 +110,8 @@ CONV_CASES = [  # (x shape NHWC, cout, k, cin of a second input or 0)
     ((2, 1, 1, 32), 4, 1, 0),
     ((2, 8, 8, 16), 8, 1, 8),
     ((2, 6, 7, 8), 16, 3, 12),
+    ((2, 7, 9, 40), 24, 3, 0),      # cin off a 32-channel chunk, cout off a block
+    ((2, 7, 9, 24), 264, 1, 16),    # a split convolution wider than a block
 ]
 
 
