@@ -100,7 +100,14 @@ route, and drives both paths at the full width of the flagship preset
   ``collapse_diagnostics`` on the card against the CPU, probe by probe;
   then the f32 int8 sample path on that trained checkpoint, card against
   CPU within SERVE_SHARE of the CPU's int8-vs-float gap, with the first
-  convolution whose int8 input differs between them.
+  convolution whose int8 input differs between them;
+- the benchmark (``bench``), through ``cli.main(["bench"])`` as ``python
+  -m probunet_tpu_torch bench`` runs it: ``train``, ``eval``, ``msssim``,
+  ``ensemble``, then ``ensemble`` and ``eval`` under ``BENCH_QUANT=int8``,
+  at the flagship's defaults (bs=128, bf16), each line printed whole with
+  its rate, FLOP count (the plain route's, on the CPU), MFU share (at
+  most MFU_LIMIT), peak memory and the card's power limit, and the
+  kernels of its path launched (E on the int8 modes).
 
 Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
@@ -110,8 +117,9 @@ with each kernel's launches on its main path (``launches``: the training
 path for A to D, the int8 serve runs for E's two routes, ``int8_conv``
 and ``int8_conv_mma_sync``), on the int8 serve runs
 (``launches_int8``), on the serve CLI's runs (``launches_cli``), on the training CLI's runs
-(``launches_train_cli``), on the EDM runs (``launches_edm``) and on the
-``explore`` runs (``launches_explore``), error, times and bound; the last line
+(``launches_train_cli``), on the EDM runs (``launches_edm``), on the
+``explore`` runs (``launches_explore``) and on the bench runs
+(``launches_bench``), error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -367,6 +375,20 @@ EDM_GRAD_RTOL = 1e-3
 # ratio) goes through Fcomb's ReLUs, whose masks flip where a hidden value
 # lies within the two devices' f32 differences: GRAD_RTOL, as the CRPS
 # step's gradients (3.9e-4 reached on an H100, the other probes 1.4e-6)
+# `python -m probunet_tpu_torch bench`, once per mode (its env knobs): each
+# must launch the kernels of its path (A, A′ on the afCRPS steps, C, C′ on
+# the training steps, C everywhere, E on the int8 modes) and read an MFU
+# share no higher than MFU_LIMIT (above 1 the FLOP count or the clock is
+# wrong; 0.05 for the rounding of a share near 1)
+BENCH_MODES = (("train", {}, ("fcomb_crps", "fcomb_crps_bwd", "fused_gn", "fused_gn_bwd")),
+               ("eval", {}, ("fcomb_crps", "fused_gn")),
+               ("msssim", {}, ("fused_gn", "fused_gn_bwd")),
+               ("ensemble", {}, ("fused_gn",)),
+               ("ensemble", {"BENCH_QUANT": "int8"}, ("fused_gn", "int8_conv")),
+               ("eval", {"BENCH_QUANT": "int8"}, ("fcomb_crps", "fused_gn", "int8_conv")))
+BENCH_ENV = ("BENCH_MODE", "BENCH_QUANT", "BENCH_QUANT_SKIP", "BENCH_BS", "BENCH_DTYPE",
+             "BENCH_REMAT", "BENCH_DROPOUT")
+MFU_LIMIT = 1.05
 EXPLORE_RTOL = 1e-3
 EXPLORE_CHECK = dict(max_items=64, n_contexts=8)
 
@@ -3064,6 +3086,53 @@ def int8_phase(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg
     return e_rows, launches
 
 
+def bench_phase(zero_counts, read_counts) -> dict:
+    """``python -m probunet_tpu_torch bench`` (``cli.main(["bench"])``) once
+    per mode of BENCH_MODES at its defaults (flagship, bf16, bs=128), under
+    PyTorch's default TF32 settings as a user's run gets them: each JSON
+    line printed whole, its rate, FLOP count, peak memory and power limit
+    finite and positive, its MFU share at most MFU_LIMIT, and the mode's
+    kernels launched (the counts set to 0 just before the mode). Returns
+    the launches by mode."""
+    saved = {k: os.environ.get(k) for k in BENCH_ENV}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    launches = {}
+    try:
+        for mode, env, kernels in BENCH_MODES:
+            for k in BENCH_ENV:
+                os.environ.pop(k, None)
+            os.environ.update({"BENCH_MODE": mode, **env})
+            label = " ".join([mode, *env.values()])
+            zero_counts()
+            res, _, seconds, _ = _run_cli(["bench"])
+            launches[f"bench {label}"] = n = read_counts()
+            print(f"bench {label}: {json.dumps(res)}")
+            print(f"bench {label}: {seconds:.3f} s; launches {json.dumps(n)}")
+            flops = res.get("flops_per_step", res.get("flops_per_batch"))
+            numbers = (res["value"], flops, res["peak_memory_gb"],
+                       res["device"]["power_limit_w"], res["mfu_vs_h100_bf16_dense_peak"])
+            if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+                       for v in numbers):
+                raise AssertionError(f"bench {label}: a number is not finite and positive")
+            if res["metric"].endswith("_cpu_smoke") or not res["device"]["name"]:
+                raise AssertionError(f"bench {label}: not a card run")
+            mfu = {k: v for k, v in res.items() if k.startswith("mfu")}
+            if not all(v <= MFU_LIMIT for v in mfu.values()):
+                raise AssertionError(f"bench {label}: MFU {mfu} above {MFU_LIMIT}")
+            idle = [k for k in kernels if n[k] <= 0]
+            if idle:
+                raise AssertionError(f"bench {label}: kernels {idle} were not launched")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return launches
+
+
 def launch_counters():
     """(the kernel wrappers by name, a function setting their launch counts
     to 0, a function reading them after the device has finished)."""
@@ -3292,6 +3361,13 @@ def main() -> None:
             dev, os.path.join(work, "cli", "test.npz"),
             os.path.join(_run_dir(train_dir, f"train {TRAIN_CLI_RUNS[0][0]}"), "ckpt"))
 
+    # the benchmark: each mode of `python -m probunet_tpu_torch bench`
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_launches = bench_phase(zero_counts, read_counts)
+    print(f"launches on the bench runs: {json.dumps(bench_launches)}; bench phase "
+          f"{time.perf_counter() - t0:.3f} s")
+
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
                "dropout": dropout}
     kernels = []
@@ -3311,7 +3387,8 @@ def main() -> None:
                                                   for r in train_cli_launches.values()),
                         "launches_edm": sum(r[counter] for r in edm_launches.values()),
                         "launches_explore": sum(r[counter]
-                                                for r in explore_launches.values())})
+                                                for r in explore_launches.values()),
+                        "launches_bench": sum(r[counter] for r in bench_launches.values())})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,9 @@
         [--quant int8 --quant-skip heads]
     python -m probunet_tpu_torch explore  --preset probunet_multivar_128 --ckpt DIR \
         --set data.packed_test=test.npz [--posterior | --single]
+    python -m probunet_tpu_torch sweep    --preset probunet_multivar_128 \
+        --grid train.lr=1e-4,3e-4 [--spec sweeps.yaml] [--metric val_crps] [--epochs N]
+    BENCH_MODE=train|eval|msssim|ensemble python -m probunet_tpu_torch bench
 
 Config = named preset + dotted overrides (``--set model.compute_dtype=bfloat16``),
 with the JAX CLI's flags and defaults. The commands run on the CUDA device;
@@ -45,8 +48,11 @@ Where they differ from the JAX CLI:
   CPU generator (the scales do not depend on them).
 - ``infer-domain`` draws each tile chunk's noise with :func:`batch_noise`
   (seed ``train.seed``, the chunk's index), not the JAX CLI's ``fold_in``.
-- ``--member-mesh N`` (N > 1), ``--dp`` and ``--wandb`` are not ported yet
-  and raise ``NotImplementedError``.
+- ``bench`` runs ``probunet_tpu_torch/bench.py`` (the port's copy of the
+  root ``bench.py``: H100 peak, a FLOP count of the plain route, the
+  card's name and power limit, peak memory), not the root script.
+- ``--member-mesh N`` (N > 1) and ``--dp`` are not ported yet and raise
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -107,9 +113,6 @@ def batch_noise(seed: int, batch_index: int, members: int, batch_size: int,
 
 
 def _check_ported(args) -> None:
-    if getattr(args, "wandb", False):
-        raise NotImplementedError(
-            "--wandb is not ported yet (ROADMAP.md §1 item 8, the wandb hook in MetricLogger)")
     if getattr(args, "dp", 0):
         raise NotImplementedError(
             "--dp is not ported yet (ROADMAP.md §1 item 7, the parallel paths)")
@@ -316,7 +319,7 @@ def cmd_train(args):
     ds_train, ds_val, _ = make_datasets(cfg, splits=(0, 1), device=args.device)
     timer.mark("dataset")
     model = make_model(cfg, args.device)
-    logger = MetricLogger(logdir=args.outdir)
+    logger = MetricLogger(logdir=args.outdir, use_wandb=args.wandb)
     ckpt = CheckpointManager(os.path.join(os.path.abspath(args.outdir), "ckpt"))
     trainer = Trainer(cfg, model, ds_train, ds_val, logger=logger, checkpoint_manager=ckpt,
                       plot_dir=args.outdir if args.plot_every else None,
@@ -906,6 +909,75 @@ def cmd_pack(args):
     return out
 
 
+# the reference's flat sweep-parameter names (sweeps.yaml) -> dotted keys
+SWEEP_ALIASES = {"batch_size": "train.batch_size", "lr": "train.lr",
+                 "num_epochs": "train.num_epochs", "ensemble_size": "train.ensemble_size",
+                 "latent_dim": "model.latent_dim"}
+
+
+def _is_json(s: str) -> bool:
+    try:
+        json.loads(s)
+        return True
+    except json.JSONDecodeError:
+        return False
+
+
+def sweep_spec(args) -> dict:
+    """The sweep's {dotted.key: [values]}: ``--spec`` FILE (JSON, or YAML:
+    the plain form or wandb's ``{parameters: {key: {values: [...]}}}``
+    schema of the reference's sweeps.yaml) or the inline ``--grid`` pairs
+    ``key=v1,v2,...`` (each value JSON where it parses, else a string)."""
+    if not args.spec:
+        spec = {}
+        for pair in args.grid or []:
+            key, _, vals = pair.partition("=")
+            spec[key] = [json.loads(v) if _is_json(v) else v for v in vals.split(",")]
+        return spec
+    with open(args.spec) as f:
+        if not args.spec.endswith((".yaml", ".yml")):
+            return json.load(f)
+        try:
+            import yaml
+        except ImportError:
+            raise SystemExit(f"sweep --spec {args.spec}: reading YAML needs PyYAML, which "
+                             "is not installed; give the spec as JSON or --grid") from None
+        raw = yaml.safe_load(f)
+    if "parameters" in raw:
+        return {SWEEP_ALIASES.get(k, k): v["values"] for k, v in raw["parameters"].items()}
+    return raw
+
+
+def cmd_sweep(args):
+    """Hyperparameter grid sweep (reference sweeps.yaml:1-14 semantics: a
+    grid over dotted config keys, ranked by the final validation metric):
+    one ``Trainer`` run per point on the command's device, ``sweep.json``
+    (the points best first) and the ``{"best", "points"}`` line. Returns
+    the summary list."""
+    from probunet_tpu_torch.sweep import run_sweep
+
+    cfg = build_config(args)
+    spec = sweep_spec(args)
+    if not spec:
+        raise SystemExit("sweep needs --spec FILE or --grid key=v1,v2,...")
+    results = run_sweep(cfg, spec, metric=args.metric, num_epochs=args.epochs or None,
+                        device=args.device)
+    os.makedirs(args.outdir, exist_ok=True)
+    summary = [{"overrides": r["overrides"], args.metric: r[args.metric]} for r in results]
+    with open(os.path.join(args.outdir, "sweep.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps({"best": summary[0], "points": len(summary)}))
+    return summary
+
+
+def cmd_bench(args):
+    """The port's benchmark (``probunet_tpu_torch/bench.py``, env knobs
+    ``BENCH_*``); returns its JSON line as a dict."""
+    from probunet_tpu_torch import bench
+
+    return bench.main()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="probunet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -936,7 +1008,8 @@ def main(argv=None):
 
     sp = sub.add_parser("train", help="probabilistic U-Net ELBO training")
     common(sp)
-    sp.add_argument("--wandb", action="store_true", help="not ported yet: raises")
+    sp.add_argument("--wandb", action="store_true",
+                    help="also log to wandb when it is installed (else skipped quietly)")
     sp.add_argument("--resume", action="store_true",
                     help="resume the full train state from the latest checkpoint")
     sp.add_argument("--plot-every", type=int, default=0,
@@ -1007,6 +1080,20 @@ def main(argv=None):
                     default="train")
     sp.add_argument("--out", required=True, help="output .npz path")
     sp.set_defaults(fn=cmd_pack)
+
+    sp = sub.add_parser("sweep", help="hyperparameter grid sweep")
+    common(sp)
+    sp.add_argument("--spec", default=None,
+                    help="JSON {dotted.key: [values...]} or a wandb-style sweeps.yaml "
+                         "(reference sweeps.yaml:1-14 schema; needs PyYAML)")
+    sp.add_argument("--grid", nargs="*", default=[], help="inline grid key=v1,v2,...")
+    sp.add_argument("--metric", default="val_crps")
+    sp.add_argument("--epochs", type=int, default=0,
+                    help="override epochs per sweep point (0 = config value)")
+    sp.set_defaults(fn=cmd_sweep)
+
+    sp = sub.add_parser("bench", help="headline benchmark (BENCH_MODE, BENCH_* knobs)")
+    sp.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.device = cli_device()

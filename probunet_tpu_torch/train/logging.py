@@ -1,7 +1,8 @@
 """Structured metric logging (port of ``probunet_tpu/train/logging.py``):
-a JSONL sink, one line per logical event, and an optional stdout echo.
-The wandb passthrough is not ported: ``train --wandb`` raises
-``NotImplementedError``.
+a JSONL sink, one line per logical event, an optional stdout echo, and
+the wandb passthrough (``use_wandb=True``, ``train --wandb``) when the
+library is importable; without it the logger quietly goes on, as the JAX
+logger does.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ def _to_scalar(v):
 
 
 class MetricLogger:
-    def __init__(self, logdir: str | None = None, run_name: str = "run",
-                 stdout: bool = True):
+    def __init__(self, logdir: str | None = None, use_wandb: bool = False,
+                 run_name: str = "run", stdout: bool = True):
         self.stdout = stdout
         self.path = None
         self._fh = None
@@ -34,6 +35,14 @@ class MetricLogger:
             os.makedirs(logdir, exist_ok=True)
             self.path = os.path.join(logdir, f"{run_name}.jsonl")
             self._fh = open(self.path, "a")
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                self._wandb = wandb
+            except ImportError:
+                pass
         self.history: list[dict] = []
 
     def log(self, metrics: Mapping[str, Any], step: int | None = None,
@@ -41,11 +50,14 @@ class MetricLogger:
         rec = {"ts": time.time(), "kind": kind}
         if step is not None:
             rec["step"] = int(step)
-        rec.update({k: _to_scalar(v) for k, v in metrics.items()})
+        values = {k: _to_scalar(v) for k, v in metrics.items()}
+        rec.update(values)
         self.history.append(rec)
         if self._fh:
             self._fh.write(json.dumps(rec) + "\n")
             self._fh.flush()
+        if self._wandb is not None:
+            self._wandb.log(values, step=step)
         if self.stdout:
             body = " ".join(
                 f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"

@@ -1,8 +1,9 @@
-"""Figures (port of ``probunet_tpu/utils/plotting.py``): the training
+"""Figures (port of ``probunet_tpu/utils/plotting.py``): the LR /
+prediction / HR / error grid of a batch, the training
 loop's ensemble, residual and member-difference grids and loss curves,
 the evaluation's GT-vs-model PSD, pooled pixel-value log-histograms
-and return-level curves, and ``explore``'s latent grids and PC1 x PC2
-joint-marginal histogram.
+and return-level curves, ``explore``'s latent grids and PC1 x PC2
+joint-marginal histogram, and the EDA's seasonal maps.
 
 matplotlib (and cartopy, for the ClimEx RotatedPole map panels, when it
 is importable) is imported when a figure is drawn, not with the module: a
@@ -138,6 +139,41 @@ def _coarsen_coords(lat, lon, field_shape):
         return a.reshape(fh, kh, fw, kw).mean(axis=(1, 3))
 
     return pool(lat), pool(lon)
+
+
+def plot_batch(lr, pred, hr, variables: Sequence[str] = ("pr", "tasmin", "tasmax"),
+               timestamps=None, max_items: int = 4, save_path: str | None = None,
+               lat=None, lon=None):
+    """LR / prediction / HR / |error| grid per variable (reference
+    src/climex_utils.py:288-439), one figure per variable (``save_path``
+    gets ``_<var>`` before ``.png``). Inputs are (B, h, w, C) / (B, H, W, C)
+    NHWC arrays in physical units; ``lat``/``lon`` geo-reference the
+    panels."""
+    lr, pred, hr = map(np.asarray, (lr, pred, hr))
+    b = min(max_items, pred.shape[0])
+    figs = {}
+    for ci, var in enumerate(variables[: pred.shape[-1]]):
+        fig, axes = _subplots(4, b)
+        vmin = min(hr[:b, ..., ci].min(), pred[:b, ..., ci].min())
+        vmax = max(hr[:b, ..., ci].max(), pred[:b, ..., ci].max())
+        cmap = _CMAPS.get(var, "viridis")
+        for i in range(b):
+            la, lo = _coords_at(lat, lon, i)
+            lab = "left" if i == 0 else "bottom"
+            _imshow(axes[0, i], lr[i, ..., ci], cmap, vmin, vmax, la, lo, lab)
+            _imshow(axes[1, i], pred[i, ..., ci], cmap, vmin, vmax, la, lo, lab)
+            im = _imshow(axes[2, i], hr[i, ..., ci], cmap, vmin, vmax, la, lo, lab)
+            err = np.abs(pred[i, ..., ci] - hr[i, ..., ci])
+            im_e = _imshow(axes[3, i], err, "Reds", lat=la, lon=lo, labels=lab)
+            if timestamps is not None:
+                axes[0, i].set_title(str(timestamps[i]), fontsize=7)
+        for row, lab in enumerate(["LR", "pred", "HR", "|err|"]):
+            axes[row, 0].set_ylabel(lab)
+        fig.colorbar(im, ax=axes[:3, :], shrink=0.6, label=f"{var} [{_UNITS.get(var, '')}]")
+        fig.colorbar(im_e, ax=axes[3, :], shrink=0.8)
+        fig.suptitle(var)
+        figs[var] = _save(fig, save_path and save_path.replace(".png", f"_{var}.png"))
+    return figs
 
 
 def plot_sample_batch(samples, hr, lrinterp=None,
@@ -423,4 +459,29 @@ def plot_latent_joint_marginal(
         )
     else:
         fig.suptitle(title_prefix, y=0.98)
+    return _save(fig, save_path)
+
+
+def plot_seasonal_maps(seasonal: dict, var: str, stat: str = "mean", lat=None, lon=None,
+                       title: str | None = None, save_path: str | None = None):
+    """One row of season maps for one variable (reference
+    src/baseline/climex_utils.py:647-696 ``plot_grids_seasonal``).
+
+    ``seasonal``: :meth:`probunet_tpu_torch.data.eda.ClimexEDA.seasonal_stats`'
+    {season: {stat: (H, W) map}}. pr on a sequential colormap from 0, the
+    temperatures on a diverging one symmetric about 0, as the reference."""
+    seasons = list(seasonal)
+    fields = [np.asarray(seasonal[s][stat]) for s in seasons]
+    stack = np.stack(fields)
+    if var == "pr":
+        cmap, vmin, vmax = _CMAPS.get("pr", "Blues"), 0.0, stack.max()
+    else:
+        m = np.abs(stack).max()
+        cmap, vmin, vmax = "coolwarm", -m, m
+    fig, axes = _subplots(1, len(seasons), scale=3.0)
+    for j, (s, f) in enumerate(zip(seasons, fields)):
+        im = _imshow(axes[0, j], f, cmap, vmin, vmax, lat, lon)
+        axes[0, j].set_title(s, fontsize=12)
+    fig.colorbar(im, ax=axes, shrink=0.8, label=f"{var} [{_UNITS.get(var, '')}]")
+    fig.suptitle(title or f"{var} seasonal {stat}")
     return _save(fig, save_path)

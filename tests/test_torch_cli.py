@@ -621,7 +621,7 @@ def test_train_det(on_cpu, tmp_path, capsys, model, extra):
     assert list(mae) == ["pr"] and np.isfinite(mae["pr"]) and mae["pr"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--wandb"], ["--dp", "2"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--dp", "-1"]])
 def test_train_flags_not_ported_raise(on_cpu, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["train", "--preset", PRESET, "--outdir", str(tmp_path)] + flag + TINY)

@@ -4,8 +4,10 @@ with the GPU has no JAX, and the port keeps its own copy of what it needs.
 A fresh interpreter blocks ``jax``, ``flax`` and ``probunet_tpu``
 (``sys.modules[name] = None`` makes every import of them fail), then
 imports every module of ``probunet_tpu_torch`` and ``chip_smoke`` (the
-import only, not its run); none of them may load matplotlib either (the
-card's host may not have it: figures import it when they are drawn). The
+import only, not its run); none of them may load matplotlib, PyYAML or
+wandb either (the card's host may not have them: figures import
+matplotlib when they are drawn, ``sweep`` PyYAML when it reads a YAML
+spec, the logger wandb when asked to log there). The
 port's config copy must equal the JAX package's, preset by preset.
 """
 
@@ -30,7 +32,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "probunet_tpu", "matplotlib")
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "probunet_tpu", "matplotlib",
+                                       "yaml", "wandb")
                 and sys.modules[m] is not None)
 print(json.dumps({"names": names, "loaded": loaded}))
 """
@@ -47,7 +50,9 @@ def test_port_and_chip_smoke_import_without_jax():
     for kernel in ("afcrps", "fcomb_crps", "fused_gn", "dropout", "int8_conv", "_build"):
         assert f"probunet_tpu_torch.ops.kernels.{kernel}" in res["names"], kernel
     for name in ("cli", "__main__", "data.climex", "evals.gev", "evals.histograms",
-                 "evals.metrics", "utils.plotting", "ops.quantize", "parallel.spatial"):
+                 "evals.metrics", "utils.plotting", "ops.quantize", "parallel.spatial",
+                 "bench", "sweep", "data.eda", "data.synthetic", "utils.profiling",
+                 "utils.misc"):
         assert f"probunet_tpu_torch.{name}" in res["names"], name
     assert res["loaded"] == []
 
