@@ -107,7 +107,20 @@ route, and drives both paths at the full width of the flagship preset
   at the flagship's defaults (bs=128, bf16), each line printed whole with
   its rate, FLOP count (the plain route's, on the CPU), MFU share (at
   most MFU_LIMIT), peak memory and the card's power limit, and the
-  kernels of its path launched (E on the int8 modes).
+  kernels of its path launched (E on the int8 modes);
+- the parallel paths (``parallel``): in a world of one over NCCL,
+  ``make_parallel_train_step`` at the flagship's training step (bf16,
+  bs=128, M=15) bit-equal to ``make_train_step``'s from the same state
+  and seed (A, A′, C and C′ launched), both steps' samples/s and the
+  gradient all-reduce's share; then two gloo ranks sharing this card
+  (NCCL will not put two ranks on one GPU) in one two-process launch,
+  f32 at full widths, dropout 0.1, a global batch of 8: the
+  data-parallel step on both GroupNorm routes against the one-process
+  step, C, C′ and D on a rank's slab told its offset bit for bit against
+  the whole batch's rows, ``make_parallel_sample_step`` (member = 2,
+  float and int8) against one rank's sample path, ``infer-domain --dp 2``
+  on a 140x140 domain against the one-process command, ``halo_conv2d``
+  and the tensor-parallel pair against their unsharded counterparts.
 
 Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
@@ -118,8 +131,9 @@ path for A to D, the int8 serve runs for E's two routes, ``int8_conv``
 and ``int8_conv_mma_sync``), on the int8 serve runs
 (``launches_int8``), on the serve CLI's runs (``launches_cli``), on the training CLI's runs
 (``launches_train_cli``), on the EDM runs (``launches_edm``), on the
-``explore`` runs (``launches_explore``) and on the bench runs
-(``launches_bench``), error, times and bound; the last line
+``explore`` runs (``launches_explore``), on the bench runs (``launches_bench``) and on
+the parallel runs (``launches_parallel``: the world of one and both gloo
+ranks), error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -391,6 +405,24 @@ BENCH_ENV = ("BENCH_MODE", "BENCH_QUANT", "BENCH_QUANT_SKIP", "BENCH_BS", "BENCH
 MFU_LIMIT = 1.05
 EXPLORE_RTOL = 1e-3
 EXPLORE_CHECK = dict(max_items=64, n_contexts=8)
+# the parallel phase (parallel_phase): two gloo ranks share cuda:0 (NCCL
+# will not put two ranks on one GPU), f32, TF32 off, full widths, dropout
+# 0.1, a global batch of 8 (4 a rank); the world of one runs over NCCL
+PAR_BATCH, PAR_SAMPLE_M = 8, 16
+PAR_STEPS, PAR_WARMUP = 4, 2
+PAR_TIMEOUT = 420
+# the data-parallel step against the one-process step on the card: the
+# metrics and the gradients AdamW receives (the all-reduced mean against
+# the whole batch's: the largest difference over the largest gradient)
+# within PAR_RTOL
+# (the ranks' half-batch convolutions may take other cuDNN algorithms than
+# one batch's). Adam's first update is lr * g / (|g| + 1e-8), about +-lr
+# wherever |g| > 1e-8, so an element whose gradient lies at the level of
+# rounding may move the other way: the parameters may differ by up to
+# 2 lr, in at most PAR_FLIP_SHARE of the elements (an H100 run, f32
+# kernel route: 138,967 of 19,351,491 elements, 0.0072, beyond 1e-6)
+PAR_RTOL = 1e-4
+PAR_FLIP_SHARE = 0.02
 
 
 def _sync_ms(fn, iters: int, warmup: int = 2, spin: bool = True) -> float:
@@ -3133,6 +3165,373 @@ def bench_phase(zero_counts, read_counts) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _flagship_model(cfg, dtype_cfg=None) -> ProbabilisticUNet:
+    """The flagship at full width from a seed, zero-initialized parameters
+    filled (``_fill_zero_params``), on the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    model = ProbabilisticUNet.from_config(dtype_cfg or cfg, gen, device="cpu")
+    _fill_zero_params(model, gen)
+    return model
+
+
+def _par_days(n: int, cfg, dev, seed: int) -> torch.Tensor:
+    phys = synthetic_climex_fields(n, *cfg.data.resolution, cfg.data.variables, seed=seed)
+    return apply_physical_transform(torch.from_numpy(phys).to(dev), cfg.data.variables)
+
+
+def _step_rates(steps: dict, state_of: dict, hr, stats, timed_order) -> dict:
+    """samples/s of each named step over PAR_STEPS synchronized steps after
+    PAR_WARMUP, timed in ``timed_order`` (a name may come twice: the
+    rates are averaged)."""
+    times = collections.defaultdict(list)
+    for name in timed_order:
+        for i in range(PAR_WARMUP + PAR_STEPS):
+            if i == PAR_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state_of[name], _ = steps[name](state_of[name], hr, stats, 1.0, 1.0)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    return {k: PAR_STEPS * hr.shape[0] / (sum(v) / len(v)) for k, v in times.items()}
+
+
+def world_of_one(dev, zero_counts, read_counts) -> dict:
+    """``make_parallel_train_step`` in a world of one over NCCL at the
+    flagship's training step (bf16, bs=128, M=15, dropout 0.1): one step
+    bit-equal to ``make_train_step``'s from the same state and seed
+    (parameters and metrics, cuDNN's deterministic algorithms for the
+    comparison), kernels A, A′, C and C′ launched; then both steps'
+    samples/s in this call and the gradient all-reduce's share of the
+    parallel step. Returns the parallel step's launches."""
+    import torch.distributed as dist
+
+    from probunet_tpu_torch.parallel import make_mesh, make_parallel_train_step, multihost
+
+    multihost.initialize(device=dev, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                         world_size=1, rank=0)
+    try:
+        print(f"parallel world of one: backend {dist.get_backend()}, world {dist.get_world_size()}")
+        cfg = preset("probunet_multivar_128")
+        cfg.model.compute_dtype = "bfloat16"
+        cfg.train.ensemble_size = TRAIN_M
+        model = _flagship_model(cfg)
+        hr = _par_days(TRAIN_BATCH, cfg, dev, seed=41)
+        stats = compute_stats(hr, cfg.data.lowres_scale)
+        mesh = make_mesh(device=dev)
+        states = {name: create_train_state(copy.deepcopy(model), seed=cfg.train.seed,
+                                           lr=cfg.train.lr, weight_decay=cfg.train.weight_decay,
+                                           device=dev) for name in ("single", "parallel")}
+        timing = {}
+        steps = {"single": make_train_step(states["single"].model, cfg),
+                 "parallel": make_parallel_train_step(states["parallel"].model, cfg, mesh)}
+        det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            zero_counts()
+            states["parallel"], met_p = steps["parallel"](states["parallel"], hr, stats, 1.0, 1.0)
+            launches = read_counts()
+            states["single"], met_s = steps["single"](states["single"], hr, stats, 1.0, 1.0)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        same_metrics = set(met_p) == set(met_s) and all(
+            torch.equal(met_p[k], met_s[k]) for k in met_s)
+        differ = [n for (n, a), b in zip(states["single"].model.named_parameters(),
+                                         states["parallel"].model.parameters())
+                  if not torch.equal(a, b)]
+        print(f"parallel world of one, bf16 bs={TRAIN_BATCH} M={TRAIN_M}: loss "
+              f"{float(met_p['loss']):.9g} vs {float(met_s['loss']):.9g}, grad_norm "
+              f"{float(met_p['grad_norm']):.9g} vs {float(met_s['grad_norm']):.9g}; metrics "
+              f"bit-equal {same_metrics}; parameters differing {len(differ)}; launches "
+              f"{json.dumps(launches)}")
+        if not same_metrics or differ:
+            raise AssertionError(f"the world-of-one parallel step is not the single step: "
+                                 f"metrics equal {same_metrics}, parameters {differ[:5]}")
+        for name in ("fcomb_crps", "fcomb_crps_bwd", "fused_gn", "fused_gn_bwd"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the parallel step")
+        rates = _step_rates(steps, states, hr, stats,
+                            ("single", "parallel", "parallel", "single"))
+        timed = make_parallel_train_step(states["parallel"].model, cfg, mesh, timing=timing)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_STEPS):
+            states["parallel"], _ = timed(states["parallel"], hr, stats, 1.0, 1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_grad = sum(p.numel() for p in states["parallel"].optimizer.params)
+        print(f"parallel world of one: samples/s single {rates['single']:.2f}, parallel "
+              f"{rates['parallel']:.2f}; gradient all-reduce ({n_grad} f32, "
+              f"{n_grad * 4 / 1e6:.1f} MB, {dist.get_backend()}) "
+              f"{timing['all_reduce_s'] / PAR_STEPS * 1e3:.3f} "
+              f"ms a step, share {timing['all_reduce_s'] / wall:.4f} of "
+              f"{wall / PAR_STEPS * 1e3:.3f} ms (device synchronized around it)")
+        del states, steps, timed
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(dev, zero_counts, read_counts) -> dict:
+    """The parallel paths on this card: the world of one over NCCL
+    (:func:`world_of_one`), then two gloo ranks sharing cuda:0 in one launch
+    of two processes (:func:`parallel_rank`). Returns the launches of each
+    part's paths (the ranks' summed)."""
+    launches = {"world of one": world_of_one(dev, zero_counts, read_counts)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as work:
+        # a served checkpoint for infer-domain: the flagship, zero parameters filled
+        cfg = preset("fulldomain_dp8")
+        CheckpointManager(os.path.join(work, "ckpt")).save_best(
+            _flagship_model(cfg).state_dict())
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+             "--port", str(port), "--workdir", work, "--device", str(dev)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=PAR_TIMEOUT)[0])
+        finally:
+            for proc in procs:   # no rank outlives the phase
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for r, (proc, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                print(f"parallel rank{r} | {line[:300]}")
+            if proc.returncode != 0 or f"PARALLEL_OK rank={r}" not in out:
+                raise AssertionError(f"parallel rank {r} failed (exit {proc.returncode})")
+        print(f"parallel two gloo ranks on one card: {time.perf_counter() - t0:.3f} s")
+        for r in (0, 1):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                launches[f"gloo rank {r}"] = json.load(f)
+    return launches
+
+
+def _captured_grads(state: TrainState) -> list:
+    """A list that gets the gradients each ``state.optimizer.step`` call
+    receives (copies), the call going on as before."""
+    seen, step = [], state.optimizer.step
+
+    def capture(grads):
+        seen.append([g.detach().clone() for g in grads])
+        return step(grads)
+
+    state.optimizer.step = capture
+    return seen
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches inside are a reference's, not the path's: the counts are
+    restored after (the counters count on the host, at each launch)."""
+    counters = launch_counters()[0]
+    saved = {k: fn.launches for k, fn in counters.items()}
+    try:
+        yield
+    finally:
+        for k, fn in counters.items():
+            fn.launches = saved[k]
+
+
+def _par_close(what: str, got, want, rtol: float) -> float:
+    err = float((got.double() - want.double()).abs().max() / want.double().abs().max())
+    print(f"{what}: max|err|/max|want| = {err:.3e} (limit {rtol})")
+    if not err <= rtol:
+        raise AssertionError(f"{what}: {err} above {rtol}")
+    return err
+
+
+def _offset_kernels_bit_equal(rank: int, dev) -> None:
+    """C, C′ and D on this rank's slab of a (8, 128, 128, 32) batch told its
+    offset: bit for bit the rows of the whole batch's outputs (f32 and
+    bf16, p = 0.1); the whole batch's masks those of the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(77)
+    b, per = PAR_BATCH, PAR_BATCH // 2
+    rows = slice(rank * per, (rank + 1) * per)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((b, 128, 128, 32), generator=gen, device=dev).to(dtype)
+        g = torch.randn((b, 128, 128, 32), generator=gen, device=dev).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(32, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(32, generator=gen, device=dev)
+        scale = 0.1 * torch.randn((b, 32), generator=gen, device=dev)
+        shift = 0.1 * torch.randn((b, 32), generator=gen, device=dev)
+        seed = torch.tensor([1234567, -7654321], dtype=torch.int32, device=dev)
+        consts = (8, 1e-5, 0.1, True)
+        y, mean, rstd = fused_gn._launch(x, gamma, beta, scale, shift, seed, *consts)
+        dx, *_ = fused_gn._launch_bwd(x, g, gamma, beta, scale, shift, seed, mean, rstd, 8, 0.1,
+                                      True)
+        part = (x[rows].contiguous(), gamma, beta, scale[rows].contiguous(),
+                shift[rows].contiguous(), seed)
+        y_s, mean_s, rstd_s = fused_gn._launch(*part, *consts, batch_offset=rows.start)
+        dx_s, *_ = fused_gn._launch_bwd(part[0], g[rows].contiguous(), *part[1:], mean_s,
+                                        rstd_s, 8, 0.1, True, batch_offset=rows.start)
+        plain_y = fused_gn.gn_film_silu_dropout_plain(*(t.cpu() for t in (x, gamma, beta,
+                                                                           scale, shift, seed)),
+                                                       *consts)[0]
+        d_whole = dropout._launch(x, seed, 0.1)
+        d_slab = dropout._launch(x[rows].contiguous(), seed, 0.1, rows.start * x[0].numel(),
+                                 x.numel())
+        d_plain = dropout.dropout_plain(x.cpu(), seed.cpu(), 0.1)
+        checks = {"C": torch.equal(y_s, y[rows]), "C′": torch.equal(dx_s, dx[rows]),
+                  "D": torch.equal(d_slab, d_whole[rows]),
+                  "C masks = plain": torch.equal((y == 0).cpu(), plain_y == 0),
+                  "D masks = plain": torch.equal((d_whole == 0).cpu(), d_plain == 0)}
+        print(f"offset kernels rank {rank} {str(dtype)[6:]} rows {rows.start}:{rows.stop} of "
+              f"{b}: {json.dumps(checks)}")
+        if not all(checks.values()):
+            raise AssertionError(f"offset kernels: {checks}")
+
+
+def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") -> None:
+    """One of two gloo ranks on ``device``, the parent's card (f32, TF32 off, the flagship's full
+    widths, dropout 0.1, a global batch of 8):
+
+    - the data-parallel step against the one-process step (rank 0) on both
+      GroupNorm routes (kernels C/C′ with the batch offset; the composed
+      chain with kernel D's element offset), within PAR_RTOL and
+      PAR_PARAM_SHARE;
+    - ``make_parallel_sample_step`` on a ("member" = 2) mesh against one
+      rank's ``ProbabilisticUNet.sample`` + ``residual_to_hr`` on the same
+      noise, float and int8 (rank 0's scales, broadcast);
+    - ``infer-domain --dp 2`` on a 140x140 domain (chunks of 3 tiles round
+      up to 4) against the one-process command at chunks of 4;
+    - ``halo_conv2d`` and the tensor-parallel pair against their unsharded
+      counterparts;
+
+    then C, C′ and D on the rank's slab against the whole batch
+    (:func:`_offset_kernels_bit_equal`, not counted). Writes the paths'
+    launches to ``rank<R>.json``."""
+    import torch.distributed as dist
+
+    from probunet_tpu_torch.parallel import (
+        channel_sharded_block, halo_conv2d, init_channel_sharded_params,
+        make_channel_sharded_apply, make_dp_tp_mesh, make_member_mesh, make_mesh,
+        make_parallel_sample_step, make_parallel_train_step, multihost, shard_batch,
+        shard_params)
+    from probunet_tpu_torch.parallel.mesh import all_gather, mesh_of
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(device=dev, backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+                         world_size=2, rank=rank)
+    _build.library()   # built by the parent: loaded, not rebuilt
+    _, zero_counts, read_counts = launch_counters()
+    cfg = preset("probunet_multivar_128")
+    cfg.train.ensemble_size = TRAIN_M
+    base = _flagship_model(cfg)
+    hr = _par_days(PAR_BATCH, cfg, dev, seed=43)
+    stats = compute_stats(hr, cfg.data.lowres_scale)
+    mesh = make_mesh(device=dev)
+    lr = cfg.train.lr
+    zero_counts()
+    for gn in ("kernel", "composed"):
+        model = _variant(base, cfg, gn_impl=gn).to(dev)
+        state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed, lr=lr,
+                                   weight_decay=cfg.train.weight_decay, device=dev)
+        grads = _captured_grads(state)
+        state, met = make_parallel_train_step(state.model, cfg, mesh)(
+            state, shard_batch(hr, mesh), stats, 1.0, 1.0)
+        if rank == 0:
+            ref = create_train_state(model, seed=cfg.train.seed, lr=lr,
+                                     weight_decay=cfg.train.weight_decay, device=dev)
+            ref_grads = _captured_grads(ref)
+            with _uncounted():
+                ref, want = make_train_step(ref.model, cfg)(ref, hr, stats, 1.0, 1.0)
+            what = f"dp step {gn} (bs {PAR_BATCH} over 2 ranks vs one)"
+            for k in ("loss", "recon", "kl_mean", "grad_norm"):
+                _par_close(f"{what} {k}", met[k].reshape(1), want[k].reshape(1), PAR_RTOL)
+            _par_close(f"{what} gradients", torch.cat([g.reshape(-1) for g in grads[0]]),
+                       torch.cat([g.reshape(-1) for g in ref_grads[0]]), PAR_RTOL)
+            diffs = [(a - b).detach().abs() for a, b in zip(state.model.parameters(),
+                                                           ref.model.parameters())]
+            diff = max(float(d.max()) for d in diffs)
+            n = sum(d.numel() for d in diffs)
+            moved = sum(int((d > 0.1 * lr).sum()) for d in diffs)
+            print(f"{what}: parameters max|diff| {diff:.3e} (lr {lr:.1e}); {moved} of {n} "
+                  f"elements ({moved / n:.4f}, limit {PAR_FLIP_SHARE}) beyond 0.1 lr, "
+                  f"{sum(int((d > 1e-6).sum()) for d in diffs)} beyond 1e-6")
+            if not (diff <= 2.001 * lr and moved <= PAR_FLIP_SHARE * n):
+                raise AssertionError(f"dp step {gn}: parameters off the one-process step")
+            del ref, ref_grads
+        del state, model
+    torch.cuda.empty_cache()
+
+    # member sharding: float and int8, against one rank's sample path
+    model = base.to(dev).eval()
+    mmesh = make_member_mesh(n_member=2, device=dev)
+    eps = cli.batch_noise(0, 0, PAR_SAMPLE_M, PAR_BATCH, cfg.model.latent_dim).to(dev)
+    batch = preprocess_batch(hr, stats, cfg.data.pipeline, cfg.data.lowres_scale,
+                             cfg.data.interp_mode, cfg.data.epsilon, cfg.data.standardization)
+    scales = quantize.calibrate_sample(model, [batch["inputs"]], PAR_SAMPLE_M) if rank == 0 \
+        else None
+    box = [scales]
+    dist.broadcast_object_list(box, src=0)
+    for name, quant in (("float", None), ("int8", box[0])):
+        got = make_parallel_sample_step(model, cfg, mmesh, PAR_SAMPLE_M, quant=quant)(
+            hr, eps, stats)
+        if rank == 0:
+            with _uncounted(), torch.no_grad(), quantize.attached(model, quant):
+                out = model.sample(batch["inputs"], PAR_SAMPLE_M, eps=eps)
+            want = residual_to_hr(out, lrinterp_from_batch(batch, cfg.data.lowres_scale,
+                                                           cfg.data.interp_mode)[:, None],
+                                  stats, cfg.data.pipeline, cfg.data.epsilon,
+                                  cfg.data.standardization)
+            _par_close(f"member sharding {name} (2 ranks x {PAR_SAMPLE_M // 2} members vs "
+                       f"one rank's sample)", got, want, ENSEMBLE_RTOL)
+
+    # infer-domain --dp 2 against the one-process command
+    argv = ["infer-domain", "--preset", "fulldomain_dp8", "--ckpt", os.path.join(workdir, "ckpt"),
+            "--domain", "140", "--days", "2", "--members", "4",
+            "--set", f"data.years_test={json.dumps(INFER_DOMAIN_YEARS)}"]
+    res, _ = cli.main(argv[:1] + ["--outdir", os.path.join(workdir, f"dp{rank}"), "--dp", "2",
+                                  "--batch-tiles", "3"] + argv[1:])
+    if rank == 0:
+        with _uncounted():
+            one, _ = cli.main(argv[:1] + ["--outdir", os.path.join(workdir, "one"),
+                                          "--batch-tiles", "4"] + argv[1:])
+        print(f"infer-domain --dp 2: {json.dumps(res)}; one process: {json.dumps(one)}")
+        _par_close("infer-domain --dp 2 vs one process (140x140, 2 days, M=4)",
+                   torch.tensor(res["crps_mean"] + res["mae_mean"]),
+                   torch.tensor(one["crps_mean"] + one["mae_mean"]), ENSEMBLE_RTOL)
+
+    # halo_conv2d and the tensor-parallel pair
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((PAR_BATCH, 128, 128, 32), generator=gen, device=dev)
+    w = torch.randn((32, 32, 3, 3), generator=gen, device=dev) / math.sqrt(288)
+    smesh = mesh_of({"spatial": 2}, device=dev)
+    mine = halo_conv2d(x.chunk(2, dim=1)[rank].contiguous(), w, smesh)
+    halo = torch.cat(all_gather(mine.contiguous(), smesh, "spatial"), dim=1)
+    tp = init_channel_sharded_params(torch.Generator(device=dev).manual_seed(6), 32, 64, 32)
+    tmesh = make_dp_tp_mesh(n_model=2, device=dev)
+    tp_out = make_channel_sharded_apply(tmesh)(shard_params(tp, tmesh), x)
+    if rank == 0:
+        _par_close("halo_conv2d (rows over 2 ranks) vs F.conv2d SAME", halo,
+                   F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1), 1e-5)
+        _par_close("tensor-parallel pair (Cmid 64 over 2 ranks) vs unsharded", tp_out,
+                   channel_sharded_block(tp, x), 1e-5)
+    launches = read_counts()
+    print(f"parallel rank {rank} launches: {json.dumps(launches)}")
+    _offset_kernels_bit_equal(rank, dev)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(launches, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"PARALLEL_OK rank={rank}", flush=True)
+
+
 def launch_counters():
     """(the kernel wrappers by name, a function setting their launch counts
     to 0, a function reading them after the device has finished)."""
@@ -3368,6 +3767,13 @@ def main() -> None:
     print(f"launches on the bench runs: {json.dumps(bench_launches)}; bench phase "
           f"{time.perf_counter() - t0:.3f} s")
 
+    # the parallel paths: a world of one over NCCL, two gloo ranks on this card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parallel_launches = parallel_phase(dev, zero_counts, read_counts)
+    print(f"launches on the parallel runs: {json.dumps(parallel_launches)}; parallel phase "
+          f"{time.perf_counter() - t0:.3f} s")
+
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
                "dropout": dropout}
     kernels = []
@@ -3388,7 +3794,9 @@ def main() -> None:
                         "launches_edm": sum(r[counter] for r in edm_launches.values()),
                         "launches_explore": sum(r[counter]
                                                 for r in explore_launches.values()),
-                        "launches_bench": sum(r[counter] for r in bench_launches.values())})
+                        "launches_bench": sum(r[counter] for r in bench_launches.values()),
+                        "launches_parallel": sum(r[counter]
+                                                 for r in parallel_launches.values())})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3396,4 +3804,13 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    _args = argparse.ArgumentParser(description="smoke run of the port on one GPU")
+    _args.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    _args.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    _args.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
+    _args.add_argument("--device", default="cuda:0", help=argparse.SUPPRESS)
+    _a = _args.parse_args()
+    if _a.parallel_rank is None:
+        main()
+    else:   # one of parallel_phase's two ranks
+        parallel_rank(_a.parallel_rank, _a.port, _a.workdir, _a.device)

@@ -51,13 +51,25 @@ Where they differ from the JAX CLI:
 - ``bench`` runs ``probunet_tpu_torch/bench.py`` (the port's copy of the
   root ``bench.py``: H100 peak, a FLOP count of the plain route, the
   card's name and power limit, peak memory), not the root script.
-- ``--member-mesh N`` (N > 1) and ``--dp`` are not ported yet and raise
-  ``NotImplementedError``.
+- **Parallel runs.** ``train --dp N``, ``infer-domain --dp N`` and
+  ``evaluate``/``extremes --member-mesh N`` run one process per rank over
+  ``torch.distributed`` (NCCL on cards, gloo under
+  ``PROBUNET_PLATFORM=cpu``), started by ``torchrun``::
+
+      torchrun --nproc-per-node 4 -m probunet_tpu_torch train --dp 4 ...
+
+  ``--dp`` must equal the world size (``-1`` takes it; ``--dp 1`` without
+  ``torchrun`` is a world of one); ``--member-mesh`` must divide it. Only
+  rank 0 prints and writes files; the results equal the one-process
+  command's (``infer-domain`` at its chunk size rounded up to a multiple of
+  the ranks).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import time
@@ -112,13 +124,60 @@ def batch_noise(seed: int, batch_index: int, members: int, batch_size: int,
     return torch.randn((members, batch_size, latent_dim), generator=gen)
 
 
-def _check_ported(args) -> None:
-    if getattr(args, "dp", 0):
-        raise NotImplementedError(
-            "--dp is not ported yet (ROADMAP.md §1 item 7, the parallel paths)")
-    if (getattr(args, "member_mesh", 0) or 0) > 1:
-        raise NotImplementedError(
-            "--member-mesh N > 1 is not ported yet (ROADMAP.md §1 item 7, the parallel paths)")
+def _wants_ranks(args) -> bool:
+    return bool(getattr(args, "dp", 0)) or (getattr(args, "member_mesh", 0) or 0) > 1
+
+
+def _data_mesh(args):
+    """``--dp N``'s ("data",) mesh over the world (None without ``--dp``):
+    N must be the world size (-1 takes it); else raises with the command
+    that starts N ranks."""
+    if not args.dp:
+        return None
+    from probunet_tpu_torch.parallel.mesh import make_mesh, world
+
+    _, n = world()
+    want = n if args.dp == -1 else args.dp
+    if want != n:
+        raise ValueError(
+            f"--dp {args.dp}: this world has {n} rank(s); start one process per rank, e.g. "
+            f"torchrun --nproc-per-node {want} -m probunet_tpu_torch {args.cmd} --dp {want} ...")
+    mesh = make_mesh(n_data=n, device=args.device)
+    print(f"data-parallel over {mesh.shape}")
+    return mesh
+
+
+def _member_mesh(args):
+    """``--member-mesh N``'s ("data", "member") mesh (None for N <= 1): N
+    must divide the world size and the data axis the batch size."""
+    n_member = getattr(args, "member_mesh", 0) or 0
+    if n_member <= 1:
+        return None
+    from probunet_tpu_torch.parallel.member_parallel import make_member_mesh
+    from probunet_tpu_torch.parallel.mesh import world
+
+    _, n = world()
+    if n % n_member:
+        raise ValueError(f"--member-mesh {n_member} does not divide the world of {n} rank(s); "
+                         f"e.g. torchrun --nproc-per-node {n_member} -m probunet_tpu_torch "
+                         f"{args.cmd} --member-mesh {n_member} ...")
+    if args.batch_size % (n // n_member):
+        raise SystemExit(f"--member-mesh {n_member}: --batch-size {args.batch_size} must be a "
+                         f"multiple of the data-axis size {n // n_member} (= ranks // member)")
+    return make_member_mesh(n_member=n_member, device=args.device)
+
+
+def _share_scales(scales, mesh):
+    """Rank 0's int8 scales tree on every rank of ``mesh`` (None: as is)."""
+    if mesh is None:
+        return scales
+    import torch.distributed as dist
+
+    box = [scales if mesh.is_main else None]
+    if mesh.world_size > 1:
+        dist.broadcast_object_list(box, src=0, device=mesh.device
+                                   if dist.get_backend() == "nccl" else None)
+    return box[0]
 
 
 def _parse_overrides(pairs):
@@ -244,6 +303,30 @@ def _sample_hr(model, ds, cfg: Config, idx: np.ndarray, eps: torch.Tensor):
     return hr_pred, gt
 
 
+def _member_sampler(args, cfg: Config, model, ds, mesh):
+    """``--member-mesh N``: (idx, eps) -> (hr_pred, gt) as :func:`_sample_hr`
+    returns them, the ensemble generated over ``mesh``
+    (``parallel.member_parallel``) and whole on every rank; None without
+    a mesh."""
+    if mesh is None:
+        return None
+    from probunet_tpu_torch.data.transforms import invert_physical_transform
+    from probunet_tpu_torch.parallel.member_parallel import make_parallel_sample_step
+
+    step = make_parallel_sample_step(model, cfg, mesh, num_samples=args.members)
+    stats = ds.device_stats(ds.device)
+
+    def sample_hr(idx, eps):
+        hr = torch.from_numpy(ds.get_hr_batch(idx)).to(ds.device)
+        hr_pred, gt = step(hr, eps.to(ds.device), stats), hr
+        if cfg.data.transfo:
+            hr_pred = invert_physical_transform(hr_pred, cfg.data.variables)
+            gt = invert_physical_transform(gt, cfg.data.variables)
+        return hr_pred, gt
+
+    return sample_hr
+
+
 def _calibrate(args, model, inputs, where: str):
     """``--quant int8``: the scales tree of the prior-sample path over the
     preprocessed ``inputs``, pruned by ``--quant-skip``, the JAX CLI's lines
@@ -310,20 +393,22 @@ def cmd_train(args):
     from probunet_tpu_torch.train.logging import MetricLogger
     from probunet_tpu_torch.train.loop import Trainer
 
-    _check_ported(args)
     timer = _PhaseTimer(args.device)
     cfg = build_config(args)
+    mesh = _data_mesh(args)
+    main = mesh is None or mesh.is_main
     os.makedirs(args.outdir, exist_ok=True)
-    with open(os.path.join(args.outdir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if main:
+        with open(os.path.join(args.outdir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
     ds_train, ds_val, _ = make_datasets(cfg, splits=(0, 1), device=args.device)
     timer.mark("dataset")
     model = make_model(cfg, args.device)
-    logger = MetricLogger(logdir=args.outdir, use_wandb=args.wandb)
+    logger = MetricLogger(logdir=args.outdir, use_wandb=args.wandb) if main else None
     ckpt = CheckpointManager(os.path.join(os.path.abspath(args.outdir), "ckpt"))
     trainer = Trainer(cfg, model, ds_train, ds_val, logger=logger, checkpoint_manager=ckpt,
                       plot_dir=args.outdir if args.plot_every else None,
-                      plot_every=args.plot_every or 1, device=args.device)
+                      plot_every=args.plot_every or 1, mesh=mesh, device=args.device)
     if args.resume:
         latest = ckpt.latest_step()
         if latest is not None:
@@ -334,8 +419,9 @@ def cmd_train(args):
     timer.mark("init")
     history = trainer.fit()
     timer.mark("fit")
-    with open(os.path.join(args.outdir, "losses.pkl"), "wb") as f:
-        pickle.dump(history, f)
+    if main:
+        with open(os.path.join(args.outdir, "losses.pkl"), "wb") as f:
+            pickle.dump(history, f)
     # improvement over plain interpolation (reference
     # src/train_prob_unet_model.py:307-349)
     ds = ds_val if ds_val is not None else ds_train
@@ -344,13 +430,14 @@ def cmd_train(args):
     contrib = residual_contribution(hr_pred, lrinterp, hr)
     print(json.dumps({"residual_contribution": contrib}))
     timer.mark("contribution")
-    try:
-        from probunet_tpu_torch.utils.plotting import plot_loss_curves
-        plot_loss_curves(history, save_path=os.path.join(args.outdir, "loss_curves.png"))
-    except Exception as e:  # the figure only: the numbers are written
-        print(f"plotting skipped: {type(e).__name__}: {e}")
+    if main:
+        try:
+            from probunet_tpu_torch.utils.plotting import plot_loss_curves
+            plot_loss_curves(history, save_path=os.path.join(args.outdir, "loss_curves.png"))
+        except Exception as e:  # the figure only: the numbers are written
+            print(f"plotting skipped: {type(e).__name__}: {e}")
+        logger.close()
     timer.mark("figures")
-    logger.close()
     out = {"final": {k: (v[-1] if v else None) for k, v in history.items()}}
     print(json.dumps(out))
     timer.report()
@@ -592,9 +679,10 @@ def cmd_evaluate(args):
     from probunet_tpu_torch.evals import EvalAccumulator
     from probunet_tpu_torch.ops.quantize import attached
 
-    _check_ported(args)
     timer = _PhaseTimer(args.device)
     cfg = build_config(args)
+    mesh = _member_mesh(args)
+    main = mesh is None or mesh.is_main
     _, _, ds_test = make_datasets(cfg, splits=(2,), device=args.device)
     timer.mark("dataset")
     model = _load_model(cfg, args.ckpt, args.device)
@@ -603,24 +691,31 @@ def cmd_evaluate(args):
     m = args.members
     n_items = min(len(ds_test), args.max_items or len(ds_test))
     with torch.inference_mode():
-        scales = _serve_scales(args, cfg, model, ds_test, n_items, args.batch_size)
+        scales = (_serve_scales(args, cfg, model, ds_test, n_items, args.batch_size)
+                  if main else None)
+        scales = _share_scales(scales, mesh)
     if scales is not None:
         timer.mark("calib")
+    sample = (_member_sampler(args, cfg, model, ds_test, mesh)
+              or (lambda idx, eps: _sample_hr(model, ds_test, cfg, idx, eps)))
 
     def ensembles():
         for i, idx in enumerate(Batches(n_items, args.batch_size)):
-            eps = batch_noise(EVAL_SEED, i, m, len(idx), cfg.model.latent_dim)
-            yield _sample_hr(model, ds_test, cfg, idx, eps)
+            yield sample(idx, batch_noise(EVAL_SEED, i, m, len(idx), cfg.model.latent_dim))
 
     acc = EvalAccumulator()
     with torch.inference_mode(), attached(model, scales):
-        for e, g in ensembles():
-            acc.update(e, g)
+        for e, g in ensembles():   # every rank generates; rank 0 scores
+            if main:
+                acc.update(e, g)
         timer.mark("metric_loop")
         if args.outdir:
             for e, g in ensembles():
-                acc.update_hist(e, g)
+                if main:
+                    acc.update_hist(e, g)
             timer.mark("hist_loop")
+    if not main:
+        return None, timer.spans
     res = acc.result()
 
     out = {
@@ -665,9 +760,10 @@ def cmd_extremes(args):
     from probunet_tpu_torch.evals import model_ensemble_analysis, return_level_analysis
     from probunet_tpu_torch.ops.quantize import attached
 
-    _check_ported(args)
     timer = _PhaseTimer(args.device)
     cfg = build_config(args)
+    mesh = _member_mesh(args)
+    main = mesh is None or mesh.is_main
     os.makedirs(args.outdir, exist_ok=True)
     _, _, ds_test = make_datasets(cfg, splits=(2,), device=args.device)
     timer.mark("dataset")
@@ -686,16 +782,21 @@ def cmd_extremes(args):
 
     days = len(ds_test) if not args.days else min(args.days, len(ds_test))
     with torch.inference_mode():
-        scales = _serve_scales(args, cfg, model, ds_test, days, args.batch_size)
+        scales = (_serve_scales(args, cfg, model, ds_test, days, args.batch_size)
+                  if main else None)
+        scales = _share_scales(scales, mesh)
     if scales is not None:
         timer.mark("calib")
+    sample = (_member_sampler(args, cfg, model, ds_test, mesh)
+              or (lambda idx, eps: _sample_hr(model, ds_test, cfg, idx, eps)))
     model_vals, gt_vals = [], []
     with torch.inference_mode(), attached(model, scales):
         for i, idx in enumerate(Batches(days, args.batch_size)):
-            eps = batch_noise(cfg.train.seed, i, m, len(idx), cfg.model.latent_dim)
-            e, g = _sample_hr(model, ds_test, cfg, idx, eps)
+            e, g = sample(idx, batch_noise(cfg.train.seed, i, m, len(idx), cfg.model.latent_dim))
             model_vals.append(e[:, :, ys, xs, var_idx].cpu().numpy())
             gt_vals.append(g[:, ys, xs, var_idx].cpu().numpy())
+    if not main:   # every rank generated; rank 0 fits and writes
+        return None, timer.spans
     model_series = np.concatenate(model_vals)  # (T, M, P)
     gt_series = np.concatenate(gt_vals)        # (T, P)
     timer.mark("sample_loop")
@@ -775,17 +876,23 @@ def cmd_infer_domain(args):
     (the model serves at tile resolution; there is no held-out tile
     source). Writes ``infer_domain.json`` and the guarded figure. Returns
     (the printed JSON object, the phase times in seconds: ``sample`` holds
-    the tiles' sampling and their stitch, :func:`tiled_ensemble`)."""
+    the tiles' sampling and their stitch, :func:`tiled_ensemble`).
+
+    ``--dp N``: each chunk (its size rounded up to a multiple of N, as the
+    JAX CLI rounds it) is split over the ranks, its noise drawn whole and
+    sliced; rank 0 calibrates (``--quant int8``) and writes. The result
+    equals the one-process command's at the rounded chunk size."""
     from probunet_tpu_torch.data.climex import (
         ClimexDataset, Standardization, lrinterp_from_batch, preprocess_batch, residual_to_hr)
     from probunet_tpu_torch.evals import compute_mae, crps_over_groundtruth
     from probunet_tpu_torch.ops.quantize import attached
     from probunet_tpu_torch.parallel.spatial import extract_tiles, tile_positions, tiled_ensemble
 
-    _check_ported(args)
     timer = _PhaseTimer(args.device)
     dev = args.device
     cfg = build_config(args)
+    mesh = _data_mesh(args)
+    main = mesh is None or mesh.is_main
     d = cfg.data
     k = d.lowres_scale
     tile = d.resolution[0]
@@ -828,8 +935,11 @@ def cmd_infer_domain(args):
 
     m = args.members
     bs = args.batch_tiles
+    if mesh is not None:   # a chunk divides over the ranks
+        bs = -(-bs // mesh.world_size) * mesh.world_size
+    n_tiles = days * ntiles
     scales = None
-    if getattr(args, "quant", "none") == "int8":
+    if getattr(args, "quant", "none") == "int8" and main:
         with torch.inference_mode():
             n_calib = min(max(1, args.calib_batches) * bs, days * ntiles)
             first, _ = extract_tiles(hr_days[:-(-n_calib // ntiles)], tile, args.overlap,
@@ -838,14 +948,24 @@ def cmd_infer_domain(args):
                       for i in range(0, n_calib, bs)]
             scales = _calibrate(args, model, inputs, "tile chunks")
             del first, inputs
+    scales = _share_scales(scales, mesh)
+    if scales is not None:
         timer.mark("calib")
 
-    def sample_hr(tiles, i):
-        batch = preprocess(tiles, i)
-        n = tiles.shape[0]
+    def sample_hr(tiles, i, rows=None):
+        """The chunk from tile i's ensemble, or its tiles ``rows`` (a rank's
+        share), the chunk's noise drawn whole."""
+        n = min(bs, n_tiles - i)
         eps = batch_noise(cfg.train.seed, i // bs, m, n, cfg.model.latent_dim)
+        st = chunk_stats(i, n)
+        if rows is not None:
+            at = torch.from_numpy(rows).to(dev)
+            eps = eps[:, torch.from_numpy(rows)]
+            st = Standardization(*(None if a is None else a[at] for a in st))
+        batch = preprocess_batch(tiles, st, d.pipeline, k, d.interp_mode, d.epsilon,
+                                 d.standardization)
         out = model.sample(batch["inputs"], m, eps=eps.to(dev))
-        st_b = Standardization(*(None if a is None else a[:, None] for a in chunk_stats(i, n)))
+        st_b = Standardization(*(None if a is None else a[:, None] for a in st))
         ist = batch.get("stand_stats")
         if ist is not None:                           # the member axis
             ist = {key: v[:, None] for key, v in ist.items()}
@@ -854,7 +974,7 @@ def cmd_infer_domain(args):
                               d.standardization, ist)
 
     with torch.inference_mode(), attached(model, scales):
-        full = tiled_ensemble(sample_hr, hr_days, tile, args.overlap, bs, align=k)
+        full = tiled_ensemble(sample_hr, hr_days, tile, args.overlap, bs, align=k, mesh=mesh)
         timer.mark("sample")
         full = full[:, :, :dom, :dom]                 # (T, M, H, W, C), padding cropped
         gt = hr_days[:, :dom, :dom]
@@ -868,6 +988,8 @@ def cmd_infer_domain(args):
                   "crps_mean": crps["mean"].cpu().numpy().tolist(),
                   "mae_mean": mae["mean"].cpu().numpy().tolist()}
     timer.mark("metrics")
+    if not main:
+        return None, timer.spans
     print(json.dumps(result))
     with open(os.path.join(args.outdir, "infer_domain.json"), "w") as f:
         json.dump(result, f, indent=2)
@@ -993,8 +1115,8 @@ def main(argv=None):
         sp.add_argument("--ckpt", default=None,
                         help="checkpoint directory holding best_params.pt")
         sp.add_argument("--member-mesh", type=int, default=0, metavar="N",
-                        help="member-parallel serving over N devices (not ported "
-                             "yet: N > 1 raises)")
+                        help="ensemble members over N ranks (N divides the world "
+                             "size of torchrun; the rest split the batch)")
         quant_flags(sp)
 
     def quant_flags(sp):
@@ -1015,7 +1137,8 @@ def main(argv=None):
     sp.add_argument("--plot-every", type=int, default=0,
                     help="save ensemble/residual figures every N epochs (0 = off)")
     sp.add_argument("--dp", type=int, default=0,
-                    help="data-parallel over N devices (not ported yet: nonzero raises)")
+                    help="data-parallel over N ranks, the world size of torchrun "
+                         "(-1: the world size)")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("train-det", help="deterministic baselines")
@@ -1053,7 +1176,8 @@ def main(argv=None):
     sp.add_argument("--overlap", type=int, default=16)
     sp.add_argument("--batch-tiles", type=int, default=16)
     sp.add_argument("--dp", type=int, default=0,
-                    help="tile batches over N devices (not ported yet: nonzero raises)")
+                    help="tile chunks over N ranks, the world size of torchrun "
+                         "(-1: the world size)")
     quant_flags(sp)
     sp.set_defaults(fn=cmd_infer_domain)
 
@@ -1097,6 +1221,15 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     args.device = cli_device()
+    if _wants_ranks(args):
+        from probunet_tpu_torch.parallel import multihost
+        from probunet_tpu_torch.parallel.mesh import world
+
+        multihost.initialize(args.device)
+        args.device = multihost.rank_device(args.device)
+        if world()[0] != 0:   # rank 0 speaks for the run
+            with contextlib.redirect_stdout(io.StringIO()):
+                return args.fn(args)
     return args.fn(args)
 
 

@@ -19,7 +19,9 @@ port's parameters, whose module names follow the Flax names
 
 Every leaf must be consumed and every port parameter filled, with equal
 shapes; anything else raises. ``convert_quant`` and ``flax_quant`` carry
-the int8 serving scales tree (the JAX "quant" collection) both ways.
+the int8 serving scales tree (the JAX "quant" collection) both ways;
+``convert_channel_sharded`` the tensor-parallel conv pair's two kernels
+(HWIO -> OIHW), which no module holds.
 """
 
 from __future__ import annotations
@@ -147,3 +149,18 @@ def flax_quant(scales: Mapping) -> dict:
     package's nested dict of f32 numpy scalars."""
     return {k: flax_quant(v) if isinstance(v, Mapping)
             else np.float32(torch.as_tensor(v).item()) for k, v in scales.items()}
+
+
+def convert_channel_sharded(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``parallel.tensor_parallel`` pair's two HWIO kernels
+    {"w1", "w2"} as the port's OIHW tensors (f32), whole: each rank takes
+    its channel slices with ``parallel.tensor_parallel.shard_params``."""
+    if set(params) != {"w1", "w2"}:
+        raise ValueError(f"expected the leaves w1 and w2, got {sorted(params)}")
+    out = {}
+    for name in ("w1", "w2"):
+        arr = np.asarray(params[name])
+        if arr.ndim != 4:
+            raise ValueError(f"{name}: expected an HWIO kernel, got {arr.shape}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+    return out

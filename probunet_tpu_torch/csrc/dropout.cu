@@ -15,6 +15,12 @@
 // with every sum and product in uint32 (wrapping), scale = f32(1 / (1 - p))
 // and the product in f32, rounded once to the tensor's type.
 //
+// A data-parallel rank holds a slab of the global batch: the kernel then
+// takes the slab's element offset into the global tensor and the global
+// tensor's rb, and hashes the global coordinates e = offset + local index,
+// so the slab's mask is the global mask's rows. Offset 0 and the tensor's
+// own rb give the masks above.
+//
 // Bound: HBM bytes. It reads x once and writes y once (4 bytes per bf16
 // element; at the flagship's (128, 128, 128, 32) bf16 activation 268 MB,
 // 0.080 ms at 3.35 TB/s). No mask bytes are stored or read in either
@@ -71,32 +77,32 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restrict__ seed,
-               long long nvec, int rb, float p, float scale) {
+               long long nvec, long long offset, int rb, float p, float scale) {
   const long long v = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (v >= nvec) return;
   const uint32_t key = hash_key(seed);
-  const long long e0 = v * kVec;
+  const long long e0 = offset + v * kVec;  // global index of the first element
   const long long row = e0 / kLane;
   const long long salt = row / rb;
   const uint32_t pos = static_cast<uint32_t>((row - salt * rb) * kLane + e0 % kLane);
   float vals[kVec];
-  load8(x + e0, vals);
+  load8(x + v * kVec, vals);
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
     const float u = hash_uniform(pos + static_cast<uint32_t>(i), key, static_cast<uint32_t>(salt));
     vals[i] = u >= p ? __fmul_rn(vals[i], scale) : 0.f;
   }
-  store8(y + e0, vals);
+  store8(y + v * kVec, vals);
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* y, const void* seed, long long n, int rb, float p,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* x, void* y, const void* seed, long long n, long long offset,
+                   int rb, float p, float scale, cudaStream_t stream) {
   const long long nvec = n / kVec;
   const long long blocks = (nvec + kThreads - 1) / kThreads;
   dropout_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const int*>(seed), nvec, rb,
-      p, scale);
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const int*>(seed), nvec,
+      offset, rb, p, scale);
   return cudaGetLastError();
 }
 
@@ -106,19 +112,21 @@ cudaError_t launch(const void* x, void* y, const void* seed, long long n, int rb
 extern "C" {
 
 // x, y: n elements, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), contiguous,
-// 16-byte aligned, n % 1024 == 0; y may alias x. seed: (2,) int32 on the
-// device. rb: rows per block (a multiple of 8 dividing n / 128). p: the drop
-// probability; scale: f32(1 / (1 - p)). Returns cudaGetLastError().
-int dropout_apply(const void* x, void* y, const void* seed, long long n, int rb, float p,
-                  float scale, int is_bf16, void* stream) {
-  if (n <= 0 || n % (8 * probunet::kLane) != 0 || rb <= 0 || rb % 8 != 0 ||
-      (n / probunet::kLane) % rb != 0) {
+// 16-byte aligned, n % 8 == 0; y may alias x. They are elements [offset,
+// offset + n) of a global tensor (offset % 8 == 0; offset 0 and n the
+// whole tensor outside data parallelism). seed: (2,) int32 on the device.
+// rb: rows per block of the global tensor (a multiple of 8 dividing its
+// numel / 128). p: the drop probability; scale: f32(1 / (1 - p)). Returns
+// cudaGetLastError().
+int dropout_apply(const void* x, void* y, const void* seed, long long n, long long offset,
+                  int rb, float p, float scale, int is_bf16, void* stream) {
+  if (n <= 0 || n % 8 != 0 || offset < 0 || offset % 8 != 0 || rb <= 0 || rb % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? probunet::launch<__nv_bfloat16>(x, y, seed, n, rb, p, scale, s)
-              : probunet::launch<float>(x, y, seed, n, rb, p, scale, s);
+      is_bf16 ? probunet::launch<__nv_bfloat16>(x, y, seed, n, offset, rb, p, scale, s)
+              : probunet::launch<float>(x, y, seed, n, offset, rb, p, scale, s);
   return static_cast<int>(err);
 }
 

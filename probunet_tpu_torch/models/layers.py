@@ -90,15 +90,17 @@ def save_convs_checkpoint(fn, *args, **kwargs):
     return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
 
 
-def other_shape_dropout(y: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
+def other_shape_dropout(y: torch.Tensor, seed2: torch.Tensor, p_drop: float,
+                        offset: int = 0) -> torch.Tensor:
     """Inverted dropout of a tensor kernel D does not take (numel not a
     multiple of 1024, such as a 1x1 chain of 192 channels at batch 8),
     where the JAX module switches to ``jax.random.bernoulli``: plain torch
     operations on either device, the mask the same hash of the seed words
-    at each element's row-major index (so a recompute regenerates it). No
-    TPU kernel computes this in the JAX package, and no launch counter
-    counts it."""
-    pos = torch.arange(y.numel(), dtype=torch.int64, device=y.device)
+    at each element's row-major index (so a recompute regenerates it), that
+    index counted from ``offset`` (a data-parallel slab's first element in
+    the global tensor). No TPU kernel computes this in the JAX package, and
+    no launch counter counts it."""
+    pos = torch.arange(offset, offset + y.numel(), dtype=torch.int64, device=y.device)
     keep = hash_uniform(pos, seed2.to(y.device),
                         torch.zeros((), dtype=torch.int64, device=y.device))
     return apply_keep(y, (keep >= np.float32(p_drop)).reshape(y.shape), p_drop)
@@ -209,7 +211,10 @@ class EDMGroupNorm(nn.Module):
     A shape the kernel does not take (``fused_gn.supported``) runs the
     composed route on either setting, as the JAX module decides; the
     choice is made from the shape, before any launch. Dropout takes the
-    (2,) int32 ``drop_seed``.
+    (2,) int32 ``drop_seed``. ``slab`` = (first row, global batch) places
+    x in the global batch of a data-parallel step: the masks are those of
+    the global batch's rows (C's salt, D's element offset and block
+    height), and D or the other-shape hash is chosen from the global shape.
     """
 
     def __init__(self, num_channels: int, *, dtype: torch.dtype | None = None,
@@ -226,13 +231,15 @@ class EDMGroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, silu: bool = False,
                 film: tuple[torch.Tensor, torch.Tensor] | None = None,
-                drop_p: float = 0.0, drop_seed: torch.Tensor | None = None) -> torch.Tensor:
+                drop_p: float = 0.0, drop_seed: torch.Tensor | None = None,
+                slab: tuple[int, int] | None = None) -> torch.Tensor:
         b, c, h, w = x.shape
         g = self.groups
         if drop_p > 0.0 and drop_seed is None:
             raise ValueError("EDMGroupNorm: drop_p > 0 needs drop_seed")
+        b0, b_total = (0, b) if slab is None else slab
         if self.gn_impl == "kernel" and fused_gn.supported(h, w, c, g):
-            return self._kernel_chain(x, silu, film, drop_p, drop_seed)
+            return self._kernel_chain(x, silu, film, drop_p, drop_seed, b0)
         xf = x.float().unflatten(1, (g, c // g))              # (B, G, C/G, H, W)
         mean = xf.mean(dim=(2, 3, 4), keepdim=True)
         mean2 = (xf * xf).mean(dim=(2, 3, 4), keepdim=True)
@@ -252,12 +259,16 @@ class EDMGroupNorm(nn.Module):
             # only a tensor that is not channels_last (a 1x1 map upsampled
             # on the card comes back NCHW-contiguous)
             yn = y.permute(0, 2, 3, 1).contiguous()
-            yn = (hash_dropout(yn, drop_seed, drop_p) if dropout_supported(yn.shape)
-                  else other_shape_dropout(yn, drop_seed, drop_p))
+            # a slab's elements sit at b0 rows into the global tensor
+            at = () if slab is None else (b0 * yn[0].numel(),)
+            whole = () if slab is None else (b_total * yn[0].numel(),)
+            yn = (hash_dropout(yn, drop_seed, drop_p, *at, *whole)
+                  if dropout_supported((b_total, *yn.shape[1:]))
+                  else other_shape_dropout(yn, drop_seed, drop_p, *at))
             y = yn.permute(0, 3, 1, 2)
         return y
 
-    def _kernel_chain(self, x, silu, film, drop_p, drop_seed):
+    def _kernel_chain(self, x, silu, film, drop_p, drop_seed, batch_offset=0):
         b, c = x.shape[:2]
         # NHWC view; contiguous() copies only an input that is not channels_last
         # (none on the U-Net's path: chip_smoke.py counts them)
@@ -269,7 +280,7 @@ class EDMGroupNorm(nn.Module):
         if drop_p <= 0.0:
             drop_seed = torch.zeros(2, dtype=torch.int32, device=x.device)
         y = fused_gn.gn_film_silu_dropout(xn, self.weight, self.bias, scale, shift, drop_seed,
-                                          self.groups, self.eps, drop_p, silu)
+                                          self.groups, self.eps, drop_p, silu, batch_offset)
         return y.permute(0, 3, 1, 2)
 
 
@@ -366,9 +377,11 @@ class UNetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 skip_in: torch.Tensor | None = None, train: bool = False,
-                drop_seed: torch.Tensor | None = None) -> torch.Tensor:
+                drop_seed: torch.Tensor | None = None,
+                slab: tuple[int, int] | None = None) -> torch.Tensor:
         """``drop_seed``: this block's (2,) int32 dropout seed words, needed
-        when ``train`` and ``dropout > 0``."""
+        when ``train`` and ``dropout > 0``. ``slab``: (first row, global
+        batch) of x in a data-parallel step (``EDMGroupNorm``)."""
         x_in = x
         full = x if skip_in is None else torch.cat([x, skip_in.to(x.dtype)], dim=1)
         h = self.conv0(self.norm0(full, silu=True))
@@ -377,10 +390,10 @@ class UNetBlock(nn.Module):
         if self.adaptive_scale:
             scale, shift = params.chunk(2, dim=-1)
             h = self.norm1(h, silu=True, film=(scale, shift), drop_p=drop_p,
-                           drop_seed=drop_seed)
+                           drop_seed=drop_seed, slab=slab)
         else:
             h = self.norm1(h + params[:, :, None, None], silu=True, drop_p=drop_p,
-                           drop_seed=drop_seed)
+                           drop_seed=drop_seed, slab=slab)
         h = self.conv1(h)
         if self.skip is None:
             skip = full

@@ -120,7 +120,7 @@ class ProbabilisticUNet(nn.Module):
              beta_w: float = 0.048, lam_w: float = 0.0,
              generator: torch.Generator | None = None, eps: torch.Tensor | None = None,
              fused: bool = True, training: bool = False,
-             seeds: torch.Tensor | None = None):
+             seeds: torch.Tensor | None = None, slab: tuple[int, int] | None = None):
         """ELBO = beta_0 * recon + beta_1 * KL(q || p) [+ beta_2 * KL(q || N(0, I))
         for ``"l1"``], the posterior noise ``eps`` or drawn from
         ``generator``: (M, B, D) for the ensemble losses, (B, D) for
@@ -129,7 +129,9 @@ class ProbabilisticUNet(nn.Module):
         ``training``: the U-Net's dropout on, its seed words ``seeds``
         ((n_blocks, 2) int32, block order) or drawn from ``generator``
         first, before the noise. Unlike the JAX method, the default is
-        False (evaluation).
+        False (evaluation). ``slab`` = (first row, global batch) places x in
+        the global batch of a data-parallel step: its dropout masks are the
+        global batch's rows (``layers.EDMGroupNorm``).
 
         - ``"afcrps"`` / ``"crps"``: M >= 2 draws scored as an ensemble,
           fused (kernels A and A′) or unfused (``Fcomb.ensemble``, kernels
@@ -149,7 +151,7 @@ class ProbabilisticUNet(nn.Module):
             raise ValueError(f"unknown loss_type {loss_type!r}")
         if loss_type in ("afcrps", "crps") and M < 2:
             raise ValueError(f"M must be >= 2 for {loss_type}, got {M}")
-        feats = self.unet(x, train=training, seeds=seeds, generator=generator)
+        feats = self.unet(x, train=training, seeds=seeds, generator=generator, slab=slab)
         prior = self.prior(x)
         posterior = self.posterior(x, target)
         kl = kl_diag_gaussians(posterior, prior)                    # (B,)

@@ -216,9 +216,12 @@ class UNet(nn.Module):
                 noise_labels: torch.Tensor | None = None,
                 class_labels: torch.Tensor | None = None,
                 augment_labels: torch.Tensor | None = None,
-                label_keep: torch.Tensor | None = None):
+                label_keep: torch.Tensor | None = None,
+                slab: tuple[int, int] | None = None):
         """``train``: dropout on. ``seeds``: (len(dropout_blocks), 2) int32
         seed words in block order; drawn from ``generator`` when None.
+        ``slab``: (first row, global batch) of ``x`` in a data-parallel
+        step, whose rows then get the global batch's dropout masks.
         ``return_skips``: also return the first three encoder outputs (NHWC
         views in the compute dtype), which the asymmetric U-Nets inject.
         ``noise_labels`` (B,), ``class_labels`` (B, label_dim),
@@ -241,7 +244,7 @@ class UNet(nn.Module):
 
         def run(name, h, skip=None):
             block = self.get_submodule(name)
-            kw = dict(train=train, drop_seed=block_seeds.get(name))
+            kw = dict(train=train, drop_seed=block_seeds.get(name), slab=slab)
             mode = self.block_remat[name] if torch.is_grad_enabled() else None
             if mode == "save_convs":
                 return save_convs_checkpoint(block, h, emb, skip, **kw)

@@ -15,6 +15,13 @@ rb = ``_block_rows(rows)``; the hash input is (r % rb) * 128 + e % 128
 with salt r // rb. Keep when u = (hash >> 8) * 2**-24 >= p; survivors are
 scaled by f32(1 / (1 - p)) in f32.
 
+A data-parallel rank drops out its slab of the global batch: ``offset``
+is the slab's first element in the global tensor and ``total`` the global
+tensor's numel, from which rb comes. The kernel and the plain version then
+hash the global index, so the slab's mask is the global mask's rows.
+``offset=0`` with ``total`` the tensor's own numel (the default) gives
+the masks above.
+
 The U-Net's activations are NCHW views in ``channels_last`` memory, so
 the layer hands the NHWC view (``x.permute(0, 2, 3, 1)``), which is
 row-major contiguous, and the row-major index is the JAX package's NHWC
@@ -81,13 +88,14 @@ def hash_uniform(pos: torch.Tensor, seed2: torch.Tensor, salt: torch.Tensor) -> 
     return (z >> 8).to(torch.float32) * np.float32(2.0 ** -24)
 
 
-def dropout_keep(shape, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
+def dropout_keep(shape, seed2: torch.Tensor, p_drop: float, offset: int = 0,
+                 total: int | None = None) -> torch.Tensor:
     """The keep mask (bool, ``shape``): the hash at (rb, 128) block
-    coordinates, salted with the block index."""
+    coordinates, salted with the block index, of elements [offset, offset +
+    numel) of a tensor of ``total`` elements (by default ``shape``'s)."""
     n = math.prod(shape)
-    rows = n // _LANE
-    rb = _block_rows(rows)
-    e = torch.arange(n, dtype=torch.int64, device=seed2.device)
+    rb = _block_rows((n if total is None else total) // _LANE)
+    e = torch.arange(offset, offset + n, dtype=torch.int64, device=seed2.device)
     r = e // _LANE
     u = hash_uniform((r % rb) * _LANE + e % _LANE, seed2, r // rb)
     return (u >= np.float32(p_drop)).reshape(shape)
@@ -100,21 +108,29 @@ def apply_keep(x: torch.Tensor, keep: torch.Tensor, p_drop: float) -> torch.Tens
     return torch.where(keep, scaled, torch.zeros((), device=x.device)).to(x.dtype)
 
 
-def dropout_plain(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
-    """The plain PyTorch version, on the row-major order of ``x``'s shape."""
-    return apply_keep(x, dropout_keep(x.shape, seed2, p_drop), p_drop)
+def dropout_plain(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0,
+                  total: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version, on the row-major order of ``x``'s shape
+    (elements [offset, offset + numel) of a tensor of ``total``)."""
+    return apply_keep(x, dropout_keep(x.shape, seed2, p_drop, offset, total), p_drop)
 
 
-def _apply(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
-    if not supported(x.shape):
-        raise ValueError(f"dropout: shape {tuple(x.shape)} is not supported (numel % 1024 "
-                         "!= 0 or no block height); the JAX package would switch mask streams")
+def _apply(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0,
+           total: int | None = None) -> torch.Tensor:
+    total = x.numel() if total is None else total
+    if not supported((total,)):
+        raise ValueError(f"dropout: {total} elements are not supported (numel % 1024 != 0 or "
+                         "no block height); the JAX package would switch mask streams")
+    if not 0 <= offset <= total - x.numel():
+        raise ValueError(f"dropout: elements [{offset}, {offset + x.numel()}) outside a "
+                         f"tensor of {total}")
     if x.device.type == "cpu" and seed2.device.type == "cpu":
-        return dropout_plain(x, seed2, p_drop)
-    return _launch(x, seed2, p_drop)
+        return dropout_plain(x, seed2, p_drop, offset, total)
+    return _launch(x, seed2, p_drop, offset, total)
 
 
-def _launch(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0,
+            total: int | None = None) -> torch.Tensor:
     if x.device.type != "cuda" or seed2.device != x.device:
         raise ValueError(f"dropout: x on {x.device}, seed2 on {seed2.device}; the "
                          "kernel needs both on one CUDA device")
@@ -129,11 +145,15 @@ def _launch(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor
         raise ValueError(f"dropout: seed2 must be a contiguous (2,) int32 tensor, got "
                          f"{seed2.dtype} {tuple(seed2.shape)}")
     n = x.numel()
+    total = n if total is None else total
+    if n % 8 or offset % 8:
+        raise ValueError(f"dropout: the kernel takes slabs of 8-element rows, got "
+                         f"{n} elements at offset {offset}")
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        err = lib.dropout_apply(x.data_ptr(), y.data_ptr(), seed2.data_ptr(), n,
-                                _block_rows(n // _LANE), float(np.float32(p_drop)),
+        err = lib.dropout_apply(x.data_ptr(), y.data_ptr(), seed2.data_ptr(), n, offset,
+                                _block_rows(total // _LANE), float(np.float32(p_drop)),
                                 float(_scale(p_drop)), int(x.dtype == torch.bfloat16),
                                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dropout_apply")
@@ -143,27 +163,33 @@ def _launch(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed2, p_drop):
+    def forward(ctx, x, seed2, p_drop, offset, total):
         ctx.save_for_backward(seed2)
-        ctx.p_drop = p_drop
-        return _apply(x, seed2, p_drop)
+        ctx.consts = (p_drop, offset, total)
+        return _apply(x, seed2, p_drop, offset, total)
 
     @staticmethod
     def backward(ctx, g):
         (seed2,) = ctx.saved_tensors
         # the mask follows the row-major index of the logical shape, so a
         # cotangent in another memory order is first laid out row-major
-        return _apply(g.contiguous(), seed2, ctx.p_drop), None, None
+        return _apply(g.contiguous(), seed2, *ctx.consts), None, None, None, None
 
 
-def dropout(x: torch.Tensor, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
-    """Inverted dropout of ``x`` (numel % 1024 == 0) with the hash mask of
-    the (2,) int32 ``seed2``; differentiable, storing no mask.
+def dropout(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0,
+            total: int | None = None) -> torch.Tensor:
+    """Inverted dropout of ``x`` with the hash mask of the (2,) int32
+    ``seed2``; differentiable, storing no mask. ``x`` is elements [offset,
+    offset + numel) of a row-major tensor of ``total`` elements (by default
+    ``x`` itself; ``total`` % 1024 == 0): a data-parallel rank's slab gets
+    the global tensor's mask rows.
 
     CPU tensors take :func:`dropout_plain`; CUDA tensors launch the kernel
-    (f32 or bf16, row-major contiguous) or raise.
+    (f32 or bf16, row-major contiguous, numel and offset multiples of 8) or
+    raise.
     """
-    return _Dropout.apply(x, seed2, float(p_drop))
+    return _Dropout.apply(x, seed2, float(p_drop), int(offset),
+                          x.numel() if total is None else int(total))
 
 
 dropout.launches = 0

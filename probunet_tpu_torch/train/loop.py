@@ -15,8 +15,10 @@ calibrated scales tree (``quant=``), on int8 convolutions (kernel E).
 step. ``train_epoch``, ``eval_model`` and :class:`Trainer` loop them over
 ``ClimexDataset`` splits as the JAX loop does, the batches copied to the
 device ahead of the step by ``data.loader.prefetch_to_device``; the
-``Trainer`` also draws the per-epoch sample figures. The JAX loop's mesh
-steps (``Trainer(mesh=...)``) are not ported: they raise.
+``Trainer`` also draws the per-epoch sample figures. ``Trainer(mesh=...)``
+trains data-parallel (``parallel.data_parallel``): every rank shuffles
+alike, loads its slab of each global batch and takes the data-parallel
+steps; only rank 0 writes checkpoints, logs and figures.
 """
 
 from __future__ import annotations
@@ -58,7 +60,9 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     the U-Net's dropout on; else M = ``eval_ensemble_size``, no dropout.
     ``fused`` selects the reconstruction route (kernel A, or
     ``Fcomb.ensemble`` + kernel B). ``eps``/``seeds`` override the draws
-    from ``generator`` (the tests hand both packages the same values).
+    from ``generator`` (the tests hand both packages the same values);
+    ``slab`` = (first row, global batch) of a data-parallel rank's batch
+    (``parallel.data_parallel``).
 
     ``quant``: a scales tree (``ops.quantize``), attached to the model for
     the call: the convolutions that find their scale run int8 (kernel E; no
@@ -70,7 +74,8 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
 
     def loss_fn(hr_batch: torch.Tensor, stats: Standardization,
                 generator: torch.Generator, beta_0: float, beta_1: float,
-                eps: torch.Tensor | None = None, seeds: torch.Tensor | None = None):
+                eps: torch.Tensor | None = None, seeds: torch.Tensor | None = None,
+                slab: tuple[int, int] | None = None):
         batch = preprocess_batch(
             hr_batch, stats, data_cfg.pipeline, data_cfg.lowres_scale,
             data_cfg.interp_mode, data_cfg.epsilon, data_cfg.standardization)
@@ -81,7 +86,8 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
                 batch["inputs"], batch["targets"], M=m_size, loss_type=loss_cfg.loss_type,
                 beta_0=beta_0, beta_1=beta_1, beta_2=loss_cfg.beta_2, alpha=loss_cfg.alpha,
                 alpha_w=loss_cfg.alpha_w, beta_w=loss_cfg.beta_w, lam_w=loss_cfg.lam_w,
-                generator=generator, eps=eps, fused=fused, training=training, seeds=seeds)
+                generator=generator, eps=eps, fused=fused, training=training, seeds=seeds,
+                slab=slab)
         if collect_stats:
             metrics = {**metrics, "quant_stats": recorder.stats()}
         return total, metrics
@@ -180,28 +186,34 @@ def _device(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
-def _hr_batches(dataset, batches: Batches, device: torch.device):
-    """The dataset's raw HR batches of ``batches`` on ``device``, prefetched."""
+def _hr_batches(dataset, batches: Batches, device: torch.device, mesh=None):
+    """The dataset's raw HR batches of ``batches`` on ``device``, prefetched;
+    with ``mesh``, this rank's slab of each."""
+    if mesh is not None:
+        from probunet_tpu_torch.parallel.multihost import process_local_indices
+
+        batches = (process_local_indices(idx, mesh) for idx in batches)
     return prefetch_to_device((dataset.get_hr_batch(idx) for idx in batches),
                               device=device)
 
 
 def train_epoch(step_fn: Callable, state: TrainState, dataset, stats: Standardization,
                 cfg: Config, beta_0: float, beta_1: float, epoch: int, logger=None,
-                ckpt=None) -> tuple[TrainState, dict[str, float]]:
+                ckpt=None, mesh=None) -> tuple[TrainState, dict[str, float]]:
     """One training epoch over ``dataset`` (a ``ClimexDataset``: its
     ``get_hr_batch``), shuffled from ``cfg.train.seed + epoch``, drop-last,
     the batches prefetched to the state's device (reference
     src/train_prob_unet_model.py:105-158). With ``ckpt`` and
     ``cfg.train.checkpoint_every`` > 0 a checkpoint is written every N
-    steps."""
+    steps. With ``mesh`` (and the data-parallel ``step_fn``) every rank
+    visits the same global batches and loads its slab of each."""
     batches = Batches(len(dataset), cfg.train.batch_size, shuffle=True,
                       seed=cfg.train.seed + epoch)
     recon_vals, kl_vals = [], []
     every = cfg.train.checkpoint_every
     t0 = time.time()
     n = 0
-    for hr in _hr_batches(dataset, batches, _device(state)):
+    for hr in _hr_batches(dataset, batches, _device(state), mesh):
         state, metrics = step_fn(state, hr, stats, beta_0, beta_1)
         n += 1
         if logger is not None and n % cfg.train.log_every == 0:
@@ -221,16 +233,18 @@ def train_epoch(step_fn: Callable, state: TrainState, dataset, stats: Standardiz
 
 
 def eval_model(eval_step_fn: Callable, state: TrainState, dataset, stats: Standardization,
-               cfg: Config, epoch: int = 0) -> dict[str, float]:
+               cfg: Config, epoch: int = 0, mesh=None) -> dict[str, float]:
     """Mean recon / KL over ``dataset`` in order, drop-last (reference
     src/train_prob_unet_model.py:161-210). The posterior noise comes from
     one generator on the state's device, seeded from (cfg.train.seed +
-    7919, epoch) and drawn in batch order."""
+    7919, epoch) and drawn in batch order. With ``mesh`` (and the
+    data-parallel ``eval_step_fn``, whose means are all-reduced) each rank
+    loads its slab of each batch."""
     dev = _device(state)
     gen = torch.Generator(device=dev)
     gen.manual_seed((cfg.train.seed + 7919) * 1_000_003 + epoch)
     recon_vals, kl_vals = [], []
-    for hr in _hr_batches(dataset, Batches(len(dataset), cfg.train.batch_size), dev):
+    for hr in _hr_batches(dataset, Batches(len(dataset), cfg.train.batch_size), dev, mesh):
         metrics = eval_step_fn(hr, stats, gen)
         recon_vals.append(metrics["recon"])
         kl_vals.append(metrics["kl_mean"])
@@ -247,22 +261,31 @@ class Trainer:
     ``ClimexDataset`` splits. Runs on the CUDA device unless the caller
     passes ``device="cpu"``; trains ``model`` from a new state unless it is
     given a ``state`` (``cli.make_model`` builds the config's model).
-    ``mesh`` (the data-parallel step) is not ported and raises."""
+
+    ``mesh`` (``parallel.make_mesh``): data-parallel training on the mesh's
+    device with ``parallel.data_parallel``'s steps; the model must be alike
+    on every rank (checked against rank 0's), every rank runs the same
+    epochs, and only rank 0 logs, checkpoints and draws. The history equals
+    the single-process ``Trainer``'s."""
 
     def __init__(self, cfg: Config, model: ProbabilisticUNet, dataset_train,
                  dataset_val=None, logger=None, checkpoint_manager=None,
                  state: TrainState | None = None, plot_dir: str | None = None,
                  plot_every: int = 1, mesh=None, fused: bool = True,
                  device: str | torch.device | None = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...) is not ported yet (ROADMAP.md §1 "
-                                      "item 7, the parallel paths)")
+        from probunet_tpu_torch.parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"Trainer(mesh=...) takes a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        main = mesh is None or mesh.is_main
         self.dataset_train, self.dataset_val = dataset_train, dataset_val
-        self.logger = logger
-        self.ckpt = checkpoint_manager
-        self.plot_dir, self.plot_every = plot_dir, plot_every
+        self.logger = logger if main else None
+        self.ckpt = checkpoint_manager if main else None
+        self.plot_dir, self.plot_every = (plot_dir if main else None), plot_every
         if state is None:
             state = create_train_state(model, seed=cfg.train.seed, lr=cfg.train.lr,
                                        weight_decay=cfg.train.weight_decay,
@@ -271,8 +294,19 @@ class Trainer:
         self.state = state
         self.model = state.model
         self.stats = dataset_train.device_stats(self.device)
-        self.train_step = make_train_step(self.model, cfg, fused=fused)
-        self.eval_step = make_eval_step(self.model, cfg, fused=fused)
+        if mesh is None:
+            self.train_step = make_train_step(self.model, cfg, fused=fused)
+            self.eval_step = make_eval_step(self.model, cfg, fused=fused)
+        else:
+            from probunet_tpu_torch.parallel.data_parallel import (
+                make_parallel_eval_step,
+                make_parallel_train_step,
+            )
+            from probunet_tpu_torch.parallel.multihost import replicate_global
+
+            replicate_global(dict(self.model.state_dict()), mesh)
+            self.train_step = make_parallel_train_step(self.model, cfg, mesh, fused=fused)
+            self.eval_step = make_parallel_eval_step(self.model, cfg, mesh, fused=fused)
         self.stopper = EarlyStopper(cfg.train.patience, cfg.train.min_delta)
         self.history = {"train_crps": [], "train_kl": [], "val_crps": [], "val_kl": []}
 
@@ -284,14 +318,15 @@ class Trainer:
                                            cfg.loss.max_beta_1)
             self.state, summary = train_epoch(
                 self.train_step, self.state, self.dataset_train, self.stats, cfg, beta_0,
-                beta_1, epoch, logger=self.logger, ckpt=self.ckpt)
+                beta_1, epoch, logger=self.logger, ckpt=self.ckpt, mesh=self.mesh)
             self.history["train_crps"].append(summary["recon"])
             self.history["train_kl"].append(summary["kl"])
             rec = {"epoch": epoch, "beta_0": beta_0, "beta_1": beta_1,
                    **{f"train_{k}": v for k, v in summary.items()}}
             if self.dataset_val is not None:
                 val = eval_model(self.eval_step, self.state, self.dataset_val,
-                                 self.dataset_val.device_stats(self.device), cfg, epoch)
+                                 self.dataset_val.device_stats(self.device), cfg, epoch,
+                                 self.mesh)
                 self.history["val_crps"].append(val["recon"])
                 self.history["val_kl"].append(val["kl"])
                 rec.update({f"val_{k}": v for k, v in val.items()})

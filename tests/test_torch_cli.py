@@ -302,17 +302,109 @@ def test_pack_matches_jax(on_cpu, tmp_path, capsys):
     assert got["items"] == 16
 
 
+# The parallel flags on two gloo ranks spawned on the CPU (``tests/torch_mp.py``),
+# every run of the module in one spawn, each against the one-process command.
+# Tolerance: the JSON numbers rtol 1e-5 / atol 1e-6 (the same arithmetic on
+# half the batch or the members: convolutions of another batch size may round
+# differently); the training history, which compounds two half-batch gradients
+# over five steps, RTOL / ATOL.
+PAR_RTOL, PAR_ATOL = 1e-5, 1e-6
+# the members split over 2 ranks; one bootstrap draw (the intervals are not
+# compared, see the module's docstring)
+PAR_EXTREMES = EXTREMES + ["--members", "4", "--n-boot", "1"]
+
+
+def _two_rank_argvs(ckpt, tmp):
+    train = ["--preset", PRESET] + TINY + TRAIN[1:] + ["train.num_epochs=1"]
+    serve = ["--preset", PRESET, "--ckpt", ckpt]
+    infer = INFER[:-1] + ["7"]    # chunks of 7 tiles round up to 8 over two ranks
+    return {
+        "evaluate": ["evaluate", "--outdir", "", "--member-mesh", "2"] + serve + EVAL + TINY,
+        "evaluate int8": ["evaluate", "--outdir", "", "--member-mesh", "2"] + serve + EVAL
+        + QUANT + TINY,
+        "extremes": ["extremes", "--outdir", str(tmp / "extremes"), "--member-mesh", "2"]
+        + serve + PAR_EXTREMES + TINY,
+        "infer-domain": ["infer-domain", "--outdir", str(tmp / "infer"), "--dp", "2"] + serve
+        + infer + TINY,
+        "train --dp 2": ["train", "--outdir", str(tmp / "train2"), "--dp", "2"] + train,
+        "train --dp -1": ["train", "--outdir", str(tmp / "train-1"), "--dp", "-1"] + train,
+        "train --dp 3": ["train", "--outdir", str(tmp / "train3"), "--dp", "3"] + train,
+    }
+
+
+@pytest.fixture(scope="module")
+def two_ranks(served, tmp_path_factory):
+    """{run name: (rank 0's outcome, rank 1's, its argv)} of _two_rank_argvs."""
+    from torch_mp import spawn
+
+    tmp = tmp_path_factory.mktemp("two_ranks")
+    argvs = _two_rank_argvs(served[2], tmp)
+    torch.save(list(argvs.values()), tmp / "cli.in.pt")
+    spawn(["cli"], tmp)
+    r0, r1 = (torch.load(tmp / f"cli.rank{r}.pt", weights_only=False) for r in (0, 1))
+    return {name: (a, b, argv) for name, a, b, argv in zip(argvs, r0, r1, argvs.values())}
+
+
+def _one_process(argv, flag):
+    """The argv without the parallel flag ``flag`` and its value."""
+    i = argv.index(flag)
+    return argv[:i] + argv[i + 2:]
+
+
+def _assert_json_close(got, want, what):
+    if isinstance(want, dict):
+        assert set(got) == set(want), what
+        for k in want:
+            _assert_json_close(got[k], want[k], f"{what}.{k}")
+    elif isinstance(want, (int, float, list)) and not isinstance(want, bool):
+        assert_close(got, want, PAR_RTOL, PAR_ATOL, what)
+    else:
+        assert got == want, what
+
+
 @pytest.mark.parametrize("cmd", ["evaluate", "extremes"])
 @pytest.mark.parametrize("flag", [["--member-mesh", "2"]])
-def test_unported_flags_raise(on_cpu, tmp_path, cmd, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main([cmd, "--preset", PRESET, "--outdir", str(tmp_path)] + flag + TINY)
+def test_unported_flags_raise(two_ranks, on_cpu, cmd, flag):
+    """``--member-mesh 2`` (formerly not ported, raising) on two ranks: the
+    members split over ("data" = 1, "member" = 2); rank 0 prints and
+    returns the one-process command's JSON (extremes: the annual maxima,
+    fits, return levels and plateaus; its bootstrap intervals are refits,
+    see the module's docstring); rank 1 returns nothing."""
+    got, other, argv = two_ranks[cmd]
+    assert other == {"result": None} and flag[0] in argv
+    want, _ = tcli.main(_one_process(argv, flag[0]))
+    got = got["result"]
+    if cmd == "evaluate":
+        _assert_json_close(got, want, cmd)
+        return
+    for name, res in want["pixels"].items():
+        for side in ("observed", "model"):
+            for k in ("block_maxima", "gev_fit", "return_levels"):
+                _assert_json_close(got["pixels"][name][side][k], res[side][k], f"{name}.{k}")
+        _assert_json_close(got["pixels"][name]["model"]["empirical_plateau"],
+                           res["model"]["empirical_plateau"], name)
+    assert got["days"] == want["days"] and got["members"] == want["members"] == 4
 
 
-def test_infer_domain_dp_raises(on_cpu, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        tcli.main(["infer-domain", "--preset", PRESET, "--outdir", str(tmp_path), "--dp", "2"]
-                  + INFER + TINY)
+def test_member_mesh_int8_evaluate_equals_one_process(two_ranks, on_cpu):
+    """``--member-mesh 2 --quant int8``: rank 0 calibrates, broadcasts the
+    scales, both ranks serve int8; the JSON of the one-process command."""
+    got, other, argv = two_ranks["evaluate int8"]
+    assert other == {"result": None}
+    want, _ = tcli.main(_one_process(argv, "--member-mesh"))
+    _assert_json_close(got["result"], want, "evaluate int8")
+
+
+def test_infer_domain_dp_raises(two_ranks, on_cpu):
+    """``infer-domain --dp 2`` (formerly not ported, raising) on two ranks:
+    chunks of 7 tiles round up to 8, each split over the ranks with its
+    noise drawn whole; the JSON of the one-process command at chunks of 8."""
+    got, other, argv = two_ranks["infer-domain"]
+    assert other == {"result": None}
+    one = _one_process(argv, "--dp")
+    one[one.index("--batch-tiles") + 1] = "8"
+    want, _ = tcli.main(one)
+    _assert_json_close(got["result"], want, "infer-domain")
 
 
 # infer-domain on a 38x38 domain (padded to 40 for the 4x pooling: 9 tiles of
@@ -622,9 +714,42 @@ def test_train_det(on_cpu, tmp_path, capsys, model, extra):
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--dp", "-1"]])
-def test_train_flags_not_ported_raise(on_cpu, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["train", "--preset", PRESET, "--outdir", str(tmp_path)] + flag + TINY)
+def test_train_flags_not_ported_raise(two_ranks, on_cpu, tmp_path, flag):
+    """``train --dp 2`` and ``--dp -1`` (the world size; formerly not
+    ported, raising) on two ranks for one epoch: both ranks hold the final
+    losses, steps and residual contribution of the one-process command
+    (``--dp -1``: of ``--dp 2``'s run, bit for bit); rank 0 wrote the run's
+    files."""
+    got, other, argv = two_ranks["train " + " ".join(flag)]
+    assert other["result"]["final"] == got["result"]["final"]   # replicated
+    got = got["result"]
+    if flag[1] == "-1":   # the world's size, 2: the run of --dp 2, bit for bit
+        assert got == two_ranks["train --dp 2"][0]["result"]
+        return
+    one = _one_process(argv, "--dp")
+    one[one.index("--outdir") + 1] = str(tmp_path / "one")
+    want, _ = tcli.main(one)
+    assert got["steps"] == want["steps"] == 365 // 64
+    for k, v in want["final"].items():
+        assert_close(got["final"][k], v, RTOL, ATOL, k)
+    for k, v in want["residual_contribution"].items():
+        assert_close(got["residual_contribution"][k], v, RTOL, ATOL, k)
+    outdir = argv[argv.index("--outdir") + 1]
+    assert os.path.exists(os.path.join(outdir, "losses.pkl"))
+    assert os.path.exists(os.path.join(outdir, "ckpt", "best_params.pt"))
+
+
+def test_train_dp_other_than_the_world_raises(two_ranks, on_cpu, tmp_path):
+    """``--dp 3`` in a world of 2 raises on every rank, naming the torchrun
+    command that starts 3; ``--dp 2`` without torchrun (a world of one)
+    likewise, and ``--member-mesh 2`` there too."""
+    for outcome in two_ranks["train --dp 3"][:2]:
+        assert outcome["raised"] == "ValueError"
+        assert "torchrun --nproc-per-node 3" in outcome["message"]
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        tcli.main(["train", "--preset", PRESET, "--outdir", str(tmp_path), "--dp", "2"] + TINY)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        tcli.main(["evaluate", "--preset", PRESET, "--outdir", "", "--member-mesh", "2"] + TINY)
 
 
 EXPLORE = ["--max-items", "40", "--probe-contexts", "4"]

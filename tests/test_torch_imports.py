@@ -52,7 +52,9 @@ def test_port_and_chip_smoke_import_without_jax():
     for name in ("cli", "__main__", "data.climex", "evals.gev", "evals.histograms",
                  "evals.metrics", "utils.plotting", "ops.quantize", "parallel.spatial",
                  "bench", "sweep", "data.eda", "data.synthetic", "utils.profiling",
-                 "utils.misc"):
+                 "utils.misc", "parallel.mesh", "parallel.multihost",
+                 "parallel.data_parallel", "parallel.member_parallel",
+                 "parallel.tensor_parallel"):
         assert f"probunet_tpu_torch.{name}" in res["names"], name
     assert res["loaded"] == []
 

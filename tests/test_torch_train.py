@@ -337,7 +337,9 @@ def test_trainer_resumes_and_validates_on_the_validation_stats(dropout_models, t
     """A Trainer restored from the first one's checkpoint continues from its
     step (the epochs count from 1 again, as in the JAX CLI); validation
     scores the validation split with that split's own statistics; the
-    per-epoch figures are drawn; ``mesh=`` raises."""
+    per-epoch figures are drawn; ``mesh=`` takes a ``parallel.mesh.Mesh``
+    and raises on anything else (the data-parallel Trainer is held in
+    ``test_torch_parallel_steps.py``)."""
     from probunet_tpu_torch.train import loop
     from probunet_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -371,7 +373,7 @@ def test_trainer_resumes_and_validates_on_the_validation_stats(dropout_models, t
         assert not torch.equal(a, b)
     hr_pred, hr_b, lrinterp, resid, tgt = first.sample_ensemble(num_items=2, num_samples=3)
     assert hr_pred.shape == (2, 3, *cfg.data.resolution, 3) and hr_b.shape == lrinterp.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         loop.Trainer(cfg, first.model, ds_train, mesh=object(), device="cpu")
 
 

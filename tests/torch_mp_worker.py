@@ -1,0 +1,190 @@
+"""One rank of the parallel-path tests (spawned by ``tests/torch_mp.py``).
+
+    python tests/torch_mp_worker.py WORKDIR JOB[,JOB...]
+
+The rank joins the gloo process group from ``torchrun``'s environment
+(``multihost.initialize``), then runs each job: ``JOB.in.pt`` in WORKDIR
+holds its inputs (written by the test, numpy or torch values, no JAX), and
+the rank writes ``JOB.rank<R>.pt``. It imports torch and the port only, as
+a rank started by ``torchrun`` would.
+"""
+
+import os
+import sys
+
+import torch
+
+from probunet_tpu_torch.parallel import multihost
+from probunet_tpu_torch.parallel.mesh import all_gather, mesh_of, world
+
+from torch_mp import tiny_cfg
+
+RANK = int(os.environ.get("RANK", "0"))
+
+
+def _load(workdir, job):
+    return torch.load(os.path.join(workdir, f"{job}.in.pt"), weights_only=False)
+
+
+def _save(workdir, job, out):
+    torch.save(out, os.path.join(workdir, f"{job}.rank{RANK}.pt"))
+
+
+def dp_step(workdir, job):
+    """make_parallel_train_step over ("data" = world), each case's steps."""
+    from torch_parity import torch_tiny_model
+
+    from probunet_tpu_torch.data.climex import compute_stats
+    from probunet_tpu_torch.parallel import make_mesh, make_parallel_train_step, shard_batch
+    from probunet_tpu_torch.train.state import create_train_state
+
+    inp = _load(workdir, job)
+    out = {}
+    for case in inp["cases"]:
+        cfg = tiny_cfg(case["hr"].shape[0], case["m"])
+        model = torch_tiny_model(inp["params"], dropout=case["dropout"],
+                                 gn_impl=case["gn_impl"])
+        state = create_train_state(model, seed=cfg.train.seed, device="cpu")
+        mesh = make_mesh(device="cpu")
+        hr = torch.from_numpy(case["hr"])
+        stats = compute_stats(hr, cfg.data.lowres_scale)
+        step = make_parallel_train_step(model, cfg, mesh, fused=case["fused"])
+        eps = None if case["eps"] is None else torch.from_numpy(case["eps"])
+        metrics = []
+        for _ in range(case["steps"]):
+            state, met = step(state, shard_batch(hr, mesh), stats, 1.0, 0.1, eps=eps)
+            metrics.append({k: v.numpy().copy() for k, v in met.items()})
+        out[case["name"]] = {"metrics": metrics, "params": {
+            k: v.detach().clone() for k, v in model.state_dict().items()}}
+    _save(workdir, job, out)
+
+
+def trainer(workdir, job):
+    """Trainer(mesh=make_mesh()).fit over the given splits."""
+    from torch_parity import torch_tiny_model
+
+    from probunet_tpu_torch.data.climex import ClimexDataset
+    from probunet_tpu_torch.parallel import make_mesh
+    from probunet_tpu_torch.train.checkpoint import CheckpointManager
+    from probunet_tpu_torch.train.logging import MetricLogger
+    from probunet_tpu_torch.train.loop import Trainer
+
+    inp = _load(workdir, job)
+    cfg = tiny_cfg(inp["batch"], inp["m"])
+    kw = dict(variables=cfg.data.variables, pipeline=cfg.data.pipeline,
+              lowres_scale=cfg.data.lowres_scale, device="cpu")
+    ds_train, ds_val = (ClimexDataset(hr=inp[k], **kw) for k in ("train", "val"))
+    run = os.path.join(workdir, "trainer")
+    logger = MetricLogger(run, stdout=False)
+    ckpt = CheckpointManager(os.path.join(run, "ckpt"))
+    t = Trainer(cfg, torch_tiny_model(inp["params"], dropout=inp["dropout"]), ds_train, ds_val,
+                logger=logger, checkpoint_manager=ckpt, mesh=make_mesh(device="cpu"))
+    hist = t.fit(inp["epochs"])
+    _save(workdir, job, {"history": hist, "step": t.state.step, "logged": len(logger.history)})
+
+
+def member(workdir, job):
+    """make_parallel_sample_step on each member-mesh shape and config."""
+    from torch_parity import torch_tiny_model
+
+    from probunet_tpu_torch.data.climex import Standardization
+    from probunet_tpu_torch.parallel import make_member_mesh, make_parallel_sample_step
+
+    inp = _load(workdir, job)
+    model = torch_tiny_model(inp["params"])
+    out = {}
+    for case in inp["cases"]:
+        cfg = tiny_cfg(case["hr"].shape[0], case["eps"].shape[0],
+                        standardization=case["standardization"])
+        stats = Standardization(*(None if a is None else torch.from_numpy(a)
+                                  for a in case["stats"]))
+        mesh = make_member_mesh(n_member=case["n_member"], device="cpu")
+        step = make_parallel_sample_step(model, cfg, mesh, num_samples=case["eps"].shape[0])
+        out[case["name"]] = step(torch.from_numpy(case["hr"]), torch.from_numpy(case["eps"]),
+                                 stats)
+    _save(workdir, job, out)
+
+
+def halo(workdir, job):
+    """halo_conv2d of each rank's rows over a ("spatial" = world) mesh,
+    gathered."""
+    from probunet_tpu_torch.parallel import halo_conv2d
+
+    inp = _load(workdir, job)
+    mesh = mesh_of({"spatial": world()[1]}, device="cpu")
+    out = {}
+    for name, (x, w) in inp.items():
+        rows = torch.from_numpy(x).chunk(mesh.size("spatial"), dim=1)[mesh.coord("spatial")]
+        mine = halo_conv2d(rows, torch.from_numpy(w), mesh)
+        out[name] = torch.cat(all_gather(mine.contiguous(), mesh, "spatial"), dim=1)
+    _save(workdir, job, out)
+
+
+def tiled(workdir, job):
+    """tiled_ensemble(mesh=make_mesh()) of a linear sampler and of one that
+    reads the chunk start and the rows it was given."""
+    from probunet_tpu_torch.parallel import make_mesh, tiled_ensemble
+
+    inp = _load(workdir, job)
+    mesh = make_mesh(device="cpu")
+    field = torch.from_numpy(inp["field"])
+
+    def linear(tiles, start, rows=None):
+        return 2.0 * tiles[:, None]
+
+    def indexed(tiles, start, rows=None):
+        idx = torch.arange(tiles.shape[0]) if rows is None else torch.from_numpy(rows)
+        return (tiles + (start + idx).float()[:, None, None, None])[:, None]
+
+    out = {"linear": tiled_ensemble(linear, field, 32, 8, mesh=mesh),
+           "indexed": tiled_ensemble(indexed, field, 32, 8, batch_tiles=inp["batch_tiles"],
+                                     mesh=mesh)}
+    _save(workdir, job, out)
+
+
+def tensor_parallel(workdir, job):
+    """The channel-sharded pair on ("data", "model") meshes, gathered."""
+    from probunet_tpu_torch.parallel import make_channel_sharded_apply, make_dp_tp_mesh
+    from probunet_tpu_torch.parallel import shard_params
+
+    inp = _load(workdir, job)
+    x = torch.from_numpy(inp["x"])
+    out = {}
+    for n_model in (world()[1], 1):
+        mesh = make_dp_tp_mesh(n_model=n_model, device="cpu")
+        local = shard_params(inp["params"], mesh)
+        mine = make_channel_sharded_apply(mesh)(local, x)
+        out[f"model{n_model}"] = {"out": torch.cat(all_gather(mine, mesh, "data")),
+                                  "w1_shard": tuple(local["w1"].shape)}
+    _save(workdir, job, out)
+
+
+def cli(workdir, job):
+    """``cli.main`` on each argv (the command's result, or the exception
+    type and message it raised)."""
+    from probunet_tpu_torch import cli as tcli
+
+    out = []
+    for argv in _load(workdir, job):
+        try:
+            res, _ = tcli.main(argv)
+            out.append({"result": res})
+        except (ValueError, SystemExit) as e:
+            out.append({"raised": type(e).__name__, "message": str(e)})
+    _save(workdir, job, out)
+
+
+JOBS = {f.__name__: f for f in (dp_step, trainer, member, halo, tiled, tensor_parallel, cli)}
+
+
+def main():
+    workdir, jobs = sys.argv[1], sys.argv[2].split(",")
+    torch.set_num_threads(1)
+    multihost.initialize(device="cpu")
+    for job in jobs:
+        JOBS[job](workdir, job)
+    print(f"MP_OK rank={RANK}", flush=True)
+
+
+if __name__ == "__main__":
+    main()
