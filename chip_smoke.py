@@ -111,12 +111,15 @@ route, and drives both paths at the full width of the flagship preset
 - the parallel paths (``parallel``): in a world of one over NCCL,
   ``make_parallel_train_step`` at the flagship's training step (bf16,
   bs=128, M=15) bit-equal to ``make_train_step``'s from the same state
-  and seed (A, A′, C and C′ launched), both steps' samples/s and the
-  gradient all-reduce's share; then two gloo ranks sharing this card
+  and seed (A, A′, C and C′ launched), both steps' samples/s, and an
+  all-reduce of the gradients' size over the world timed against the
+  step; then two gloo ranks sharing this card
   (NCCL will not put two ranks on one GPU) in one two-process launch,
-  f32 at full widths, dropout 0.1, a global batch of 8: the
-  data-parallel step on both GroupNorm routes against the one-process
-  step, C, C′ and D on a rank's slab told its offset bit for bit against
+  f32 at full widths, dropout 0.1, a global batch of 8: two
+  data-parallel steps on both GroupNorm routes against two one-process
+  steps, with a planted fault (rank 1's kernel C masks not shifted to its
+  rows) that the parameter check must catch, C, C′ and D on a rank's
+  slab told its offset bit for bit against
   the whole batch's rows, ``make_parallel_sample_step`` (member = 2,
   float and int8) against one rank's sample path, ``infer-domain --dp 2``
   on a 140x140 domain against the one-process command, ``halo_conv2d``
@@ -411,18 +414,33 @@ EXPLORE_CHECK = dict(max_items=64, n_contexts=8)
 PAR_BATCH, PAR_SAMPLE_M = 8, 16
 PAR_STEPS, PAR_WARMUP = 4, 2
 PAR_TIMEOUT = 420
-# the data-parallel step against the one-process step on the card: the
-# metrics and the gradients AdamW receives (the all-reduced mean against
-# the whole batch's: the largest difference over the largest gradient)
-# within PAR_RTOL
-# (the ranks' half-batch convolutions may take other cuDNN algorithms than
-# one batch's). Adam's first update is lr * g / (|g| + 1e-8), about +-lr
-# wherever |g| > 1e-8, so an element whose gradient lies at the level of
-# rounding may move the other way: the parameters may differ by up to
-# 2 lr, in at most PAR_FLIP_SHARE of the elements (an H100 run, f32
-# kernel route: 138,967 of 19,351,491 elements, 0.0072, beyond 1e-6)
+# two data-parallel steps against two one-process steps on the card: at
+# each step the metrics within PAR_RTOL, and the gradients AdamW receives
+# (the all-reduced mean against the whole batch's: the largest difference
+# over the largest gradient) within PAR_RTOL at the first step (the ranks'
+# half-batch convolutions may take other cuDNN algorithms than one
+# batch's) and PAR_RTOL_STEP2 at the second, which the two runs reach
+# from states Adam's signs have already set apart (an H100 run: 0.56% of
+# the elements 2 lr apart, the second gradients 1.27e-4 apart, the first
+# 4.6e-7). The parameters after the two
+# steps: Adam's first update is lr * g / (|g| + 1e-8), about +-lr wherever
+# |g| > 1e-8, so an element whose gradient lies at the level of rounding
+# may move the other way; its second update depends on both gradients'
+# sizes. So (1) every element whose gradient is, at both steps, above
+# PAR_CLEAR times the largest gradient difference of that step may differ
+# by at most PAR_PARAM_LR lr, and (2) at most PAR_MOVED_SHARE of all
+# elements may differ by more than 0.1 lr. A planted fault (rank 1's C
+# masks those of rows 0:4: ``fused_gn.slab_seed`` not applied) must
+# exceed PAR_MOVED_SHARE, so the share check is shown to fail on a wrong
+# step in every run (an H100 run: 0.565% of the elements on either route,
+# the planted fault 56.8%; the fault's first gradients read 6.1e-7 of the
+# largest apart and its grad_norm equal, so only the share and recon
+# caught it).
 PAR_RTOL = 1e-4
-PAR_FLIP_SHARE = 0.02
+PAR_RTOL_STEP2 = 1e-3
+PAR_CLEAR = 1e3
+PAR_PARAM_LR = 0.01
+PAR_MOVED_SHARE = 0.02
 
 
 def _sync_ms(fn, iters: int, warmup: int = 2, spin: bool = True) -> float:
@@ -3209,8 +3227,10 @@ def world_of_one(dev, zero_counts, read_counts) -> dict:
     bit-equal to ``make_train_step``'s from the same state and seed
     (parameters and metrics, cuDNN's deterministic algorithms for the
     comparison), kernels A, A′, C and C′ launched; then both steps'
-    samples/s in this call and the gradient all-reduce's share of the
-    parallel step. Returns the parallel step's launches."""
+    samples/s in this call. A world of one has no gradient all-reduce (an
+    axis of size 1 has no group), so an all-reduce of one flat f32 buffer
+    of the gradients' size over the world is timed on its own and set
+    against the step. Returns the parallel step's launches."""
     import torch.distributed as dist
 
     from probunet_tpu_torch.parallel import make_mesh, make_parallel_train_step, multihost
@@ -3229,7 +3249,6 @@ def world_of_one(dev, zero_counts, read_counts) -> dict:
         states = {name: create_train_state(copy.deepcopy(model), seed=cfg.train.seed,
                                            lr=cfg.train.lr, weight_decay=cfg.train.weight_decay,
                                            device=dev) for name in ("single", "parallel")}
-        timing = {}
         steps = {"single": make_train_step(states["single"].model, cfg),
                  "parallel": make_parallel_train_step(states["parallel"].model, cfg, mesh)}
         det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -3260,21 +3279,16 @@ def world_of_one(dev, zero_counts, read_counts) -> dict:
                 raise AssertionError(f"kernel {name} was not launched by the parallel step")
         rates = _step_rates(steps, states, hr, stats,
                             ("single", "parallel", "parallel", "single"))
-        timed = make_parallel_train_step(states["parallel"].model, cfg, mesh, timing=timing)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(PAR_STEPS):
-            states["parallel"], _ = timed(states["parallel"], hr, stats, 1.0, 1.0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         n_grad = sum(p.numel() for p in states["parallel"].optimizer.params)
+        flat = torch.ones(n_grad, dtype=torch.float32, device=dev)
+        ar_ms = _sync_ms(lambda: dist.all_reduce(flat), iters=PAR_STEPS, spin=False)
+        step_ms = 1e3 * TRAIN_BATCH / rates["parallel"]
         print(f"parallel world of one: samples/s single {rates['single']:.2f}, parallel "
-              f"{rates['parallel']:.2f}; gradient all-reduce ({n_grad} f32, "
-              f"{n_grad * 4 / 1e6:.1f} MB, {dist.get_backend()}) "
-              f"{timing['all_reduce_s'] / PAR_STEPS * 1e3:.3f} "
-              f"ms a step, share {timing['all_reduce_s'] / wall:.4f} of "
-              f"{wall / PAR_STEPS * 1e3:.3f} ms (device synchronized around it)")
-        del states, steps, timed
+              f"{rates['parallel']:.2f} (no all-reduce in a world of one); an all-reduce of "
+              f"the gradients' size ({n_grad} f32, {n_grad * 4 / 1e6:.1f} MB, "
+              f"{dist.get_backend()}, world {dist.get_world_size()}) {ar_ms:.3f} ms, "
+              f"{ar_ms / (step_ms + ar_ms):.4f} of a step of {step_ms:.3f} ms plus it")
+        del states, steps, flat
         torch.cuda.empty_cache()
         return launches
     finally:
@@ -3345,6 +3359,111 @@ def _uncounted():
             fn.launches = saved[k]
 
 
+def _dp_steps_vs_one(rank: int, base: ProbabilisticUNet, cfg, mesh, hr, stats) -> None:
+    """On both GroupNorm routes, two data-parallel steps of ``base`` over
+    ``mesh`` on this rank's slab of ``hr`` against two one-process steps on
+    the whole of it (run and held on rank 0, :func:`_dp_agreement`); on
+    the kernel route also the planted fault (:func:`_planted_fault`), which
+    must fail. The fault's and the reference's launches are not counted."""
+    for gn in ("kernel", "composed"):
+        model = _variant(base, cfg, gn_impl=gn).to(hr.device)
+        runs = {"data-parallel": _two_steps(model, cfg, mesh, hr, stats)}
+        if gn == "kernel":
+            with _uncounted(), _planted_fault(rank):
+                runs["planted fault"] = _two_steps(model, cfg, mesh, hr, stats)
+        if rank == 0:
+            with _uncounted():
+                ref = _two_steps(model, cfg, None, hr, stats)
+            for name, run in runs.items():
+                _dp_agreement(f"dp step {gn} {name} (bs {hr.shape[0]} over "
+                              f"{mesh.size('data')} ranks vs one)", run, ref, cfg.train.lr,
+                              fault=name == "planted fault")
+            del ref
+        del runs, model
+
+
+def _two_steps(model: ProbabilisticUNet, cfg, mesh, hr, stats):
+    """Two ELBO train steps from a fresh state on a copy of ``model``: the
+    data-parallel step on this rank's slab with ``mesh``, else the
+    one-process step on the whole batch. Returns (state, the steps'
+    metrics, the gradients AdamW received at each step)."""
+    state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed, lr=cfg.train.lr,
+                               weight_decay=cfg.train.weight_decay, device=hr.device)
+    from probunet_tpu_torch.parallel import make_parallel_train_step, shard_batch
+
+    grads = _captured_grads(state)
+    step = (make_train_step(state.model, cfg) if mesh is None
+            else make_parallel_train_step(state.model, cfg, mesh))
+    batch = hr if mesh is None else shard_batch(hr, mesh)
+    metrics = []
+    for _ in range(2):
+        state, met = step(state, batch, stats, 1.0, 1.0)
+        metrics.append(met)
+    return state, metrics, grads
+
+
+@contextlib.contextmanager
+def _planted_fault(rank: int):
+    """Rank 1's kernel C/C′ masks are those of rows 0:4, not of its own
+    rows: ``fused_gn.slab_seed`` is not applied there."""
+    saved = fused_gn.slab_seed
+    if rank == 1:
+        fused_gn.slab_seed = lambda seed2, batch_offset: seed2
+    try:
+        yield
+    finally:
+        fused_gn.slab_seed = saved
+
+
+def _dp_agreement(what: str, run, ref, lr: float, fault: bool = False) -> None:
+    """Two data-parallel steps (``run``) against two one-process steps
+    (``ref``), each (state, metrics, gradients) from :func:`_two_steps`:
+    at each step the metrics within PAR_RTOL, the gradients within
+    PAR_RTOL at the first and PAR_RTOL_STEP2 at the second; after both
+    steps, the parameters within PAR_PARAM_LR lr wherever both steps'
+    gradients are clear of rounding (above PAR_CLEAR times the step's
+    largest gradient difference), and at most PAR_MOVED_SHARE of all
+    elements beyond 0.1 lr. With ``fault`` every reading is printed and
+    the share must exceed PAR_MOVED_SHARE instead."""
+    (state, mets, grads), (ref_state, ref_mets, ref_grads) = run, ref
+    worst, worst_g2 = 0.0, 0.0
+    clear = None
+    for i in range(2):
+        for k in ("loss", "recon", "kl_mean", "grad_norm"):
+            err = float((mets[i][k].double() - ref_mets[i][k].double()).abs()
+                        / ref_mets[i][k].double().abs())
+            worst = max(worst, err)
+            print(f"{what} step {i + 1} {k}: {float(mets[i][k]):.9g} vs "
+                  f"{float(ref_mets[i][k]):.9g}, rel err {err:.3e}")
+        dg = max(float((a - b).abs().max()) for a, b in zip(grads[i], ref_grads[i]))
+        err = dg / max(float(b.abs().max()) for b in ref_grads[i])
+        if i == 0:
+            worst = max(worst, err)
+        else:
+            worst_g2 = err
+        print(f"{what} step {i + 1} gradients: max|err|/max|want| = {err:.3e} (limit "
+              f"{PAR_RTOL if i == 0 else PAR_RTOL_STEP2})")
+        step_clear = [b.abs() > PAR_CLEAR * dg for b in ref_grads[i]]
+        clear = step_clear if clear is None else [a & b for a, b in zip(clear, step_clear)]
+    diffs = [(a - b).detach().abs() for a, b in zip(state.model.parameters(),
+                                                   ref_state.model.parameters())]
+    n = sum(d.numel() for d in diffs)
+    moved = sum(int((d > 0.1 * lr).sum()) for d in diffs)
+    n_clear = sum(int(c.sum()) for c in clear)
+    clear_max = max(float(d[c].max()) if bool(c.any()) else 0.0 for d, c in zip(diffs, clear))
+    print(f"{what}: parameters after 2 steps: {moved} of {n} elements ({moved / n:.6f}, "
+          f"limit {PAR_MOVED_SHARE}) beyond 0.1 lr (lr {lr:.1e}); over the {n_clear} "
+          f"elements clear of rounding max|diff| {clear_max:.3e} = {clear_max / lr:.4f} lr "
+          f"(limit {PAR_PARAM_LR} lr); metrics and first gradients worst rel err "
+          f"{worst:.3e} (limit {PAR_RTOL})")
+    if fault:
+        if not moved > PAR_MOVED_SHARE * n:
+            raise AssertionError(f"{what}: the planted fault passed the parameter check")
+    elif not (worst <= PAR_RTOL and worst_g2 <= PAR_RTOL_STEP2
+              and moved <= PAR_MOVED_SHARE * n and clear_max <= PAR_PARAM_LR * lr):
+        raise AssertionError(f"{what}: off the one-process steps")
+
+
 def _par_close(what: str, got, want, rtol: float) -> float:
     err = float((got.double() - want.double()).abs().max() / want.double().abs().max())
     print(f"{what}: max|err|/max|want| = {err:.3e} (limit {rtol})")
@@ -3354,8 +3473,9 @@ def _par_close(what: str, got, want, rtol: float) -> float:
 
 
 def _offset_kernels_bit_equal(rank: int, dev) -> None:
-    """C, C′ and D on this rank's slab of a (8, 128, 128, 32) batch told its
-    offset: bit for bit the rows of the whole batch's outputs (f32 and
+    """C and C′ on this rank's slab of a (8, 128, 128, 32) batch under the
+    seed words ``fused_gn.slab_seed`` shifts by its offset, and D told its
+    element offset: bit for bit the rows of the whole batch's outputs (f32 and
     bf16, p = 0.1); the whole batch's masks those of the plain versions."""
     gen = torch.Generator(device=dev).manual_seed(77)
     b, per = PAR_BATCH, PAR_BATCH // 2
@@ -3373,10 +3493,10 @@ def _offset_kernels_bit_equal(rank: int, dev) -> None:
         dx, *_ = fused_gn._launch_bwd(x, g, gamma, beta, scale, shift, seed, mean, rstd, 8, 0.1,
                                       True)
         part = (x[rows].contiguous(), gamma, beta, scale[rows].contiguous(),
-                shift[rows].contiguous(), seed)
-        y_s, mean_s, rstd_s = fused_gn._launch(*part, *consts, batch_offset=rows.start)
+                shift[rows].contiguous(), fused_gn.slab_seed(seed, rows.start))
+        y_s, mean_s, rstd_s = fused_gn._launch(*part, *consts)
         dx_s, *_ = fused_gn._launch_bwd(part[0], g[rows].contiguous(), *part[1:], mean_s,
-                                        rstd_s, 8, 0.1, True, batch_offset=rows.start)
+                                        rstd_s, 8, 0.1, True)
         plain_y = fused_gn.gn_film_silu_dropout_plain(*(t.cpu() for t in (x, gamma, beta,
                                                                            scale, shift, seed)),
                                                        *consts)[0]
@@ -3398,10 +3518,10 @@ def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") ->
     """One of two gloo ranks on ``device``, the parent's card (f32, TF32 off, the flagship's full
     widths, dropout 0.1, a global batch of 8):
 
-    - the data-parallel step against the one-process step (rank 0) on both
-      GroupNorm routes (kernels C/C′ with the batch offset; the composed
-      chain with kernel D's element offset), within PAR_RTOL and
-      PAR_PARAM_SHARE;
+    - two data-parallel steps against two one-process steps (rank 0) on
+      both GroupNorm routes (kernels C/C′ under seed words shifted by the
+      batch offset; the composed chain with kernel D's element offset):
+      :func:`_dp_agreement`, which a planted fault must fail;
     - ``make_parallel_sample_step`` on a ("member" = 2) mesh against one
       rank's ``ProbabilisticUNet.sample`` + ``residual_to_hr`` on the same
       noise, float and int8 (rank 0's scales, broadcast);
@@ -3418,8 +3538,7 @@ def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") ->
     from probunet_tpu_torch.parallel import (
         channel_sharded_block, halo_conv2d, init_channel_sharded_params,
         make_channel_sharded_apply, make_dp_tp_mesh, make_member_mesh, make_mesh,
-        make_parallel_sample_step, make_parallel_train_step, multihost, shard_batch,
-        shard_params)
+        make_parallel_sample_step, multihost, shard_params)
     from probunet_tpu_torch.parallel.mesh import all_gather, mesh_of
 
     dev = torch.device(device)
@@ -3434,39 +3553,8 @@ def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") ->
     base = _flagship_model(cfg)
     hr = _par_days(PAR_BATCH, cfg, dev, seed=43)
     stats = compute_stats(hr, cfg.data.lowres_scale)
-    mesh = make_mesh(device=dev)
-    lr = cfg.train.lr
     zero_counts()
-    for gn in ("kernel", "composed"):
-        model = _variant(base, cfg, gn_impl=gn).to(dev)
-        state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed, lr=lr,
-                                   weight_decay=cfg.train.weight_decay, device=dev)
-        grads = _captured_grads(state)
-        state, met = make_parallel_train_step(state.model, cfg, mesh)(
-            state, shard_batch(hr, mesh), stats, 1.0, 1.0)
-        if rank == 0:
-            ref = create_train_state(model, seed=cfg.train.seed, lr=lr,
-                                     weight_decay=cfg.train.weight_decay, device=dev)
-            ref_grads = _captured_grads(ref)
-            with _uncounted():
-                ref, want = make_train_step(ref.model, cfg)(ref, hr, stats, 1.0, 1.0)
-            what = f"dp step {gn} (bs {PAR_BATCH} over 2 ranks vs one)"
-            for k in ("loss", "recon", "kl_mean", "grad_norm"):
-                _par_close(f"{what} {k}", met[k].reshape(1), want[k].reshape(1), PAR_RTOL)
-            _par_close(f"{what} gradients", torch.cat([g.reshape(-1) for g in grads[0]]),
-                       torch.cat([g.reshape(-1) for g in ref_grads[0]]), PAR_RTOL)
-            diffs = [(a - b).detach().abs() for a, b in zip(state.model.parameters(),
-                                                           ref.model.parameters())]
-            diff = max(float(d.max()) for d in diffs)
-            n = sum(d.numel() for d in diffs)
-            moved = sum(int((d > 0.1 * lr).sum()) for d in diffs)
-            print(f"{what}: parameters max|diff| {diff:.3e} (lr {lr:.1e}); {moved} of {n} "
-                  f"elements ({moved / n:.4f}, limit {PAR_FLIP_SHARE}) beyond 0.1 lr, "
-                  f"{sum(int((d > 1e-6).sum()) for d in diffs)} beyond 1e-6")
-            if not (diff <= 2.001 * lr and moved <= PAR_FLIP_SHARE * n):
-                raise AssertionError(f"dp step {gn}: parameters off the one-process step")
-            del ref, ref_grads
-        del state, model
+    _dp_steps_vs_one(rank, base, cfg, make_mesh(device=dev), hr, stats)
     torch.cuda.empty_cache()
 
     # member sharding: float and int8, against one rank's sample path
@@ -3475,8 +3563,10 @@ def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") ->
     eps = cli.batch_noise(0, 0, PAR_SAMPLE_M, PAR_BATCH, cfg.model.latent_dim).to(dev)
     batch = preprocess_batch(hr, stats, cfg.data.pipeline, cfg.data.lowres_scale,
                              cfg.data.interp_mode, cfg.data.epsilon, cfg.data.standardization)
-    scales = quantize.calibrate_sample(model, [batch["inputs"]], PAR_SAMPLE_M) if rank == 0 \
-        else None
+    scales = None
+    if rank == 0:
+        with _uncounted():   # set-up, not the member-sharded path
+            scales = quantize.calibrate_sample(model, [batch["inputs"]], PAR_SAMPLE_M)
     box = [scales]
     dist.broadcast_object_list(box, src=0)
     for name, quant in (("float", None), ("int8", box[0])):

@@ -24,10 +24,7 @@
 // The dropout mask is the JAX kernel's: _dropout_uniform over the lane-packed
 // (HW/k, k*C) block of batch element b hashes r*(k*C) + col with salt b, and
 // r*(k*C) + col is the NHWC index e = (h*W + w)*C + c inside the element, so
-// this kernel hashes (e, seed, b) (hash.cuh) and needs no pack factor. On a
-// data-parallel rank's slab of the global batch the salt is the global row
-// salt0 + b: salt0 * 40503 enters the seed words' part of the hash input
-// once (hash_key(seed, salt0)), so salt0 = 0 leaves every mask as it was.
+// this kernel hashes (e, seed, b) (hash.cuh) and needs no pack factor.
 //
 // Bound: device-memory bytes. C reads x and writes y (at the flagship's
 // (128, 128, 128, 32) bf16 activation 268 MB, 0.080 ms at 3.35 TB/s); C′
@@ -339,15 +336,15 @@ gn_fwd_finalize_kernel(const float* __restrict__ partial, const float* __restric
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 gn_fwd_apply_kernel(const T* __restrict__ x, const float* __restrict__ coef,
-                    const int* __restrict__ seed, int salt0, T* __restrict__ y, int batch,
-                    int hw, int c, int silu, int drop, float p, float drop_scale) {
+                    const int* __restrict__ seed, T* __restrict__ y, int batch, int hw, int c,
+                    int silu, int drop, float p, float drop_scale) {
   const int b = blockIdx.y;
   const long long vi = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (vi * VEC >= static_cast<long long>(hw) * c) return;
   const long long e0 = vi * VEC;
   const int c0 = static_cast<int>(e0 % c);
   const size_t off = static_cast<size_t>(b) * hw * c + e0;
-  const uint32_t key = hash_key(seed, salt0);
+  const uint32_t key = hash_key(seed);
   const uint32_t keep_from = keep_bits(p);
   float v[VEC], a[VEC], bb[VEC];
   loadv(x + off, v);
@@ -378,15 +375,11 @@ gn_bwd_coef_kernel(const float* __restrict__ mean, const float* __restrict__ rst
              &coef[static_cast<size_t>(batch) * c + i]);
 }
 
-// grid (ntiles, nchunks, B): per-channel partial Sdz, Sdzx of one tile. Four
-// blocks an SM (64 registers a thread): left to itself, ptxas gives the
-// 8-wide instances 71-73 registers, three blocks an SM, and C′ at the
-// flagship's 128x128x32 bf16 chain took 0.432 ms on an H100 (700 W) against
-// 0.411 at 64 registers and a 4-byte spill.
+// grid (ntiles, nchunks, B): per-channel partial Sdz, Sdzx of one tile
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads)
 gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                     const float* __restrict__ coef, const int* __restrict__ seed, int salt0,
+                     const float* __restrict__ coef, const int* __restrict__ seed,
                      float* __restrict__ partial, int batch, int hw, int c, int tile_px,
                      int ntiles, int silu, int drop, float p, float drop_scale) {
   __shared__ float red[2][kThreads * VEC];
@@ -402,7 +395,7 @@ gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
   for (int i = 0; i < VEC; ++i) sdz[i] = sdzx[i] = 0.f;
   if (r0 < rpi) {
-    const uint32_t key = hash_key(seed, salt0);
+    const uint32_t key = hash_key(seed);
     float a[VEC], bb[VEC];
     loadv(coef + static_cast<size_t>(b) * c + col * VEC, a);
     loadv(coef + (static_cast<size_t>(batch) + b) * c + col * VEC, bb);
@@ -508,7 +501,7 @@ gn_bwd_param_sum_kernel(const float* __restrict__ coef, float* __restrict__ dgam
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                 const float* __restrict__ coef, const int* __restrict__ seed, int salt0,
+                 const float* __restrict__ coef, const int* __restrict__ seed,
                  T* __restrict__ dx, int batch, int hw, int c, int silu, int drop, float p,
                  float drop_scale) {
   const int b = blockIdx.y;
@@ -519,7 +512,7 @@ gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const size_t off = static_cast<size_t>(b) * hw * c + e0;
   const size_t bc = static_cast<size_t>(batch) * c;
   const size_t row = static_cast<size_t>(b) * c + c0;
-  const uint32_t key = hash_key(seed, salt0);
+  const uint32_t key = hash_key(seed);
   float xv[VEC], gv[VEC], a[VEC], bb[VEC], c1[VEC], c2[VEC], c3[VEC];
   loadv(x + off, xv);
   loadv(g + off, gv);
@@ -548,7 +541,6 @@ struct Args {
   const float* scale;
   const float* shift;
   const int* seed;
-  int salt0;  // the batch offset of a data-parallel slab (0 outside one)
   float* mean;
   float* rstd;
   float* work;
@@ -579,8 +571,8 @@ cudaError_t launch_fwd(const Args& a, void* y, cudaStream_t s) {
   const long long nvec = static_cast<long long>(a.hw) * a.c / VEC;
   gn_fwd_apply_kernel<T, VEC><<<dim3(static_cast<unsigned>((nvec + kThreads - 1) / kThreads),
                                      a.batch), kThreads, 0, s>>>(
-      static_cast<const T*>(a.x), a.work, a.seed, a.salt0, static_cast<T*>(y), a.batch, a.hw,
-      a.c, a.silu, a.drop, a.p, a.drop_scale);
+      static_cast<const T*>(a.x), a.work, a.seed, static_cast<T*>(y), a.batch, a.hw, a.c,
+      a.silu, a.drop, a.p, a.drop_scale);
   return cudaGetLastError();
 }
 
@@ -594,8 +586,8 @@ cudaError_t launch_bwd(const Args& a, void* dx, float* dgamma, float* dbeta, flo
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   gn_bwd_reduce_kernel<T, VEC><<<dim3(t.ntiles, t.nchunks, a.batch), kThreads, 0, s>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.work, a.seed, a.salt0,
-      partial_of(a), a.batch, a.hw, a.c, t.tile_px, t.ntiles, a.silu, a.drop, a.p, a.drop_scale);
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.work, a.seed, partial_of(a),
+      a.batch, a.hw, a.c, t.tile_px, t.ntiles, a.silu, a.drop, a.p, a.drop_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = (2 * static_cast<size_t>(a.c) + 2 * a.groups) * sizeof(float);
@@ -610,7 +602,7 @@ cudaError_t launch_bwd(const Args& a, void* dx, float* dgamma, float* dbeta, flo
   const long long nvec = static_cast<long long>(a.hw) * a.c / VEC;
   gn_bwd_dx_kernel<T, VEC><<<dim3(static_cast<unsigned>((nvec + kThreads - 1) / kThreads),
                                   a.batch), kThreads, 0, s>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.work, a.seed, a.salt0,
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.work, a.seed,
       static_cast<T*>(dx), a.batch, a.hw, a.c, a.silu, a.drop, a.p, a.drop_scale);
   return cudaGetLastError();
 }
@@ -757,7 +749,7 @@ gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
                       const float* __restrict__ mean, const float* __restrict__ rstd,
                       const float* __restrict__ gamma, const float* __restrict__ beta,
                       const float* __restrict__ scale, const float* __restrict__ shift,
-                      const int* __restrict__ seed, int salt0, T* __restrict__ dx,
+                      const int* __restrict__ seed, T* __restrict__ dx,
                       float* __restrict__ dgamma, float* __restrict__ dbeta,
                       float* __restrict__ dscale, float* __restrict__ dshift,
                       float* __restrict__ terms,  // (2, B, C): dgamma, dbeta terms
@@ -790,7 +782,7 @@ gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int r0 = static_cast<int>(rank) * rows;
   const int r1 = min(hw, r0 + rows);
   const int ch0 = c0 + col * 8;  // this thread's first channel
-  const uint32_t key = hash_key(seed, salt0);
+  const uint32_t key = hash_key(seed);
 
   // phase 1
   float sdz[8], sdzx[8];
@@ -1040,9 +1032,9 @@ cudaError_t launch_bwd_cluster(const Args& a, void* dx, float* dgamma, float* db
       s);
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.x), static_cast<const T*>(a.g),
                            static_cast<const float*>(a.mean), static_cast<const float*>(a.rstd),
-                           a.gamma, a.beta, a.scale, a.shift, a.seed, a.salt0, static_cast<T*>(dx),
-                           dgamma, dbeta, dscale, dshift, terms, arrived, a.batch, a.hw, a.c,
-                           a.groups, cp, cs, iters, a.silu, a.drop, a.p, a.drop_scale);
+                           a.gamma, a.beta, a.scale, a.shift, a.seed, static_cast<T*>(dx), dgamma,
+                           dbeta, dscale, dshift, terms, arrived, a.batch, a.hw, a.c, a.groups,
+                           cp, cs, iters, a.silu, a.drop, a.p, a.drop_scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1100,7 +1092,7 @@ template <typename T>
 __global__ void __launch_bounds__(kClusterThreads, 4)
 gn_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                       const float* __restrict__ beta, const float* __restrict__ scale,
-                      const float* __restrict__ shift, const int* __restrict__ seed, int salt0,
+                      const float* __restrict__ shift, const int* __restrict__ seed,
                       T* __restrict__ y, float* __restrict__ mean, float* __restrict__ rstd,
                       int hw, int c, int groups, int cp, int cs, int iters, float eps, int silu,
                       int drop, float p, float drop_scale) {
@@ -1228,7 +1220,7 @@ gn_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 
   // apply
   if (active) {
-    const uint32_t key = hash_key(seed, salt0);
+    const uint32_t key = hash_key(seed);
     const uint32_t keep_from = keep_bits(p);
     float a[8], bb[8];
 #pragma unroll
@@ -1266,7 +1258,7 @@ cudaError_t launch_fwd_cluster(const Args& a, void* y, int cp, int cs, int iters
       dim3(static_cast<unsigned>(a.c / cp * cs), static_cast<unsigned>(a.batch)), cs, smem, attr,
       s);
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.x), a.gamma, a.beta, a.scale,
-                           a.shift, a.seed, a.salt0, static_cast<T*>(y), a.mean, a.rstd, a.hw, a.c,
+                           a.shift, a.seed, static_cast<T*>(y), a.mean, a.rstd, a.hw, a.c,
                            a.groups, cp, cs, iters, a.eps, a.silu, a.drop, a.p, a.drop_scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -1319,18 +1311,14 @@ int fused_gn_tiles(int hw, int c) { return probunet::tiling(hw, c).ntiles; }
 // blocks per (batch element, channel part of part_channels channels),
 // `iters` row iterations a thread, work unused (may be null); route 0 the
 // three passes, work scratch of 7*B*C + 2*B*ntiles*C floats (ntiles from
-// fused_gn_tiles; part_channels, cluster, iters unused). batch_offset: the
-// first row of x in the global batch of a data-parallel step (0 outside
-// one); the dropout mask of row b is the global batch's row batch_offset +
-// b. Returns cudaGetLastError().
+// fused_gn_tiles; part_channels, cluster, iters unused). Returns
+// cudaGetLastError().
 int fused_gn_fwd(const void* x, const void* gamma, const void* beta, const void* scale,
                  const void* shift, const void* seed, void* y, void* mean, void* rstd,
                  void* work, int batch, int hw, int c, int groups, float eps, float p,
                  float drop_scale, int silu, int is_bf16, int route, int part_channels,
-                 int cluster, int iters, int batch_offset, void* stream) {
-  if (!probunet::valid(batch, hw, c, groups) || batch_offset < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                 int cluster, int iters, void* stream) {
+  if (!probunet::valid(batch, hw, c, groups)) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1 &&
       !probunet::cluster_plan_valid(
           hw, c, groups, part_channels, cluster, iters,
@@ -1340,7 +1328,7 @@ int fused_gn_fwd(const void* x, const void* gamma, const void* beta, const void*
   const probunet::Args a{x, nullptr, static_cast<const float*>(gamma),
                          static_cast<const float*>(beta), static_cast<const float*>(scale),
                          static_cast<const float*>(shift), static_cast<const int*>(seed),
-                         batch_offset, static_cast<float*>(mean), static_cast<float*>(rstd),
+                         static_cast<float*>(mean), static_cast<float*>(rstd),
                          static_cast<float*>(work), batch, hw, c, groups, silu, p > 0.f ? 1 : 0,
                          eps, p, drop_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1367,17 +1355,14 @@ int fused_gn_fwd(const void* x, const void* gamma, const void* beta, const void*
 // bwd_plan): route 1 is one cluster of `cluster` blocks per (batch element,
 // channel part of part_channels channels), `iters` row iterations a
 // thread, work (2*B*C + 1) floats; route 0 the two-pass launches, work as
-// for the forward (part_channels, cluster, iters unused); batch_offset as
-// for the forward.
+// for the forward (part_channels, cluster, iters unused).
 int fused_gn_bwd(const void* x, const void* g, const void* gamma, const void* beta,
                  const void* scale, const void* shift, const void* seed, const void* mean,
                  const void* rstd, void* dx, void* dgamma, void* dbeta, void* dscale,
                  void* dshift, void* work, int batch, int hw, int c, int groups, float p,
                  float drop_scale, int silu, int is_bf16, int route, int part_channels,
-                 int cluster, int iters, int batch_offset, void* stream) {
-  if (!probunet::valid(batch, hw, c, groups) || batch_offset < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                 int cluster, int iters, void* stream) {
+  if (!probunet::valid(batch, hw, c, groups)) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1 &&
       !probunet::cluster_plan_valid(
           hw, c, groups, part_channels, cluster, iters,
@@ -1387,7 +1372,7 @@ int fused_gn_bwd(const void* x, const void* g, const void* gamma, const void* be
   const probunet::Args a{x, g, static_cast<const float*>(gamma),
                          static_cast<const float*>(beta), static_cast<const float*>(scale),
                          static_cast<const float*>(shift), static_cast<const int*>(seed),
-                         batch_offset, const_cast<float*>(static_cast<const float*>(mean)),
+                         const_cast<float*>(static_cast<const float*>(mean)),
                          const_cast<float*>(static_cast<const float*>(rstd)),
                          static_cast<float*>(work), batch, hw, c, groups, silu, p > 0.f ? 1 : 0,
                          0.f, p, drop_scale};

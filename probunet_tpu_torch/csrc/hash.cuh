@@ -31,13 +31,6 @@ __device__ __forceinline__ uint32_t hash_key(const int* seed) {
   return static_cast<uint32_t>(seed[0]) * 2654435761u + static_cast<uint32_t>(seed[1]);
 }
 
-// The same with salt0 * 40503 folded in: hashing (pos, key, salt) then
-// equals hashing the salt salt0 + salt (the sum wraps in uint32 either
-// way). C and C′ pass a data-parallel slab's batch offset as salt0.
-__device__ __forceinline__ uint32_t hash_key(const int* seed, int salt0) {
-  return hash_key(seed) + static_cast<uint32_t>(salt0) * 40503u;
-}
-
 // u's 24 bits: u = hash_bits * 2^-24
 __device__ __forceinline__ uint32_t hash_bits(uint32_t pos, uint32_t key, uint32_t salt) {
   return fmix32(pos + key + salt * 40503u) >> 8;

@@ -213,8 +213,9 @@ class EDMGroupNorm(nn.Module):
     choice is made from the shape, before any launch. Dropout takes the
     (2,) int32 ``drop_seed``. ``slab`` = (first row, global batch) places
     x in the global batch of a data-parallel step: the masks are those of
-    the global batch's rows (C's salt, D's element offset and block
-    height), and D or the other-shape hash is chosen from the global shape.
+    the global batch's rows (C's seed words from ``fused_gn.slab_seed``,
+    D's element offset and block height), and D or the other-shape hash is
+    chosen from the global shape.
     """
 
     def __init__(self, num_channels: int, *, dtype: torch.dtype | None = None,
@@ -279,8 +280,10 @@ class EDMGroupNorm(nn.Module):
             scale, shift = (t.float().contiguous() for t in film)
         if drop_p <= 0.0:
             drop_seed = torch.zeros(2, dtype=torch.int32, device=x.device)
+        else:
+            drop_seed = fused_gn.slab_seed(drop_seed, batch_offset)
         y = fused_gn.gn_film_silu_dropout(xn, self.weight, self.bias, scale, shift, drop_seed,
-                                          self.groups, self.eps, drop_p, silu, batch_offset)
+                                          self.groups, self.eps, drop_p, silu)
         return y.permute(0, 3, 1, 2)
 
 

@@ -114,6 +114,21 @@ class ProbabilisticUNet(nn.Module):
             return self.fcomb(feats, zs)
         return self.fcomb.ensemble(feats, zs)
 
+    @staticmethod
+    def _slab_noise(posterior, slab: tuple[int, int], lead: tuple[int, ...],
+                    generator: torch.Generator | None, eps: torch.Tensor | None):
+        """The slab's rows of the global batch's noise ``eps``, or of one
+        drawn from ``generator`` as ``rsample`` draws it for the global
+        batch."""
+        b0, b_total = slab
+        if eps is None:
+            if generator is None:
+                raise ValueError("elbo needs a generator or eps")
+            mu = posterior.mu
+            eps = torch.randn((*lead, b_total, mu.shape[-1]), generator=generator,
+                              device=mu.device, dtype=mu.dtype)
+        return eps.narrow(-2, b0, posterior.mu.shape[0])
+
     def elbo(self, x: torch.Tensor, target: torch.Tensor, M: int = 1,
              loss_type: str = "afcrps", beta_0: float = 1.0, beta_1: float = 0.0,
              beta_2: float = 0.0, alpha: float = 0.95, alpha_w: float = 0.007,
@@ -131,7 +146,8 @@ class ProbabilisticUNet(nn.Module):
         first, before the noise. Unlike the JAX method, the default is
         False (evaluation). ``slab`` = (first row, global batch) places x in
         the global batch of a data-parallel step: its dropout masks are the
-        global batch's rows (``layers.EDMGroupNorm``).
+        global batch's rows (``layers.EDMGroupNorm``), and ``eps``, given
+        or drawn, is the global batch's noise, of which x's rows are used.
 
         - ``"afcrps"`` / ``"crps"``: M >= 2 draws scored as an ensemble,
           fused (kernels A and A′) or unfused (``Fcomb.ensemble``, kernels
@@ -155,6 +171,9 @@ class ProbabilisticUNet(nn.Module):
         prior = self.prior(x)
         posterior = self.posterior(x, target)
         kl = kl_diag_gaussians(posterior, prior)                    # (B,)
+        if slab is not None:
+            eps = self._slab_noise(posterior, slab, () if loss_type == "l1" else (M,),
+                                   generator, eps)
         metrics = {}
         if loss_type in ("afcrps", "crps"):
             zs = posterior.rsample(generator, (M,), eps)            # (M, B, D)

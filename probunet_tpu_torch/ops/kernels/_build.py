@@ -44,9 +44,8 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _P),
     "fcomb_crps_terms_bwd": (_P,) * 15 + (_I, _I, _I, _I, _I, _P),
     "fused_gn_tiles": (_I, _I),
-    "fused_gn_fwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,
-                                    _P),
-    "fused_gn_bwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _I, _P),
+    "fused_gn_fwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
+    "fused_gn_bwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "fused_gn_cluster_occupancy": (_I, _I, _I, _I, _I, _I, _P),
     "int8_conv_fwd": (_P, _P, _P, _F, _I, _P, _P, _P, _F, _I, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -21,10 +21,11 @@ hashes the lane-packed block index r*(k*C) + col, which is the NHWC index
 (h*W + w)*C + c inside a batch element, salted with the batch index
 (:func:`gn_keep`, through ``dropout.hash_uniform``). The backward
 regenerates the mask; the autograd residuals are x, mean, rstd and the
-seed words, as the JAX ``_vjp_fwd`` saves them. ``batch_offset`` shifts the
-salt: a data-parallel rank's slab of the global batch, its first row at
-``batch_offset``, gets the global batch's masks (offset 0: the masks
-above).
+seed words, as the JAX ``_vjp_fwd`` saves them. A data-parallel rank's
+slab of the global batch, its first row at b0, gets the global rows'
+masks from the seed words :func:`slab_seed` makes: the hash adds salt *
+40503 to the second seed word, so b0 * 40503 added there is b0 added to
+every salt (offset 0: the seed words themselves).
 
 Kernels C and C′ each follow a plan made here per shape, before the
 launch (:func:`fwd_plan`, :func:`bwd_plan`): one thread-block cluster
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from probunet_tpu_torch.ops.kernels import _build
-from probunet_tpu_torch.ops.kernels.dropout import hash_uniform
+from probunet_tpu_torch.ops.kernels.dropout import _MASK32, hash_uniform
 
 SOURCE = "probunet_tpu_torch/csrc/fused_gn.cu"
 REPLACES = "probunet_tpu/ops/pallas/fused_gn.py:247"
@@ -214,15 +215,24 @@ def bwd_plan(hw: int, c: int, groups: int, itemsize: int) -> dict:
     return plan
 
 
-def gn_keep(shape, seed2: torch.Tensor, p_drop: float, batch_offset: int = 0) -> torch.Tensor:
+def gn_keep(shape, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
     """The keep mask (bool, (B, H, W, C)): the hash of the NHWC index inside
-    each batch element, salted with the element's index in the global batch
-    (``batch_offset`` + its index here)."""
+    each batch element, salted with the batch index."""
     b, m = shape[0], math.prod(shape[1:])
     pos = torch.arange(m, dtype=torch.int64, device=seed2.device)[None, :]
-    salt = torch.arange(batch_offset, batch_offset + b, dtype=torch.int64,
-                        device=seed2.device)[:, None]
+    salt = torch.arange(b, dtype=torch.int64, device=seed2.device)[:, None]
     return (hash_uniform(pos, seed2, salt) >= np.float32(p_drop)).reshape(shape)
+
+
+def slab_seed(seed2: torch.Tensor, batch_offset: int) -> torch.Tensor:
+    """C's and C′'s (2,) int32 seed words for a slab whose first row is
+    ``batch_offset`` in the global batch: ``gn_keep`` of the slab under
+    them is the global rows' ``gn_keep`` under ``seed2``."""
+    if batch_offset == 0:
+        return seed2
+    words = seed2.to(torch.int64) & _MASK32
+    words[1] = (words[1] + batch_offset * 40503) & _MASK32
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def _drop_scale(p_drop: float) -> np.float32:
@@ -250,7 +260,7 @@ def _bcast(v: torch.Tensor) -> torch.Tensor:
 
 
 def gn_film_silu_dropout_plain(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
-                       p_drop: float, silu: bool, batch_offset: int = 0):
+                       p_drop: float, silu: bool):
     """The plain PyTorch forward: (y in x's dtype, mean (B, G), rstd (B, G))."""
     b, h, w, c = x.shape
     n = float(h * w * (c // groups))
@@ -263,14 +273,14 @@ def gn_film_silu_dropout_plain(x, gamma, beta, scale, shift, seed2, groups: int,
     z = x.float() * _bcast(a) + _bcast(bb)
     out = z * torch.sigmoid(z) if silu else z
     if p_drop > 0.0:
-        keep = gn_keep(x.shape, seed2, p_drop, batch_offset)
+        keep = gn_keep(x.shape, seed2, p_drop)
         scaled = out * torch.tensor(_drop_scale(p_drop), device=x.device)
         out = torch.where(keep, scaled, torch.zeros((), device=x.device))
     return out.to(x.dtype), mean, rstd
 
 
 def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
-                       p_drop: float, silu: bool, batch_offset: int = 0):
+                       p_drop: float, silu: bool):
     """The plain PyTorch backward (the TPU kernel's formula): (dx in x's
     dtype, dgamma (C,), dbeta (C,), dscale (B, C), dshift (B, C))."""
     b, h, w, c = x.shape
@@ -283,7 +293,7 @@ def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean,
         sig = torch.sigmoid(z)
         dz = dz * (sig * (1.0 + z * (1.0 - sig)))
     if p_drop > 0.0:
-        keep = gn_keep(x.shape, seed2, p_drop, batch_offset)
+        keep = gn_keep(x.shape, seed2, p_drop)
         scaled = dz * torch.tensor(_drop_scale(p_drop), device=x.device)
         dz = torch.where(keep, scaled, torch.zeros((), device=x.device))
     s_dz = dz.sum(dim=(1, 2))                                  # (B, C)
@@ -306,23 +316,23 @@ def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean,
 
 
 def gn_film_silu_dropout_fwd(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
-                             p_drop: float, silu: bool, batch_offset: int = 0):
+                             p_drop: float, silu: bool):
     """(y, mean, rstd) without autograd: the plain version for CPU tensors,
     kernel C for CUDA tensors."""
     args = (x, gamma, beta, scale, shift, seed2)
     if all(t.device.type == "cpu" for t in args):
-        return gn_film_silu_dropout_plain(*args, groups, eps, p_drop, silu, batch_offset)
-    return _launch(*args, groups, eps, p_drop, silu, batch_offset=batch_offset)
+        return gn_film_silu_dropout_plain(*args, groups, eps, p_drop, silu)
+    return _launch(*args, groups, eps, p_drop, silu)
 
 
 def gn_film_silu_dropout_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
-                             p_drop: float, silu: bool, batch_offset: int = 0):
+                             p_drop: float, silu: bool):
     """(dx, dgamma, dbeta, dscale, dshift): the plain backward for CPU
     tensors, kernel C′ for CUDA tensors."""
     args = (x, g, gamma, beta, scale, shift, seed2, mean, rstd)
     if all(t.device.type == "cpu" for t in args):
-        return gn_film_silu_dropout_bwd_plain(*args, groups, p_drop, silu, batch_offset)
-    return _launch_bwd(*args, groups, p_drop, silu, batch_offset=batch_offset)
+        return gn_film_silu_dropout_bwd_plain(*args, groups, p_drop, silu)
+    return _launch_bwd(*args, groups, p_drop, silu)
 
 
 gn_film_silu_dropout_bwd.launches = 0
@@ -330,37 +340,34 @@ gn_film_silu_dropout_bwd.launches = 0
 
 class _Chain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu,
-                batch_offset):
+    def forward(ctx, x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu):
         y, mean, rstd = gn_film_silu_dropout_fwd(x, gamma, beta, scale, shift, seed2, groups,
-                                                 eps, p_drop, silu, batch_offset)
+                                                 eps, p_drop, silu)
         ctx.save_for_backward(x, gamma, beta, scale, shift, seed2, mean, rstd)
-        ctx.consts = (groups, p_drop, silu, batch_offset)
+        ctx.consts = (groups, p_drop, silu)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, *rest = ctx.saved_tensors
         grads = gn_film_silu_dropout_bwd(x, g.contiguous(), *rest, *ctx.consts)
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def gn_film_silu_dropout(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          scale: torch.Tensor, shift: torch.Tensor, seed2: torch.Tensor,
-                         groups: int, eps: float, p_drop: float, silu: bool,
-                         batch_offset: int = 0) -> torch.Tensor:
+                         groups: int, eps: float, p_drop: float, silu: bool) -> torch.Tensor:
     """dropout(silu((gn(x)*gamma + beta)*(scale+1) + shift)), y in x's dtype;
     differentiable in x, gamma, beta, scale and shift (analytic backward).
 
     x (B, H, W, C) NHWC; gamma/beta (C,), scale/shift (B, C) f32 (zeros for
     plain GN + SiLU); seed2 (2,) int32 dropout seed words (read only when
-    p_drop > 0); ``batch_offset`` the index of x's first row in the global
-    batch of a data-parallel step (its rows get the global rows' masks).
-    CPU tensors take the plain versions; CUDA tensors launch kernels C and
-    C′ (f32 or bf16 x, contiguous, a ``supported`` shape) or raise.
+    p_drop > 0). CPU tensors take the plain versions; CUDA tensors launch
+    kernels C and C′ (f32 or bf16 x, contiguous, a ``supported`` shape) or
+    raise.
     """
     return _Chain.apply(x, gamma, beta, scale, shift, seed2, int(groups), float(eps),
-                        float(p_drop), bool(silu), int(batch_offset))
+                        float(p_drop), bool(silu))
 
 
 gn_film_silu_dropout.launches = 0
@@ -406,11 +413,9 @@ def _work(x: torch.Tensor, lib) -> torch.Tensor:
     return torch.empty(7 * b * c + 2 * b * ntiles * c, dtype=torch.float32, device=x.device)
 
 
-def _launch(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, plan=None,
-            batch_offset=0):
+def _launch(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, plan=None):
     """Kernel C on ``plan`` (a :func:`fwd_plan` dict or one of C's
-    :func:`cluster_layouts`; by default the shape's :func:`fwd_plan`), x's
-    rows at ``batch_offset`` in the global batch."""
+    :func:`cluster_layouts`; by default the shape's :func:`fwd_plan`)."""
     _check(x, dict(gamma=gamma, beta=beta, scale=scale, shift=shift, seed2=seed2), groups,
            "gn_film_silu_dropout")
     b, h, w, c = x.shape
@@ -428,17 +433,16 @@ def _launch(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, plan
             float(np.float32(eps)), float(np.float32(p_drop)), float(_drop_scale(p_drop)),
             int(silu), int(x.dtype == torch.bfloat16), int(plan["route"] == "cluster"),
             plan.get("part_channels", 0), plan.get("cluster", 0), plan.get("iters", 0),
-            batch_offset, torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_gn_fwd")
     gn_film_silu_dropout.launches += 1
     return y, mean, rstd
 
 
 def _launch_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_drop, silu,
-                plan=None, batch_offset=0):
+                plan=None):
     """Kernel C′ on ``plan`` (a :func:`bwd_plan` or :func:`cluster_plan`
-    dict; by default the shape's :func:`bwd_plan`), x's rows at
-    ``batch_offset`` in the global batch."""
+    dict; by default the shape's :func:`bwd_plan`)."""
     _check(x, dict(g=g, gamma=gamma, beta=beta, scale=scale, shift=shift, seed2=seed2,
                    mean=mean, rstd=rstd), groups, "gn_film_silu_dropout backward")
     b, h, w, c = x.shape
@@ -461,7 +465,7 @@ def _launch_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_dr
             dshift.data_ptr(), work.data_ptr(), b, h * w, c, groups,
             float(np.float32(p_drop)), float(_drop_scale(p_drop)), int(silu),
             int(x.dtype == torch.bfloat16), int(cluster), plan.get("part_channels", 0),
-            plan.get("cluster", 0), plan.get("iters", 0), batch_offset,
+            plan.get("cluster", 0), plan.get("iters", 0),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_gn_bwd")
     gn_film_silu_dropout_bwd.launches += 1

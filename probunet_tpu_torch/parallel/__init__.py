@@ -6,8 +6,9 @@ CPU).
 - :mod:`mesh` — meshes, a rank's slab of a global batch, the collectives;
 - :mod:`multihost` — ``init_process_group`` from the environment, each
   rank's rows and device, values checked alike on every rank;
-- :mod:`data_parallel` — the ELBO train and eval steps on each rank's
-  slab with the global draws and masks, one gradient all-reduce;
+- :mod:`data_parallel` — JAX's names for ``train.loop``'s ELBO train
+  and eval steps with ``mesh=``: each rank's slab with the global draws
+  and masks, one gradient all-reduce;
 - :mod:`member_parallel` — the prior ensemble split over ("data",
   "member"), gathered in member order;
 - :mod:`spatial` — the halo exchange and the full-domain tiling, its tile

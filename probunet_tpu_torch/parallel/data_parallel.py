@@ -1,24 +1,28 @@
 """Data-parallel train and eval steps (port of
 ``probunet_tpu/parallel/data_parallel.py``).
 
-Each rank runs the port's own ELBO step (``train.loop.make_elbo_loss_fn``)
-on its contiguous slab of the global batch, and the step equals the
-single-process step on the whole batch (JAX ``tests/test_parallel.py:83``):
+Each rank runs the port's own ELBO step, ``train.loop.make_train_step``
+(or ``make_eval_step``) with ``mesh=``, on its contiguous slab of the
+global batch, and the step equals the single-process step on the whole
+batch (JAX ``tests/test_parallel.py:83``):
 
 - **Global draws.** The step's generator (``train.state.step_generator``)
-  is seeded alike on every rank; the dropout seed words and the posterior
-  noise are drawn from it at the global batch's shape, in the order the
-  single-process ELBO draws them, and each rank keeps its rows of the noise.
+  is seeded alike on every rank; the U-Net draws its dropout seed words
+  from it as before, and ``ProbabilisticUNet.elbo(slab=)`` draws the
+  posterior noise at the global batch's shape, in the single-process
+  order, each rank keeping its rows.
 - **Global masks.** The rank's slab enters the U-Net as ``slab`` = (first
-  row, global batch): kernels C/C′ salt their masks with the global row and
-  kernel D hashes the global element index with the global tensor's block
-  height, so every rank drops what the single-process step drops.
+  row, global batch): kernels C/C′ take seed words shifted by the first
+  row (``fused_gn.slab_seed``) and kernel D hashes the global element
+  index with the global tensor's block height, so every rank drops what
+  the single-process step drops.
 - **One all-reduce.** After the backward, the gradients are averaged over
   the "data" axis by one fixed-order all-reduce of one flat f32 buffer in
-  parameter order, then AdamW runs on the same replicated state on every
-  rank (``grad_clip`` and the reported ``grad_norm`` see the averaged
-  gradients). No DDP: this works with the remat modes and the kernels'
-  autograd functions, and a run is reproducible.
+  parameter order (``mesh.mean_over``), then AdamW runs on the same
+  replicated state on every rank (``grad_clip`` and the reported
+  ``grad_norm`` see the averaged gradients). No DDP: this works with the
+  remat modes and the kernels' autograd functions, and a run is
+  reproducible.
 - **Global metrics.** ``loss``, ``recon``, ``kl_mean`` (and each loss's own
   metrics) are means over the global batch: the ranks' means averaged by
   one more all-reduce.
@@ -30,161 +34,36 @@ with n_spatial > 1) is not ported (``mesh.SPATIAL_NOT_PORTED``).
 
 from __future__ import annotations
 
-import time
 from typing import Callable
 
-import torch
-
 from probunet_tpu_torch.config import Config
-from probunet_tpu_torch.data.climex import Standardization
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
-from probunet_tpu_torch.models.unet import dropout_seeds
-from probunet_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
-    SPATIAL_AXIS,
-    SPATIAL_NOT_PORTED,
-    Mesh,
-    all_reduce_,
-)
-from probunet_tpu_torch.parallel.multihost import data_slab
-from probunet_tpu_torch.train.loop import make_elbo_loss_fn
-from probunet_tpu_torch.train.state import TrainState, global_norm, step_generator
-
-
-def _check_mesh(mesh: Mesh, spatial: bool | None) -> None:
-    if spatial or mesh.size(SPATIAL_AXIS) > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
-
-
-def global_draws(model: ProbabilisticUNet, cfg: Config, generator: torch.Generator,
-                 slab: tuple[int, int], b_local: int, training: bool):
-    """(seeds, eps) of one ELBO call over a global batch, drawn from
-    ``generator`` in the single-process ELBO's order: the U-Net's seed words
-    when its dropout is on, then the posterior noise (f32, as the Gaussians'
-    mu) at the global batch's shape, (M, B, D) or (B, D) for ``"l1"``. The
-    noise is cut to the ``b_local`` rows from ``slab[0]``."""
-    b0, b_total = slab
-    seeds = None
-    if training and model.unet.dropout > 0:
-        seeds = dropout_seeds(generator, len(model.unet.dropout_blocks))
-    m = cfg.train.ensemble_size if training else cfg.train.eval_ensemble_size
-    d = cfg.model.latent_dim
-    shape = (b_total, d) if cfg.loss.loss_type == "l1" else (m, b_total, d)
-    eps = torch.randn(shape, generator=generator, device=generator.device)
-    return seeds, eps.narrow(-2, b0, b_local)
-
-
-def _memory_order(t: torch.Tensor) -> list[int]:
-    """t's dimensions from the outermost in memory to the innermost (a
-    gradient of a channels_last convolution weight is not row-major)."""
-    order = sorted(range(t.dim()), key=lambda d: (-t.stride(d), d))
-    return order if t.permute(order).is_contiguous() else list(range(t.dim()))
-
-
-def mean_over(tensors: list[torch.Tensor], mesh: Mesh, axis: str = DATA_AXIS
-              ) -> list[torch.Tensor]:
-    """The tensors averaged over the axis's ranks by one all-reduce of one
-    flat f32 buffer, in list order: the sum over the ranks, then one
-    division by their count. Each tensor is packed in its own memory order
-    and comes back as a view of the buffer with its strides, so a reduction
-    over it (the gradients' norm) adds in the order it would without the
-    all-reduce. Without a group (an axis of size 1 outside a process group)
-    the tensors come back as they are."""
-    if mesh.group(axis) is None:
-        return tensors
-    orders = [_memory_order(t) for t in tensors]
-    flat = torch.cat([t.detach().permute(o).reshape(-1).float()
-                      for t, o in zip(tensors, orders)])
-    all_reduce_(flat, mesh, axis)
-    flat.div_(mesh.size(axis))
-    out, i = [], 0
-    for t, o in zip(tensors, orders):
-        part = flat[i:i + t.numel()].view([t.shape[d] for d in o])
-        out.append(part.permute(sorted(range(t.dim()), key=o.__getitem__)).to(t.dtype))
-        i += t.numel()
-    return out
-
-
-def _mean_metrics(metrics: dict, mesh: Mesh) -> dict:
-    names = sorted(metrics)
-    return dict(zip(names, mean_over([metrics[k] for k in names], mesh)))
+from probunet_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, Mesh
+from probunet_tpu_torch.train.loop import make_eval_step, make_train_step
 
 
 def make_parallel_train_step(model: ProbabilisticUNet, cfg: Config, mesh: Mesh,
-                             fused: bool = True, spatial: bool | None = None,
-                             timing: dict | None = None) -> Callable:
-    """The data-parallel ELBO train step over ``mesh``'s "data" axis:
+                             fused: bool = True, spatial: bool | None = None) -> Callable:
+    """The data-parallel ELBO train step over ``mesh``'s "data" axis,
+    ``make_train_step(..., mesh=mesh)``:
 
         step(state, hr_slab, stats, beta_0, beta_1[, eps, seeds])
             -> (state, {"loss", "recon", "kl_mean", "grad_norm", ...})
 
     ``hr_slab`` is this rank's rows of the global batch (its
-    ``process_local_indices``; the global batch is the slab's rows times
-    the axis size), on the state's device; ``stats`` and the state are
-    replicated. ``eps`` (the global batch's noise) and ``seeds`` override
-    the draws, as in ``make_train_step``. Returns what the single-process
-    step returns for the global batch. ``timing``: a dict that gets the
-    seconds of the gradient all-reduce (``"all_reduce_s"``, the device
-    synchronized around it; None: no synchronization)."""
-    _check_mesh(mesh, spatial)
-    loss_fn = make_elbo_loss_fn(model, cfg, training=True, fused=fused)
-
-    def step(state: TrainState, hr_slab: torch.Tensor, stats: Standardization,
-             beta_0: float, beta_1: float, eps: torch.Tensor | None = None,
-             seeds: torch.Tensor | None = None):
-        b_local = hr_slab.shape[0]
-        slab = data_slab(mesh, b_local)
-        gen = step_generator(state.seed, state.step, hr_slab.device)
-        drawn_seeds, drawn_eps = global_draws(model, cfg, gen, slab, b_local, training=True)
-        seeds = drawn_seeds if seeds is None else seeds
-        eps = drawn_eps if eps is None else eps.narrow(-2, slab[0], b_local)
-        loss, metrics = loss_fn(hr_slab, stats, gen, beta_0, beta_1, eps, seeds, slab)
-        params = state.optimizer.params
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        if timing is not None:
-            _sync(hr_slab.device)
-            t0 = time.perf_counter()
-        grads = mean_over(grads, mesh)
-        if timing is not None:
-            _sync(hr_slab.device)
-            timing["all_reduce_s"] = timing.get("all_reduce_s", 0.0) + time.perf_counter() - t0
-        grad_norm = global_norm(grads)
-        state.optimizer.step(grads)
-        state.step += 1
-        out = {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items() if k != "kl"}}
-        out = _mean_metrics(out, mesh)
-        out["grad_norm"] = grad_norm
-        return state, out
-
-    return step
+    ``process_local_indices``), on the state's device; ``eps`` is the
+    global batch's noise."""
+    if spatial:
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    return make_train_step(model, cfg, fused=fused, mesh=mesh)
 
 
 def make_parallel_eval_step(model: ProbabilisticUNet, cfg: Config, mesh: Mesh,
                             fused: bool = True, spatial: bool | None = None,
                             quant: dict | None = None) -> Callable:
-    """The data-parallel no-grad ELBO: step(hr_slab, stats, generator) ->
-    {"recon", "kl_mean", "loss"} of the global batch (M =
-    ``eval_ensemble_size``, beta weights (1, 0), no dropout), the noise
-    drawn from ``generator`` at the global batch's shape as
-    ``train.loop.make_eval_step`` draws it, every rank holding the global
-    means."""
-    _check_mesh(mesh, spatial)
-    loss_fn = make_elbo_loss_fn(model, cfg, training=False, fused=fused, quant=quant)
-
-    @torch.no_grad()
-    def step(hr_slab: torch.Tensor, stats: Standardization,
-             generator: torch.Generator) -> dict[str, torch.Tensor]:
-        b_local = hr_slab.shape[0]
-        slab = data_slab(mesh, b_local)
-        _, eps = global_draws(model, cfg, generator, slab, b_local, training=False)
-        total, metrics = loss_fn(hr_slab, stats, generator, 1.0, 0.0, eps, None, slab)
-        return _mean_metrics({"recon": metrics["recon"], "kl_mean": metrics["kl_mean"],
-                              "loss": total}, mesh)
-
-    return step
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    """The data-parallel no-grad ELBO, ``make_eval_step(..., mesh=mesh)``:
+    step(hr_slab, stats, generator) -> the global batch's {"recon",
+    "kl_mean", "loss"} on every rank."""
+    if spatial:
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    return make_eval_step(model, cfg, fused=fused, quant=quant, mesh=mesh)

@@ -12,9 +12,8 @@ as ``np.reshape`` lays devices out in the JAX meshes.
 
 Outside ``torch.distributed`` (no process group) a mesh is a world of
 one, and every collective is the identity. An axis of size 1 has no
-group and no collective; an axis as large as the world uses the default
-group, so a world of one started by ``torchrun`` still runs its
-all-reduces.
+group and no collective, so a world of one started by ``torchrun`` runs
+none; an axis as large as the world uses the default group.
 
 Collectives of CUDA tensors run where the group's backend runs them:
 NCCL on a card, gloo for the CPU tests. Gloo all-reduces and broadcasts
@@ -116,9 +115,6 @@ def mesh_of(sizes: dict[str, int], device: str | torch.device | None = None) -> 
                 g = dist.new_group([int(r) for r in line])
                 if rank in line:
                     groups[axis] = g
-    if n == 1 and _backend() is not None:
-        # a world of one under torchrun: its one axis keeps its collective
-        groups = {a: dist.group.WORLD for a in shape}
     return Mesh(shape=shape, coords=coords, groups=groups,
                 device=resolve_device(device), rank=rank, world_size=n)
 
@@ -179,6 +175,37 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS) -> torch.Ten
     if g is not None:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
     return t
+
+
+def _memory_order(t: torch.Tensor) -> list[int]:
+    """t's dimensions from the outermost in memory to the innermost (a
+    gradient of a channels_last convolution weight is not row-major)."""
+    order = sorted(range(t.dim()), key=lambda d: (-t.stride(d), d))
+    return order if t.permute(order).is_contiguous() else list(range(t.dim()))
+
+
+def mean_over(tensors: list[torch.Tensor], mesh: Mesh, axis: str = DATA_AXIS
+              ) -> list[torch.Tensor]:
+    """The tensors averaged over the axis's ranks by one all-reduce of one
+    flat f32 buffer, in list order: the sum over the ranks, then one
+    division by their count. Each tensor is packed in its own memory order
+    and comes back as a view of the buffer with its strides, so a reduction
+    over it (the gradients' norm) adds in the order it would without the
+    all-reduce. Without a group (an axis of size 1) the tensors come back
+    as they are."""
+    if mesh.group(axis) is None:
+        return tensors
+    orders = [_memory_order(t) for t in tensors]
+    flat = torch.cat([t.detach().permute(o).reshape(-1).float()
+                      for t, o in zip(tensors, orders)])
+    all_reduce_(flat, mesh, axis)
+    flat.div_(mesh.size(axis))
+    out, i = [], 0
+    for t, o in zip(tensors, orders):
+        part = flat[i:i + t.numel()].view([t.shape[d] for d in o])
+        out.append(part.permute(sorted(range(t.dim()), key=o.__getitem__)).to(t.dtype))
+        i += t.numel()
+    return out
 
 
 def broadcast_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:

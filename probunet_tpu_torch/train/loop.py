@@ -16,7 +16,7 @@ step. ``train_epoch``, ``eval_model`` and :class:`Trainer` loop them over
 ``ClimexDataset`` splits as the JAX loop does, the batches copied to the
 device ahead of the step by ``data.loader.prefetch_to_device``; the
 ``Trainer`` also draws the per-epoch sample figures. ``Trainer(mesh=...)``
-trains data-parallel (``parallel.data_parallel``): every rank shuffles
+trains data-parallel (``make_train_step(mesh=)``): every rank shuffles
 alike, loads its slab of each global batch and takes the data-parallel
 steps; only rank 0 writes checkpoints, logs and figures.
 """
@@ -62,7 +62,7 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     ``Fcomb.ensemble`` + kernel B). ``eps``/``seeds`` override the draws
     from ``generator`` (the tests hand both packages the same values);
     ``slab`` = (first row, global batch) of a data-parallel rank's batch
-    (``parallel.data_parallel``).
+    (``ProbabilisticUNet.elbo``; ``eps`` is then the global batch's).
 
     ``quant``: a scales tree (``ops.quantize``), attached to the model for
     the call: the convolutions that find their scale run int8 (kernel E; no
@@ -95,7 +95,27 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     return loss_fn
 
 
-def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True) -> Callable:
+def _data_parallel(mesh) -> tuple[Callable, Callable]:
+    """(the slab (first row, global batch) of a local batch of n rows, the
+    mean of a list of tensors over the "data" axis) of a step over
+    ``mesh``; without a mesh, no slab and the list as it is."""
+    if mesh is None:
+        return (lambda n: None), (lambda tensors: tensors)
+    from probunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, SPATIAL_NOT_PORTED, mean_over
+    from probunet_tpu_torch.parallel.multihost import data_slab
+
+    if mesh.size(SPATIAL_AXIS) > 1:
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    return (lambda n: data_slab(mesh, n)), (lambda tensors: mean_over(tensors, mesh))
+
+
+def _mean_values(metrics: dict, mean: Callable, skip: tuple = ()) -> dict:
+    names = [k for k in metrics if k not in skip]
+    return {**metrics, **dict(zip(names, mean([metrics[k] for k in names])))}
+
+
+def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
+                    mesh=None) -> Callable:
     """The ELBO train step:
 
         step(state, hr_batch, stats, beta_0, beta_1[, eps, seeds])
@@ -107,42 +127,57 @@ def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True) -
     ``hr_batch`` is the raw HR window (B, H, W, C) in storage space, on the
     state's device. The state's model is updated in place and its step
     advanced; ``grad_norm`` is the global norm of the raw gradients (0-d
-    tensors on the device; nothing waits for the device)."""
+    tensors on the device; nothing waits for the device).
+
+    ``mesh`` (``parallel.make_mesh``): the data-parallel step
+    (``parallel.data_parallel``). ``hr_batch`` is then this rank's slab of
+    the global batch and ``eps`` the global batch's noise; the draws and
+    dropout masks are the global batch's, the gradients and the metrics
+    are averaged over the "data" axis (one all-reduce each) before AdamW
+    and ``grad_norm``, and every rank gets what the step returns for the
+    global batch."""
     loss_fn = make_elbo_loss_fn(model, cfg, training=True, fused=fused)
+    slab_of, mean = _data_parallel(mesh)
 
     def step(state: TrainState, hr_batch: torch.Tensor, stats: Standardization,
              beta_0: float, beta_1: float, eps: torch.Tensor | None = None,
              seeds: torch.Tensor | None = None):
         gen = step_generator(state.seed, state.step, hr_batch.device)
-        loss, metrics = loss_fn(hr_batch, stats, gen, beta_0, beta_1, eps, seeds)
+        loss, metrics = loss_fn(hr_batch, stats, gen, beta_0, beta_1, eps, seeds,
+                                slab_of(hr_batch.shape[0]))
         params = state.optimizer.params
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # optax decays every parameter: one that autograd does not reach
         # (the prior at beta_1 = 0) gets a zero gradient, not None
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = mean([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
         grad_norm = global_norm(grads)
         state.optimizer.step(grads)
         state.step += 1
         out = {"loss": loss.detach(), "grad_norm": grad_norm}
         out.update({k: v.detach() for k, v in metrics.items() if k != "kl"})
-        return state, out
+        return state, _mean_values(out, mean, skip=("grad_norm",))
 
     return step
 
 
 def make_eval_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
-                   quant: dict | None = None) -> Callable:
+                   quant: dict | None = None, mesh=None) -> Callable:
     """No-grad posterior ELBO: step(hr_batch, stats, generator) ->
     {"recon", "kl_mean", "loss"} (0-d tensors on the batch's device).
     ``quant``: a calibrated scales tree
-    (``ops.quantize.calibrate_elbo``): the step serves int8 convolutions."""
+    (``ops.quantize.calibrate_elbo``): the step serves int8 convolutions.
+    ``mesh``: ``hr_batch`` is this rank's slab, the noise is drawn at the
+    global batch's shape, and every rank gets the global batch's means."""
     loss_fn = make_elbo_loss_fn(model, cfg, training=False, fused=fused, quant=quant)
+    slab_of, mean = _data_parallel(mesh)
 
     @torch.no_grad()
     def step(hr_batch: torch.Tensor, stats: Standardization,
              generator: torch.Generator) -> dict[str, torch.Tensor]:
-        total, metrics = loss_fn(hr_batch, stats, generator, 1.0, 0.0)
-        return {"recon": metrics["recon"], "kl_mean": metrics["kl_mean"], "loss": total}
+        total, metrics = loss_fn(hr_batch, stats, generator, 1.0, 0.0,
+                                 slab=slab_of(hr_batch.shape[0]))
+        return _mean_values({"recon": metrics["recon"], "kl_mean": metrics["kl_mean"],
+                             "loss": total}, mean)
 
     return step
 
@@ -263,7 +298,7 @@ class Trainer:
     given a ``state`` (``cli.make_model`` builds the config's model).
 
     ``mesh`` (``parallel.make_mesh``): data-parallel training on the mesh's
-    device with ``parallel.data_parallel``'s steps; the model must be alike
+    device with the steps' ``mesh=`` form; the model must be alike
     on every rank (checked against rank 0's), every rank runs the same
     epochs, and only rank 0 logs, checkpoints and draws. The history equals
     the single-process ``Trainer``'s."""
@@ -294,19 +329,12 @@ class Trainer:
         self.state = state
         self.model = state.model
         self.stats = dataset_train.device_stats(self.device)
-        if mesh is None:
-            self.train_step = make_train_step(self.model, cfg, fused=fused)
-            self.eval_step = make_eval_step(self.model, cfg, fused=fused)
-        else:
-            from probunet_tpu_torch.parallel.data_parallel import (
-                make_parallel_eval_step,
-                make_parallel_train_step,
-            )
+        if mesh is not None:
             from probunet_tpu_torch.parallel.multihost import replicate_global
 
             replicate_global(dict(self.model.state_dict()), mesh)
-            self.train_step = make_parallel_train_step(self.model, cfg, mesh, fused=fused)
-            self.eval_step = make_parallel_eval_step(self.model, cfg, mesh, fused=fused)
+        self.train_step = make_train_step(self.model, cfg, fused=fused, mesh=mesh)
+        self.eval_step = make_eval_step(self.model, cfg, fused=fused, mesh=mesh)
         self.stopper = EarlyStopper(cfg.train.patience, cfg.train.min_delta)
         self.history = {"train_crps": [], "train_kl": [], "val_crps": [], "val_kl": []}
 

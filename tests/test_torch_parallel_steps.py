@@ -172,10 +172,11 @@ def test_dp_step_matches_jax_parallel_step(inputs, runs, monkeypatch):
 
 @pytest.mark.parametrize("gn_impl", DROP_ROUTES)
 def test_dp_step_with_dropout_matches_single_process(inputs, runs, gn_impl):
-    """Dropout 0.1 on either GroupNorm route (kernel C with its batch offset,
-    or the composed chain with kernel D's element offset and global block
-    height), the draws global: two data-parallel steps equal two
-    single-process steps on the whole batch."""
+    """Dropout 0.1 on either GroupNorm route (kernel C under seed words
+    shifted by its batch offset, or the composed chain with kernel D's
+    element offset and global block height), the draws global: two
+    data-parallel steps equal two single-process steps on the whole
+    batch."""
     from probunet_tpu_torch.data.climex import compute_stats
     from probunet_tpu_torch.train.loop import make_train_step
     from probunet_tpu_torch.train.state import create_train_state
@@ -271,8 +272,9 @@ def _chain_args(shape, seed=0):
 @pytest.mark.parametrize("offset", [1, 3])
 def test_c_plain_versions_with_a_batch_offset_give_the_global_rows(offset):
     """C's and C′'s plain versions on rows [offset, offset + 2) of a batch of
-    5, told their offset, return those rows of the whole batch's outputs
-    bit for bit; without it the masks differ."""
+    5, under the seed words ``slab_seed`` shifts by the offset, return those
+    rows of the whole batch's outputs bit for bit; without the shift the
+    masks differ. At offset 0 the seed words are the given ones."""
     from probunet_tpu_torch.ops.kernels import fused_gn as tgn
 
     x, gamma, beta, scale, shift, seed = _chain_args((5, 8, 8, 16))
@@ -282,19 +284,25 @@ def test_c_plain_versions_with_a_batch_offset_give_the_global_rows(offset):
     grads = tgn.gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed, mean, rstd,
                                                4, 0.3, True)
     rows = slice(offset, offset + 2)
-    part = (x[rows], gamma, beta, scale[rows], shift[rows], seed)
-    y_s, mean_s, rstd_s = tgn.gn_film_silu_dropout_plain(*part, *consts, batch_offset=offset)
+    shifted = tgn.slab_seed(seed, offset)
+    assert shifted.dtype == torch.int32 and tgn.slab_seed(seed, 0) is seed
+    part = (x[rows], gamma, beta, scale[rows], shift[rows], shifted)
+    y_s, mean_s, rstd_s = tgn.gn_film_silu_dropout_plain(*part, *consts)
     assert torch.equal(y_s, y[rows]) and torch.equal(mean_s, mean[rows])
     dx, _, _, dscale, dshift = tgn.gn_film_silu_dropout_bwd_plain(
-        x[rows], g[rows], *part[1:], mean_s, rstd_s, 4, 0.3, True, batch_offset=offset)
+        x[rows], g[rows], *part[1:], mean_s, rstd_s, 4, 0.3, True)
     assert torch.equal(dx, grads[0][rows]) and torch.equal(dscale, grads[3][rows])
-    assert torch.equal(tgn.gn_keep((2, 8, 8, 16), seed, 0.3, offset),
+    assert torch.equal(tgn.gn_keep((2, 8, 8, 16), shifted, 0.3),
                        tgn.gn_keep((5, 8, 8, 16), seed, 0.3)[rows])
     assert not torch.equal(tgn.gn_keep((2, 8, 8, 16), seed, 0.3), tgn.gn_keep(
         (5, 8, 8, 16), seed, 0.3)[rows])
-    # the autograd function carries the offset into the backward
+    # the second seed word wraps: an offset that carries it past 2^31 - 1
+    big = torch.tensor([5, 2**31 - 2], dtype=torch.int32)
+    assert torch.equal(tgn.gn_keep((1, 8, 8, 16), tgn.slab_seed(big, 4), 0.3),
+                       tgn.gn_keep((5, 8, 8, 16), big, 0.3)[4:])
+    # the autograd function, under the shifted seed words, in the backward too
     xs = x[rows].clone().requires_grad_(True)
-    out = tgn.gn_film_silu_dropout(xs, *part[1:], *consts, batch_offset=offset)
+    out = tgn.gn_film_silu_dropout(xs, *part[1:], *consts)
     (out * g[rows]).sum().backward()
     assert torch.equal(out.detach(), y[rows]) and torch.equal(xs.grad, grads[0][rows])
 
@@ -420,6 +428,26 @@ def test_initialize_without_a_world_stays_one_process(monkeypatch):
     with pytest.raises(RuntimeError, match="rendezvous"):
         initialize(device="cpu", init_method="nosuch://host:1", world_size=1, rank=0)
     assert not dist.is_initialized()
+
+
+def test_a_world_of_one_under_a_process_group_runs_no_collective(tmp_path):
+    """A world of one started under torch.distributed (as torchrun starts
+    ``--dp 1``): its axis of size 1 has no group, so the gradients come
+    back from ``mean_over`` untouched, with no all-reduce."""
+    import torch.distributed as dist
+
+    from probunet_tpu_torch.parallel import initialize, make_mesh
+    from probunet_tpu_torch.parallel.mesh import mean_over
+
+    initialize(device="cpu", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1,
+               rank=0)
+    try:
+        mesh = make_mesh(device="cpu")
+        assert dist.is_initialized() and mesh.group("data") is None
+        grads = [torch.ones(2, 3)]
+        assert mean_over(grads, mesh) is grads
+    finally:
+        dist.destroy_process_group()
 
 
 def test_replicate_global_in_a_world_of_one():
