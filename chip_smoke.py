@@ -123,7 +123,20 @@ route, and drives both paths at the full width of the flagship preset
   the whole batch's rows, ``make_parallel_sample_step`` (member = 2,
   float and int8) against one rank's sample path, ``infer-domain --dp 2``
   on a 140x140 domain against the one-process command, ``halo_conv2d``
-  and the tensor-parallel pair against their unsharded counterparts.
+  and the tensor-parallel pair against their unsharded counterparts;
+  then the spatially sharded paths (the ``spatial`` lines) on a 1 x 2
+  ("data", "spatial") mesh, each rank 64 of the 128 rows: two train steps
+  on the kernel route (split C/C′, A/A′) and two on the composed route
+  (D with its block mapping, B/B′) against two one-process steps, with a
+  planted fault (rank 1's C seed words without the row offset) that must
+  be caught; the eval step; ``make_parallel_sample_step`` on a 1 x 2 x 1
+  ("data", "spatial", "member") mesh, float and int8 (E on the
+  halo-padded blocks). Before the ranks, in this process, split C and C′
+  at every chain of the flagship at half height against their split
+  plain versions (masks bit for bit) and at the first chain at bs=128
+  also timed beside the unsplit route on the same block; D with the
+  block mapping bit for bit and timed; E on halo-padded blocks bit for
+  bit against the whole image's convolution.
 
 Each path's launch counters are set to 0 just before it and read just
 after: every kernel of the path must have launched. Needs a CUDA device and
@@ -134,9 +147,12 @@ path for A to D, the int8 serve runs for E's two routes, ``int8_conv``
 and ``int8_conv_mma_sync``), on the int8 serve runs
 (``launches_int8``), on the serve CLI's runs (``launches_cli``), on the training CLI's runs
 (``launches_train_cli``), on the EDM runs (``launches_edm``), on the
-``explore`` runs (``launches_explore``), on the bench runs (``launches_bench``) and on
+``explore`` runs (``launches_explore``), on the bench runs (``launches_bench``), on
 the parallel runs (``launches_parallel``: the world of one and both gloo
-ranks), error, times and bound; the last line
+ranks) and on the spatially sharded runs (``launches_spatial``, both
+ranks; C's and C′'s split route ``launches_spatial_split``), error, times
+and bound, and C's, C′'s and D's times at the spatial block (``split_*``,
+``mapped_*``); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -438,6 +454,17 @@ PAR_TIMEOUT = 420
 # caught it).
 PAR_RTOL = 1e-4
 PAR_RTOL_STEP2 = 1e-3
+# the spatially sharded int8 sample against the one-process one
+# (_int8_agreement): the mean difference at most this share of the mean
+# int8-vs-float gap, and the two ensembles' mean distances from the float
+# ensemble within this share of each other. A rounding tie that the
+# blocks' GroupNorm sums move (one element of 32,768, x/s = k + 0.5000038,
+# in the CPU test's 8-channel model) steps every later value of the image:
+# 0.15 and 0.0004 there, 0.26 and 0.0075 on a 32/16-channel model of the
+# synthetic fields. A wrong halo or crop moves the ensemble by about the
+# gap itself.
+SPATIAL_INT8_MEAN_SHARE = 0.5
+SPATIAL_INT8_GAP_SHARE = 0.05
 PAR_CLEAR = 1e3
 PAR_PARAM_LR = 0.01
 PAR_MOVED_SHARE = 0.02
@@ -487,14 +514,14 @@ def _max_err_ratio(got, want) -> float:
 
 # the kernels whose registers and spills the run prints (A's and A′'s two
 # kernels each, B's and B′'s member buckets and slab kernels, C's and C′'s
-# two routes each)
+# two routes each, D with and without its block mapping)
 PTXAS_KERNELS = ("fcomb_crps_fwd_mma_kernel", "fcomb_crps_tile_kernel",
                  "fcomb_crps_bwd_mma_kernel", "fcomb_crps_bwd_tile_kernel",
                  "afcrps_tile_kernel", "afcrps_tile_smem_kernel", "afcrps_reduce_kernel",
                  "afcrps_bwd_kernel", "afcrps_bwd_smem_kernel",
                  "gn_fwd_cluster_kernel", "gn_fwd_stats_kernel", "gn_fwd_apply_kernel",
                  "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel",
-                 "int8_conv_kernel", "int8_conv_wgmma_kernel")
+                 "dropout_kernel", "int8_conv_kernel", "int8_conv_wgmma_kernel")
 
 
 def _ptxas_report(log: str, names) -> dict:
@@ -3221,6 +3248,216 @@ def _step_rates(steps: dict, state_of: dict, hr, stats, timed_order) -> dict:
     return {k: PAR_STEPS * hr.shape[0] / (sum(v) / len(v)) for k, v in times.items()}
 
 
+def _two_blocks(call):
+    """``call(i, reduce)`` on blocks 0 and 1 of an image's rows, each
+    block's partial sums summed with the other's in place as the ranks'
+    all-reduce sums them (block 1's partials taken by a first call whose
+    outputs are dropped); returns the two blocks' results."""
+    saved = {}
+    call(1, lambda t: saved.__setitem__(1, t.clone()))
+
+    def first(t):
+        saved[0] = t.clone()
+        t.add_(saved[1])
+
+    return call(0, first), call(1, lambda t: t.add_(saved[0]))
+
+
+def _split_chain_vs_plain(randn, dev, shape, groups: int, timed: bool) -> dict:
+    """Split C and C′ on the two half-height blocks of a (B, H, W, C) bf16
+    chain (FiLM, p = 0.1), each under the seed words shifted to its first
+    element and its partial sums summed with the other block's, against
+    the split plain versions on the same blocks: y and dx within GN_TOL,
+    the statistics and parameter terms within GN_SUM_TOL, the masks those
+    of the global elements bit for bit, each kernel run twice for identical
+    bits. With ``timed``: split C and C′ on one block (their two launches;
+    the sum between them is the ranks' all-reduce, not timed here) beside
+    the unsplit planned route on the same block shape, the split plain
+    versions and the block's bound."""
+    b, hh, w, c = shape
+    h = hh // 2
+    x, g = (randn(*shape) + 0.5).to(torch.bfloat16), randn(*shape).to(torch.bfloat16)
+    gamma, beta = 1 + randn(c, scale=0.1), randn(c, scale=0.1)
+    scale, shift = randn(b, c, scale=0.2), randn(b, c, scale=0.2)
+    seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
+    blocks = [(x[:, i * h:(i + 1) * h].contiguous(), g[:, i * h:(i + 1) * h].contiguous(),
+               fused_gn.slab_seed(seed, 0, i * h * w * c)) for i in (0, 1)]
+    n = float(hh * w * (c // groups))
+    consts = (groups, 1e-5, 0.1, True)
+
+    def fwd(fn):
+        return _two_blocks(lambda i, red: fn(blocks[i][0], gamma, beta, scale, shift,
+                                             blocks[i][2], *consts, n, red))
+
+    got, again = fwd(fused_gn._launch_split_fwd), fwd(fused_gn._launch_split_fwd)
+    want = fwd(fused_gn.gn_split_fwd_plain)
+    whole_keep = fused_gn.gn_keep(shape, seed, 0.1)
+    err = {"y": 0.0, "mean": 0.0, "rstd": 0.0, "dx": 0.0, "dgamma": 0.0, "dbeta": 0.0,
+           "dscale": 0.0, "dshift": 0.0}
+    masks, abs_err, bwd_abs_err = True, 0.0, 0.0
+    for i, (gi, ai, wi) in enumerate(zip(got, again, want)):
+        if not all(torch.equal(u, v) for u, v in zip(gi, ai)):
+            raise AssertionError(f"split C is not bit-reproducible at {shape}")
+        for k, u, v in zip(("y", "mean", "rstd"), gi, wi):
+            err[k] = max(err[k], _max_err_ratio(u.float(), v.float()))
+        abs_err = max(abs_err, float((gi[0].float() - wi[0].float()).abs().max()))
+        keep = fused_gn.gn_keep(blocks[i][0].shape, blocks[i][2], 0.1)
+        kept_zeros = int(((gi[0] == 0) & keep).sum())
+        masks &= (torch.equal(keep, whole_keep[:, i * h:(i + 1) * h])
+                  and bool((gi[0][~keep] == 0).all()) and kept_zeros <= 1e-6 * keep.numel())
+
+    def bwd(fn):
+        return _two_blocks(lambda i, red: fn(blocks[i][0], blocks[i][1], gamma, beta, scale,
+                                             shift, blocks[i][2], got[i][1], got[i][2],
+                                             groups, 0.1, True, n, red))
+
+    gb, gb2, wb = (bwd(fused_gn._launch_split_bwd), bwd(fused_gn._launch_split_bwd),
+                   bwd(fused_gn.gn_split_bwd_plain))
+    for u, v in zip(gb, gb2):
+        if not all(torch.equal(p, q) for p, q in zip(u, v)):
+            raise AssertionError(f"split C′ is not bit-reproducible at {shape}")
+    for i in (0, 1):
+        err["dx"] = max(err["dx"], _max_err_ratio(gb[i][0].float(), wb[i][0].float()))
+        bwd_abs_err = max(bwd_abs_err, float((gb[i][0].float() - wb[i][0].float()).abs().max()))
+    for j, k in enumerate(("dgamma", "dbeta", "dscale", "dshift"), start=1):
+        err[k] = _max_err_ratio(gb[0][j] + gb[1][j], wb[0][j] + wb[1][j])
+    bad = {k: e for k, e in err.items()
+           if not e <= (GN_TOL["bfloat16"] if k in ("y", "dx") else GN_SUM_TOL)}
+    if not masks:
+        bad["masks"] = "differ"
+    line = (f"spatial split C/C′ shape={shape} blocks of {h} rows groups={groups} bf16 p=0.1 "
+            f"bit_reproducible=True masks_equal={masks} max_err/max={json.dumps(err)}")
+    row = {}
+    if timed:
+        x0, g0, s0 = blocks[0]
+        y0, mean0, rstd0 = got[0]
+        args = (gamma, beta, scale, shift, s0, *consts)
+        noop = lambda t: None   # noqa: E731  (the ranks' all-reduce, not timed)
+        ms = {"split C": _sync_ms(lambda: fused_gn._launch_split_fwd(x0, *args, n, noop), 20),
+              "unsplit C": _sync_ms(lambda: fused_gn._launch(x0, *args), 20),
+              "split C plain": _sync_ms(
+                  lambda: fused_gn.gn_split_fwd_plain(x0, *args, n, noop), 2, 1)}
+        bargs = (x0, g0, gamma, beta, scale, shift, s0, mean0, rstd0, groups, 0.1, True)
+        ms.update({"split C′": _sync_ms(lambda: fused_gn._launch_split_bwd(*bargs, n, noop), 20),
+                   "unsplit C′": _sync_ms(lambda: fused_gn._launch_bwd(*bargs), 20),
+                   "split C′ plain": _sync_ms(
+                       lambda: fused_gn.gn_split_bwd_plain(*bargs, n, noop), 2, 1)})
+        m = x0.numel()
+        vec = 4.0 * (2 * c + 2 * b * c + 2 * b * groups)
+        fb = _bound(2.0 * 2 * m + vec, 26.0 * m, "float32")
+        bb = _bound(3.0 * 2 * m + vec + 4.0 * 2 * b * c, 46.0 * m, "float32")
+        line += (f" block={tuple(x0.shape)} ms={json.dumps(ms)} bound_ms C "
+                 f"{fb['bound_ms']:.4f} C′ {bb['bound_ms']:.4f}")
+        row = {"fused_gn": {"split_ms": ms["split C"], "split_plain_ms": ms["split C plain"],
+                            "unsplit_ms_at_block": ms["unsplit C"],
+                            "split_bound_ms": fb["bound_ms"], "split_max_abs_err": abs_err,
+                            "split_block": list(x0.shape)},
+               "fused_gn_bwd": {"split_ms": ms["split C′"],
+                                "split_plain_ms": ms["split C′ plain"],
+                                "unsplit_ms_at_block": ms["unsplit C′"],
+                                "split_bound_ms": bb["bound_ms"],
+                                "split_max_abs_err": bwd_abs_err,
+                                "split_block": list(x0.shape)}}
+    print(line)
+    if bad:
+        raise AssertionError(f"split C/C′ disagree with their plain versions at {shape}: {bad}")
+    return row
+
+
+def _mapped_dropout_vs_plain(randn, dev, shape) -> dict:
+    """Kernel D on the two half-height blocks of a (B, H, W, C) bf16 tensor,
+    told each block's first element and the global per-item size: the
+    whole tensor's D output rows bit for bit, and the mapped plain version
+    bit for bit; timed on a block beside D without the mapping on the same
+    block shape, the mapped plain version and the block's bound."""
+    b, hh, w, c = shape
+    h, item = hh // 2, hh * w * c
+    x = randn(*shape).to(torch.bfloat16)
+    seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
+    whole = dropout._launch(x, seed, 0.1)
+    exact = {}
+    for i in (0, 1):
+        xb = x[:, i * h:(i + 1) * h].contiguous()
+        at = i * h * w * c
+        got = dropout._launch(xb, seed, 0.1, at, x.numel(), item)
+        exact[f"block {i} = whole rows"] = torch.equal(got, whole[:, i * h:(i + 1) * h])
+        exact[f"block {i} = plain"] = torch.equal(
+            got, dropout.dropout_plain(xb, seed, 0.1, at, x.numel(), item))
+    xb = x[:, h:].contiguous()
+    ms = {"mapped": _sync_ms(lambda: dropout._launch(xb, seed, 0.1, h * w * c, x.numel(), item),
+                             20),
+          "unmapped": _sync_ms(lambda: dropout._launch(xb, seed, 0.1), 20),
+          "mapped plain": _sync_ms(lambda: dropout.dropout_plain(
+              xb, seed, 0.1, h * w * c, x.numel(), item), 3, 1)}
+    bound = _bound(2.0 * 2 * xb.numel(), 16.0 * xb.numel(), "float32")
+    print(f"spatial mapped D shape={shape} blocks of {h} rows bf16 p=0.1 {json.dumps(exact)} "
+          f"ms={json.dumps(ms)} bound_ms={bound['bound_ms']:.4f}")
+    if not all(exact.values()):
+        raise AssertionError(f"kernel D's block mapping: {exact}")
+    return {"mapped_ms": ms["mapped"], "mapped_plain_ms": ms["mapped plain"],
+            "unmapped_ms_at_block": ms["unmapped"], "mapped_bound_ms": bound["bound_ms"],
+            "mapped_block": list(xb.shape)}
+
+
+def _e_halo_blocks_exact(randn, dev) -> None:
+    """Kernel E SAME on each halo-padded half-height block of a (PAR_BATCH,
+    128, 128, 32) bf16 input (a 3x3 convolution to 32 channels), its outer
+    rows cropped: the whole image's int8 convolution bit for bit, on both
+    routes."""
+    x = randn(PAR_BATCH, 128, 128, 32).to(torch.bfloat16)
+    qw = int8_e.quantize_weight(randn(32, 32, 3, 3, scale=1 / 17))
+    bias = randn(32, scale=0.1)
+    s = float(x.float().abs().max()) / 127
+    pad = F.pad(x, (0, 0, 0, 0, 1, 1))
+    def conv(t, route):
+        return int8_e._launch(t, qw, s, bias, None, None, None, None, False, route=route)
+
+    for route in ("wgmma", "mma_sync"):
+        whole = conv(x, route)
+        got = [conv(pad[:, i * 64:i * 64 + 66].contiguous(), route)[:, 1:65] for i in (0, 1)]
+        exact = torch.equal(torch.cat(got, dim=1), whole)
+        print(f"spatial E on halo-padded blocks route={route} {tuple(x.shape)} -> 32: "
+              f"exact={exact}")
+        if not exact:
+            raise AssertionError(f"kernel E on halo-padded blocks ({route}) is not the whole "
+                                 "image's convolution")
+
+
+def spatial_kernels_vs_plain(dev) -> dict:
+    """The kernels of the spatially sharded step at its block shapes (a
+    1 x 2 mesh halves each chain's rows), in this process: split C and C′
+    at every chain shape of the flagship U-Net at PAR_BATCH (checked) and at
+    the flagship's first chain at bs=128 (also timed), D with the block
+    mapping, and E on halo-padded blocks. Returns the timed rows."""
+    gen = torch.Generator(device=dev).manual_seed(9090)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    cfg = preset("probunet_multivar_128")
+    model = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0), device="cpu")
+    chains = []
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, a: chains.append((a[0].shape[2], a[0].shape[3], a[0].shape[1], mod.groups)))
+        for mod in model.unet.modules() if isinstance(mod, EDMGroupNorm)]
+    with torch.no_grad():
+        model.unet(torch.zeros(1, *cfg.data.resolution, cfg.model.input_channels))
+    for hk in hooks:
+        hk.remove()
+    for hh, w, c, groups in sorted(set(chains)):
+        if not (fused_gn.supported(hh, w, c, groups) and fused_gn.supported(hh // 2, w, c, groups)):
+            raise AssertionError(f"chain {(hh, w, c, groups)}: kernel C does not take the "
+                                 "half-height block the unsharded step's shape takes")
+        _split_chain_vs_plain(randn, dev, (PAR_BATCH, hh, w, c), groups, timed=False)
+    rows = _split_chain_vs_plain(randn, dev, GN_CASES[0][0], min(32, GN_CASES[0][0][3] // 4),
+                                 timed=True)
+    torch.cuda.empty_cache()
+    rows["dropout"] = _mapped_dropout_vs_plain(randn, dev, (BATCH, 128, 128, 32))
+    _e_halo_blocks_exact(randn, dev)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def world_of_one(dev, zero_counts, read_counts) -> dict:
     """``make_parallel_train_step`` in a world of one over NCCL at the
     flagship's training step (bf16, bs=128, M=15, dropout 0.1): one step
@@ -3295,11 +3532,12 @@ def world_of_one(dev, zero_counts, read_counts) -> dict:
         dist.destroy_process_group()
 
 
-def parallel_phase(dev, zero_counts, read_counts) -> dict:
+def parallel_phase(dev, zero_counts, read_counts) -> tuple[dict, dict]:
     """The parallel paths on this card: the world of one over NCCL
     (:func:`world_of_one`), then two gloo ranks sharing cuda:0 in one launch
-    of two processes (:func:`parallel_rank`). Returns the launches of each
-    part's paths (the ranks' summed)."""
+    of two processes (:func:`parallel_rank`), whose last part is the
+    spatially sharded paths. Returns (the launches of each part's
+    data-parallel and member paths, those of each rank's spatial paths)."""
     launches = {"world of one": world_of_one(dev, zero_counts, read_counts)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as work:
         # a served checkpoint for infer-domain: the flagship, zero parameters filled
@@ -3327,10 +3565,13 @@ def parallel_phase(dev, zero_counts, read_counts) -> dict:
             if proc.returncode != 0 or f"PARALLEL_OK rank={r}" not in out:
                 raise AssertionError(f"parallel rank {r} failed (exit {proc.returncode})")
         print(f"parallel two gloo ranks on one card: {time.perf_counter() - t0:.3f} s")
+        spatial = {}
         for r in (0, 1):
             with open(os.path.join(work, f"rank{r}.json")) as f:
-                launches[f"gloo rank {r}"] = json.load(f)
-    return launches
+                parts = json.load(f)
+            launches[f"gloo rank {r}"] = parts["parallel"]
+            spatial[f"gloo rank {r}"] = parts["spatial"]
+    return launches, spatial
 
 
 def _captured_grads(state: TrainState) -> list:
@@ -3382,18 +3623,19 @@ def _dp_steps_vs_one(rank: int, base: ProbabilisticUNet, cfg, mesh, hr, stats) -
         del runs, model
 
 
-def _two_steps(model: ProbabilisticUNet, cfg, mesh, hr, stats):
+def _two_steps(model: ProbabilisticUNet, cfg, mesh, hr, stats, fused: bool = True):
     """Two ELBO train steps from a fresh state on a copy of ``model``: the
-    data-parallel step on this rank's slab with ``mesh``, else the
-    one-process step on the whole batch. Returns (state, the steps'
-    metrics, the gradients AdamW received at each step)."""
+    parallel step on this rank's block of ``hr`` (its slab, and its rows on
+    a mesh with n_spatial > 1) with ``mesh``, else the one-process step on
+    the whole batch; ``fused``: the reconstruction route. Returns (state,
+    the steps' metrics, the gradients AdamW received at each step)."""
     state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed, lr=cfg.train.lr,
                                weight_decay=cfg.train.weight_decay, device=hr.device)
     from probunet_tpu_torch.parallel import make_parallel_train_step, shard_batch
 
     grads = _captured_grads(state)
-    step = (make_train_step(state.model, cfg) if mesh is None
-            else make_parallel_train_step(state.model, cfg, mesh))
+    step = (make_train_step(state.model, cfg, fused=fused) if mesh is None
+            else make_parallel_train_step(state.model, cfg, mesh, fused=fused))
     batch = hr if mesh is None else shard_batch(hr, mesh)
     metrics = []
     for _ in range(2):
@@ -3408,11 +3650,113 @@ def _planted_fault(rank: int):
     rows: ``fused_gn.slab_seed`` is not applied there."""
     saved = fused_gn.slab_seed
     if rank == 1:
-        fused_gn.slab_seed = lambda seed2, batch_offset: seed2
+        fused_gn.slab_seed = lambda seed2, batch_offset, row_offset=0: seed2
     try:
         yield
     finally:
         fused_gn.slab_seed = saved
+
+
+@contextlib.contextmanager
+def _planted_row_fault(rank: int):
+    """Rank 1's kernel C/C′ seed words carry no row offset: its block of
+    rows gets the masks of rows 0:64 of each chain's image."""
+    saved = fused_gn.slab_seed
+    if rank == 1:
+        fused_gn.slab_seed = lambda seed2, batch_offset, row_offset=0: saved(seed2, batch_offset)
+    try:
+        yield
+    finally:
+        fused_gn.slab_seed = saved
+
+
+def _int8_agreement(what: str, got, want, float_want) -> None:
+    """A sharded int8 ensemble against the one-process int8 ensemble: each
+    int8 convolution of a block is exact, but the blocks' GroupNorm sums,
+    added in another order, may move a later convolution's input across a
+    rounding boundary of its quantization. So the two are held by their
+    distance from the float ensemble (means within SPATIAL_INT8_GAP_SHARE
+    of each other), their mean difference (at most SPATIAL_INT8_MEAN_SHARE
+    of the mean int8-vs-float gap) and their largest (at most the largest
+    gap)."""
+    gap, err = (want - float_want).abs(), (got - want).abs()
+    got_gap = float((got - float_want).abs().mean())
+    print(f"{what}: mean|err| {float(err.mean()):.4e} max|err| {float(err.max()):.4e}; the "
+          f"int8-vs-float gap mean {float(gap.mean()):.4e} (sharded {got_gap:.4e}) max "
+          f"{float(gap.max()):.4e}")
+    if not (float(err.mean()) <= SPATIAL_INT8_MEAN_SHARE * float(gap.mean())
+            and float(err.max()) <= float(gap.max())
+            and abs(got_gap - float(gap.mean())) <= SPATIAL_INT8_GAP_SHARE * float(gap.mean())):
+        raise AssertionError(f"{what}: off the one-process int8 ensemble")
+
+
+def _spatial_vs_one(rank: int, base: ProbabilisticUNet, cfg, hr, stats, scales) -> None:
+    """The spatially sharded paths on a 1 x 2 ("data", "spatial") mesh, each
+    rank holding 64 of the 128 rows (f32, full widths, dropout 0.1, global
+    batch PAR_BATCH), against the one-process paths on rank 0: two train
+    steps on the kernel route, fused (split C/C′, A/A′), and two on the
+    composed route, unfused (D with the block mapping, B/B′), each by
+    :func:`_dp_agreement`, with a planted fault (rank 1's C seed words
+    without the row offset) that the check must catch; the eval step; the
+    sample step on a ("data", "spatial", "member") = 1 x 2 x 1 mesh, float
+    (within ENSEMBLE_RTOL) and int8 on rank 0's scales (kernel E on
+    halo-padded blocks, :func:`_int8_agreement`)."""
+    from probunet_tpu_torch.parallel import (make_member_mesh, make_mesh,
+                                             make_parallel_eval_step,
+                                             make_parallel_sample_step, shard_batch)
+
+    dev = hr.device
+    mesh = make_mesh(1, 2, device=dev)
+    for gn, fused in (("kernel", True), ("composed", False)):
+        model = _variant(base, cfg, gn_impl=gn).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs = {"spatial": _two_steps(model, cfg, mesh, hr, stats, fused)}
+        torch.cuda.synchronize()
+        print(f"spatial step {gn}: two steps on rank {rank} in {time.perf_counter() - t0:.3f} s "
+              f"(first includes cuDNN's set-up)")
+        if gn == "kernel":
+            with _uncounted(), _planted_row_fault(rank):
+                runs["planted fault"] = _two_steps(model, cfg, mesh, hr, stats, fused)
+        if rank == 0:
+            with _uncounted():
+                ref = _two_steps(model, cfg, None, hr, stats, fused)
+            for name, run in runs.items():
+                _dp_agreement(f"spatial step {gn} {'fused' if fused else 'unfused'} {name} "
+                              f"(bs {hr.shape[0]}, 128 rows over 2 ranks vs one)", run, ref,
+                              cfg.train.lr, fault=name == "planted fault")
+            del ref
+        del runs, model
+    torch.cuda.empty_cache()
+    model = base.to(dev).eval()
+    got = make_parallel_eval_step(model, cfg, mesh)(shard_batch(hr, mesh), stats,
+                                                    torch.Generator(device=dev).manual_seed(5))
+    if rank == 0:
+        with _uncounted():
+            want = make_eval_step(model, cfg)(hr, stats, torch.Generator(device=dev).manual_seed(5))
+        for k in ("recon", "kl_mean", "loss"):
+            _par_close(f"spatial eval step {k} (rows over 2 ranks vs one)", got[k], want[k],
+                       PAR_RTOL)
+    smesh = make_member_mesh(n_member=1, n_spatial=2, device=dev)
+    eps = cli.batch_noise(0, 1, PAR_SAMPLE_M, PAR_BATCH, cfg.model.latent_dim).to(dev)
+    batch = preprocess_batch(hr, stats, cfg.data.pipeline, cfg.data.lowres_scale,
+                             cfg.data.interp_mode, cfg.data.epsilon, cfg.data.standardization)
+    lrinterp = lrinterp_from_batch(batch, cfg.data.lowres_scale, cfg.data.interp_mode)[:, None]
+    wants = {}
+    for name, quant in (("float", None), ("int8", scales)):
+        got = make_parallel_sample_step(model, cfg, smesh, PAR_SAMPLE_M, quant=quant)(
+            hr, eps, stats)
+        if rank == 0:
+            with _uncounted(), torch.no_grad(), quantize.attached(model, quant):
+                out = model.sample(batch["inputs"], PAR_SAMPLE_M, eps=eps)
+            wants[name] = residual_to_hr(out, lrinterp, stats, cfg.data.pipeline,
+                                         cfg.data.epsilon, cfg.data.standardization)
+            what = (f"spatial sample {name} (1 x 2 x 1 mesh, {PAR_SAMPLE_M} members, rows over "
+                    f"2 ranks vs one)")
+            if quant is None:
+                _par_close(what, got, wants[name], ENSEMBLE_RTOL)
+            else:
+                _int8_agreement(what, got, wants[name], wants["float"])
 
 
 def _dp_agreement(what: str, run, ref, lr: float, fault: bool = False) -> None:
@@ -3615,8 +3959,20 @@ def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") ->
     launches = read_counts()
     print(f"parallel rank {rank} launches: {json.dumps(launches)}")
     _offset_kernels_bit_equal(rank, dev)
+    # the spatially sharded paths: their own launch counts
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zero_counts()
+    _spatial_vs_one(rank, base, cfg, hr, stats, box[0])
+    spatial = read_counts()
+    print(f"spatial rank {rank} launches: {json.dumps(spatial)}; spatial part "
+          f"{time.perf_counter() - t0:.3f} s")
+    for name in ("fcomb_crps", "fcomb_crps_bwd", "afcrps", "afcrps_bwd", "fused_gn_split",
+                 "fused_gn_bwd_split", "dropout", "int8_conv"):
+        if spatial[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the spatial path")
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-        json.dump(launches, f)
+        json.dump({"parallel": launches, "spatial": spatial}, f)
     dist.barrier()
     dist.destroy_process_group()
     print(f"PARALLEL_OK rank={rank}", flush=True)
@@ -3631,6 +3987,9 @@ def launch_counters():
                 "afcrps_bwd": afcrps.ensemble_crps_terms_bwd,
                 "fused_gn": fused_gn.gn_film_silu_dropout,
                 "fused_gn_bwd": fused_gn.gn_film_silu_dropout_bwd,
+                # C's and C′'s split route (a block of rows under a spatial mesh)
+                "fused_gn_split": fused_gn.gn_split_fwd,
+                "fused_gn_bwd_split": fused_gn.gn_split_bwd,
                 "dropout": dropout.dropout,
                 "int8_conv": int8_e.int8_conv,                  # E, either route
                 "int8_conv_wgmma": int8_e.launch_wgmma,
@@ -3785,7 +4144,8 @@ def main() -> None:
     print(f"launches on the training path ({n_steps} steps on {len(routes)} routes): "
           f"{json.dumps(launches)}")
     for name, n in launches.items():
-        if n <= 0 and not name.startswith("int8_conv"):   # E serves only: no gradient
+        # E serves only (no gradient); C and C′ split only under a spatial mesh
+        if n <= 0 and not name.startswith("int8_conv") and not name.endswith("_split"):
             raise AssertionError(f"kernel {name} was not launched on the training path")
     plain = train[kernel_fused]
     for name in remats:
@@ -3858,10 +4218,16 @@ def main() -> None:
           f"{time.perf_counter() - t0:.3f} s")
 
     # the parallel paths: a world of one over NCCL, two gloo ranks on this card
+    # (the spatially sharded paths last); the split kernels at the block shapes
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    parallel_launches = parallel_phase(dev, zero_counts, read_counts)
-    print(f"launches on the parallel runs: {json.dumps(parallel_launches)}; parallel phase "
+    for name, rows in spatial_kernels_vs_plain(dev).items():
+        report[name].update(rows)
+    print(f"spatial kernels at the block shapes: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    parallel_launches, spatial_launches = parallel_phase(dev, zero_counts, read_counts)
+    print(f"launches on the parallel runs: {json.dumps(parallel_launches)}; on the spatial "
+          f"runs: {json.dumps(spatial_launches)}; parallel phase "
           f"{time.perf_counter() - t0:.3f} s")
 
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
@@ -3869,7 +4235,9 @@ def main() -> None:
     kernels = []
     # E's entries are its two routes' kernels, each counted by its route
     e_counters = {"int8_conv": "int8_conv_wgmma", "int8_conv_mma_sync": "int8_conv_mma_sync"}
-    for name in [n for n in counters if not n.startswith("int8_conv")] + list(e_counters):
+    splits = {"fused_gn": "fused_gn_split", "fused_gn_bwd": "fused_gn_bwd_split"}
+    for name in [n for n in counters if not n.startswith("int8_conv")
+                 and n not in splits.values()] + list(e_counters):
         counter = e_counters.get(name, name)
         mod = int8_e if name in e_counters else modules[name.removesuffix("_bwd")]
         int8_n = sum(r[counter] for r in int8_launches.values())
@@ -3886,7 +4254,13 @@ def main() -> None:
                                                 for r in explore_launches.values()),
                         "launches_bench": sum(r[counter] for r in bench_launches.values()),
                         "launches_parallel": sum(r[counter]
-                                                 for r in parallel_launches.values())})
+                                                 for r in parallel_launches.values()),
+                        # the spatially sharded runs (both ranks): C and C′
+                        # launch only their split route there
+                        "launches_spatial": sum(r[counter] for r in spatial_launches.values()),
+                        **({"launches_spatial_split": sum(r[splits[name]]
+                                                          for r in spatial_launches.values())}
+                           if name in splits else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,13 @@
 // takes the slab's element offset into the global tensor and the global
 // tensor's rb, and hashes the global coordinates e = offset + local index,
 // so the slab's mask is the global mask's rows. Offset 0 and the tensor's
-// own rb give the masks above.
+// own rb give the masks above. Under a spatial mesh a rank's block of each
+// item's rows is not one contiguous range of the global tensor: with the
+// block's per-item size n_local and the global per-item size n_item, local
+// element (b, i) sits at e = offset + b * n_item + i, offset being the
+// block's first element (b0 * n_item + h0 * W * C). Where the two sizes are
+// equal that is offset + local index, and the launch takes the kernel
+// without the mapping (kMapped = false), the code of the unsharded kernel.
 //
 // Bound: HBM bytes. It reads x once and writes y once (4 bytes per bf16
 // element; at the flagship's (128, 128, 128, 32) bf16 activation 268 MB,
@@ -74,14 +80,19 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-template <typename T>
+template <typename T, bool kMapped>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restrict__ seed,
-               long long nvec, long long offset, int rb, float p, float scale) {
+               long long nvec, long long offset, int rb, long long n_local, long long n_item,
+               float p, float scale) {
   const long long v = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (v >= nvec) return;
   const uint32_t key = hash_key(seed);
-  const long long e0 = offset + v * kVec;  // global index of the first element
+  long long e0 = offset + v * kVec;  // global index of the first element
+  if (kMapped) {  // 8 divides n_local: the 8 elements share their item
+    const long long item = (v * kVec) / n_local;
+    e0 = offset + item * n_item + (v * kVec - item * n_local);
+  }
   const long long row = e0 / kLane;
   const long long salt = row / rb;
   const uint32_t pos = static_cast<uint32_t>((row - salt * rb) * kLane + e0 % kLane);
@@ -97,12 +108,19 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restrict
 
 template <typename T>
 cudaError_t launch(const void* x, void* y, const void* seed, long long n, long long offset,
-                   int rb, float p, float scale, cudaStream_t stream) {
+                   int rb, long long n_local, long long n_item, float p, float scale,
+                   cudaStream_t stream) {
   const long long nvec = n / kVec;
-  const long long blocks = (nvec + kThreads - 1) / kThreads;
-  dropout_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const int*>(seed), nvec,
-      offset, rb, p, scale);
+  const unsigned blocks = static_cast<unsigned>((nvec + kThreads - 1) / kThreads);
+  if (n_local == n_item) {
+    dropout_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), static_cast<const int*>(seed), nvec,
+        offset, rb, n_local, n_item, p, scale);
+  } else {
+    dropout_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), static_cast<const int*>(seed), nvec,
+        offset, rb, n_local, n_item, p, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -116,17 +134,25 @@ extern "C" {
 // offset + n) of a global tensor (offset % 8 == 0; offset 0 and n the
 // whole tensor outside data parallelism). seed: (2,) int32 on the device.
 // rb: rows per block of the global tensor (a multiple of 8 dividing its
-// numel / 128). p: the drop probability; scale: f32(1 / (1 - p)). Returns
+// numel / 128). n_local, n_item: the per-item element counts of x and of the
+// global tensor (equal outside a spatial mesh; multiples of 8, n_local at
+// most n_item), local element (b, i) being global element offset + b *
+// n_item + i. p: the drop probability; scale: f32(1 / (1 - p)). Returns
 // cudaGetLastError().
 int dropout_apply(const void* x, void* y, const void* seed, long long n, long long offset,
-                  int rb, float p, float scale, int is_bf16, void* stream) {
-  if (n <= 0 || n % 8 != 0 || offset < 0 || offset % 8 != 0 || rb <= 0 || rb % 8 != 0) {
+                  int rb, long long n_local, long long n_item, float p, float scale,
+                  int is_bf16, void* stream) {
+  if (n <= 0 || n % 8 != 0 || offset < 0 || offset % 8 != 0 || rb <= 0 || rb % 8 != 0 ||
+      n_local <= 0 || n_local % 8 != 0 || n % n_local != 0 || n_item < n_local ||
+      n_item % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? probunet::launch<__nv_bfloat16>(x, y, seed, n, offset, rb, p, scale, s)
-              : probunet::launch<float>(x, y, seed, n, offset, rb, p, scale, s);
+      is_bf16 ? probunet::launch<__nv_bfloat16>(x, y, seed, n, offset, rb, n_local, n_item, p,
+                                                 scale, s)
+              : probunet::launch<float>(x, y, seed, n, offset, rb, n_local, n_item, p, scale,
+                                        s);
   return static_cast<int>(err);
 }
 

@@ -50,6 +50,21 @@
 //   into mean/rstd and the per-channel a, b; (3) an apply pass writes y.
 //   x is read twice.
 //
+// Under a spatial mesh (a rank holds a block of each image's rows) a chain's
+// statistics cover rows on other ranks, so C and C′ also run split around
+// an all-reduce the host makes between two calls (the split entries at the
+// end): C's stats pass writes the block's per-tile partial s1, s2; the host
+// sums that (2, B, ntiles, C) buffer over the ranks element by element (every
+// rank's block has one shape, so one tiling); the finalize and apply passes
+// then run on the sums with the global element count n. C′'s coefficient
+// and reduce passes write the block's partial Sdz, Sdzx, and the finalize
+// and batch-sum passes give this block's dgamma, dbeta, dscale and dshift
+// from them (per-rank terms the parameter all-reduce adds up); after the
+// host sums the partials, a second finalize on the sums (with the global n)
+// gives c1, c2, c3 and the dx pass runs. The mask needs no argument: a block
+// starting at row h0 of a chain of width W and C channels is given seed words
+// whose second word carries h0*W*C (ops/kernels/fused_gn.py:slab_seed).
+//
 // C′ keeps the slab on chip instead where that pays, on a thread-block
 // cluster: the plan made per shape in the wrapper
 // (ops/kernels/fused_gn.py:bwd_plan) gives each (batch element, channel
@@ -1288,6 +1303,126 @@ bool cluster_plan_valid(int hw, int c, int groups, int cp, int cs, int iters, si
   return smem <= 232448;  // 227 KB, a block's most
 }
 
+// -- the split route (a block of rows under a spatial mesh) ------------------
+
+// C's stats pass alone: partial (2, B, ntiles, C) of this block
+template <typename T, int VEC>
+cudaError_t launch_fwd_stats(const void* x, float* partial, int batch, int hw, int c,
+                             cudaStream_t s) {
+  const Tiling t = tiling(hw, c);
+  gn_fwd_stats_kernel<T, VEC><<<dim3(t.ntiles, t.nchunks, batch), kThreads, 0, s>>>(
+      static_cast<const T*>(x), partial, batch, hw, c, t.tile_px, t.ntiles);
+  return cudaGetLastError();
+}
+
+// C's finalize and apply passes on summed partials; a.work is the (2, B, C)
+// coefficient scratch, n the global element count of a group
+template <typename T, int VEC>
+cudaError_t launch_fwd_apply(const Args& a, const float* partial, float n, void* y,
+                             cudaStream_t s) {
+  const Tiling t = tiling(a.hw, a.c);
+  const size_t smem = (2 * static_cast<size_t>(a.c) + 2 * a.groups) * sizeof(float);
+  gn_fwd_finalize_kernel<<<a.batch, kThreads, smem, s>>>(
+      partial, a.gamma, a.beta, a.scale, a.shift, a.mean, a.rstd, a.work, a.batch, t.ntiles,
+      a.c, a.groups, n, a.eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long nvec = static_cast<long long>(a.hw) * a.c / VEC;
+  gn_fwd_apply_kernel<T, VEC><<<dim3(static_cast<unsigned>((nvec + kThreads - 1) / kThreads),
+                                     a.batch), kThreads, 0, s>>>(
+      static_cast<const T*>(a.x), a.work, a.seed, static_cast<T*>(y), a.batch, a.hw, a.c,
+      a.silu, a.drop, a.p, a.drop_scale);
+  return cudaGetLastError();
+}
+
+// C′'s coefficient and reduce passes (partial (2, B, ntiles, C) of this
+// block), then the finalize and batch sum on this block's partials: its
+// dgamma, dbeta (C,) and dscale, dshift (B, C). a.work is the (9, B, C)
+// coefficient scratch.
+template <typename T, int VEC>
+cudaError_t launch_bwd_stats(const Args& a, float* partial, float* dgamma, float* dbeta,
+                             float* dscale, float* dshift, cudaStream_t s) {
+  const Tiling t = tiling(a.hw, a.c);
+  const unsigned cblocks = static_cast<unsigned>((a.c + kThreads - 1) / kThreads);
+  gn_bwd_coef_kernel<<<dim3(cblocks, a.batch), kThreads, 0, s>>>(
+      a.mean, a.rstd, a.gamma, a.beta, a.scale, a.shift, a.work, a.batch, a.c, a.groups);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gn_bwd_reduce_kernel<T, VEC><<<dim3(t.ntiles, t.nchunks, a.batch), kThreads, 0, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.work, a.seed, partial, a.batch,
+      a.hw, a.c, t.tile_px, t.ntiles, a.silu, a.drop, a.p, a.drop_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = (2 * static_cast<size_t>(a.c) + 2 * a.groups) * sizeof(float);
+  gn_bwd_finalize_kernel<<<a.batch, kThreads, smem, s>>>(
+      partial, a.mean, a.rstd, a.gamma, a.beta, a.scale, dscale, dshift, a.work, a.batch,
+      t.ntiles, a.c, a.groups, group_count(a));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gn_bwd_param_sum_kernel<<<cblocks, kThreads, 0, s>>>(a.work, dgamma, dbeta, a.batch, a.c);
+  return cudaGetLastError();
+}
+
+// C′'s finalize on the summed partials (global n: c1, c2, c3; its dscale and
+// dshift of the sums go to scratch rows 7 and 8) and the dx pass, reusing the
+// a, b that launch_bwd_stats left in a.work
+template <typename T, int VEC>
+cudaError_t launch_bwd_dx(const Args& a, const float* partial, float n, void* dx,
+                          cudaStream_t s) {
+  const Tiling t = tiling(a.hw, a.c);
+  const size_t bc = static_cast<size_t>(a.batch) * a.c;
+  const size_t smem = (2 * static_cast<size_t>(a.c) + 2 * a.groups) * sizeof(float);
+  gn_bwd_finalize_kernel<<<a.batch, kThreads, smem, s>>>(
+      partial, a.mean, a.rstd, a.gamma, a.beta, a.scale, a.work + 7 * bc, a.work + 8 * bc,
+      a.work, a.batch, t.ntiles, a.c, a.groups, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long nvec = static_cast<long long>(a.hw) * a.c / VEC;
+  gn_bwd_dx_kernel<T, VEC><<<dim3(static_cast<unsigned>((nvec + kThreads - 1) / kThreads),
+                                  a.batch), kThreads, 0, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.work, a.seed,
+      static_cast<T*>(dx), a.batch, a.hw, a.c, a.silu, a.drop, a.p, a.drop_scale);
+  return cudaGetLastError();
+}
+
+// The split entries' dispatch on x's type and the vector width
+template <template <typename, int> class F, typename... Ts>
+cudaError_t dispatch(int is_bf16, int c, Ts... args) {
+  const bool v8 = vec_width(c) == 8;
+  if (is_bf16) return v8 ? F<__nv_bfloat16, 8>::run(args...) : F<__nv_bfloat16, 1>::run(args...);
+  return v8 ? F<float, 8>::run(args...) : F<float, 1>::run(args...);
+}
+
+template <typename T, int VEC>
+struct FwdStats {
+  static cudaError_t run(const void* x, float* partial, int batch, int hw, int c,
+                         cudaStream_t s) {
+    return launch_fwd_stats<T, VEC>(x, partial, batch, hw, c, s);
+  }
+};
+
+template <typename T, int VEC>
+struct FwdApply {
+  static cudaError_t run(const Args* a, const float* partial, float n, void* y, cudaStream_t s) {
+    return launch_fwd_apply<T, VEC>(*a, partial, n, y, s);
+  }
+};
+
+template <typename T, int VEC>
+struct BwdStats {
+  static cudaError_t run(const Args* a, float* partial, float* dg, float* db, float* dsc,
+                         float* dsh, cudaStream_t s) {
+    return launch_bwd_stats<T, VEC>(*a, partial, dg, db, dsc, dsh, s);
+  }
+};
+
+template <typename T, int VEC>
+struct BwdDx {
+  static cudaError_t run(const Args* a, const float* partial, float n, void* dx, cudaStream_t s) {
+    return launch_bwd_dx<T, VEC>(*a, partial, n, dx, s);
+  }
+};
+
 bool valid(int batch, int hw, int c, int groups) {
   // the finalize kernels' shared memory (2C + 2G floats) must fit in 48 KB
   return batch >= 1 && batch <= 65535 && hw >= 1 && c >= 1 && groups >= 1 && c % groups == 0 &&
@@ -1398,6 +1533,88 @@ int fused_gn_bwd(const void* x, const void* g, const void* gamma, const void* be
              : probunet::launch_bwd<float, 1>(a, dx, dg, db, dsc, dsh, s);
   }
   return static_cast<int>(err);
+}
+
+// -- the split route: a block of rows under a spatial mesh -----------------
+//
+// partial: (2, B, ntiles, C) f32, ntiles = fused_gn_tiles(hw, C); every
+// rank's block has the same (B, hw, C), so the host sums the buffers element
+// by element between the two calls of a direction. n: the global element
+// count of a group (global rows * W * C/G), as f32. Other arguments as in
+// fused_gn_fwd / fused_gn_bwd.
+
+// C, first call: the block's partial s1, s2 (x*x rounded to x's type)
+int fused_gn_fwd_stats(const void* x, void* partial, int batch, int hw, int c, int is_bf16,
+                       void* stream) {
+  if (!probunet::valid(batch, hw, c, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(probunet::dispatch<probunet::FwdStats>(
+      is_bf16, c, x, static_cast<float*>(partial), batch, hw, c,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// C, second call: mean, rstd (B, G) and y from the summed partials; coef:
+// 2*B*C floats of scratch
+int fused_gn_fwd_apply(const void* x, const void* partial, const void* gamma, const void* beta,
+                       const void* scale, const void* shift, const void* seed, void* y,
+                       void* mean, void* rstd, void* coef, int batch, int hw, int c, int groups,
+                       float n, float eps, float p, float drop_scale, int silu, int is_bf16,
+                       void* stream) {
+  if (!probunet::valid(batch, hw, c, groups) || !(n > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const probunet::Args a{x, nullptr, static_cast<const float*>(gamma),
+                         static_cast<const float*>(beta), static_cast<const float*>(scale),
+                         static_cast<const float*>(shift), static_cast<const int*>(seed),
+                         static_cast<float*>(mean), static_cast<float*>(rstd),
+                         static_cast<float*>(coef), batch, hw, c, groups, silu, p > 0.f ? 1 : 0,
+                         eps, p, drop_scale};
+  return static_cast<int>(probunet::dispatch<probunet::FwdApply>(
+      is_bf16, c, &a, static_cast<const float*>(partial), n, y,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// C′, first call: the block's partial Sdz, Sdzx, and from them its dgamma,
+// dbeta (C,) and dscale, dshift (B, C); coef: 9*B*C floats of scratch, kept
+// for the second call
+int fused_gn_bwd_stats(const void* x, const void* g, const void* gamma, const void* beta,
+                       const void* scale, const void* shift, const void* seed, const void* mean,
+                       const void* rstd, void* partial, void* coef, void* dgamma, void* dbeta,
+                       void* dscale, void* dshift, int batch, int hw, int c, int groups, float p,
+                       float drop_scale, int silu, int is_bf16, void* stream) {
+  if (!probunet::valid(batch, hw, c, groups)) return static_cast<int>(cudaErrorInvalidValue);
+  const probunet::Args a{x, g, static_cast<const float*>(gamma),
+                         static_cast<const float*>(beta), static_cast<const float*>(scale),
+                         static_cast<const float*>(shift), static_cast<const int*>(seed),
+                         const_cast<float*>(static_cast<const float*>(mean)),
+                         const_cast<float*>(static_cast<const float*>(rstd)),
+                         static_cast<float*>(coef), batch, hw, c, groups, silu, p > 0.f ? 1 : 0,
+                         0.f, p, drop_scale};
+  return static_cast<int>(probunet::dispatch<probunet::BwdStats>(
+      is_bf16, c, &a, static_cast<float*>(partial), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<float*>(dscale), static_cast<float*>(dshift),
+      static_cast<cudaStream_t>(stream)));
+}
+
+// C′, second call: dx from the summed partials and the coef the first call
+// left
+int fused_gn_bwd_dx(const void* x, const void* g, const void* gamma, const void* beta,
+                    const void* scale, const void* shift, const void* seed, const void* mean,
+                    const void* rstd, const void* partial, void* coef, void* dx, int batch,
+                    int hw, int c, int groups, float n, float p, float drop_scale, int silu,
+                    int is_bf16, void* stream) {
+  if (!probunet::valid(batch, hw, c, groups) || !(n > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const probunet::Args a{x, g, static_cast<const float*>(gamma),
+                         static_cast<const float*>(beta), static_cast<const float*>(scale),
+                         static_cast<const float*>(shift), static_cast<const int*>(seed),
+                         const_cast<float*>(static_cast<const float*>(mean)),
+                         const_cast<float*>(static_cast<const float*>(rstd)),
+                         static_cast<float*>(coef), batch, hw, c, groups, silu, p > 0.f ? 1 : 0,
+                         0.f, p, drop_scale};
+  return static_cast<int>(probunet::dispatch<probunet::BwdDx>(
+      is_bf16, c, &a, static_cast<const float*>(partial), n, dx,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The most clusters of a cluster-route plan of C (forward = 1) or C′

@@ -88,6 +88,29 @@ def standardize(x, mean, std, mn, mx, mode: str, epsilon: float) -> torch.Tensor
     raise ValueError(f"unknown standardization {mode!r}")
 
 
+def stats_rows(stats: Standardization, h0: int, h: int, lowres_scale: int) -> Standardization:
+    """The statistics of HR rows [h0, h0 + h) (a block of image rows): the
+    HR arrays' rows and the LR arrays' rows [h0 / k, (h0 + h) / k)."""
+    k = lowres_scale
+    return Standardization(*(
+        None if a is None else a[h0 // k:(h0 + h) // k] if name.startswith("lr_")
+        else a[h0:h0 + h] for name, a in zip(Standardization._fields, stats)))
+
+
+def _item_stats(hr: torch.Tensor, rows) -> dict[str, torch.Tensor]:
+    """Each item's spatial mean and std (ddof=0) of (B, H, W, C); with
+    ``rows`` (a block of image rows, ``parallel.spatial.Rows``) over the
+    whole image, in two passes (the mean, then the squared deviations from
+    it) each summed over the ranks."""
+    if rows is None:
+        return {"mean": hr.mean(dim=(1, 2), keepdim=True),
+                "std": hr.std(dim=(1, 2), keepdim=True, correction=0)}
+    n = rows.whole(hr.shape[1]) * hr.shape[2]
+    mean = rows.sum(hr.sum(dim=(1, 2), keepdim=True)) / n
+    var = rows.sum(((hr - mean) ** 2).sum(dim=(1, 2), keepdim=True)) / n
+    return {"mean": mean, "std": torch.sqrt(var)}
+
+
 def preprocess_batch(
     hr: torch.Tensor,
     stats: Standardization,
@@ -96,12 +119,28 @@ def preprocess_batch(
     interp_mode: str = "nearest",
     epsilon: float = 1e-10,
     standardization: str = "perpixel",
+    rows=None,
 ) -> dict[str, torch.Tensor]:
     """Raw HR batch (B, H, W, C) -> model inputs/targets + diagnostics, for
-    the four pipelines of ``probunet_tpu.data.climex.preprocess_batch``."""
+    the four pipelines of ``probunet_tpu.data.climex.preprocess_batch``.
+
+    ``rows`` (``parallel.spatial.Rows``): ``hr`` is this rank's block of
+    image rows. The per-pixel statistics are sliced to its rows, the
+    pooling and nearest upsampling stay local (the block's rows divide by
+    the pooling factor), and the ``pertimestep`` item statistics are the
+    whole image's. The ``lr_*`` pipelines and bilinear interpolation raise
+    (ROADMAP.md §1 item 10)."""
     if pipeline not in PIPELINE_TYPES:
         raise ValueError(f"unknown pipeline {pipeline!r}")
     k = lowres_scale
+    if rows is not None:
+        from probunet_tpu_torch.parallel.spatial import deferred
+
+        if pipeline.startswith("lr_"):
+            raise deferred(f"the {pipeline!r} pipeline")
+        if interp_mode != "nearest":
+            raise deferred(f"{interp_mode!r} interpolation")
+        stats = stats_rows(stats, rows.h0, hr.shape[1], k)
     lr = avg_pool(hr, k)
 
     def st(x, mean, std, mn, mx):
@@ -114,10 +153,7 @@ def preprocess_batch(
     if standardization == "pertimestep":
         # one set of per-item stats (the HR field's) standardizes both the
         # target and the lrinterp baseline, so residuals invert exactly
-        item_stats = {
-            "mean": hr.mean(dim=(1, 2), keepdim=True),
-            "std": hr.std(dim=(1, 2), keepdim=True, correction=0),
-        }
+        item_stats = _item_stats(hr, rows)
         out["stand_stats"] = item_stats
         hr_stand = (hr - item_stats["mean"]) / (item_stats["std"] + epsilon)
     else:

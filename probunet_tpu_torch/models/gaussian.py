@@ -9,7 +9,12 @@ truncated-normal(0.001) biases. The convolutions carry the int8 serving
 hooks (``ops.quantize``). ``save_convs=True`` (the JAX package's
 ``remat="save_convs_all"``) runs the encoder under selective
 checkpointing while autograd records: conv outputs are stored, the ReLU
-and pooling chains recomputed in the backward.
+and pooling chains recomputed in the backward. ``rows``
+(``parallel.spatial.Rows``): the input is this rank's block of image
+rows; the 3x3 convolutions halo-exchange one row, the max pools stay
+local, and the global average pool is the block's sum summed over the
+ranks and divided by the global pixel count, so mu and log sigma are
+alike on every rank.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from probunet_tpu_torch.models.layers import save_convs_checkpoint
+from probunet_tpu_torch.models.layers import halo_rows, save_convs_checkpoint
 from probunet_tpu_torch.ops import quantize
 from probunet_tpu_torch.ops.distributions import DiagGaussian
 
@@ -53,13 +58,21 @@ class _Conv3x3(nn.Module):
         self.bias = nn.Parameter(trunc_normal_bias_init((features,), generator))
         self.quant_scales = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """``rows``: x is this rank's block of rows, halo-exchanged first."""
         quantize.observe(self, x)
-        if quantize.takes_int8(self, False):
-            return quantize.int8_forward(self, x)
-        dt = self.dtype if self.dtype is not None else x.dtype
         k = self.weight.shape[-1]
-        y = F.conv2d(x.to(dt), self.weight.to(dt), padding=k // 2)
+        halo = k // 2 if rows is not None else 0
+        h = x.shape[2]
+        if halo:
+            x = halo_rows(x, halo, rows)
+        if quantize.takes_int8(self, False):
+            y = quantize.int8_forward(self, x)
+            if halo:   # E pads SAME: the halo rows' outputs are cropped
+                y = y[:, :, halo:halo + h].contiguous(memory_format=torch.channels_last)
+            return y
+        dt = self.dtype if self.dtype is not None else x.dtype
+        y = F.conv2d(x.to(dt), self.weight.to(dt), padding=(0, k // 2) if halo else k // 2)
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 
@@ -87,14 +100,16 @@ class AxisAlignedConvGaussian(nn.Module):
         self.conv_mu = _Conv3x3(cin, latent_dim, 1, **kw)
         self.conv_log_sigma = _Conv3x3(cin, latent_dim, 1, **kw)
 
-    def forward(self, x: torch.Tensor, target: torch.Tensor | None = None) -> DiagGaussian:
+    def forward(self, x: torch.Tensor, target: torch.Tensor | None = None,
+                rows=None) -> DiagGaussian:
+        """``rows``: x (and target) are this rank's block of image rows."""
         if self.save_convs and torch.is_grad_enabled():
-            mu, log_sigma = save_convs_checkpoint(self._moments, x, target)
+            mu, log_sigma = save_convs_checkpoint(self._moments, x, target, rows=rows)
         else:
-            mu, log_sigma = self._moments(x, target)
+            mu, log_sigma = self._moments(x, target, rows)
         return DiagGaussian(mu=mu, log_sigma=log_sigma)
 
-    def _moments(self, x: torch.Tensor, target: torch.Tensor | None):
+    def _moments(self, x: torch.Tensor, target: torch.Tensor | None, rows=None):
         if self.posterior and target is not None:
             x = torch.cat([x, target.to(x.dtype)], dim=-1)
         if self.dtype is not None:
@@ -104,7 +119,11 @@ class AxisAlignedConvGaussian(nn.Module):
             if i != 0:
                 h = _max_pool2(h)
             for j in range(3):
-                h = torch.relu(self.get_submodule(f"enc{i}_conv{j}")(h))
-        h = h.mean(dim=(2, 3), keepdim=True)  # global average pool
+                h = torch.relu(self.get_submodule(f"enc{i}_conv{j}")(h, rows=rows))
+        if rows is None:
+            h = h.mean(dim=(2, 3), keepdim=True)  # global average pool
+        else:   # the block's sum over the ranks, over the global pixel count
+            total = rows.sum(h.sum(dim=(2, 3), keepdim=True, dtype=torch.float32))
+            h = (total / (rows.whole(h.shape[2]) * h.shape[3])).to(h.dtype)
         return (self.conv_mu(h)[:, :, 0, 0].float(),
                 self.conv_log_sigma(h)[:, :, 0, 0].float())

@@ -20,6 +20,16 @@ projection convs, an f32 softmax in plain torch); the JAX U-Net never
 enables it, so no model path runs it. ``PositionalEmbedding`` and
 ``FourierEmbedding`` are the noise-level embeddings of the diffusion
 U-Net (``UNet(use_diffuse=True)``).
+
+``rows`` (``parallel.spatial.Rows``, the spatially sharded step): the
+activations are this rank's block of image rows. A k x k convolution
+then halo-exchanges k // 2 rows and convolves VALID over the rows and SAME
+over the columns (kernel E, under int8, runs SAME on the halo-padded block
+and the outer rows are cropped: its zero row padding falls only where the
+halo is zeros too, at the image's edges); the GroupNorm chains take their
+statistics over every rank's rows (kernels C/C′ split around the sum, or
+the composed chain's partial sums summed) and the masks of the global
+elements; the 2x resamplings stay local.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from probunet_tpu_torch.ops import quantize
 from probunet_tpu_torch.ops.kernels import fused_gn
 from probunet_tpu_torch.ops.kernels.dropout import dropout as hash_dropout
-from probunet_tpu_torch.ops.kernels.dropout import apply_keep, hash_uniform
+from probunet_tpu_torch.ops.kernels.dropout import apply_keep, global_index, hash_uniform
 from probunet_tpu_torch.ops.kernels.dropout import supported as dropout_supported
 from probunet_tpu_torch.ops.precision import matmul_f32
 
@@ -91,16 +101,17 @@ def save_convs_checkpoint(fn, *args, **kwargs):
 
 
 def other_shape_dropout(y: torch.Tensor, seed2: torch.Tensor, p_drop: float,
-                        offset: int = 0) -> torch.Tensor:
+                        offset: int = 0, item: int | None = None) -> torch.Tensor:
     """Inverted dropout of a tensor kernel D does not take (numel not a
     multiple of 1024, such as a 1x1 chain of 192 channels at batch 8),
     where the JAX module switches to ``jax.random.bernoulli``: plain torch
     operations on either device, the mask the same hash of the seed words
-    at each element's row-major index (so a recompute regenerates it), that
-    index counted from ``offset`` (a data-parallel slab's first element in
-    the global tensor). No TPU kernel computes this in the JAX package, and
-    no launch counter counts it."""
-    pos = torch.arange(offset, offset + y.numel(), dtype=torch.int64, device=y.device)
+    at each element's row-major index in the global tensor (so a recompute
+    regenerates it), kernel D's mapping ``dropout.global_index(offset,
+    item)`` (a data-parallel slab's or a spatial block's elements). No TPU
+    kernel computes this in the JAX package, and no launch counter counts
+    it."""
+    pos = global_index(y.shape, offset, item, y.device)
     keep = hash_uniform(pos, seed2.to(y.device),
                         torch.zeros((), dtype=torch.int64, device=y.device))
     return apply_keep(y, (keep >= np.float32(p_drop)).reshape(y.shape), p_drop)
@@ -128,8 +139,20 @@ class EDMLinear(nn.Module):
         return y.to(x.dtype)
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    return F.conv2d(x.to(dt), w.to(dt), padding=w.shape[-1] // 2)
+def _conv(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype, padded: bool = False
+          ) -> torch.Tensor:
+    """SAME convolution; ``padded``: x's rows carry their halo already
+    (VALID over the rows, SAME over the columns)."""
+    k = w.shape[-1] // 2
+    return F.conv2d(x.to(dt), w.to(dt), padding=(0, k) if padded else k)
+
+
+def halo_rows(x: torch.Tensor, halo: int, rows) -> torch.Tensor:
+    """The NCHW (channels_last) view ``x`` of a block of rows with ``halo``
+    rows of each neighbour block (zeros at the image's edges), exchanged
+    over ``rows``'s axis on the NHWC view, so the result is channels_last
+    too."""
+    return rows.halo(x.permute(0, 2, 3, 1), halo).permute(0, 3, 1, 2)
 
 
 class EDMConv(nn.Module):
@@ -161,11 +184,13 @@ class EDMConv(nn.Module):
             self.bias = nn.Parameter(edm_init(mode, fan_in, fan_out, b_scale,
                                               (out_channels,), generator))
 
-    def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None,
+                rows=None) -> torch.Tensor:
         """``x2``: an optional second input, channel-concatenated after ``x``
         without materializing the concat: conv([x; x2], W) =
         conv(x, W[:, :c1]) + conv(x2, W[:, c1:]), each rounded like the JAX
-        split form."""
+        split form. ``rows``: x (and x2) is this rank's block of rows; each
+        input is halo-exchanged."""
         if x2 is not None and (not self.kernel or self.up or self.down):
             raise ValueError("EDMConv: x2 needs a kernel and no resampling")
         if self.up:
@@ -177,14 +202,23 @@ class EDMConv(nn.Module):
         quantize.observe(self, x)
         if x2 is not None:
             quantize.observe(self, x2, "absmax2")
+        halo = self.kernel // 2 if rows is not None else 0
+        h = x.shape[2]
+        if halo:
+            x = halo_rows(x, halo, rows)
+            x2 = None if x2 is None else halo_rows(x2, halo, rows)
         if quantize.takes_int8(self, x2 is not None):
-            return quantize.int8_forward(self, x, x2)
+            y = quantize.int8_forward(self, x, x2)
+            if halo:   # E pads SAME: the halo rows' outputs are cropped
+                y = y[:, :, halo:halo + h].contiguous(memory_format=torch.channels_last)
+            return y
         dt = _out_dtype(x, self.dtype)
         if x2 is None:
-            y = _conv(x, self.weight, dt)
+            y = _conv(x, self.weight, dt, bool(halo))
         else:
             c1 = x.shape[1]
-            y = _conv(x, self.weight[:, :c1], dt) + _conv(x2, self.weight[:, c1:], dt)
+            y = (_conv(x, self.weight[:, :c1], dt, bool(halo))
+                 + _conv(x2, self.weight[:, c1:], dt, bool(halo)))
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 
@@ -215,7 +249,13 @@ class EDMGroupNorm(nn.Module):
     x in the global batch of a data-parallel step: the masks are those of
     the global batch's rows (C's seed words from ``fused_gn.slab_seed``,
     D's element offset and block height), and D or the other-shape hash is
-    chosen from the global shape.
+    chosen from the global shape. ``rows``: x is this rank's block of
+    image rows (``parallel.spatial.Rows``): the statistics are summed over
+    the ranks (kernels C/C′ split around the sum of their partials; the
+    composed chain's partial sums summed, divided by the global count), the
+    masks are those of the global elements (C's seed words shifted by the
+    block's first element, D's mapping), and the routes are chosen from the
+    global shape, so a block takes the route the whole image takes.
     """
 
     def __init__(self, num_channels: int, *, dtype: torch.dtype | None = None,
@@ -233,17 +273,22 @@ class EDMGroupNorm(nn.Module):
     def forward(self, x: torch.Tensor, silu: bool = False,
                 film: tuple[torch.Tensor, torch.Tensor] | None = None,
                 drop_p: float = 0.0, drop_seed: torch.Tensor | None = None,
-                slab: tuple[int, int] | None = None) -> torch.Tensor:
+                slab: tuple[int, int] | None = None, rows=None) -> torch.Tensor:
         b, c, h, w = x.shape
         g = self.groups
         if drop_p > 0.0 and drop_seed is None:
             raise ValueError("EDMGroupNorm: drop_p > 0 needs drop_seed")
         b0, b_total = (0, b) if slab is None else slab
-        if self.gn_impl == "kernel" and fused_gn.supported(h, w, c, g):
-            return self._kernel_chain(x, silu, film, drop_p, drop_seed, b0)
+        h0, h_total = (0, h) if rows is None else (rows.first(h), rows.whole(h))
+        if self.gn_impl == "kernel" and fused_gn.supported(h_total, w, c, g):
+            return self._kernel_chain(x, silu, film, drop_p, drop_seed, b0, h0 * w * c, rows)
         xf = x.float().unflatten(1, (g, c // g))              # (B, G, C/G, H, W)
-        mean = xf.mean(dim=(2, 3, 4), keepdim=True)
-        mean2 = (xf * xf).mean(dim=(2, 3, 4), keepdim=True)
+        if rows is None:
+            mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+            mean2 = (xf * xf).mean(dim=(2, 3, 4), keepdim=True)
+        else:   # the block's sums, summed over the ranks in one all-reduce
+            sums = rows.sum(torch.stack([xf.sum(dim=(2, 3, 4)), (xf * xf).sum(dim=(2, 3, 4))]))
+            mean, mean2 = (sums / (h_total * w * (c // g)))[..., None, None, None].unbind()
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         gamma = self.weight.reshape(1, g, c // g, 1, 1)
         beta = self.bias.reshape(1, g, c // g, 1, 1)
@@ -260,16 +305,20 @@ class EDMGroupNorm(nn.Module):
             # only a tensor that is not channels_last (a 1x1 map upsampled
             # on the card comes back NCHW-contiguous)
             yn = y.permute(0, 2, 3, 1).contiguous()
-            # a slab's elements sit at b0 rows into the global tensor
-            at = () if slab is None else (b0 * yn[0].numel(),)
-            whole = () if slab is None else (b_total * yn[0].numel(),)
-            yn = (hash_dropout(yn, drop_seed, drop_p, *at, *whole)
-                  if dropout_supported((b_total, *yn.shape[1:]))
-                  else other_shape_dropout(yn, drop_seed, drop_p, *at))
+            item = h_total * w * c
+            whole = dropout_supported((b_total, h_total, w, c))
+            if slab is None and rows is None:
+                yn = (hash_dropout(yn, drop_seed, drop_p) if whole
+                      else other_shape_dropout(yn, drop_seed, drop_p))
+            else:   # a block of the global tensor: item b at b0 + b, its rows from h0
+                at = b0 * item + h0 * w * c
+                yn = (hash_dropout(yn, drop_seed, drop_p, at, b_total * item, item) if whole
+                      else other_shape_dropout(yn, drop_seed, drop_p, at, item))
             y = yn.permute(0, 3, 1, 2)
         return y
 
-    def _kernel_chain(self, x, silu, film, drop_p, drop_seed, batch_offset=0):
+    def _kernel_chain(self, x, silu, film, drop_p, drop_seed, batch_offset=0, row_offset=0,
+                      rows=None):
         b, c = x.shape[:2]
         # NHWC view; contiguous() copies only an input that is not channels_last
         # (none on the U-Net's path: chip_smoke.py counts them)
@@ -281,9 +330,9 @@ class EDMGroupNorm(nn.Module):
         if drop_p <= 0.0:
             drop_seed = torch.zeros(2, dtype=torch.int32, device=x.device)
         else:
-            drop_seed = fused_gn.slab_seed(drop_seed, batch_offset)
+            drop_seed = fused_gn.slab_seed(drop_seed, batch_offset, row_offset)
         y = fused_gn.gn_film_silu_dropout(xn, self.weight, self.bias, scale, shift, drop_seed,
-                                          self.groups, self.eps, drop_p, silu)
+                                          self.groups, self.eps, drop_p, silu, rows)
         return y.permute(0, 3, 1, 2)
 
 
@@ -381,33 +430,38 @@ class UNetBlock(nn.Module):
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 skip_in: torch.Tensor | None = None, train: bool = False,
                 drop_seed: torch.Tensor | None = None,
-                slab: tuple[int, int] | None = None) -> torch.Tensor:
+                slab: tuple[int, int] | None = None, rows=None) -> torch.Tensor:
         """``drop_seed``: this block's (2,) int32 dropout seed words, needed
         when ``train`` and ``dropout > 0``. ``slab``: (first row, global
-        batch) of x in a data-parallel step (``EDMGroupNorm``)."""
+        batch) of x in a data-parallel step (``EDMGroupNorm``). ``rows``: x
+        is this rank's block of image rows (``parallel.spatial.Rows``)."""
         x_in = x
         full = x if skip_in is None else torch.cat([x, skip_in.to(x.dtype)], dim=1)
-        h = self.conv0(self.norm0(full, silu=True))
+        h = self.conv0(self.norm0(full, silu=True, rows=rows), rows=rows)
         params = self.affine(emb)
         drop_p = self.dropout if train else 0.0
         if self.adaptive_scale:
             scale, shift = params.chunk(2, dim=-1)
             h = self.norm1(h, silu=True, film=(scale, shift), drop_p=drop_p,
-                           drop_seed=drop_seed, slab=slab)
+                           drop_seed=drop_seed, slab=slab, rows=rows)
         else:
             h = self.norm1(h + params[:, :, None, None], silu=True, drop_p=drop_p,
-                           drop_seed=drop_seed, slab=slab)
-        h = self.conv1(h)
+                           drop_seed=drop_seed, slab=slab, rows=rows)
+        h = self.conv1(h, rows=rows)
         if self.skip is None:
             skip = full
         elif skip_in is not None:
-            skip = self.skip(x_in, skip_in.to(x_in.dtype))
+            skip = self.skip(x_in, skip_in.to(x_in.dtype), rows=rows)
         else:
-            skip = self.skip(full)
+            skip = self.skip(full, rows=rows)
         x = h + skip
         if self.skip_scale != 1.0:
             x = x * self.skip_scale
         if self.num_heads:
+            if rows is not None:
+                from probunet_tpu_torch.parallel.spatial import deferred
+
+                raise deferred("UNetBlock's self-attention")
             x = self._attention(x)
         return x
 

@@ -22,6 +22,13 @@ default, or the torch composition with kernel D; ``layers.EDMGroupNorm``)
 and ``remat`` its gradient rematerialization (``models/unet.py``);
 ``remat="save_convs_all"`` also checkpoints the prior and posterior
 encoders, storing their conv outputs. Neither changes the results.
+
+``rows`` (``parallel.spatial.Rows``, the spatially sharded step) places
+x and the target as this rank's block of image rows: the U-Net and both
+encoders run on the block (``models/layers.py``, ``models/gaussian.py``),
+the CRPS terms of the block's pixels are summed over the ranks and
+divided by the global pixel count, and the KL of the replicated
+Gaussians counts once.
 """
 
 from __future__ import annotations
@@ -94,17 +101,19 @@ class ProbabilisticUNet(nn.Module):
 
     def sample(self, x: torch.Tensor, num_samples: int = 1,
                generator: torch.Generator | None = None,
-               eps: torch.Tensor | None = None) -> torch.Tensor:
-        """Prior ensemble with shared U-Net features: (B, M, H, W, K)."""
-        feats = self.unet(x)
-        zs = self.prior(x).rsample(generator, (num_samples,), eps)
+               eps: torch.Tensor | None = None, rows=None) -> torch.Tensor:
+        """Prior ensemble with shared U-Net features: (B, M, H, W, K);
+        ``rows``: x is this rank's block of rows, and so is the output."""
+        feats = self.unet(x, rows=rows)
+        zs = self.prior(x, rows=rows).rsample(generator, (num_samples,), eps)
         return self.fcomb.ensemble(feats, zs)
 
-    def encode(self, x: torch.Tensor, target: torch.Tensor | None = None):
-        """(features, prior, posterior-or-None)."""
-        feats = self.unet(x)
-        prior = self.prior(x)
-        post = self.posterior(x, target) if target is not None else None
+    def encode(self, x: torch.Tensor, target: torch.Tensor | None = None, rows=None):
+        """(features, prior, posterior-or-None); ``rows``: x (and target)
+        are this rank's block of rows, the features the block's."""
+        feats = self.unet(x, rows=rows)
+        prior = self.prior(x, rows=rows)
+        post = self.posterior(x, target, rows=rows) if target is not None else None
         return feats, prior, post
 
     def decode(self, feats: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
@@ -135,7 +144,8 @@ class ProbabilisticUNet(nn.Module):
              beta_w: float = 0.048, lam_w: float = 0.0,
              generator: torch.Generator | None = None, eps: torch.Tensor | None = None,
              fused: bool = True, training: bool = False,
-             seeds: torch.Tensor | None = None, slab: tuple[int, int] | None = None):
+             seeds: torch.Tensor | None = None, slab: tuple[int, int] | None = None,
+             rows=None):
         """ELBO = beta_0 * recon + beta_1 * KL(q || p) [+ beta_2 * KL(q || N(0, I))
         for ``"l1"``], the posterior noise ``eps`` or drawn from
         ``generator``: (M, B, D) for the ensemble losses, (B, D) for
@@ -148,6 +158,9 @@ class ProbabilisticUNet(nn.Module):
         the global batch of a data-parallel step: its dropout masks are the
         global batch's rows (``layers.EDMGroupNorm``), and ``eps``, given
         or drawn, is the global batch's noise, of which x's rows are used.
+        ``rows`` (``parallel.spatial.Rows``): x and target are this rank's
+        block of image rows (the afCRPS and CRPS ELBOs only); the loss and
+        metrics are the whole image's, alike on every rank of the axis.
 
         - ``"afcrps"`` / ``"crps"``: M >= 2 draws scored as an ensemble,
           fused (kernels A and A′) or unfused (``Fcomb.ensemble``, kernels
@@ -167,9 +180,14 @@ class ProbabilisticUNet(nn.Module):
             raise ValueError(f"unknown loss_type {loss_type!r}")
         if loss_type in ("afcrps", "crps") and M < 2:
             raise ValueError(f"M must be >= 2 for {loss_type}, got {M}")
-        feats = self.unet(x, train=training, seeds=seeds, generator=generator, slab=slab)
-        prior = self.prior(x)
-        posterior = self.posterior(x, target)
+        if rows is not None and loss_type not in ("afcrps", "crps"):
+            from probunet_tpu_torch.parallel.spatial import deferred
+
+            raise deferred(f"the {loss_type!r} ELBO")
+        feats = self.unet(x, train=training, seeds=seeds, generator=generator, slab=slab,
+                          rows=rows)
+        prior = self.prior(x, rows=rows)
+        posterior = self.posterior(x, target, rows=rows)
         kl = kl_diag_gaussians(posterior, prior)                    # (B,)
         if slab is not None:
             eps = self._slab_noise(posterior, slab, () if loss_type == "l1" else (M,),
@@ -182,11 +200,11 @@ class ProbabilisticUNet(nn.Module):
                 params = dict(self.fcomb.named_parameters())
                 recon = fcomb_crps.fused_fcomb_crps_loss(
                     feats, zs, params, target, loss_type, alpha,
-                    "bfloat16" if self.dtype == torch.bfloat16 else "float32")
+                    "bfloat16" if self.dtype == torch.bfloat16 else "float32", rows=rows)
             else:
                 ensemble = self.fcomb.ensemble(feats, zs)           # (B, M, H, W, K)
-                recon = (afcrps_loss(ensemble, target, alpha=alpha)
-                         if loss_type == "afcrps" else crps_loss(ensemble, target))
+                recon = (afcrps_loss(ensemble, target, alpha=alpha, rows=rows)
+                         if loss_type == "afcrps" else crps_loss(ensemble, target, rows=rows))
             total = beta_0 * recon + beta_1 * kl.mean()
         elif loss_type == "mse+ssim":
             zs = posterior.rsample(generator, (M,), eps)

@@ -217,11 +217,13 @@ class UNet(nn.Module):
                 class_labels: torch.Tensor | None = None,
                 augment_labels: torch.Tensor | None = None,
                 label_keep: torch.Tensor | None = None,
-                slab: tuple[int, int] | None = None):
+                slab: tuple[int, int] | None = None, rows=None):
         """``train``: dropout on. ``seeds``: (len(dropout_blocks), 2) int32
         seed words in block order; drawn from ``generator`` when None.
         ``slab``: (first row, global batch) of ``x`` in a data-parallel
         step, whose rows then get the global batch's dropout masks.
+        ``rows`` (``parallel.spatial.Rows``): ``x`` is this rank's block of
+        image rows; every block, convolution and GroupNorm chain takes it.
         ``return_skips``: also return the first three encoder outputs (NHWC
         views in the compute dtype), which the asymmetric U-Nets inject.
         ``noise_labels`` (B,), ``class_labels`` (B, label_dim),
@@ -244,7 +246,7 @@ class UNet(nn.Module):
 
         def run(name, h, skip=None):
             block = self.get_submodule(name)
-            kw = dict(train=train, drop_seed=block_seeds.get(name), slab=slab)
+            kw = dict(train=train, drop_seed=block_seeds.get(name), slab=slab, rows=rows)
             mode = self.block_remat[name] if torch.is_grad_enabled() else None
             if mode == "save_convs":
                 return save_convs_checkpoint(block, h, emb, skip, **kw)
@@ -256,12 +258,12 @@ class UNet(nn.Module):
         skips = []
         for name in self.encoder:
             mod = self.get_submodule(name)
-            h = mod(h) if isinstance(mod, EDMConv) else run(name, h)
+            h = mod(h, rows=rows) if isinstance(mod, EDMConv) else run(name, h)
             skips.append(h)
         skips_postunet = [s.permute(0, 2, 3, 1) for s in skips[:3]]
         for name, takes_skip in self.decoder:
             h = run(name, h, skips.pop() if takes_skip else None)
-        h = self.out_conv(self.out_norm(h, silu=True))
+        h = self.out_conv(self.out_norm(h, silu=True, rows=rows), rows=rows)
         out = h.permute(0, 2, 3, 1).to(out_dtype)
         return (out, skips_postunet) if return_skips else out
 

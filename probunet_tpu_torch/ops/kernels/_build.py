@@ -38,7 +38,7 @@ _SIGNATURES = {
     "afcrps_tile_pixels": (),
     "afcrps_terms_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _P),
     "afcrps_terms_bwd": (_P,) * 6 + (_I, _I, _I, _LL, _LL, _LL, _LL, _I, _P),
-    "dropout_apply": (_P, _P, _P, _LL, _LL, _I, _F, _F, _I, _P),
+    "dropout_apply": (_P, _P, _P, _LL, _LL, _I, _LL, _LL, _F, _F, _I, _P),
     "fcomb_crps_partials": (_I, _I, _I, _I, _I, _I, _P),
     "fcomb_crps_terms_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P),
@@ -47,6 +47,10 @@ _SIGNATURES = {
     "fused_gn_fwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "fused_gn_bwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "fused_gn_cluster_occupancy": (_I, _I, _I, _I, _I, _I, _P),
+    "fused_gn_fwd_stats": (_P, _P, _I, _I, _I, _I, _P),
+    "fused_gn_fwd_apply": (_P,) * 11 + (_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P),
+    "fused_gn_bwd_stats": (_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "fused_gn_bwd_dx": (_P,) * 12 + (_I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
     "int8_conv_fwd": (_P, _P, _P, _F, _I, _P, _P, _P, _F, _I, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "int8_conv_wgmma": (_P, _P, _P, _F, _I, _P, _P, _P, _F, _I, _P, _P, _P,

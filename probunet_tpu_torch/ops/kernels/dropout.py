@@ -20,7 +20,13 @@ is the slab's first element in the global tensor and ``total`` the global
 tensor's numel, from which rb comes. The kernel and the plain version then
 hash the global index, so the slab's mask is the global mask's rows.
 ``offset=0`` with ``total`` the tensor's own numel (the default) gives
-the masks above.
+the masks above. Under a spatial mesh a rank holds a block of each item's
+rows, which is not one contiguous range of the global tensor: ``item`` is
+then the global tensor's per-item element count, and local element (b, i)
+of a block of n_local elements an item sits at ``offset + b * item + i``
+(:func:`global_index`); ``offset`` is the block's first element, (b0 *
+H + h0) * W * C. ``item`` equal to the local per-item count (the default)
+is the mapping above.
 
 The U-Net's activations are NCHW views in ``channels_last`` memory, so
 the layer hands the NHWC view (``x.permute(0, 2, 3, 1)``), which is
@@ -88,14 +94,29 @@ def hash_uniform(pos: torch.Tensor, seed2: torch.Tensor, salt: torch.Tensor) -> 
     return (z >> 8).to(torch.float32) * np.float32(2.0 ** -24)
 
 
+def global_index(shape, offset: int = 0, item: int | None = None,
+                 device=None) -> torch.Tensor:
+    """The global row-major index (int64, flat) of each element of a local
+    tensor of ``shape``: local element (b, i), i inside an item of
+    n_local = numel / shape[0] elements, at ``offset + b * item + i``
+    (``item`` by default n_local: ``offset`` + the local index)."""
+    n = math.prod(shape)
+    e = torch.arange(n, dtype=torch.int64, device=device)
+    n_local = n // shape[0] if shape and shape[0] else n
+    if item is not None and item != n_local:
+        e = e // n_local * item + e % n_local
+    return e + offset
+
+
 def dropout_keep(shape, seed2: torch.Tensor, p_drop: float, offset: int = 0,
-                 total: int | None = None) -> torch.Tensor:
+                 total: int | None = None, item: int | None = None) -> torch.Tensor:
     """The keep mask (bool, ``shape``): the hash at (rb, 128) block
-    coordinates, salted with the block index, of elements [offset, offset +
-    numel) of a tensor of ``total`` elements (by default ``shape``'s)."""
+    coordinates, salted with the block index, of the elements of a tensor
+    of ``total`` elements (by default ``shape``'s) at
+    :func:`global_index` (``offset``, ``item``)."""
     n = math.prod(shape)
     rb = _block_rows((n if total is None else total) // _LANE)
-    e = torch.arange(offset, offset + n, dtype=torch.int64, device=seed2.device)
+    e = global_index(shape, offset, item, seed2.device)
     r = e // _LANE
     u = hash_uniform((r % rb) * _LANE + e % _LANE, seed2, r // rb)
     return (u >= np.float32(p_drop)).reshape(shape)
@@ -109,28 +130,36 @@ def apply_keep(x: torch.Tensor, keep: torch.Tensor, p_drop: float) -> torch.Tens
 
 
 def dropout_plain(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0,
-                  total: int | None = None) -> torch.Tensor:
+                  total: int | None = None, item: int | None = None) -> torch.Tensor:
     """The plain PyTorch version, on the row-major order of ``x``'s shape
-    (elements [offset, offset + numel) of a tensor of ``total``)."""
-    return apply_keep(x, dropout_keep(x.shape, seed2, p_drop, offset, total), p_drop)
+    (the elements at :func:`global_index` of a tensor of ``total``)."""
+    return apply_keep(x, dropout_keep(x.shape, seed2, p_drop, offset, total, item), p_drop)
+
+
+def _local_item(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[0] if x.dim() and x.shape[0] else x.numel()
 
 
 def _apply(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0,
-           total: int | None = None) -> torch.Tensor:
+           total: int | None = None, item: int | None = None) -> torch.Tensor:
     total = x.numel() if total is None else total
     if not supported((total,)):
         raise ValueError(f"dropout: {total} elements are not supported (numel % 1024 != 0 or "
                          "no block height); the JAX package would switch mask streams")
-    if not 0 <= offset <= total - x.numel():
-        raise ValueError(f"dropout: elements [{offset}, {offset + x.numel()}) outside a "
-                         f"tensor of {total}")
+    n_local = _local_item(x)
+    item = n_local if item is None else item
+    end = offset + (x.numel() // n_local - 1) * item + n_local   # past the last element
+    if item < n_local or offset < 0 or end > total:
+        raise ValueError(f"dropout: a block of {x.numel()} elements ({n_local} an item, "
+                         f"{item} an item of the whole) at {offset} lies outside a tensor "
+                         f"of {total}")
     if x.device.type == "cpu" and seed2.device.type == "cpu":
-        return dropout_plain(x, seed2, p_drop, offset, total)
-    return _launch(x, seed2, p_drop, offset, total)
+        return dropout_plain(x, seed2, p_drop, offset, total, item)
+    return _launch(x, seed2, p_drop, offset, total, item)
 
 
 def _launch(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0,
-            total: int | None = None) -> torch.Tensor:
+            total: int | None = None, item: int | None = None) -> torch.Tensor:
     if x.device.type != "cuda" or seed2.device != x.device:
         raise ValueError(f"dropout: x on {x.device}, seed2 on {seed2.device}; the "
                          "kernel needs both on one CUDA device")
@@ -146,15 +175,18 @@ def _launch(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0
                          f"{seed2.dtype} {tuple(seed2.shape)}")
     n = x.numel()
     total = n if total is None else total
-    if n % 8 or offset % 8:
-        raise ValueError(f"dropout: the kernel takes slabs of 8-element rows, got "
-                         f"{n} elements at offset {offset}")
+    n_local = _local_item(x)
+    item = n_local if item is None else item
+    if n % 8 or offset % 8 or n_local % 8 or item % 8:
+        raise ValueError(f"dropout: the kernel takes blocks of 8-element rows, got "
+                         f"{n} elements ({n_local} an item of {item}) at offset {offset}")
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.dropout_apply(x.data_ptr(), y.data_ptr(), seed2.data_ptr(), n, offset,
-                                _block_rows(total // _LANE), float(np.float32(p_drop)),
-                                float(_scale(p_drop)), int(x.dtype == torch.bfloat16),
+                                _block_rows(total // _LANE), n_local, item,
+                                float(np.float32(p_drop)), float(_scale(p_drop)),
+                                int(x.dtype == torch.bfloat16),
                                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dropout_apply")
     dropout.launches += 1
@@ -163,33 +195,35 @@ def _launch(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed2, p_drop, offset, total):
+    def forward(ctx, x, seed2, p_drop, offset, total, item):
         ctx.save_for_backward(seed2)
-        ctx.consts = (p_drop, offset, total)
-        return _apply(x, seed2, p_drop, offset, total)
+        ctx.consts = (p_drop, offset, total, item)
+        return _apply(x, seed2, p_drop, offset, total, item)
 
     @staticmethod
     def backward(ctx, g):
         (seed2,) = ctx.saved_tensors
         # the mask follows the row-major index of the logical shape, so a
         # cotangent in another memory order is first laid out row-major
-        return _apply(g.contiguous(), seed2, *ctx.consts), None, None, None, None
+        return _apply(g.contiguous(), seed2, *ctx.consts), None, None, None, None, None
 
 
 def dropout(x: torch.Tensor, seed2: torch.Tensor, p_drop: float, offset: int = 0,
-            total: int | None = None) -> torch.Tensor:
+            total: int | None = None, item: int | None = None) -> torch.Tensor:
     """Inverted dropout of ``x`` with the hash mask of the (2,) int32
-    ``seed2``; differentiable, storing no mask. ``x`` is elements [offset,
-    offset + numel) of a row-major tensor of ``total`` elements (by default
-    ``x`` itself; ``total`` % 1024 == 0): a data-parallel rank's slab gets
-    the global tensor's mask rows.
+    ``seed2``; differentiable, storing no mask. ``x`` is the elements at
+    :func:`global_index` (``offset``, ``item``) of a row-major tensor of
+    ``total`` elements (by default ``x`` itself; ``total`` % 1024 == 0): a
+    data-parallel rank's slab, or a spatial rank's block of rows, gets the
+    global tensor's mask.
 
     CPU tensors take :func:`dropout_plain`; CUDA tensors launch the kernel
-    (f32 or bf16, row-major contiguous, numel and offset multiples of 8) or
-    raise.
+    (f32 or bf16, row-major contiguous, numel, offset and the per-item
+    sizes multiples of 8) or raise.
     """
     return _Dropout.apply(x, seed2, float(p_drop), int(offset),
-                          x.numel() if total is None else int(total))
+                          x.numel() if total is None else int(total),
+                          None if item is None else int(item))
 
 
 dropout.launches = 0

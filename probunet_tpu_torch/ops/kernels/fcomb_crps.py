@@ -275,13 +275,17 @@ def _launch_bwd(args, kernel: str, need_dy: bool):
 
 def fused_fcomb_crps_loss(feature_map, zs, params, target,
                           loss_type: str = "afcrps", alpha: float = 0.95,
-                          compute_dtype: str = "bfloat16") -> torch.Tensor:
+                          compute_dtype: str = "bfloat16", rows=None) -> torch.Tensor:
     """afCRPS/CRPS of the M-member fcomb decode, fused end to end.
 
     feature_map (B, H, W, C) U-Net features; zs (M, B, D) latent draws;
     params: the port Fcomb's ``layer{0,1,2}_{weight,bias}`` with (cin, cout)
     weights; target (B, H, W, K). Same value as
     ``afcrps_loss(fcomb.ensemble(feats, zs), target)`` (or ``crps_loss``).
+    ``rows`` (``parallel.spatial.Rows``): the inputs are this rank's block
+    of rows; kernel A's per-item terms of the block are summed over the
+    ranks (differentiably: A′ gets the global terms' gradient) and divided
+    by the global pixel count, the JAX package's ``psum`` over "spatial".
     """
     b, h, w, c = feature_map.shape
     p = h * w
@@ -300,6 +304,9 @@ def fused_fcomb_crps_loss(feature_map, zs, params, target,
     t1, t2 = fcomb_crps_terms(
         feat_t.contiguous(), z_t, params["layer1_weight"], params["layer1_bias"],
         params["layer2_weight"], params["layer2_bias"], target_t, compute_dtype)
+    if rows is not None:
+        t1, t2 = rows.sum(torch.stack([t1, t2]))
+        p = rows.whole(h) * w
     if loss_type == "afcrps":
         return afcrps_from_terms(t1, t2, m, p * k, alpha)
     return crps_from_terms(t1, t2, m, p * k)

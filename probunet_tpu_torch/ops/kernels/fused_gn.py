@@ -25,7 +25,21 @@ seed words, as the JAX ``_vjp_fwd`` saves them. A data-parallel rank's
 slab of the global batch, its first row at b0, gets the global rows'
 masks from the seed words :func:`slab_seed` makes: the hash adds salt *
 40503 to the second seed word, so b0 * 40503 added there is b0 added to
-every salt (offset 0: the seed words themselves).
+every salt (offset 0: the seed words themselves). Likewise a spatial
+rank's block of rows, its first row at h0 of a chain of width W and C
+channels, sits at position pos + h0*W*C of each element: h0*W*C added to
+the second seed word is that shift of every position.
+
+Under a spatial mesh the chain's statistics cover rows held on other
+ranks, so C and C′ run split (:func:`gn_split_fwd`, :func:`gn_split_bwd`,
+the ``rows`` argument of :func:`gn_film_silu_dropout`): C's statistics
+pass writes the block's per-tile partial s1, s2 ((2, B, T, C) f32), the
+caller's ``reduce`` sums them over the ranks in place, and the finalize
+and apply passes run on the sums with the global element count n. C′
+writes the block's partial Sdz, Sdzx, from which its dgamma, dbeta,
+dscale and dshift come (per-rank terms that the parameter all-reduce adds
+up); after ``reduce``, c1, c2, c3 come from the sums and the dx pass runs.
+The plain versions take the same steps with one tile (T = 1).
 
 Kernels C and C′ each follow a plan made here per shape, before the
 launch (:func:`fwd_plan`, :func:`bwd_plan`): one thread-block cluster
@@ -224,14 +238,16 @@ def gn_keep(shape, seed2: torch.Tensor, p_drop: float) -> torch.Tensor:
     return (hash_uniform(pos, seed2, salt) >= np.float32(p_drop)).reshape(shape)
 
 
-def slab_seed(seed2: torch.Tensor, batch_offset: int) -> torch.Tensor:
-    """C's and C′'s (2,) int32 seed words for a slab whose first row is
-    ``batch_offset`` in the global batch: ``gn_keep`` of the slab under
-    them is the global rows' ``gn_keep`` under ``seed2``."""
-    if batch_offset == 0:
+def slab_seed(seed2: torch.Tensor, batch_offset: int, row_offset: int = 0) -> torch.Tensor:
+    """C's and C′'s (2,) int32 seed words for a block whose first batch row
+    is ``batch_offset`` in the global batch and whose first element inside
+    an item is ``row_offset`` (h0 * W * C for a block of image rows from
+    row h0): ``gn_keep`` of the block under them is the global elements'
+    ``gn_keep`` under ``seed2``. Both offsets 0: ``seed2`` itself."""
+    if batch_offset == 0 and row_offset == 0:
         return seed2
     words = seed2.to(torch.int64) & _MASK32
-    words[1] = (words[1] + batch_offset * 40503) & _MASK32
+    words[1] = (words[1] + (batch_offset * 40503 + row_offset) % 2**32) & _MASK32
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
@@ -279,13 +295,9 @@ def gn_film_silu_dropout_plain(x, gamma, beta, scale, shift, seed2, groups: int,
     return out.to(x.dtype), mean, rstd
 
 
-def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
-                       p_drop: float, silu: bool):
-    """The plain PyTorch backward (the TPU kernel's formula): (dx in x's
-    dtype, dgamma (C,), dbeta (C,), dscale (B, C), dshift (B, C))."""
-    b, h, w, c = x.shape
-    n = float(h * w * (c // groups))
-    mean_c, rstd_c, p, q, sc1, a, bb = _coefs(mean, rstd, gamma, beta, scale, shift)
+def _bwd_dz(x, g, coefs, seed2, p_drop: float, silu: bool):
+    """(x in f32, dz = g * silu'(z), masked and scaled like the forward)."""
+    a, bb = coefs[-2:]
     xf = x.float()
     dz = g.float()
     if silu:
@@ -296,12 +308,22 @@ def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean,
         keep = gn_keep(x.shape, seed2, p_drop)
         scaled = dz * torch.tensor(_drop_scale(p_drop), device=x.device)
         dz = torch.where(keep, scaled, torch.zeros((), device=x.device))
-    s_dz = dz.sum(dim=(1, 2))                                  # (B, C)
-    s_dzx = (dz * xf).sum(dim=(1, 2))
-    dshift = s_dz
-    dscale = s_dzx * p + s_dz * q
-    du_s = s_dz * sc1
-    dux_hat = (s_dzx - mean_c * s_dz) * rstd_c * sc1
+    return xf, dz
+
+
+def _bwd_terms(s_dz, s_dzx, coefs):
+    """(dshift, dscale, the dbeta terms du_s, the dgamma terms dux_hat), all
+    (B, C), from the sums Sdz, Sdzx."""
+    mean_c, rstd_c, p, q, sc1 = coefs[:5]
+    return (s_dz, s_dzx * p + s_dz * q, s_dz * sc1,
+            (s_dzx - mean_c * s_dz) * rstd_c * sc1)
+
+
+def _bwd_dx(xf, dz, du_s, dux_hat, coefs, gamma, groups: int, n: float):
+    """dx = dz*c1 + x*c2 + c3 (f32), c2 and c3 from the group means (over
+    n elements) of the terms times gamma."""
+    mean_c, rstd_c, _, _, sc1 = coefs[:5]
+    b, c = du_s.shape
 
     def group_mean(v):
         return _per_channel(v.reshape(b, groups, c // groups).sum(dim=2) / n, c)
@@ -311,8 +333,91 @@ def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean,
     c1 = rstd_c * gamma * sc1
     c2 = -(rstd_c * rstd_c) * m2
     c3 = rstd_c * (mean_c * rstd_c * m2 - m1)
-    dx = dz * _bcast(c1) + xf * _bcast(c2) + _bcast(c3)
+    return dz * _bcast(c1) + xf * _bcast(c2) + _bcast(c3)
+
+
+def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
+                       p_drop: float, silu: bool):
+    """The plain PyTorch backward (the TPU kernel's formula): (dx in x's
+    dtype, dgamma (C,), dbeta (C,), dscale (B, C), dshift (B, C))."""
+    b, h, w, c = x.shape
+    n = float(h * w * (c // groups))
+    coefs = _coefs(mean, rstd, gamma, beta, scale, shift)
+    xf, dz = _bwd_dz(x, g, coefs, seed2, p_drop, silu)
+    s_dz = dz.sum(dim=(1, 2))                                  # (B, C)
+    s_dzx = (dz * xf).sum(dim=(1, 2))
+    dshift, dscale, du_s, dux_hat = _bwd_terms(s_dz, s_dzx, coefs)
+    dx = _bwd_dx(xf, dz, du_s, dux_hat, coefs, gamma, groups, n)
     return dx.to(x.dtype), dux_hat.sum(dim=0), du_s.sum(dim=0), dscale, dshift
+
+
+# ---------------------------------------------------------------------------
+# The split route: a block of rows, its statistics summed by the caller
+# ---------------------------------------------------------------------------
+
+def gn_split_fwd_plain(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
+                       p_drop: float, silu: bool, n: float, reduce):
+    """Split C's plain version: the block's per-channel partial s1, s2 as a
+    (2, B, 1, C) f32 tensor, ``reduce`` (summing it over the ranks in
+    place), then mean and rstd over ``n`` elements a group and y: (y, mean
+    (B, G), rstd (B, G))."""
+    b, h, w, c = x.shape
+    xc = x.reshape(b, h * w, c)
+    partial = torch.stack([xc.sum(dim=1, dtype=torch.float32),
+                           (xc * xc).sum(dim=1, dtype=torch.float32)])[:, :, None, :]
+    reduce(partial)
+    s1, s2 = partial.sum(dim=2).reshape(2, b, groups, c // groups).sum(dim=3)
+    mean = s1 / n
+    rstd = torch.rsqrt(s2 / n - mean * mean + eps)
+    *_, a, bb = _coefs(mean, rstd, gamma, beta, scale, shift)
+    z = x.float() * _bcast(a) + _bcast(bb)
+    out = z * torch.sigmoid(z) if silu else z
+    if p_drop > 0.0:
+        keep = gn_keep(x.shape, seed2, p_drop)
+        scaled = out * torch.tensor(_drop_scale(p_drop), device=x.device)
+        out = torch.where(keep, scaled, torch.zeros((), device=x.device))
+    return out.to(x.dtype), mean, rstd
+
+
+def gn_split_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
+                       p_drop: float, silu: bool, n: float, reduce):
+    """Split C′'s plain version: the block's partial Sdz, Sdzx ((2, B, 1, C)
+    f32) give its dgamma, dbeta, dscale and dshift; ``reduce`` sums the
+    partials over the ranks in place, and dx comes from the sums over ``n``
+    elements a group: (dx, dgamma, dbeta, dscale, dshift)."""
+    coefs = _coefs(mean, rstd, gamma, beta, scale, shift)
+    xf, dz = _bwd_dz(x, g, coefs, seed2, p_drop, silu)
+    partial = torch.stack([dz.sum(dim=(1, 2)), (dz * xf).sum(dim=(1, 2))])[:, :, None, :]
+    dshift, dscale, du_s, dux_hat = _bwd_terms(partial[0, :, 0], partial[1, :, 0], coefs)
+    dshift, dgamma, dbeta = dshift.clone(), dux_hat.sum(dim=0), du_s.sum(dim=0)
+    reduce(partial)
+    _, _, du_s, dux_hat = _bwd_terms(*partial.sum(dim=2), coefs)
+    dx = _bwd_dx(xf, dz, du_s, dux_hat, coefs, gamma, groups, n)
+    return dx.to(x.dtype), dgamma, dbeta, dscale, dshift
+
+
+def gn_split_fwd(x, gamma, beta, scale, shift, seed2, groups: int, eps: float, p_drop: float,
+                 silu: bool, n: float, reduce):
+    """Split C on a block of rows: (y, mean, rstd) without autograd, the
+    statistics over ``n`` elements a group after ``reduce`` (in place, on
+    the (2, B, T, C) f32 partial sums). The plain version for CPU tensors,
+    kernel C's split entries for CUDA tensors."""
+    args = (x, gamma, beta, scale, shift, seed2)
+    if all(t.device.type == "cpu" for t in args):
+        return gn_split_fwd_plain(*args, groups, eps, p_drop, silu, n, reduce)
+    return _launch_split_fwd(*args, groups, eps, p_drop, silu, n, reduce)
+
+
+def gn_split_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
+                 p_drop: float, silu: bool, n: float, reduce):
+    """Split C′ on a block of rows: (dx, dgamma, dbeta, dscale, dshift), the
+    parameter terms the block's, dx from the partials after ``reduce``. The
+    plain version for CPU tensors, kernel C′'s split entries for CUDA
+    tensors."""
+    args = (x, g, gamma, beta, scale, shift, seed2, mean, rstd)
+    if all(t.device.type == "cpu" for t in args):
+        return gn_split_bwd_plain(*args, groups, p_drop, silu, n, reduce)
+    return _launch_split_bwd(*args, groups, p_drop, silu, n, reduce)
 
 
 def gn_film_silu_dropout_fwd(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
@@ -336,27 +441,45 @@ def gn_film_silu_dropout_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd,
 
 
 gn_film_silu_dropout_bwd.launches = 0
+gn_split_fwd.launches = 0
+gn_split_bwd.launches = 0
 
 
 class _Chain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu):
-        y, mean, rstd = gn_film_silu_dropout_fwd(x, gamma, beta, scale, shift, seed2, groups,
-                                                 eps, p_drop, silu)
+    def forward(ctx, x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, rows):
+        args = (x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu)
+        if rows is None:
+            y, mean, rstd = gn_film_silu_dropout_fwd(*args)
+        else:
+            y, mean, rstd = gn_split_fwd(*args, *_split(x, groups, rows))
         ctx.save_for_backward(x, gamma, beta, scale, shift, seed2, mean, rstd)
         ctx.consts = (groups, p_drop, silu)
+        ctx.rows = rows
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, *rest = ctx.saved_tensors
-        grads = gn_film_silu_dropout_bwd(x, g.contiguous(), *rest, *ctx.consts)
-        return (*grads, None, None, None, None, None)
+        args = (x, g.contiguous(), *rest, *ctx.consts)
+        if ctx.rows is None:
+            grads = gn_film_silu_dropout_bwd(*args)
+        else:
+            grads = gn_split_bwd(*args, *_split(x, ctx.consts[0], ctx.rows))
+        return (*grads, None, None, None, None, None, None)
+
+
+def _split(x: torch.Tensor, groups: int, rows) -> tuple[float, object]:
+    """(the global element count of a group, the in-place sum over the
+    ranks) of a block of rows of a chain."""
+    _, h, w, c = x.shape
+    return float(rows.whole(h) * w * (c // groups)), rows.sum_
 
 
 def gn_film_silu_dropout(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          scale: torch.Tensor, shift: torch.Tensor, seed2: torch.Tensor,
-                         groups: int, eps: float, p_drop: float, silu: bool) -> torch.Tensor:
+                         groups: int, eps: float, p_drop: float, silu: bool,
+                         rows=None) -> torch.Tensor:
     """dropout(silu((gn(x)*gamma + beta)*(scale+1) + shift)), y in x's dtype;
     differentiable in x, gamma, beta, scale and shift (analytic backward).
 
@@ -364,10 +487,14 @@ def gn_film_silu_dropout(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     plain GN + SiLU); seed2 (2,) int32 dropout seed words (read only when
     p_drop > 0). CPU tensors take the plain versions; CUDA tensors launch
     kernels C and C′ (f32 or bf16 x, contiguous, a ``supported`` shape) or
-    raise.
+    raise. ``rows`` (``parallel.spatial.Rows``): x is this rank's block of
+    rows, and C and C′ run split around the sum of their statistics over
+    the ranks (the seed words are the caller's, shifted to the block by
+    :func:`slab_seed`); the dgamma, dbeta, dscale and dshift they return
+    are the block's, to be summed with the other parameter gradients.
     """
     return _Chain.apply(x, gamma, beta, scale, shift, seed2, int(groups), float(eps),
-                        float(p_drop), bool(silu))
+                        float(p_drop), bool(silu), rows)
 
 
 gn_film_silu_dropout.launches = 0
@@ -469,4 +596,81 @@ def _launch_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_dr
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_gn_bwd")
     gn_film_silu_dropout_bwd.launches += 1
+    return dx, dgamma, dbeta, dscale, dshift
+
+
+def _param_ptrs(*params) -> tuple[int, ...]:
+    return tuple(t.data_ptr() for t in params)
+
+
+def _launch_split_fwd(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, n,
+                      reduce):
+    """Split C: ``fused_gn_fwd_stats``, ``reduce`` on the partials, then
+    ``fused_gn_fwd_apply`` with the global count ``n``; the block's shape
+    must be ``supported``."""
+    _check(x, dict(gamma=gamma, beta=beta, scale=scale, shift=shift, seed2=seed2), groups,
+           "gn_film_silu_dropout (split)")
+    b, h, w, c = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        partial = torch.empty((2, b, lib.fused_gn_tiles(h * w, c), c), dtype=torch.float32,
+                              device=x.device)
+        err = lib.fused_gn_fwd_stats(x.data_ptr(), partial.data_ptr(), b, h * w, c, bf16, stream)
+    _build.check(err, "fused_gn_fwd_stats")
+    reduce(partial)
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
+        coef = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
+        err = lib.fused_gn_fwd_apply(
+            x.data_ptr(), partial.data_ptr(), *_param_ptrs(gamma, beta, scale, shift, seed2),
+            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), coef.data_ptr(), b, h * w, c,
+            groups, float(np.float32(n)), float(np.float32(eps)), float(np.float32(p_drop)),
+            float(_drop_scale(p_drop)), int(silu), bf16,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_gn_fwd_apply")
+    gn_film_silu_dropout.launches += 1
+    gn_split_fwd.launches += 1
+    return y, mean, rstd
+
+
+def _launch_split_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_drop,
+                      silu, n, reduce):
+    """Split C′: ``fused_gn_bwd_stats`` (the block's partials and parameter
+    terms), ``reduce`` on the partials, then ``fused_gn_bwd_dx`` with the
+    global count ``n``."""
+    _check(x, dict(g=g, gamma=gamma, beta=beta, scale=scale, shift=shift, seed2=seed2,
+                   mean=mean, rstd=rstd), groups, "gn_film_silu_dropout backward (split)")
+    b, h, w, c = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    lib = _build.library()
+    ptrs = _param_ptrs(gamma, beta, scale, shift, seed2)
+    consts = (float(np.float32(p_drop)), float(_drop_scale(p_drop)), int(silu), bf16)
+    with torch.cuda.device(x.device):
+        partial = torch.empty((2, b, lib.fused_gn_tiles(h * w, c), c), dtype=torch.float32,
+                              device=x.device)
+        coef = torch.empty(9 * b * c, dtype=torch.float32, device=x.device)
+        dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+        dbeta = torch.empty_like(dgamma)
+        dscale = torch.empty((b, c), dtype=torch.float32, device=x.device)
+        dshift = torch.empty_like(dscale)
+        err = lib.fused_gn_bwd_stats(
+            x.data_ptr(), g.data_ptr(), *ptrs, mean.data_ptr(), rstd.data_ptr(),
+            partial.data_ptr(), coef.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            dscale.data_ptr(), dshift.data_ptr(), b, h * w, c, groups, *consts,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_gn_bwd_stats")
+    reduce(partial)
+    with torch.cuda.device(x.device):
+        dx = torch.empty_like(x)
+        err = lib.fused_gn_bwd_dx(
+            x.data_ptr(), g.data_ptr(), *ptrs, mean.data_ptr(), rstd.data_ptr(),
+            partial.data_ptr(), coef.data_ptr(), dx.data_ptr(), b, h * w, c, groups,
+            float(np.float32(n)), *consts, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_gn_bwd_dx")
+    gn_film_silu_dropout_bwd.launches += 1
+    gn_split_bwd.launches += 1
     return dx, dgamma, dbeta, dscale, dshift

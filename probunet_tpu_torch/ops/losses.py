@@ -87,29 +87,38 @@ def crps_from_terms(t1, t2, m: int, p: int) -> torch.Tensor:
     return ((first - 0.5 * second) / p).mean()
 
 
+def _terms_over_rows(ensemble: torch.Tensor, target: torch.Tensor, rows):
+    """(t1, t2, pixel count): the terms of the block's pixels, and with
+    ``rows`` (this rank's block of rows, ``parallel.spatial.Rows``) summed
+    over the ranks (differentiably; the JAX package's ``psum`` over
+    "spatial", ``ops/pallas/partition.py``) with the global pixel count."""
+    p = math.prod(ensemble.shape[2:])
+    ens = _flatten_spatial(ensemble, 2)
+    tgt = _flatten_spatial(target, 1)[:, None, :]
+    t1, t2 = _crps_terms(ens, tgt)
+    if rows is not None:
+        t1, t2 = rows.sum(torch.stack([t1, t2]))
+        p *= rows.parts
+    return t1, t2, p
+
+
 def afcrps_loss(ensemble: torch.Tensor, target: torch.Tensor,
-                alpha: float = 0.95) -> torch.Tensor:
+                alpha: float = 0.95, rows=None) -> torch.Tensor:
     """Almost-fair CRPS, mean over batch and pixels:
     1/[2M(M-1)] sum_{j != k} (|x_j - y| + |x_k - y| - (1-eps)|x_j - x_k|)
-    with eps = (1 - alpha)/M."""
+    with eps = (1 - alpha)/M. ``rows``: the inputs are a block of rows."""
     m = ensemble.shape[1]
     if m < 2:
         raise ValueError(f"M must be >= 2 for afCRPS, got M={m}")
-    p = math.prod(ensemble.shape[2:])
-    ens = _flatten_spatial(ensemble, 2)
-    tgt = _flatten_spatial(target, 1)[:, None, :]
-    t1, t2 = _crps_terms(ens, tgt)
+    t1, t2, p = _terms_over_rows(ensemble, target, rows)
     return afcrps_from_terms(t1, t2, m, p, alpha)
 
 
-def crps_loss(ensemble: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def crps_loss(ensemble: torch.Tensor, target: torch.Tensor, rows=None) -> torch.Tensor:
     """Ensemble CRPS: E|x - y| - 0.5 E|x - x'| over ordered pairs, averaged
-    over batch and pixels."""
+    over batch and pixels. ``rows``: the inputs are a block of rows."""
     m = ensemble.shape[1]
-    p = math.prod(ensemble.shape[2:])
-    ens = _flatten_spatial(ensemble, 2)
-    tgt = _flatten_spatial(target, 1)[:, None, :]
-    t1, t2 = _crps_terms(ens, tgt)
+    t1, t2, p = _terms_over_rows(ensemble, target, rows)
     return crps_from_terms(t1, t2, m, p)
 
 

@@ -7,17 +7,19 @@ CPU).
 - :mod:`multihost` — ``init_process_group`` from the environment, each
   rank's rows and device, values checked alike on every rank;
 - :mod:`data_parallel` — JAX's names for ``train.loop``'s ELBO train
-  and eval steps with ``mesh=``: each rank's slab with the global draws
-  and masks, one gradient all-reduce;
+  and eval steps with ``mesh=``: each rank's slab (and, with n_spatial >
+  1, its block of rows) with the global draws and masks, one gradient
+  all-reduce;
 - :mod:`member_parallel` — the prior ensemble split over ("data",
-  "member"), gathered in member order;
-- :mod:`spatial` — the halo exchange and the full-domain tiling, its tile
-  chunks split over "data";
+  "spatial", "member"), gathered in data, member and row order;
+- :mod:`spatial` — a rank's block of rows (``Rows``), the differentiable
+  halo exchange and sum over "spatial", and the full-domain tiling, its
+  tile chunks split over "data";
 - :mod:`tensor_parallel` — a channel-sharded convolution pair with one
   all-reduce over "model".
 
-A mesh with n_spatial > 1 (the spatially sharded U-Net step) is not
-ported: ``make_mesh(n_spatial > 1)`` raises, naming its ROADMAP.md item.
+Under n_spatial > 1 the MS-SSIM and L1 ELBOs, the ``lr_*`` pipelines and
+bilinear interpolation raise, naming their ROADMAP.md item.
 """
 
 from probunet_tpu_torch.parallel.data_parallel import (
@@ -33,6 +35,7 @@ from probunet_tpu_torch.parallel.mesh import (
     batch_sharding,
     make_mesh,
     replicated,
+    row_sharding,
     shard_batch,
 )
 from probunet_tpu_torch.parallel.multihost import (
@@ -42,10 +45,12 @@ from probunet_tpu_torch.parallel.multihost import (
     replicate_global,
 )
 from probunet_tpu_torch.parallel.spatial import (
+    Rows,
     extract_tiles,
     halo_conv2d,
     halo_exchange,
     stitch_tiles,
+    sum_over,
     tiled_ensemble,
 )
 from probunet_tpu_torch.parallel.tensor_parallel import (
@@ -61,13 +66,16 @@ __all__ = [
     "make_mesh",
     "batch_sharding",
     "replicated",
+    "row_sharding",
     "shard_batch",
     "make_parallel_train_step",
     "make_parallel_eval_step",
     "make_member_mesh",
     "make_parallel_sample_step",
+    "Rows",
     "halo_exchange",
     "halo_conv2d",
+    "sum_over",
     "extract_tiles",
     "stitch_tiles",
     "tiled_ensemble",

@@ -27,9 +27,15 @@ batch (JAX ``tests/test_parallel.py:83``):
   metrics) are means over the global batch: the ranks' means averaged by
   one more all-reduce.
 
-There is no counterpart of ``ops/pallas/partition.py``: each rank launches
-kernels A/A′ (or B/B′) on its own rows. The spatially sharded step (a mesh
-with n_spatial > 1) is not ported (``mesh.SPATIAL_NOT_PORTED``).
+A mesh with n_spatial > 1 shards each image's rows as well (JAX's
+P("data", "spatial", None, None)): the rank's input is its block of rows
+of its slab, and the step threads a ``parallel.spatial.Rows`` record
+through the model, which halo-exchanges every convolution, all-reduces
+every statistic that crosses rows (GroupNorm's sums around the split
+kernels C/C′, the encoders' pool, the CRPS terms of kernels A/A′ or
+B/B′: the counterpart of ``ops/pallas/partition.py``'s ``psum``) and
+keeps the masks of the global rows. The gradients are then averaged over
+("data", "spatial") (the convention in ``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -38,8 +44,18 @@ from typing import Callable
 
 from probunet_tpu_torch.config import Config
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
-from probunet_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, Mesh
+from probunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, Mesh
 from probunet_tpu_torch.train.loop import make_eval_step, make_train_step
+
+
+def _sharded(mesh: Mesh, spatial: bool | None) -> Mesh:
+    """``mesh``, after checking ``spatial`` against it: the rows are split
+    exactly where the mesh's "spatial" axis is larger than 1 (JAX's default,
+    ``data_parallel.py:57-58``); replicas over that axis raise."""
+    if spatial is False and mesh.size(SPATIAL_AXIS) > 1:
+        raise ValueError("spatial=False on a mesh with n_spatial > 1 would replicate the step "
+                         "over that axis; build the mesh with n_spatial=1")
+    return mesh
 
 
 def make_parallel_train_step(model: ProbabilisticUNet, cfg: Config, mesh: Mesh,
@@ -51,11 +67,10 @@ def make_parallel_train_step(model: ProbabilisticUNet, cfg: Config, mesh: Mesh,
             -> (state, {"loss", "recon", "kl_mean", "grad_norm", ...})
 
     ``hr_slab`` is this rank's rows of the global batch (its
-    ``process_local_indices``), on the state's device; ``eps`` is the
-    global batch's noise."""
-    if spatial:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
-    return make_train_step(model, cfg, fused=fused, mesh=mesh)
+    ``process_local_indices``), on the state's device, and with n_spatial >
+    1 its block of rows (``shard_batch``); ``eps`` is the global batch's
+    noise."""
+    return make_train_step(model, cfg, fused=fused, mesh=_sharded(mesh, spatial))
 
 
 def make_parallel_eval_step(model: ProbabilisticUNet, cfg: Config, mesh: Mesh,
@@ -64,6 +79,4 @@ def make_parallel_eval_step(model: ProbabilisticUNet, cfg: Config, mesh: Mesh,
     """The data-parallel no-grad ELBO, ``make_eval_step(..., mesh=mesh)``:
     step(hr_slab, stats, generator) -> the global batch's {"recon",
     "kl_mean", "loss"} on every rank."""
-    if spatial:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
-    return make_eval_step(model, cfg, fused=fused, quant=quant, mesh=mesh)
+    return make_eval_step(model, cfg, fused=fused, quant=quant, mesh=_sharded(mesh, spatial))

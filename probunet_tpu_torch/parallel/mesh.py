@@ -8,7 +8,10 @@ is a small record of that: the world size, the sizes of the named axes
 (``data``, ``spatial``, ``member``, ``model``), this rank's coordinate on
 each, one process group per axis and the rank's device. Ranks are laid
 out row-major over the axes in that order (the last axis varies fastest),
-as ``np.reshape`` lays devices out in the JAX meshes.
+as ``np.reshape`` lays devices out in the JAX meshes. A mesh with both a
+"data" and a "spatial" axis also has their joint group (the ranks that
+share the other coordinates), over which the training step averages its
+gradients.
 
 Outside ``torch.distributed`` (no process group) a mesh is a world of
 one, and every collective is the identity. An axis of size 1 has no
@@ -39,11 +42,6 @@ MEMBER_AXIS = "member"
 MODEL_AXIS = "model"
 AXES = (DATA_AXIS, SPATIAL_AXIS, MEMBER_AXIS, MODEL_AXIS)
 
-SPATIAL_NOT_PORTED = (
-    "a mesh with n_spatial > 1 is not ported: the spatially sharded U-Net step needs "
-    "every convolution halo-exchanged and the GroupNorm kernels C/C′ split into partial "
-    "statistics plus an all-reduce (ROADMAP.md §1 item 9)")
-
 
 @dataclass(frozen=True)
 class Mesh:
@@ -56,14 +54,23 @@ class Mesh:
     rank: int = 0
     world_size: int = 1
 
-    def size(self, axis: str) -> int:
+    def size(self, axis: str | tuple[str, ...]) -> int:
+        """The axis's size; of a tuple of axes, their product."""
+        if isinstance(axis, tuple):
+            return math.prod(self.size(a) for a in axis)
         return self.shape.get(axis, 1)
 
     def coord(self, axis: str) -> int:
         return self.coords.get(axis, 0)
 
-    def group(self, axis: str):
-        """The axis's process group; None where the axis has size 1."""
+    def group(self, axis: str | tuple[str, ...]):
+        """The axis's process group; None where the axis has size 1. A
+        tuple of axes names the group of the ranks that share every other
+        coordinate (``mesh_of`` makes the ("data", "spatial") one)."""
+        if isinstance(axis, tuple):
+            axis = tuple(a for a in axis if self.size(a) > 1)
+            if len(axis) <= 1:
+                return self.groups.get(axis[0]) if axis else None
         return self.groups.get(axis)
 
     @property
@@ -101,33 +108,41 @@ def mesh_of(sizes: dict[str, int], device: str | torch.device | None = None) -> 
         raise ValueError(f"mesh {shape} needs {want} ranks, the world has {n}")
     grid = np.arange(n).reshape([shape[a] for a in shape])
     coords = dict(zip(shape, (int(i) for i in np.unravel_index(rank, grid.shape))))
-    groups: dict[str, object] = {}
-    for i, axis in enumerate(shape):
-        if shape[axis] == 1 or _backend() is None:
-            groups[axis] = None
-        elif shape[axis] == n:
-            groups[axis] = dist.group.WORLD
+    groups: dict = {}
+    pair = (DATA_AXIS, SPATIAL_AXIS)
+    joint = [pair] if all(shape.get(a, 1) > 1 for a in pair) else []
+    for axes in [(a,) for a in shape] + joint:
+        size = math.prod(shape[a] for a in axes)
+        key = axes[0] if len(axes) == 1 else axes
+        if size == 1 or _backend() is None:
+            groups[key] = None
+        elif size == n:
+            groups[key] = dist.group.WORLD
         else:
-            # one group per line of ranks along the axis; every rank makes
+            # one group per line of ranks along the axes; every rank makes
             # every group, in the same order
-            lines = np.moveaxis(grid, i, -1).reshape(-1, shape[axis])
+            idx = [list(shape).index(a) for a in axes]
+            lines = np.moveaxis(grid, idx, list(range(-len(idx), 0))).reshape(-1, size)
             for line in lines:
                 g = dist.new_group([int(r) for r in line])
                 if rank in line:
-                    groups[axis] = g
+                    groups[key] = g
     return Mesh(shape=shape, coords=coords, groups=groups,
                 device=resolve_device(device), rank=rank, world_size=n)
 
 
 def make_mesh(n_data: int | None = None, n_spatial: int = 1,
               device: str | torch.device | None = None) -> Mesh:
-    """A ("data", "spatial") mesh over the world's ranks; ``n_data=None``
-    takes the world size. ``n_spatial > 1`` raises: the spatially sharded
-    step is not ported."""
-    if n_spatial > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    """A ("data", "spatial") mesh over the world's ranks (the spatial axis
+    varies fastest: the ranks of one data slab are neighbours);
+    ``n_data=None`` takes the world size over ``n_spatial``. A mesh the
+    world does not hold raises ``ValueError``."""
     _, n = world()
-    return mesh_of({DATA_AXIS: n if n_data is None else n_data, SPATIAL_AXIS: 1}, device)
+    if n_data is None:
+        if n % n_spatial:
+            raise ValueError(f"{n} ranks not divisible by n_spatial={n_spatial}")
+        n_data = n // n_spatial
+    return mesh_of({DATA_AXIS: n_data, SPATIAL_AXIS: n_spatial}, device)
 
 
 def batch_sharding(mesh: Mesh, batch_size: int) -> slice:
@@ -143,34 +158,57 @@ def batch_sharding(mesh: Mesh, batch_size: int) -> slice:
     return slice(i * per, (i + 1) * per)
 
 
+def row_sharding(mesh: Mesh, height: int) -> slice:
+    """The rows of an image of ``height`` rows this rank holds: a contiguous
+    block over the "spatial" axis, in rank order. Raises when the rows do
+    not divide by the axis."""
+    n = mesh.size(SPATIAL_AXIS)
+    if height % n:
+        raise ValueError(f"{height} rows do not divide over the spatial axis of size {n}")
+    per = height // n
+    i = mesh.coord(SPATIAL_AXIS)
+    return slice(i * per, (i + 1) * per)
+
+
 def replicated(mesh: Mesh) -> torch.device:
     """Where a replicated value lives: whole, on every rank's device."""
     return mesh.device
 
 
-def shard_batch(batch, mesh: Mesh):
-    """This rank's slab (:func:`batch_sharding`) of a global batch: an array
-    or tensor, or a dict, list or tuple of them, on the rank's device;
-    0-d values are kept whole."""
+def shard_batch(batch, mesh: Mesh, spatial: bool | None = None):
+    """This rank's block of a global batch: an array or tensor, or a dict,
+    list or tuple of them, on the rank's device. Every value of one or more
+    dimensions gives its slab of rows (:func:`batch_sharding`); with
+    ``spatial`` (by default where the mesh's "spatial" axis is larger than
+    1) an NHWC value (4-d) also gives its block of image rows
+    (:func:`row_sharding`), as the JAX package's
+    P("data", "spatial", None, None). 0-d values are kept whole."""
+    if spatial is None:
+        spatial = mesh.size(SPATIAL_AXIS) > 1
     if isinstance(batch, dict):
-        return {k: shard_batch(v, mesh) for k, v in batch.items()}
+        return {k: shard_batch(v, mesh, spatial) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)) and not isinstance(batch, torch.Tensor):
-        out = [shard_batch(v, mesh) for v in batch]
+        out = [shard_batch(v, mesh, spatial) for v in batch]
         return type(batch)(*out) if hasattr(batch, "_fields") else type(batch)(out)
     if batch is None:
         return None
     t = torch.as_tensor(batch)
     if t.dim() == 0:
         return t.to(mesh.device)
-    return t[batch_sharding(mesh, t.shape[0])].to(mesh.device)
+    t = t[batch_sharding(mesh, t.shape[0])]
+    if spatial and t.dim() == 4:
+        t = t[:, row_sharding(mesh, t.shape[1])]
+    return t.contiguous().to(mesh.device)
 
 
 # ---------------------------------------------------------------------------
 # Collectives over one axis
 # ---------------------------------------------------------------------------
 
-def all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS) -> torch.Tensor:
-    """Sum ``t`` over the axis's ranks, in place; returns ``t``."""
+def all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str | tuple[str, ...] = DATA_AXIS
+                ) -> torch.Tensor:
+    """Sum ``t`` over the axis's ranks (of a tuple of axes, over their
+    joint group), in place; returns ``t``."""
     g = mesh.group(axis)
     if g is not None:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
@@ -184,11 +222,12 @@ def _memory_order(t: torch.Tensor) -> list[int]:
     return order if t.permute(order).is_contiguous() else list(range(t.dim()))
 
 
-def mean_over(tensors: list[torch.Tensor], mesh: Mesh, axis: str = DATA_AXIS
-              ) -> list[torch.Tensor]:
-    """The tensors averaged over the axis's ranks by one all-reduce of one
-    flat f32 buffer, in list order: the sum over the ranks, then one
-    division by their count. Each tensor is packed in its own memory order
+def mean_over(tensors: list[torch.Tensor], mesh: Mesh,
+              axis: str | tuple[str, ...] = DATA_AXIS) -> list[torch.Tensor]:
+    """The tensors averaged over the axis's ranks (of a tuple of axes, over
+    their joint group: the training step's gradients over ("data",
+    "spatial")) by one all-reduce of one flat f32 buffer, in list order:
+    the sum over the ranks, then one division by their count. Each tensor is packed in its own memory order
     and comes back as a view of the buffer with its strides, so a reduction
     over it (the gradients' norm) adds in the order it would without the
     all-reduce. Without a group (an axis of size 1) the tensors come back

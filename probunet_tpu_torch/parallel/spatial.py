@@ -1,39 +1,186 @@
-"""Spatial-domain parallelism: halo exchange and full-domain tiled
-inference (port of ``probunet_tpu/parallel/spatial.py``).
+"""Spatial-domain parallelism: a rank's block of image rows, halo
+exchange, the sum over the "spatial" axis, and full-domain tiled
+inference (port of ``probunet_tpu/parallel/spatial.py`` and of what GSPMD
+inserts for ``P("data", "spatial", None, None)``).
 
-1. :func:`halo_exchange` / :func:`halo_conv2d`: a rank holding a block of
-   rows of an image pads it with ``halo`` rows from its neighbours along a
-   mesh axis (zero rows at the global edges), and a VALID convolution of
-   the padded block equals the rows of the unsharded SAME convolution.
-   The JAX function sends the rows with ``lax.ppermute``; here one
-   all-gather of every rank's edge rows carries them, because gloo, which
-   the CPU tests and two processes sharing one card use, sends and
-   receives only host tensors. ``mesh.all_gather`` stages a card's tensors
-   through host memory under gloo and gathers them on the card under NCCL.
-2. :func:`extract_tiles` / :func:`stitch_tiles` / :func:`tiled_ensemble`:
+1. :class:`Rows`: a mesh whose "spatial" axis splits each image's rows
+   into contiguous blocks, one block per rank in rank order. The record
+   (the mesh, the axis, this rank's first row and the global height at
+   the input's resolution) is passed explicitly through the model, the
+   way a data slab's (first row, global batch) is; at any resolution a
+   block of h rows starts at row ``index * h`` of ``parts * h``. Nothing
+   is held in a module-level context.
+2. :func:`halo_exchange` / :func:`halo_conv2d`: a rank pads its block
+   with ``halo`` rows of each neighbour (zero rows at the global edges),
+   and a VALID convolution of the padded block over the rows equals the
+   rows of the unsharded SAME convolution. The JAX function sends the rows
+   with ``lax.ppermute``; here one all-gather of every rank's edge rows
+   carries them, because gloo, which the CPU tests and two processes
+   sharing one card use, sends and receives only host tensors
+   (``mesh.all_gather`` stages a card's tensors through host memory under
+   gloo). The exchange is differentiable: a halo row's gradient goes back
+   to the rank that owns the row and is added to that rank's edge row.
+3. :func:`sum_over`: the all-reduce-sum over the axis (the JAX package's
+   ``psum``), differentiable: its backward all-reduces the incoming
+   gradient. Global statistics of a block (GroupNorm's sums, the
+   encoders' average pool, the CRPS terms) are its partial sums summed
+   this way.
+
+   **The gradient convention** of the spatially sharded step: every rank
+   differentiates the replicated loss (its value is the same on every
+   rank of the axis, since each term that crosses rows is all-reduced);
+   the collectives' backwards route each activation's gradient to the
+   rank that holds it; and the parameter gradients are then averaged over
+   ("data", "spatial") by one all-reduce (``mesh.mean_over``). That is
+   the same as each rank differentiating its share of the loss (the
+   replicated loss divided by n_spatial), the gradients summed over
+   "spatial" and averaged over "data": the division by a power of two is
+   exact, so both give the same bits.
+4. :func:`extract_tiles` / :func:`stitch_tiles` / :func:`tiled_ensemble`:
    a domain of any size (the full 280x280 ClimEx grid) cut into the
    model's native window with overlapping, optionally aligned tiles; the
    per-tile ensembles blended back with a cosine ramp, accumulated tile by
    tile in the JAX package's order, so the stitched field equals its. With
    a mesh, each chunk of tiles is split over the "data" axis and gathered
    back before the stitch.
+
+Under n_spatial > 1 the options whose windows or statistics need another
+scheme (the MS-SSIM and L1 ELBOs, the ``lr_*`` pipelines, bilinear
+interpolation) raise :func:`deferred`'s ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from probunet_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, Mesh, all_gather
+from probunet_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SPATIAL_AXIS,
+    Mesh,
+    all_gather,
+    all_reduce_,
+)
+
+ROADMAP_ITEM = "ROADMAP.md §1 item 10"
+
+
+def deferred(what: str) -> NotImplementedError:
+    """The error a deferred option raises under n_spatial > 1."""
+    return NotImplementedError(f"{what} under a mesh with n_spatial > 1 is not ported "
+                               f"({ROADMAP_ITEM})")
 
 
 # ---------------------------------------------------------------------------
-# Halo exchange
+# A rank's block of rows
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Rows:
+    """This rank's block of image rows over ``axis``: rows [h0, h0 + h) of
+    ``height`` at the input's resolution, every rank's block of one size."""
+
+    mesh: Mesh
+    h0: int
+    height: int
+    axis: str = SPATIAL_AXIS
+
+    @property
+    def parts(self) -> int:
+        return self.mesh.size(self.axis)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.coord(self.axis)
+
+    def first(self, h: int) -> int:
+        """The first global row of this rank's block of ``h`` rows (at the
+        resolution where a block has h rows)."""
+        return self.index * h
+
+    def whole(self, h: int) -> int:
+        """The global height where a block has ``h`` rows."""
+        return self.parts * h
+
+    def halo(self, x: torch.Tensor, halo: int, row_axis: int = 1) -> torch.Tensor:
+        """:func:`halo_exchange` of ``x`` over the axis."""
+        return halo_exchange(x, halo, self.mesh, self.axis, row_axis)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """:func:`sum_over` the axis (differentiable)."""
+        return sum_over(t, self.mesh, self.axis)
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the axis in place, outside autograd (a kernel's
+        partial statistics)."""
+        return all_reduce_(t, self.mesh, self.axis)
+
+
+def rows_of(mesh: Mesh, h: int, axis: str = SPATIAL_AXIS) -> Rows | None:
+    """The :class:`Rows` of this rank's block of ``h`` rows over ``axis``;
+    None where the axis has size 1 (the unsharded model)."""
+    n = mesh.size(axis)
+    if n == 1:
+        return None
+    return Rows(mesh, h0=mesh.coord(axis) * h, height=n * h, axis=axis)
+
+
+def check_block(h: int, lowres_scale: int, levels: int) -> None:
+    """A block of ``h`` rows must divide by the pooling factor
+    ``lowres_scale`` (the LR grid is pooled on each rank) and by 2 **
+    (levels - 1) (the U-Net's and the encoders' 2x2 pools stay local);
+    raises ``ValueError`` where it does not."""
+    for f, what in ((lowres_scale, "the pooling factor"),
+                    (2 ** (levels - 1), f"2^{levels - 1} of the {levels} levels' pools")):
+        if h % f:
+            raise ValueError(f"a block of {h} rows does not divide by {f} ({what}): choose "
+                             "n_spatial so each rank's rows do")
+
+
+# ---------------------------------------------------------------------------
+# Halo exchange and the sum over the axis
+# ---------------------------------------------------------------------------
+
+def _neighbours(edges: torch.Tensor, mesh: Mesh, axis_name: str):
+    """(the block above's last rows, the block below's first rows) from
+    every rank's (first, last) ``edges``; None at a global edge."""
+    blocks = all_gather(edges, mesh, axis_name)   # (first rows, last rows) a rank
+    pos, n = mesh.coord(axis_name), mesh.size(axis_name)
+    return (blocks[pos - 1][1] if pos > 0 else None,
+            blocks[pos + 1][0] if pos < n - 1 else None)
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, halo, mesh, axis_name, row_axis):
+        ctx.consts = (halo, mesh, axis_name, row_axis)
+        edges = torch.stack([x.narrow(row_axis, 0, halo),
+                             x.narrow(row_axis, x.shape[row_axis] - halo, halo)])
+        top, bottom = _neighbours(edges, mesh, axis_name)
+        zeros = torch.zeros_like(edges[0])
+        return torch.cat([zeros if top is None else top, x,
+                          zeros if bottom is None else bottom], dim=row_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        halo, mesh, axis_name, row_axis = ctx.consts
+        h = g.shape[row_axis] - 2 * halo
+        # the padded rows' gradients go back to the ranks that own the rows
+        edges = torch.stack([g.narrow(row_axis, 0, halo),
+                             g.narrow(row_axis, h + halo, halo)])
+        above, below = _neighbours(edges, mesh, axis_name)
+        gx = g.narrow(row_axis, halo, h).contiguous()
+        if above is not None:   # the block above's bottom halo is our first rows
+            gx.narrow(row_axis, 0, halo).add_(above)
+        if below is not None:   # the block below's top halo is our last rows
+            gx.narrow(row_axis, h - halo, halo).add_(below)
+        return gx, None, None, None, None
+
 
 def halo_exchange(x: torch.Tensor, halo: int, mesh: Mesh, axis_name: str = SPATIAL_AXIS,
                   row_axis: int = 1) -> torch.Tensor:
@@ -41,17 +188,34 @@ def halo_exchange(x: torch.Tensor, halo: int, mesh: Mesh, axis_name: str = SPATI
     ``axis_name`` in rank order) with ``halo`` rows of each neighbour added
     above and below; the first and last blocks get zero rows at the
     image's edges (the SAME convolution's padding). Returns a block with
-    ``2 * halo`` more rows. Every rank of the axis must call it."""
+    ``2 * halo`` more rows; differentiable (the halo rows' gradients are
+    added to their owners' edge rows). Every rank of the axis must call
+    it, and a block must hold at least ``halo`` rows."""
     if halo == 0:
         return x
-    edges = torch.stack([x.narrow(row_axis, 0, halo),
-                         x.narrow(row_axis, x.shape[row_axis] - halo, halo)])
-    blocks = all_gather(edges, mesh, axis_name)   # (top rows, bottom rows) a rank
-    pos, n = mesh.coord(axis_name), mesh.size(axis_name)
-    zeros = torch.zeros_like(edges[0])
-    top = blocks[pos - 1][1] if pos > 0 else zeros
-    bottom = blocks[pos + 1][0] if pos < n - 1 else zeros
-    return torch.cat([top, x, bottom], dim=row_axis)
+    if x.shape[row_axis] < halo:
+        raise ValueError(f"a block of {x.shape[row_axis]} rows cannot lend a halo of {halo}")
+    return _HaloExchange.apply(x, halo, mesh, axis_name, row_axis)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis_name):
+        ctx.consts = (mesh, axis_name)
+        return all_reduce_(t.detach().clone(), mesh, axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), *ctx.consts), None, None
+
+
+def sum_over(t: torch.Tensor, mesh: Mesh, axis_name: str = SPATIAL_AXIS) -> torch.Tensor:
+    """``t`` summed over the axis's ranks (every rank gets the sum);
+    differentiable: the backward sums the incoming gradients over the
+    axis. Without a group (an axis of size 1) ``t`` itself."""
+    if mesh.group(axis_name) is None:
+        return t
+    return _SumOver.apply(t, mesh, axis_name)
 
 
 def halo_conv2d(x: torch.Tensor, weight: torch.Tensor, mesh: Mesh,

@@ -17,8 +17,9 @@ step. ``train_epoch``, ``eval_model`` and :class:`Trainer` loop them over
 device ahead of the step by ``data.loader.prefetch_to_device``; the
 ``Trainer`` also draws the per-epoch sample figures. ``Trainer(mesh=...)``
 trains data-parallel (``make_train_step(mesh=)``): every rank shuffles
-alike, loads its slab of each global batch and takes the data-parallel
-steps; only rank 0 writes checkpoints, logs and figures.
+alike, loads its slab of each global batch (and, with n_spatial > 1, its
+block of rows) and takes the parallel steps; only rank 0 writes
+checkpoints, logs and figures.
 """
 
 from __future__ import annotations
@@ -62,7 +63,9 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     ``Fcomb.ensemble`` + kernel B). ``eps``/``seeds`` override the draws
     from ``generator`` (the tests hand both packages the same values);
     ``slab`` = (first row, global batch) of a data-parallel rank's batch
-    (``ProbabilisticUNet.elbo``; ``eps`` is then the global batch's).
+    (``ProbabilisticUNet.elbo``; ``eps`` is then the global batch's);
+    ``rows`` (``parallel.spatial.Rows``): the batch is this rank's block
+    of image rows (``preprocess_batch`` and ``elbo`` take it).
 
     ``quant``: a scales tree (``ops.quantize``), attached to the model for
     the call: the convolutions that find their scale run int8 (kernel E; no
@@ -75,10 +78,10 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     def loss_fn(hr_batch: torch.Tensor, stats: Standardization,
                 generator: torch.Generator, beta_0: float, beta_1: float,
                 eps: torch.Tensor | None = None, seeds: torch.Tensor | None = None,
-                slab: tuple[int, int] | None = None):
+                slab: tuple[int, int] | None = None, rows=None):
         batch = preprocess_batch(
             hr_batch, stats, data_cfg.pipeline, data_cfg.lowres_scale,
-            data_cfg.interp_mode, data_cfg.epsilon, data_cfg.standardization)
+            data_cfg.interp_mode, data_cfg.epsilon, data_cfg.standardization, rows)
         recorder = (quantize.record_absmax(model) if collect_stats
                     else contextlib.nullcontext())
         with quantize.attached(model, quant), recorder:
@@ -87,7 +90,7 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
                 beta_0=beta_0, beta_1=beta_1, beta_2=loss_cfg.beta_2, alpha=loss_cfg.alpha,
                 alpha_w=loss_cfg.alpha_w, beta_w=loss_cfg.beta_w, lam_w=loss_cfg.lam_w,
                 generator=generator, eps=eps, fused=fused, training=training, seeds=seeds,
-                slab=slab)
+                slab=slab, rows=rows)
         if collect_stats:
             metrics = {**metrics, "quant_stats": recorder.stats()}
         return total, metrics
@@ -95,23 +98,46 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     return loss_fn
 
 
-def _data_parallel(mesh) -> tuple[Callable, Callable]:
-    """(the slab (first row, global batch) of a local batch of n rows, the
-    mean of a list of tensors over the "data" axis) of a step over
-    ``mesh``; without a mesh, no slab and the list as it is."""
-    if mesh is None:
-        return (lambda n: None), (lambda tensors: tensors)
-    from probunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, SPATIAL_NOT_PORTED, mean_over
-    from probunet_tpu_torch.parallel.multihost import data_slab
+class _Sharding:
+    """How a step over ``mesh`` places its batch (no mesh: one process).
 
-    if mesh.size(SPATIAL_AXIS) > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
-    return (lambda n: data_slab(mesh, n)), (lambda tensors: mean_over(tensors, mesh))
+    ``blocks(hr)``: (the slab (first row, global batch), the
+    ``parallel.spatial.Rows`` of the image rows) of a local batch; ``grads``
+    averages the gradients over ("data", "spatial"), one all-reduce
+    (``mesh.mean_over``; the convention in ``parallel/spatial.py``);
+    ``metrics`` averages a list of metrics over "data" (they are alike
+    over "spatial" already)."""
 
+    def __init__(self, mesh, cfg: Config):
+        self.mesh = mesh
+        self.levels = max(len(cfg.model.channel_mult), len(cfg.model.num_filters))
+        self.scale = cfg.data.lowres_scale
 
-def _mean_values(metrics: dict, mean: Callable, skip: tuple = ()) -> dict:
-    names = [k for k in metrics if k not in skip]
-    return {**metrics, **dict(zip(names, mean([metrics[k] for k in names])))}
+    def blocks(self, hr: torch.Tensor):
+        if self.mesh is None:
+            return None, None
+        from probunet_tpu_torch.parallel.multihost import data_slab
+        from probunet_tpu_torch.parallel.spatial import check_block, rows_of
+
+        rows = rows_of(self.mesh, hr.shape[1])
+        if rows is not None:
+            check_block(hr.shape[1], self.scale, self.levels)
+        return data_slab(self.mesh, hr.shape[0]), rows
+
+    def grads(self, tensors: list) -> list:
+        from probunet_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, mean_over
+
+        return tensors if self.mesh is None else mean_over(tensors, self.mesh,
+                                                           (DATA_AXIS, SPATIAL_AXIS))
+
+    def metrics(self, metrics: dict, skip: tuple = ()) -> dict:
+        if self.mesh is None:
+            return metrics
+        from probunet_tpu_torch.parallel.mesh import mean_over
+
+        names = [k for k in metrics if k not in skip]
+        return {**metrics, **dict(zip(names, mean_over([metrics[k] for k in names],
+                                                       self.mesh)))}
 
 
 def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
@@ -131,31 +157,34 @@ def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
 
     ``mesh`` (``parallel.make_mesh``): the data-parallel step
     (``parallel.data_parallel``). ``hr_batch`` is then this rank's slab of
-    the global batch and ``eps`` the global batch's noise; the draws and
-    dropout masks are the global batch's, the gradients and the metrics
-    are averaged over the "data" axis (one all-reduce each) before AdamW
-    and ``grad_norm``, and every rank gets what the step returns for the
-    global batch."""
+    the global batch (with n_spatial > 1 its block of image rows) and
+    ``eps`` the global batch's noise; the draws and dropout masks are the
+    global batch's, the gradients are averaged over ("data", "spatial")
+    and the metrics over "data" (one all-reduce each) before AdamW and
+    ``grad_norm``, and every rank gets what the step returns for the
+    global batch. A block whose rows do not divide by the pooling factor
+    and the levels' pools raises ``ValueError``."""
     loss_fn = make_elbo_loss_fn(model, cfg, training=True, fused=fused)
-    slab_of, mean = _data_parallel(mesh)
+    sharding = _Sharding(mesh, cfg)
 
     def step(state: TrainState, hr_batch: torch.Tensor, stats: Standardization,
              beta_0: float, beta_1: float, eps: torch.Tensor | None = None,
              seeds: torch.Tensor | None = None):
         gen = step_generator(state.seed, state.step, hr_batch.device)
         loss, metrics = loss_fn(hr_batch, stats, gen, beta_0, beta_1, eps, seeds,
-                                slab_of(hr_batch.shape[0]))
+                                *sharding.blocks(hr_batch))
         params = state.optimizer.params
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # optax decays every parameter: one that autograd does not reach
         # (the prior at beta_1 = 0) gets a zero gradient, not None
-        grads = mean([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
+        grads = sharding.grads([torch.zeros_like(p) if g is None else g
+                                for p, g in zip(params, grads)])
         grad_norm = global_norm(grads)
         state.optimizer.step(grads)
         state.step += 1
         out = {"loss": loss.detach(), "grad_norm": grad_norm}
         out.update({k: v.detach() for k, v in metrics.items() if k != "kl"})
-        return state, _mean_values(out, mean, skip=("grad_norm",))
+        return state, sharding.metrics(out, skip=("grad_norm",))
 
     return step
 
@@ -166,18 +195,19 @@ def make_eval_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
     {"recon", "kl_mean", "loss"} (0-d tensors on the batch's device).
     ``quant``: a calibrated scales tree
     (``ops.quantize.calibrate_elbo``): the step serves int8 convolutions.
-    ``mesh``: ``hr_batch`` is this rank's slab, the noise is drawn at the
-    global batch's shape, and every rank gets the global batch's means."""
+    ``mesh``: ``hr_batch`` is this rank's slab (and block of rows), the
+    noise is drawn at the global batch's shape, and every rank gets the
+    global batch's means."""
     loss_fn = make_elbo_loss_fn(model, cfg, training=False, fused=fused, quant=quant)
-    slab_of, mean = _data_parallel(mesh)
+    sharding = _Sharding(mesh, cfg)
 
     @torch.no_grad()
     def step(hr_batch: torch.Tensor, stats: Standardization,
              generator: torch.Generator) -> dict[str, torch.Tensor]:
-        total, metrics = loss_fn(hr_batch, stats, generator, 1.0, 0.0,
-                                 slab=slab_of(hr_batch.shape[0]))
-        return _mean_values({"recon": metrics["recon"], "kl_mean": metrics["kl_mean"],
-                             "loss": total}, mean)
+        slab, rows = sharding.blocks(hr_batch)
+        total, metrics = loss_fn(hr_batch, stats, generator, 1.0, 0.0, slab=slab, rows=rows)
+        return sharding.metrics({"recon": metrics["recon"], "kl_mean": metrics["kl_mean"],
+                                 "loss": total})
 
     return step
 
@@ -223,13 +253,17 @@ def _device(state: TrainState) -> torch.device:
 
 def _hr_batches(dataset, batches: Batches, device: torch.device, mesh=None):
     """The dataset's raw HR batches of ``batches`` on ``device``, prefetched;
-    with ``mesh``, this rank's slab of each."""
+    with ``mesh``, this rank's slab of each (and its block of image rows
+    on a mesh with n_spatial > 1)."""
+    rows = slice(None)
     if mesh is not None:
+        from probunet_tpu_torch.parallel.mesh import row_sharding
         from probunet_tpu_torch.parallel.multihost import process_local_indices
 
         batches = (process_local_indices(idx, mesh) for idx in batches)
-    return prefetch_to_device((dataset.get_hr_batch(idx) for idx in batches),
-                              device=device)
+        rows = row_sharding(mesh, dataset.hr.shape[1])
+    return prefetch_to_device((np.ascontiguousarray(dataset.get_hr_batch(idx)[:, rows])
+                               for idx in batches), device=device)
 
 
 def train_epoch(step_fn: Callable, state: TrainState, dataset, stats: Standardization,

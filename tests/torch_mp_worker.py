@@ -174,7 +174,146 @@ def cli(workdir, job):
     _save(workdir, job, out)
 
 
-JOBS = {f.__name__: f for f in (dp_step, trainer, member, halo, tiled, tensor_parallel, cli)}
+def spatial_step(workdir, job):
+    """The train (or eval) step on each case's ("data", "spatial") mesh:
+    every case's steps from a fresh state on the rank's block of rows."""
+    from torch_parity import torch_tiny_model
+
+    from probunet_tpu_torch.data.climex import compute_stats
+    from probunet_tpu_torch.parallel import (make_mesh, make_parallel_eval_step,
+                                             make_parallel_train_step, shard_batch)
+    from probunet_tpu_torch.train.state import create_train_state
+
+    inp = _load(workdir, job)
+    out = {}
+    for case in inp["cases"]:
+        hr = torch.from_numpy(case["hr"])
+        cfg = tiny_cfg(hr.shape[0], case["m"], resolution=tuple(hr.shape[1:3]),
+                       **case.get("data", {}))
+        model = torch_tiny_model(case.get("params", inp["params"]), dropout=case["dropout"],
+                                 gn_impl=case["gn_impl"], remat=case.get("remat", False),
+                                 num_filters=case.get("num_filters", (8, 16)),
+                                 img_resolution=tuple(hr.shape[1:3]))
+        mesh = make_mesh(case["n_data"], case["n_spatial"], device="cpu")
+        stats = compute_stats(hr, cfg.data.lowres_scale)
+        block = shard_batch(hr, mesh)
+        if case.get("eval"):
+            step = make_parallel_eval_step(model, cfg, mesh, fused=case["fused"])
+            met = step(block, stats, torch.Generator().manual_seed(3))
+            out[case["name"]] = {"metrics": [{k: v.numpy().copy() for k, v in met.items()}]}
+            continue
+        state = create_train_state(model, seed=cfg.train.seed, device="cpu")
+        grads = captured_grads(state)
+        step = make_parallel_train_step(model, cfg, mesh, fused=case["fused"])
+        eps = None if case["eps"] is None else torch.from_numpy(case["eps"])
+        metrics = []
+        for _ in range(case["steps"]):
+            state, met = step(state, block, stats, 1.0, 0.1, eps=eps)
+            metrics.append({k: v.numpy().copy() for k, v in met.items()})
+        out[case["name"]] = {"metrics": metrics, "grads": grads, "params": {
+            k: v.detach().clone() for k, v in model.state_dict().items()}}
+    _save(workdir, job, out)
+
+
+def int8_convs() -> dict:
+    """Two 3x3 EDMConvs of 3 (and 3 + 3) input channels with int8 scales
+    attached: kernel E's route for one and for two inputs."""
+    from probunet_tpu_torch.models.layers import EDMConv
+
+    out = {}
+    for name, cin in (("one", 3), ("two", 6)):
+        conv = EDMConv(cin, 5, 3, generator=torch.Generator().manual_seed(cin))
+        conv.quant_scales = {"in_scale": torch.tensor(0.02), "in_scale2": torch.tensor(0.015)}
+        out[name] = conv
+    return out
+
+
+def captured_grads(state) -> list:
+    """A list that gets the gradients each ``state.optimizer.step`` call
+    receives (copies), the call going on as before."""
+    seen, step = [], state.optimizer.step
+
+    def capture(grads):
+        seen.append([g.detach().clone() for g in grads])
+        return step(grads)
+
+    state.optimizer.step = capture
+    return seen
+
+
+def spatial_member(workdir, job):
+    """make_parallel_sample_step on each case's ("data", "spatial",
+    "member") mesh."""
+    from torch_parity import torch_tiny_model
+
+    from probunet_tpu_torch.data.climex import Standardization
+    from probunet_tpu_torch.parallel import make_member_mesh, make_parallel_sample_step
+
+    inp = _load(workdir, job)
+    out = {}
+    for case in inp["cases"]:
+        hr = torch.from_numpy(case["hr"])
+        model = torch_tiny_model(inp["params"], img_resolution=tuple(hr.shape[1:3]))
+        cfg = tiny_cfg(hr.shape[0], case["eps"].shape[0], resolution=tuple(hr.shape[1:3]),
+                       standardization=case["standardization"])
+        stats = Standardization(*(None if a is None else torch.from_numpy(a)
+                                  for a in case["stats"]))
+        mesh = make_member_mesh(n_member=case["n_member"], n_spatial=case["n_spatial"],
+                                device="cpu")
+        step = make_parallel_sample_step(model, cfg, mesh, num_samples=case["eps"].shape[0],
+                                         quant=case.get("quant"))
+        out[case["name"]] = step(hr, torch.from_numpy(case["eps"]), stats)
+    _save(workdir, job, out)
+
+
+def spatial_ops(workdir, job):
+    """The differentiable halo exchange and sum over a ("spatial" = world)
+    mesh, the partitioned CRPS terms and the deferred options: values and
+    gradients of each rank's block, gathered."""
+    from probunet_tpu_torch.ops.losses import afcrps_loss, crps_loss
+    from probunet_tpu_torch.parallel import make_mesh
+    from probunet_tpu_torch.parallel.spatial import halo_exchange, rows_of, sum_over
+
+    inp = _load(workdir, job)
+    mesh = make_mesh(1, world()[1], device="cpu")
+    n, pos = mesh.size("spatial"), mesh.coord("spatial")
+    out = {}
+
+    def gathered(t, dim):
+        return torch.cat(all_gather(t.contiguous(), mesh, "spatial"), dim=dim)
+
+    x = torch.from_numpy(inp["x"]).chunk(n, dim=1)[pos].clone().requires_grad_(True)
+    for halo in (1, 2):
+        y = halo_exchange(x, halo, mesh)
+        # a loss of every padded row, weighted so each row's gradient differs
+        w = torch.from_numpy(inp[f"w{halo}"]).chunk(n, dim=1)[pos]
+        (y * w).sum().backward()
+        out[f"halo{halo}"] = {"y": gathered(y.detach(), 1), "grad": gathered(x.grad, 1)}
+        x.grad = None
+    s = sum_over(x, mesh)
+    (s * torch.from_numpy(inp["ws"])[pos]).sum().backward()
+    out["sum"] = {"y": s.detach(), "grad": gathered(x.grad, 1)}
+    rows = rows_of(mesh, x.shape[1])
+    # kernel E's plain version on halo-padded blocks, one and two inputs
+    blk = x.detach().permute(0, 3, 1, 2)
+    for name, conv in int8_convs().items():
+        with torch.no_grad():
+            y = conv(blk, blk * -0.5 if name == "two" else None, rows=rows)
+        out[f"int8 {name}"] = gathered(y.permute(0, 2, 3, 1), 1)
+    for name, fn in (("afcrps", afcrps_loss), ("crps", crps_loss)):
+        ens = torch.from_numpy(inp["ens"]).chunk(n, dim=2)[pos].clone().requires_grad_(True)
+        tgt = torch.from_numpy(inp["tgt"]).chunk(n, dim=1)[pos].clone().requires_grad_(True)
+        v = fn(ens, tgt, rows=rows)
+        # each rank differentiates the replicated loss; the mean over the
+        # axis is the convention's gradient
+        v.backward()
+        out[name] = {"value": v.detach(), "grad_ens": gathered(ens.grad / n, 2),
+                     "grad_tgt": gathered(tgt.grad / n, 1)}
+    _save(workdir, job, out)
+
+
+JOBS = {f.__name__: f for f in (dp_step, trainer, member, halo, tiled, tensor_parallel, cli,
+                                spatial_step, spatial_member, spatial_ops)}
 
 
 def main():
