@@ -131,7 +131,14 @@ route, and drives both paths at the full width of the flagship preset
   planted fault (rank 1's C seed words without the row offset) that must
   be caught; the eval step; ``make_parallel_sample_step`` on a 1 x 2 x 1
   ("data", "spatial", "member") mesh, float and int8 (E on the
-  halo-padded blocks). Before the ranks, in this process, split C and C′
+  halo-padded blocks); then the spatial step's later options (the
+  ``spatial mse+ssim``, ``spatial l1``, ``spatial eval step bilinear`` and
+  ``spatial sample bilinear`` lines): two WMSE + MS-SSIM steps on the
+  kernel route and one L1 step on the composed route on the 1 x 2 mesh,
+  the eval and sample steps under bilinear interpolation, and two WMSE +
+  MS-SSIM steps on a 2 x 1 data-parallel mesh, whose MS-SSIM data range is
+  the global batch's, with a planted fault (each slab's own range) that
+  must fail the agreement. Before the ranks, in this process, split C and C′
   at every chain of the flagship at half height against their split
   plain versions (masks bit for bit) and at the first chain at bs=128
   also timed beside the unsplit route on the same block; D with the
@@ -150,7 +157,9 @@ and ``int8_conv_mma_sync``), on the int8 serve runs
 ``explore`` runs (``launches_explore``), on the bench runs (``launches_bench``), on
 the parallel runs (``launches_parallel``: the world of one and both gloo
 ranks) and on the spatially sharded runs (``launches_spatial``, both
-ranks; C's and C′'s split route ``launches_spatial_split``), error, times
+ranks; C's and C′'s split route ``launches_spatial_split``) and on the
+spatial options' runs (``launches_spatial_options``,
+``launches_spatial_options_split``), error, times
 and bound, and C's, C′'s and D's times at the spatial block (``split_*``,
 ``mapped_*``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -200,6 +209,7 @@ from probunet_tpu_torch.models.unet import UNet, dropout_seeds
 from probunet_tpu_torch.ops import losses, quantize
 from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
 from probunet_tpu_torch.ops.kernels import int8_conv as int8_e
+from probunet_tpu_torch.train import loop as train_loop
 from probunet_tpu_torch.train.checkpoint import CheckpointManager
 from probunet_tpu_torch.train.edm import edm_ensemble, edm_loss, edm_sample, make_edm_train_step
 from probunet_tpu_torch.train.loop import (
@@ -3532,12 +3542,13 @@ def world_of_one(dev, zero_counts, read_counts) -> dict:
         dist.destroy_process_group()
 
 
-def parallel_phase(dev, zero_counts, read_counts) -> tuple[dict, dict]:
+def parallel_phase(dev, zero_counts, read_counts) -> tuple[dict, dict, dict]:
     """The parallel paths on this card: the world of one over NCCL
     (:func:`world_of_one`), then two gloo ranks sharing cuda:0 in one launch
-    of two processes (:func:`parallel_rank`), whose last part is the
-    spatially sharded paths. Returns (the launches of each part's
-    data-parallel and member paths, those of each rank's spatial paths)."""
+    of two processes (:func:`parallel_rank`), whose last parts are the
+    spatially sharded paths and their later options. Returns (the launches
+    of each part's data-parallel and member paths, those of each rank's
+    spatial paths, those of each rank's spatial options)."""
     launches = {"world of one": world_of_one(dev, zero_counts, read_counts)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as work:
         # a served checkpoint for infer-domain: the flagship, zero parameters filled
@@ -3565,13 +3576,14 @@ def parallel_phase(dev, zero_counts, read_counts) -> tuple[dict, dict]:
             if proc.returncode != 0 or f"PARALLEL_OK rank={r}" not in out:
                 raise AssertionError(f"parallel rank {r} failed (exit {proc.returncode})")
         print(f"parallel two gloo ranks on one card: {time.perf_counter() - t0:.3f} s")
-        spatial = {}
+        spatial, options = {}, {}
         for r in (0, 1):
             with open(os.path.join(work, f"rank{r}.json")) as f:
                 parts = json.load(f)
             launches[f"gloo rank {r}"] = parts["parallel"]
             spatial[f"gloo rank {r}"] = parts["spatial"]
-    return launches, spatial
+            options[f"gloo rank {r}"] = parts["spatial_options"]
+    return launches, spatial, options
 
 
 def _captured_grads(state: TrainState) -> list:
@@ -3618,17 +3630,19 @@ def _dp_steps_vs_one(rank: int, base: ProbabilisticUNet, cfg, mesh, hr, stats) -
             for name, run in runs.items():
                 _dp_agreement(f"dp step {gn} {name} (bs {hr.shape[0]} over "
                               f"{mesh.size('data')} ranks vs one)", run, ref, cfg.train.lr,
-                              fault=name == "planted fault")
+                              fault="share" if name == "planted fault" else None)
             del ref
         del runs, model
 
 
-def _two_steps(model: ProbabilisticUNet, cfg, mesh, hr, stats, fused: bool = True):
-    """Two ELBO train steps from a fresh state on a copy of ``model``: the
-    parallel step on this rank's block of ``hr`` (its slab, and its rows on
-    a mesh with n_spatial > 1) with ``mesh``, else the one-process step on
-    the whole batch; ``fused``: the reconstruction route. Returns (state,
-    the steps' metrics, the gradients AdamW received at each step)."""
+def _two_steps(model: ProbabilisticUNet, cfg, mesh, hr, stats, fused: bool = True,
+               steps: int = 2):
+    """Two (or ``steps``) ELBO train steps from a fresh state on a copy of
+    ``model``: the parallel step on this rank's block of ``hr`` (its slab,
+    and its rows on a mesh with n_spatial > 1) with ``mesh``, else the
+    one-process step on the whole batch; ``fused``: the reconstruction
+    route. Returns (state, the steps' metrics, the gradients AdamW received
+    at each step)."""
     state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed, lr=cfg.train.lr,
                                weight_decay=cfg.train.weight_decay, device=hr.device)
     from probunet_tpu_torch.parallel import make_parallel_train_step, shard_batch
@@ -3638,7 +3652,7 @@ def _two_steps(model: ProbabilisticUNet, cfg, mesh, hr, stats, fused: bool = Tru
             else make_parallel_train_step(state.model, cfg, mesh, fused=fused))
     batch = hr if mesh is None else shard_batch(hr, mesh)
     metrics = []
-    for _ in range(2):
+    for _ in range(steps):
         state, met = step(state, batch, stats, 1.0, 1.0)
         metrics.append(met)
     return state, metrics, grads
@@ -3701,9 +3715,7 @@ def _spatial_vs_one(rank: int, base: ProbabilisticUNet, cfg, hr, stats, scales) 
     sample step on a ("data", "spatial", "member") = 1 x 2 x 1 mesh, float
     (within ENSEMBLE_RTOL) and int8 on rank 0's scales (kernel E on
     halo-padded blocks, :func:`_int8_agreement`)."""
-    from probunet_tpu_torch.parallel import (make_member_mesh, make_mesh,
-                                             make_parallel_eval_step,
-                                             make_parallel_sample_step, shard_batch)
+    from probunet_tpu_torch.parallel import make_mesh
 
     dev = hr.device
     mesh = make_mesh(1, 2, device=dev)
@@ -3724,19 +3736,31 @@ def _spatial_vs_one(rank: int, base: ProbabilisticUNet, cfg, hr, stats, scales) 
             for name, run in runs.items():
                 _dp_agreement(f"spatial step {gn} {'fused' if fused else 'unfused'} {name} "
                               f"(bs {hr.shape[0]}, 128 rows over 2 ranks vs one)", run, ref,
-                              cfg.train.lr, fault=name == "planted fault")
+                              cfg.train.lr, fault="share" if name == "planted fault" else None)
             del ref
         del runs, model
     torch.cuda.empty_cache()
-    model = base.to(dev).eval()
+    _spatial_eval_and_samples(rank, base.to(dev).eval(), cfg, mesh, hr, stats, scales, "")
+
+
+def _spatial_eval_and_samples(rank: int, model: ProbabilisticUNet, cfg, mesh, hr, stats,
+                              scales, what: str) -> None:
+    """The eval step on ``mesh`` (1 x 2) and the sample step on a 1 x 2 x 1
+    ("data", "spatial", "member") mesh, float and int8 on ``scales``,
+    against the one-process paths on rank 0 (``what`` names the option in
+    the lines)."""
+    from probunet_tpu_torch.parallel import (make_member_mesh, make_parallel_eval_step,
+                                             make_parallel_sample_step, shard_batch)
+
+    dev = hr.device
     got = make_parallel_eval_step(model, cfg, mesh)(shard_batch(hr, mesh), stats,
                                                     torch.Generator(device=dev).manual_seed(5))
     if rank == 0:
         with _uncounted():
             want = make_eval_step(model, cfg)(hr, stats, torch.Generator(device=dev).manual_seed(5))
         for k in ("recon", "kl_mean", "loss"):
-            _par_close(f"spatial eval step {k} (rows over 2 ranks vs one)", got[k], want[k],
-                       PAR_RTOL)
+            _par_close(f"spatial eval step{what} {k} (rows over 2 ranks vs one)", got[k],
+                       want[k], PAR_RTOL)
     smesh = make_member_mesh(n_member=1, n_spatial=2, device=dev)
     eps = cli.batch_noise(0, 1, PAR_SAMPLE_M, PAR_BATCH, cfg.model.latent_dim).to(dev)
     batch = preprocess_batch(hr, stats, cfg.data.pipeline, cfg.data.lowres_scale,
@@ -3751,28 +3775,90 @@ def _spatial_vs_one(rank: int, base: ProbabilisticUNet, cfg, hr, stats, scales) 
                 out = model.sample(batch["inputs"], PAR_SAMPLE_M, eps=eps)
             wants[name] = residual_to_hr(out, lrinterp, stats, cfg.data.pipeline,
                                          cfg.data.epsilon, cfg.data.standardization)
-            what = (f"spatial sample {name} (1 x 2 x 1 mesh, {PAR_SAMPLE_M} members, rows over "
-                    f"2 ranks vs one)")
+            line = (f"spatial sample{what} {name} (1 x 2 x 1 mesh, {PAR_SAMPLE_M} members, rows "
+                    f"over 2 ranks vs one)")
             if quant is None:
-                _par_close(what, got, wants[name], ENSEMBLE_RTOL)
+                _par_close(line, got, wants[name], ENSEMBLE_RTOL)
             else:
-                _int8_agreement(what, got, wants[name], wants["float"])
+                _int8_agreement(line, got, wants[name], wants["float"])
 
 
-def _dp_agreement(what: str, run, ref, lr: float, fault: bool = False) -> None:
-    """Two data-parallel steps (``run``) against two one-process steps
-    (``ref``), each (state, metrics, gradients) from :func:`_two_steps`:
-    at each step the metrics within PAR_RTOL, the gradients within
-    PAR_RTOL at the first and PAR_RTOL_STEP2 at the second; after both
-    steps, the parameters within PAR_PARAM_LR lr wherever both steps'
-    gradients are clear of rounding (above PAR_CLEAR times the step's
-    largest gradient difference), and at most PAR_MOVED_SHARE of all
-    elements beyond 0.1 lr. With ``fault`` every reading is printed and
-    the share must exceed PAR_MOVED_SHARE instead."""
+@contextlib.contextmanager
+def _planted_range_fault():
+    """Every rank takes MS-SSIM's data range from its own slab of the
+    targets, not from the global batch's (the port before the range was
+    all-reduced)."""
+    saved = train_loop._Sharding.data_range
+    train_loop._Sharding.data_range = lambda self, target: torch.clamp(
+        target.max() - target.min(), min=1e-5)
+    try:
+        yield
+    finally:
+        train_loop._Sharding.data_range = saved
+
+
+def _spatial_options_vs_one(rank: int, base: ProbabilisticUNet, cfg, hr, stats,
+                            scales) -> None:
+    """The options the spatially sharded step took last, at the same sizes
+    as :func:`_spatial_vs_one`, against the one-process paths on rank 0:
+    two WMSE + MS-SSIM train steps on the kernel route (split C/C′) on the
+    1 x 2 ("data", "spatial") mesh and one L1 step on the composed route
+    (D with its block mapping), by :func:`_dp_agreement`; the eval and
+    sample steps under bilinear interpolation; and two WMSE + MS-SSIM steps
+    on a 2 x 1 data-parallel mesh, whose MS-SSIM data range is the global
+    batch's, with a planted fault (each rank's own slab's range) that must
+    fail the agreement."""
+    from probunet_tpu_torch.parallel import make_mesh
+
+    dev = hr.device
+    mesh, dp = make_mesh(1, 2, device=dev), make_mesh(device=dev)
+    runs = (("mse+ssim", "kernel", mesh, 2), ("l1", "composed", mesh, 1),
+            ("mse+ssim", "kernel", dp, 2))
+    for loss, gn, on, steps in runs:
+        lcfg = copy.deepcopy(cfg)
+        lcfg.loss.loss_type = loss
+        model = _variant(base, lcfg, gn_impl=gn).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = {"sharded": _two_steps(model, lcfg, on, hr, stats, steps=steps)}
+        torch.cuda.synchronize()
+        where = "128 rows over 2 ranks" if on is mesh else "the batch over 2 ranks"
+        print(f"spatial {loss} step {gn} ({where}): {steps} step(s) on rank {rank} in "
+              f"{time.perf_counter() - t0:.3f} s")
+        if on is dp:
+            with _uncounted(), _planted_range_fault():
+                got["planted fault"] = _two_steps(model, lcfg, on, hr, stats, steps=steps)
+        if rank == 0:
+            with _uncounted():
+                ref = _two_steps(model, lcfg, None, hr, stats, steps=steps)
+            for name, run in got.items():
+                _dp_agreement(f"spatial {loss} step {gn} {name} (bs {hr.shape[0]}, {where} "
+                              f"vs one)", run, ref, cfg.train.lr,
+                              fault="any" if name == "planted fault" else None)
+            del ref
+        del got, model
+    torch.cuda.empty_cache()
+    bcfg = copy.deepcopy(cfg)
+    bcfg.data.interp_mode = "bilinear"
+    _spatial_eval_and_samples(rank, base.to(dev).eval(), bcfg, mesh, hr, stats, scales,
+                              " bilinear")
+
+
+def _dp_agreement(what: str, run, ref, lr: float, fault: str | None = None) -> None:
+    """Two (or one) data-parallel steps (``run``) against as many
+    one-process steps (``ref``), each (state, metrics, gradients) from
+    :func:`_two_steps`: at each step the metrics within PAR_RTOL, the
+    gradients within PAR_RTOL at the first and PAR_RTOL_STEP2 at the
+    second; after the steps, the parameters within PAR_PARAM_LR lr wherever
+    every step's gradients are clear of rounding (above PAR_CLEAR times the
+    step's largest gradient difference), and at most PAR_MOVED_SHARE of all
+    elements beyond 0.1 lr. A planted fault prints every reading and must
+    fail: ``fault="share"`` (a wrong dropout mask) the share check itself,
+    ``fault="any"`` (a wrong loss) any of the checks."""
     (state, mets, grads), (ref_state, ref_mets, ref_grads) = run, ref
     worst, worst_g2 = 0.0, 0.0
     clear = None
-    for i in range(2):
+    for i in range(len(mets)):
         for k in ("loss", "recon", "kl_mean", "grad_norm"):
             err = float((mets[i][k].double() - ref_mets[i][k].double()).abs()
                         / ref_mets[i][k].double().abs())
@@ -3795,16 +3881,20 @@ def _dp_agreement(what: str, run, ref, lr: float, fault: bool = False) -> None:
     moved = sum(int((d > 0.1 * lr).sum()) for d in diffs)
     n_clear = sum(int(c.sum()) for c in clear)
     clear_max = max(float(d[c].max()) if bool(c.any()) else 0.0 for d, c in zip(diffs, clear))
-    print(f"{what}: parameters after 2 steps: {moved} of {n} elements ({moved / n:.6f}, "
+    print(f"{what}: parameters after {len(mets)} steps: {moved} of {n} elements ({moved / n:.6f}, "
           f"limit {PAR_MOVED_SHARE}) beyond 0.1 lr (lr {lr:.1e}); over the {n_clear} "
           f"elements clear of rounding max|diff| {clear_max:.3e} = {clear_max / lr:.4f} lr "
           f"(limit {PAR_PARAM_LR} lr); metrics and first gradients worst rel err "
           f"{worst:.3e} (limit {PAR_RTOL})")
-    if fault:
+    agree = (worst <= PAR_RTOL and worst_g2 <= PAR_RTOL_STEP2
+             and moved <= PAR_MOVED_SHARE * n and clear_max <= PAR_PARAM_LR * lr)
+    if fault == "share":
         if not moved > PAR_MOVED_SHARE * n:
             raise AssertionError(f"{what}: the planted fault passed the parameter check")
-    elif not (worst <= PAR_RTOL and worst_g2 <= PAR_RTOL_STEP2
-              and moved <= PAR_MOVED_SHARE * n and clear_max <= PAR_PARAM_LR * lr):
+    elif fault == "any":
+        if agree:
+            raise AssertionError(f"{what}: the planted fault passed every check")
+    elif not agree:
         raise AssertionError(f"{what}: off the one-process steps")
 
 
@@ -3971,8 +4061,20 @@ def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") ->
                  "fused_gn_bwd_split", "dropout", "int8_conv"):
         if spatial[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the spatial path")
+    # the spatially sharded step's later options: their own launch counts
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zero_counts()
+    _spatial_options_vs_one(rank, base, cfg, hr, stats, box[0])
+    options = read_counts()
+    print(f"spatial options rank {rank} launches: {json.dumps(options)}; spatial options "
+          f"part {time.perf_counter() - t0:.3f} s")
+    for name in ("fused_gn", "fused_gn_bwd", "fused_gn_split", "fused_gn_bwd_split", "dropout",
+                 "int8_conv"):
+        if options[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the spatial options' path")
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-        json.dump({"parallel": launches, "spatial": spatial}, f)
+        json.dump({"parallel": launches, "spatial": spatial, "spatial_options": options}, f)
     dist.barrier()
     dist.destroy_process_group()
     print(f"PARALLEL_OK rank={rank}", flush=True)
@@ -4225,10 +4327,11 @@ def main() -> None:
         report[name].update(rows)
     print(f"spatial kernels at the block shapes: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    parallel_launches, spatial_launches = parallel_phase(dev, zero_counts, read_counts)
+    parallel_launches, spatial_launches, options_launches = parallel_phase(
+        dev, zero_counts, read_counts)
     print(f"launches on the parallel runs: {json.dumps(parallel_launches)}; on the spatial "
-          f"runs: {json.dumps(spatial_launches)}; parallel phase "
-          f"{time.perf_counter() - t0:.3f} s")
+          f"runs: {json.dumps(spatial_launches)}; on the spatial options' runs: "
+          f"{json.dumps(options_launches)}; parallel phase {time.perf_counter() - t0:.3f} s")
 
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
                "dropout": dropout}
@@ -4258,8 +4361,14 @@ def main() -> None:
                         # the spatially sharded runs (both ranks): C and C′
                         # launch only their split route there
                         "launches_spatial": sum(r[counter] for r in spatial_launches.values()),
+                        # the spatial options' runs (both ranks): the MS-SSIM
+                        # and L1 ELBOs, bilinear, the 2 x 1 MS-SSIM steps
+                        "launches_spatial_options": sum(r[counter]
+                                                        for r in options_launches.values()),
                         **({"launches_spatial_split": sum(r[splits[name]]
-                                                          for r in spatial_launches.values())}
+                                                          for r in spatial_launches.values()),
+                            "launches_spatial_options_split": sum(
+                                r[splits[name]] for r in options_launches.values())}
                            if name in splits else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -127,26 +127,21 @@ def preprocess_batch(
     ``rows`` (``parallel.spatial.Rows``): ``hr`` is this rank's block of
     image rows. The per-pixel statistics are sliced to its rows, the
     pooling and nearest upsampling stay local (the block's rows divide by
-    the pooling factor), and the ``pertimestep`` item statistics are the
-    whole image's. The ``lr_*`` pipelines and bilinear interpolation raise
-    (ROADMAP.md §1 item 10)."""
+    the pooling factor), bilinear upsampling takes one LR row of each
+    neighbour (``ops.resample.upsample_bilinear``), and the
+    ``pertimestep`` item statistics are the whole image's."""
     if pipeline not in PIPELINE_TYPES:
         raise ValueError(f"unknown pipeline {pipeline!r}")
     k = lowres_scale
     if rows is not None:
-        from probunet_tpu_torch.parallel.spatial import deferred
-
-        if pipeline.startswith("lr_"):
-            raise deferred(f"the {pipeline!r} pipeline")
-        if interp_mode != "nearest":
-            raise deferred(f"{interp_mode!r} interpolation")
         stats = stats_rows(stats, rows.h0, hr.shape[1], k)
     lr = avg_pool(hr, k)
 
     def st(x, mean, std, mn, mx):
         return standardize(x, mean, std, mn, mx, standardization, epsilon)
 
-    lr_stand = st(lr, stats.lr_mean, stats.lr_std, stats.lr_min, stats.lr_max)
+    def per_item(x, item):
+        return (x - item["mean"]) / (item["std"] + epsilon)
 
     out = {"hr": hr, "lr": lr}
     item_stats = None
@@ -155,21 +150,24 @@ def preprocess_batch(
         # target and the lrinterp baseline, so residuals invert exactly
         item_stats = _item_stats(hr, rows)
         out["stand_stats"] = item_stats
-        hr_stand = (hr - item_stats["mean"]) / (item_stats["std"] + epsilon)
+        hr_stand = per_item(hr, item_stats)
     else:
         hr_stand = st(hr, stats.hr_mean, stats.hr_std, stats.hr_min, stats.hr_max)
 
-    if pipeline == "lr_to_hr":
-        return {"inputs": lr_stand, "targets": hr_stand, **out}
+    if pipeline.startswith("lr_"):
+        lr_stand = (per_item(lr, _item_stats(lr, rows)) if standardization == "pertimestep"
+                    else st(lr, stats.lr_mean, stats.lr_std, stats.lr_min, stats.lr_max))
+        if pipeline == "lr_to_hr":
+            return {"inputs": lr_stand, "targets": hr_stand, **out}
 
-    lrinterp = upsample(lr, k, interp_mode)
+    lrinterp = upsample(lr, k, interp_mode, rows)
     out["lrinterp"] = lrinterp
     if pipeline == "lr_to_residuals":
-        residual = hr_stand - upsample(lr_stand, k, interp_mode)
+        residual = hr_stand - upsample(lr_stand, k, interp_mode, rows)
         return {"inputs": lr_stand, "targets": residual, **out}
 
     if standardization == "pertimestep":
-        lrinterp_stand = (lrinterp - item_stats["mean"]) / (item_stats["std"] + epsilon)
+        lrinterp_stand = per_item(lrinterp, item_stats)
     else:
         lrinterp_stand = st(lrinterp, stats.hr_mean, stats.hr_std,
                             stats.hr_min, stats.hr_max)
@@ -179,11 +177,12 @@ def preprocess_batch(
 
 
 def lrinterp_from_batch(batch: dict[str, torch.Tensor], lowres_scale: int,
-                        interp_mode: str = "nearest") -> torch.Tensor:
-    """The interpolated-LR baseline field for any pipeline's batch dict."""
+                        interp_mode: str = "nearest", rows=None) -> torch.Tensor:
+    """The interpolated-LR baseline field for any pipeline's batch dict;
+    ``rows``: the batch is a block of image rows."""
     if "lrinterp" in batch:
         return batch["lrinterp"]
-    return upsample(batch["lr"], lowres_scale, interp_mode)
+    return upsample(batch["lr"], lowres_scale, interp_mode, rows)
 
 
 def invstand_residual(

@@ -435,6 +435,10 @@ class UNetBlock(nn.Module):
         when ``train`` and ``dropout > 0``. ``slab``: (first row, global
         batch) of x in a data-parallel step (``EDMGroupNorm``). ``rows``: x
         is this rank's block of image rows (``parallel.spatial.Rows``)."""
+        if self.num_heads and rows is not None:
+            from probunet_tpu_torch.parallel.spatial import deferred
+
+            raise deferred("UNetBlock's self-attention")
         x_in = x
         full = x if skip_in is None else torch.cat([x, skip_in.to(x.dtype)], dim=1)
         h = self.conv0(self.norm0(full, silu=True, rows=rows), rows=rows)
@@ -458,10 +462,6 @@ class UNetBlock(nn.Module):
         if self.skip_scale != 1.0:
             x = x * self.skip_scale
         if self.num_heads:
-            if rows is not None:
-                from probunet_tpu_torch.parallel.spatial import deferred
-
-                raise deferred("UNetBlock's self-attention")
             x = self._attention(x)
         return x
 

@@ -26,9 +26,10 @@ encoders, storing their conv outputs. Neither changes the results.
 ``rows`` (``parallel.spatial.Rows``, the spatially sharded step) places
 x and the target as this rank's block of image rows: the U-Net and both
 encoders run on the block (``models/layers.py``, ``models/gaussian.py``),
-the CRPS terms of the block's pixels are summed over the ranks and
-divided by the global pixel count, and the KL of the replicated
-Gaussians counts once.
+each reconstruction loss sums the block's terms over the ranks and
+divides by the global count (``ops/losses.py``; MS-SSIM's windows through
+a halo exchange a scale, ``ops/msssim.py``), and the KL of the
+replicated Gaussians counts once.
 """
 
 from __future__ import annotations
@@ -145,7 +146,7 @@ class ProbabilisticUNet(nn.Module):
              generator: torch.Generator | None = None, eps: torch.Tensor | None = None,
              fused: bool = True, training: bool = False,
              seeds: torch.Tensor | None = None, slab: tuple[int, int] | None = None,
-             rows=None):
+             rows=None, data_range=None):
         """ELBO = beta_0 * recon + beta_1 * KL(q || p) [+ beta_2 * KL(q || N(0, I))
         for ``"l1"``], the posterior noise ``eps`` or drawn from
         ``generator``: (M, B, D) for the ensemble losses, (B, D) for
@@ -159,8 +160,10 @@ class ProbabilisticUNet(nn.Module):
         global batch's rows (``layers.EDMGroupNorm``), and ``eps``, given
         or drawn, is the global batch's noise, of which x's rows are used.
         ``rows`` (``parallel.spatial.Rows``): x and target are this rank's
-        block of image rows (the afCRPS and CRPS ELBOs only); the loss and
-        metrics are the whole image's, alike on every rank of the axis.
+        block of image rows; the loss and metrics are the whole image's,
+        alike on every rank of the axis. ``data_range``: MS-SSIM's, by
+        default the target's max - min (at least 1e-5); a step over a mesh
+        passes the global batch's, which ``rows`` requires.
 
         - ``"afcrps"`` / ``"crps"``: M >= 2 draws scored as an ensemble,
           fused (kernels A and A′) or unfused (``Fcomb.ensemble``, kernels
@@ -180,10 +183,6 @@ class ProbabilisticUNet(nn.Module):
             raise ValueError(f"unknown loss_type {loss_type!r}")
         if loss_type in ("afcrps", "crps") and M < 2:
             raise ValueError(f"M must be >= 2 for {loss_type}, got {M}")
-        if rows is not None and loss_type not in ("afcrps", "crps"):
-            from probunet_tpu_torch.parallel.spatial import deferred
-
-            raise deferred(f"the {loss_type!r} ELBO")
         feats = self.unet(x, train=training, seeds=seeds, generator=generator, slab=slab,
                           rows=rows)
         prior = self.prior(x, rows=rows)
@@ -207,18 +206,21 @@ class ProbabilisticUNet(nn.Module):
                          if loss_type == "afcrps" else crps_loss(ensemble, target, rows=rows))
             total = beta_0 * recon + beta_1 * kl.mean()
         elif loss_type == "mse+ssim":
+            if data_range is None and rows is None:   # one range for the M draws
+                data_range = torch.clamp(target.max() - target.min(), min=1e-5)
             zs = posterior.rsample(generator, (M,), eps)
             ensemble = self.fcomb.ensemble(feats, zs)               # (B, M, H, W, K)
             per_draw = [wmse_ms_ssim_loss(ensemble[:, i], target, alpha=alpha_w,
-                                          beta=beta_w, lam=lam_w, return_components=True)
+                                          beta=beta_w, lam=lam_w, return_components=True,
+                                          data_range=data_range, rows=rows)
                         for i in range(M)]
             recon = torch.stack([d[0] for d in per_draw]).mean()
             metrics["wmse"], metrics["msssim"] = per_draw[-1][1], per_draw[-1][2]
             total = beta_0 * recon + beta_1 * kl.mean()
         else:  # l1: one draw
             pred = self.fcomb(feats, posterior.rsample(generator, (), eps))
-            recon = l1_loss(pred, target)
-            metrics["recon_per_channel"] = l1_loss_per_channel(pred, target)
+            recon = l1_loss(pred, target, rows)
+            metrics["recon_per_channel"] = l1_loss_per_channel(pred, target, rows)
             kl2 = kl_to_standard_normal(posterior)
             metrics["kl2_mean"] = kl2.mean()
             total = beta_0 * recon + beta_1 * kl.mean() + beta_2 * kl2.mean()

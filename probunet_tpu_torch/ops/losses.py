@@ -17,7 +17,9 @@ autograd through the sort, whose gradient is a scatter.
 Ensembles are ``(B, M, *spatial)``, targets ``(B, *spatial)``; reductions
 cover all trailing axes. WMSE + MS-SSIM and L1 take NHWC predictions and
 plain torch operations (the JAX package computes them with XLA, outside
-any TPU kernel).
+any TPU kernel). Every loss takes ``rows`` (``parallel.spatial.Rows``):
+its inputs are then this rank's block of image rows, and its value is the
+whole image's, alike on every rank.
 """
 
 from __future__ import annotations
@@ -169,33 +171,50 @@ def wmse_weights(target: torch.Tensor, alpha: float = 0.007,
     return torch.clamp(alpha * torch.exp(beta * target), max=1.0)
 
 
+def _mean(t: torch.Tensor, rows=None, dim=None) -> torch.Tensor:
+    """The mean of ``t`` over ``dim`` (every axis with None); with ``rows``
+    (``t`` a block of image rows) the block's sum summed over the ranks
+    (differentiably) and divided by the global count."""
+    if rows is None:
+        return torch.mean(t) if dim is None else torch.mean(t, dim=dim)
+    total = t.sum() if dim is None else t.sum(dim=dim)
+    return rows.sum(total) / (t.numel() // total.numel() * rows.parts)
+
+
 def wmse_ms_ssim_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 0.007,
                       beta: float = 0.048, lam: float = 0.0,
-                      return_components: bool = False, data_range=None):
+                      return_components: bool = False, data_range=None, rows=None):
     """lam * WMSE + (1 - lam) * (1 - MS-SSIM) of (B, H, W, C) tensors; a
     (B, M, H, W, C) ensemble collapses to its mean, as in the reference.
     ``data_range`` defaults to the target's max - min of this call, at
-    least 1e-5. MS-SSIM takes win_size 7 (sides above 96)."""
+    least 1e-5. MS-SSIM takes win_size 7 (sides above 96). ``rows``: the
+    inputs are a block of image rows and ``data_range`` must be given (the
+    global batch's: the training step computes it)."""
     from probunet_tpu_torch.ops.msssim import ms_ssim
 
     if pred.dim() == 5:
         pred = pred.mean(dim=1)
     if data_range is None:
+        if rows is not None:
+            raise ValueError("wmse_ms_ssim_loss of a block of rows needs the global "
+                             "batch's data_range")
         data_range = torch.clamp(target.max() - target.min(), min=1e-5)
     w = wmse_weights(target, alpha=alpha, beta=beta)
-    wmse = torch.mean(w * (pred - target) ** 2)
-    msssim_loss = 1.0 - ms_ssim(pred, target, data_range=data_range, win_size=7)
+    wmse = _mean(w * (pred - target) ** 2, rows)
+    msssim_loss = 1.0 - ms_ssim(pred, target, data_range=data_range, win_size=7, rows=rows)
     combined = lam * wmse + (1.0 - lam) * msssim_loss
     if return_components:
         return combined, wmse, msssim_loss
     return combined
 
 
-def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """Mean absolute error (the L1 ELBO's reconstruction)."""
-    return torch.mean(torch.abs(pred - target))
+def l1_loss(pred: torch.Tensor, target: torch.Tensor, rows=None) -> torch.Tensor:
+    """Mean absolute error (the L1 ELBO's reconstruction). ``rows``: the
+    inputs are a block of image rows."""
+    return _mean(torch.abs(pred - target), rows)
 
 
-def l1_loss_per_channel(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """Mean absolute error per channel (last axis, NHWC), for logging."""
-    return torch.mean(torch.abs(pred - target), dim=tuple(range(pred.dim() - 1)))
+def l1_loss_per_channel(pred: torch.Tensor, target: torch.Tensor, rows=None) -> torch.Tensor:
+    """Mean absolute error per channel (last axis, NHWC), for logging.
+    ``rows``: the inputs are a block of image rows."""
+    return _mean(torch.abs(pred - target), rows, dim=tuple(range(pred.dim() - 1)))

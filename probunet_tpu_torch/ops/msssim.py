@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 _DEFAULT_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+LEVELS = len(_DEFAULT_WEIGHTS)   # the ELBO's scales
 
 
 def _gaussian_window(win_size: int, sigma: float, dtype: torch.dtype,
@@ -53,10 +54,11 @@ def _avg_pool2_padded(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def _ssim_components(x, y, data_range, win, k1: float = 0.01, k2: float = 0.03):
-    """(ssim per channel, cs per channel), each (N, C). A tensor
-    ``data_range`` takes part in type promotion as a JAX array does (a bf16
-    map plus an f32 constant is f32), hence its (1,) shape."""
+def _ssim_maps(x, y, data_range, win, k1: float = 0.01, k2: float = 0.03):
+    """(ssim map, cs map) of the VALID window positions, each (N, H - k +
+    1, W - k + 1, C). A tensor ``data_range`` takes part in type promotion
+    as a JAX array does (a bf16 map plus an f32 constant is f32), hence its
+    (1,) shape."""
     if torch.is_tensor(data_range):
         data_range = data_range.reshape(1)
     c1 = (k1 * data_range) ** 2
@@ -69,7 +71,32 @@ def _ssim_components(x, y, data_range, win, k1: float = 0.01, k2: float = 0.03):
     sigma12 = _gaussian_filter(x * y, win) - mu1_mu2
     cs_map = (2.0 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)
     ssim_map = ((2.0 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)) * cs_map
-    return ssim_map.mean(dim=(1, 2)), cs_map.mean(dim=(1, 2))
+    return ssim_map, cs_map
+
+
+def _ssim_components(x, y, data_range, win, rows=None):
+    """(ssim per channel, cs per channel), each (N, C): the maps' means.
+
+    ``rows`` (``parallel.spatial.Rows``): x and y are this rank's block of
+    image rows. Both are padded by one halo exchange of ``k // 2`` rows
+    (stacked on the channels; the products x², y² and xy are pointwise, so
+    formed on the padded block they are the products' halos), filtered
+    VALID, which leaves one map row per block row, and the rows whose
+    window reaches past the image's top or bottom (outside the unsharded
+    VALID maps) are left out of the sums, which are summed over the ranks
+    and divided by the global count."""
+    if rows is None:
+        ssim_map, cs_map = _ssim_maps(x, y, data_range, win)
+        return ssim_map.mean(dim=(1, 2)), cs_map.mean(dim=(1, 2))
+    c, half = x.shape[-1], win.shape[0] // 2
+    h, height = x.shape[1], rows.whole(x.shape[1])
+    x, y = rows.halo(torch.cat([x, y], dim=-1), half).split(c, dim=-1)
+    ssim_map, cs_map = _ssim_maps(x, y, data_range, win)
+    r0 = rows.first(h)
+    lo, hi = min(max(half - r0, 0), h), min(max(height - half - r0, 0), h)
+    sums = torch.stack([ssim_map[:, lo:hi].sum(dim=(1, 2)), cs_map[:, lo:hi].sum(dim=(1, 2))])
+    s, cs = rows.sum(sums) / ((height - 2 * half) * ssim_map.shape[2])
+    return s, cs
 
 
 def ssim(x: torch.Tensor, y: torch.Tensor, data_range, win_size: int = 11,
@@ -83,20 +110,29 @@ def ssim(x: torch.Tensor, y: torch.Tensor, data_range, win_size: int = 11,
 
 def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range, win_size: int = 11,
             win_sigma: float = 1.5, weights=_DEFAULT_WEIGHTS,
-            size_average: bool = True) -> torch.Tensor:
+            size_average: bool = True, rows=None) -> torch.Tensor:
     """Multi-scale SSIM of (N, H, W, C) tensors. The shorter side must
     exceed (win_size - 1) * 2**(levels - 1): 96 at win_size 7 and five
-    levels, so the ELBO's MS-SSIM runs at 128x128."""
-    smaller = min(x.shape[1], x.shape[2])
+    levels, so the ELBO's MS-SSIM runs at 128x128.
+
+    ``rows`` (``parallel.spatial.Rows``): x and y are this rank's block of
+    image rows (:func:`_ssim_components`); the result is the whole
+    image's, alike on every rank. The 2x2 pools between scales stay on the
+    block, so its rows must divide by 2**(levels - 1)."""
+    height = x.shape[1] if rows is None else rows.whole(x.shape[1])
+    smaller = min(height, x.shape[2])
     if not smaller > (win_size - 1) * 2 ** (len(weights) - 1):
         raise ValueError(f"image side {smaller} too small for {len(weights)}-level MS-SSIM "
                          f"with win_size={win_size}")
+    levels = len(weights)
+    if rows is not None and x.shape[1] % 2 ** (levels - 1):
+        raise ValueError(f"a block of {x.shape[1]} rows does not divide by 2^{levels - 1} "
+                         f"(MS-SSIM's pools between its {levels} scales)")
     win = _gaussian_window(win_size, win_sigma, x.dtype, x.device)
     w = torch.tensor(weights, dtype=x.dtype, device=x.device)
-    levels = len(weights)
     vals = []  # cs of each level, then ssim of the last; each (N, C)
     for i in range(levels):
-        s, cs = _ssim_components(x, y, data_range, win)
+        s, cs = _ssim_components(x, y, data_range, win, rows)
         if i < levels - 1:
             vals.append(torch.relu(cs))
             x, y = _avg_pool2_padded(x), _avg_pool2_padded(y)

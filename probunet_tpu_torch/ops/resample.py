@@ -28,23 +28,39 @@ def upsample_nearest(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.repeat_interleave(k, dim=-3).repeat_interleave(k, dim=-2)
 
 
-def upsample_bilinear(x: torch.Tensor, k: int) -> torch.Tensor:
+def upsample_bilinear(x: torch.Tensor, k: int, rows=None) -> torch.Tensor:
     """Bilinear k-times upsampling with half-pixel centres
     (``align_corners=False``, the same sampling as ``jax.image.resize``'s
-    'linear' when upsampling)."""
+    'linear' when upsampling).
+
+    ``rows`` (``parallel.spatial.Rows``): x is this rank's block of the
+    image's rows (at x's resolution). The block takes one row of each
+    neighbour (none at the image's top and bottom, where the interpolation
+    clamps to the edge row as unsharded), is upsampled, and the k rows
+    each neighbour's row gave are cropped. The padded block's source
+    coordinates differ from the image's by a whole number of rows, so the
+    kept rows are the image's rows bit for bit where 1 / k is exact."""
     if k == 1:
         return x
+    top = bottom = 0
+    if rows is not None:
+        top, bottom = int(rows.index > 0), int(rows.index < rows.parts - 1)
+        h = x.shape[-3]
+        x = rows.halo(x, 1, row_axis=-3).narrow(-3, 1 - top, h + top + bottom)
     *lead, h, w, c = x.shape
     nchw = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
     up = F.interpolate(nchw, scale_factor=k, mode="bilinear", align_corners=False)
-    return up.permute(0, 2, 3, 1).reshape(*lead, h * k, w * k, c)
+    up = up.permute(0, 2, 3, 1).reshape(*lead, h * k, w * k, c)
+    return up.narrow(-3, top * k, (h - top - bottom) * k)
 
 
-def upsample(x: torch.Tensor, k: int, mode: str = "nearest") -> torch.Tensor:
+def upsample(x: torch.Tensor, k: int, mode: str = "nearest", rows=None) -> torch.Tensor:
+    """``mode`` "nearest" or "bilinear" k-times upsampling; ``rows``: x is
+    a block of image rows (nearest needs no other rows)."""
     if mode == "nearest":
         return upsample_nearest(x, k)
     if mode == "bilinear":
-        return upsample_bilinear(x, k)
+        return upsample_bilinear(x, k, rows)
     raise ValueError(f"unknown upsample mode {mode!r}")
 
 

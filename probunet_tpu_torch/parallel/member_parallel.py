@@ -110,7 +110,7 @@ def make_parallel_sample_step(model: ProbabilisticUNet, cfg: Config, mesh: Mesh,
             zs = prior.rsample(None, (members.stop - members.start,),
                                eps[members, items].to(x.device))
             out = model.decode(feats, zs)                          # (b, m, h, W, C)
-        lrinterp = lrinterp_from_batch(batch, d.lowres_scale, d.interp_mode)
+        lrinterp = lrinterp_from_batch(batch, d.lowres_scale, d.interp_mode, rows)
         ist = batch.get("stand_stats")
         if ist is not None:  # the member axis of (B, M, ...) outputs
             ist = {k: v[:, None] for k, v in ist.items()}

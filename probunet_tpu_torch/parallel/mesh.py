@@ -205,13 +205,14 @@ def shard_batch(batch, mesh: Mesh, spatial: bool | None = None):
 # Collectives over one axis
 # ---------------------------------------------------------------------------
 
-def all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str | tuple[str, ...] = DATA_AXIS
-                ) -> torch.Tensor:
+def all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str | tuple[str, ...] = DATA_AXIS,
+                op: str = "sum") -> torch.Tensor:
     """Sum ``t`` over the axis's ranks (of a tuple of axes, over their
-    joint group), in place; returns ``t``."""
+    joint group), in place; returns ``t``. ``op="max"``: the elementwise
+    largest value instead of the sum."""
     g = mesh.group(axis)
     if g is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
+        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=g)
     return t
 
 

@@ -18,8 +18,11 @@ inserts for ``P("data", "spatial", None, None)``).
    carries them, because gloo, which the CPU tests and two processes
    sharing one card use, sends and receives only host tensors
    (``mesh.all_gather`` stages a card's tensors through host memory under
-   gloo). The exchange is differentiable: a halo row's gradient goes back
-   to the rank that owns the row and is added to that rank's edge row.
+   gloo). A block of fewer rows than the halo (MS-SSIM's coarsest scale
+   on four ranks) takes its rows from ranks beyond the neighbour: the
+   all-gather then carries every rank's whole block. The exchange is
+   differentiable: a halo row's gradient goes back to the rank that owns
+   the row and is added there.
 3. :func:`sum_over`: the all-reduce-sum over the axis (the JAX package's
    ``psum``), differentiable: its backward all-reduces the incoming
    gradient. Global statistics of a block (GroupNorm's sums, the
@@ -44,9 +47,9 @@ inserts for ``P("data", "spatial", None, None)``).
    a mesh, each chunk of tiles is split over the "data" axis and gathered
    back before the stitch.
 
-Under n_spatial > 1 the options whose windows or statistics need another
-scheme (the MS-SSIM and L1 ELBOs, the ``lr_*`` pipelines, bilinear
-interpolation) raise :func:`deferred`'s ``NotImplementedError``.
+Under n_spatial > 1 only ``UNetBlock``'s self-attention, which no
+Probabilistic U-Net path enables, raises :func:`deferred`'s
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ from probunet_tpu_torch.parallel.mesh import (
     all_reduce_,
 )
 
-ROADMAP_ITEM = "ROADMAP.md §1 item 10"
+ROADMAP_ITEM = "ROADMAP.md §1 item 11"
 
 
 def deferred(what: str) -> NotImplementedError:
@@ -130,13 +133,19 @@ def rows_of(mesh: Mesh, h: int, axis: str = SPATIAL_AXIS) -> Rows | None:
     return Rows(mesh, h0=mesh.coord(axis) * h, height=n * h, axis=axis)
 
 
-def check_block(h: int, lowres_scale: int, levels: int) -> None:
+def check_block(h: int, lowres_scale: int, levels: int, msssim_scales: int = 0) -> None:
     """A block of ``h`` rows must divide by the pooling factor
     ``lowres_scale`` (the LR grid is pooled on each rank) and by 2 **
     (levels - 1) (the U-Net's and the encoders' 2x2 pools stay local);
-    raises ``ValueError`` where it does not."""
-    for f, what in ((lowres_scale, "the pooling factor"),
-                    (2 ** (levels - 1), f"2^{levels - 1} of the {levels} levels' pools")):
+    for the MS-SSIM ELBO (``msssim_scales`` > 0) also by 2 **
+    (msssim_scales - 1) (its 2x2 pools between scales stay local). Raises
+    ``ValueError`` where it does not."""
+    factors = [(lowres_scale, "the pooling factor"),
+               (2 ** (levels - 1), f"2^{levels - 1} of the {levels} levels' pools")]
+    if msssim_scales:
+        factors.append((2 ** (msssim_scales - 1),
+                        f"2^{msssim_scales - 1} of MS-SSIM's {msssim_scales} scales"))
+    for f, what in factors:
         if h % f:
             raise ValueError(f"a block of {h} rows does not divide by {f} ({what}): choose "
                              "n_spatial so each rank's rows do")
@@ -159,6 +168,8 @@ class _HaloExchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, halo, mesh, axis_name, row_axis):
         ctx.consts = (halo, mesh, axis_name, row_axis)
+        if x.shape[row_axis] < halo:
+            return _whole_padded(x, halo, mesh, axis_name, row_axis)
         edges = torch.stack([x.narrow(row_axis, 0, halo),
                              x.narrow(row_axis, x.shape[row_axis] - halo, halo)])
         top, bottom = _neighbours(edges, mesh, axis_name)
@@ -170,6 +181,8 @@ class _HaloExchange(torch.autograd.Function):
     def backward(ctx, g):
         halo, mesh, axis_name, row_axis = ctx.consts
         h = g.shape[row_axis] - 2 * halo
+        if h < halo:
+            return _whole_padded_grad(g, halo, mesh, axis_name, row_axis), None, None, None, None
         # the padded rows' gradients go back to the ranks that own the rows
         edges = torch.stack([g.narrow(row_axis, 0, halo),
                              g.narrow(row_axis, h + halo, halo)])
@@ -182,6 +195,30 @@ class _HaloExchange(torch.autograd.Function):
         return gx, None, None, None, None
 
 
+def _whole_padded(x, halo, mesh, axis_name, row_axis):
+    """The halo-padded block of a block smaller than the halo: every
+    rank's block gathered into the whole image, zero rows added at its
+    edges, this rank's window cut out."""
+    whole = torch.cat(all_gather(x, mesh, axis_name), dim=row_axis)
+    padded = F.pad(whole, [0, 0] * (x.dim() - 1 - row_axis % x.dim()) + [halo, halo])
+    h = x.shape[row_axis]
+    return padded.narrow(row_axis, mesh.coord(axis_name) * h, h + 2 * halo)
+
+
+def _whole_padded_grad(g, halo, mesh, axis_name, row_axis):
+    """The backward of :func:`_whole_padded`: every rank's padded-window
+    gradient added into the padded image in rank order, this rank's rows
+    cut out."""
+    h = g.shape[row_axis] - 2 * halo
+    parts = all_gather(g, mesh, axis_name)
+    shape = list(g.shape)
+    shape[row_axis] = len(parts) * h + 2 * halo
+    full = g.new_zeros(shape)
+    for r, part in enumerate(parts):
+        full.narrow(row_axis, r * h, h + 2 * halo).add_(part)
+    return full.narrow(row_axis, halo + mesh.coord(axis_name) * h, h).contiguous()
+
+
 def halo_exchange(x: torch.Tensor, halo: int, mesh: Mesh, axis_name: str = SPATIAL_AXIS,
                   row_axis: int = 1) -> torch.Tensor:
     """This rank's block ``x`` (rows ``row_axis`` of an image split over
@@ -189,12 +226,11 @@ def halo_exchange(x: torch.Tensor, halo: int, mesh: Mesh, axis_name: str = SPATI
     above and below; the first and last blocks get zero rows at the
     image's edges (the SAME convolution's padding). Returns a block with
     ``2 * halo`` more rows; differentiable (the halo rows' gradients are
-    added to their owners' edge rows). Every rank of the axis must call
-    it, and a block must hold at least ``halo`` rows."""
+    added to their owners' rows). Every rank of the axis must call it. A
+    block smaller than the halo takes rows from ranks beyond its
+    neighbours."""
     if halo == 0:
         return x
-    if x.shape[row_axis] < halo:
-        raise ValueError(f"a block of {x.shape[row_axis]} rows cannot lend a halo of {halo}")
     return _HaloExchange.apply(x, halo, mesh, axis_name, row_axis)
 
 

@@ -43,6 +43,7 @@ from probunet_tpu_torch.data.loader import Batches, prefetch_to_device
 from probunet_tpu_torch.device import resolve_device
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 from probunet_tpu_torch.ops import quantize
+from probunet_tpu_torch.ops.msssim import LEVELS as MSSSIM_SCALES
 from probunet_tpu_torch.train.early_stop import EarlyStopper
 from probunet_tpu_torch.train.schedule import beta_schedule
 from probunet_tpu_torch.train.state import (
@@ -55,7 +56,7 @@ from probunet_tpu_torch.train.state import (
 
 def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = True,
                       fused: bool = True, quant: dict | None = None,
-                      collect_stats: bool = False) -> Callable:
+                      collect_stats: bool = False, mesh=None) -> Callable:
     """ELBO loss of (hr_batch, stats, generator, beta_0, beta_1[, eps,
     seeds]) -> (total, metrics). ``training``: M = ``ensemble_size`` and
     the U-Net's dropout on; else M = ``eval_ensemble_size``, no dropout.
@@ -65,7 +66,10 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     ``slab`` = (first row, global batch) of a data-parallel rank's batch
     (``ProbabilisticUNet.elbo``; ``eps`` is then the global batch's);
     ``rows`` (``parallel.spatial.Rows``): the batch is this rank's block
-    of image rows (``preprocess_batch`` and ``elbo`` take it).
+    of image rows (``preprocess_batch`` and ``elbo`` take it). ``mesh``:
+    the mesh of ``slab`` and ``rows``, over which the ``"mse+ssim"`` ELBO
+    takes MS-SSIM's data range: the global batch's targets' max - min,
+    once a call.
 
     ``quant``: a scales tree (``ops.quantize``), attached to the model for
     the call: the convolutions that find their scale run int8 (kernel E; no
@@ -74,6 +78,7 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     ``metrics["quant_stats"]``, the calibration pass of this exact path."""
     data_cfg, loss_cfg = cfg.data, cfg.loss
     m_size = cfg.train.ensemble_size if training else cfg.train.eval_ensemble_size
+    sharding = _Sharding(mesh, cfg)
 
     def loss_fn(hr_batch: torch.Tensor, stats: Standardization,
                 generator: torch.Generator, beta_0: float, beta_1: float,
@@ -82,6 +87,8 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
         batch = preprocess_batch(
             hr_batch, stats, data_cfg.pipeline, data_cfg.lowres_scale,
             data_cfg.interp_mode, data_cfg.epsilon, data_cfg.standardization, rows)
+        data_range = (sharding.data_range(batch["targets"])
+                      if loss_cfg.loss_type == "mse+ssim" else None)
         recorder = (quantize.record_absmax(model) if collect_stats
                     else contextlib.nullcontext())
         with quantize.attached(model, quant), recorder:
@@ -90,7 +97,7 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
                 beta_0=beta_0, beta_1=beta_1, beta_2=loss_cfg.beta_2, alpha=loss_cfg.alpha,
                 alpha_w=loss_cfg.alpha_w, beta_w=loss_cfg.beta_w, lam_w=loss_cfg.lam_w,
                 generator=generator, eps=eps, fused=fused, training=training, seeds=seeds,
-                slab=slab, rows=rows)
+                slab=slab, rows=rows, data_range=data_range)
         if collect_stats:
             metrics = {**metrics, "quant_stats": recorder.stats()}
         return total, metrics
@@ -106,12 +113,14 @@ class _Sharding:
     averages the gradients over ("data", "spatial"), one all-reduce
     (``mesh.mean_over``; the convention in ``parallel/spatial.py``);
     ``metrics`` averages a list of metrics over "data" (they are alike
-    over "spatial" already)."""
+    over "spatial" already); ``data_range`` is MS-SSIM's data range of the
+    global batch's targets."""
 
     def __init__(self, mesh, cfg: Config):
         self.mesh = mesh
         self.levels = max(len(cfg.model.channel_mult), len(cfg.model.num_filters))
         self.scale = cfg.data.lowres_scale
+        self.msssim_scales = MSSSIM_SCALES if cfg.loss.loss_type == "mse+ssim" else 0
 
     def blocks(self, hr: torch.Tensor):
         if self.mesh is None:
@@ -121,8 +130,19 @@ class _Sharding:
 
         rows = rows_of(self.mesh, hr.shape[1])
         if rows is not None:
-            check_block(hr.shape[1], self.scale, self.levels)
+            check_block(hr.shape[1], self.scale, self.levels, self.msssim_scales)
         return data_slab(self.mesh, hr.shape[0]), rows
+
+    def data_range(self, target: torch.Tensor) -> torch.Tensor:
+        """max - min of the global batch's targets (at least 1e-5), from
+        this rank's block ``target``: one all-reduce of (max, -min) with MAX
+        over ("data", "spatial"). No gradient: the target carries none."""
+        ext = torch.stack([target.max(), -target.min()]).detach()
+        if self.mesh is not None:
+            from probunet_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, all_reduce_
+
+            all_reduce_(ext, self.mesh, (DATA_AXIS, SPATIAL_AXIS), op="max")
+        return torch.clamp(ext[0] + ext[1], min=1e-5)
 
     def grads(self, tensors: list) -> list:
         from probunet_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, mean_over
@@ -164,7 +184,7 @@ def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
     ``grad_norm``, and every rank gets what the step returns for the
     global batch. A block whose rows do not divide by the pooling factor
     and the levels' pools raises ``ValueError``."""
-    loss_fn = make_elbo_loss_fn(model, cfg, training=True, fused=fused)
+    loss_fn = make_elbo_loss_fn(model, cfg, training=True, fused=fused, mesh=mesh)
     sharding = _Sharding(mesh, cfg)
 
     def step(state: TrainState, hr_batch: torch.Tensor, stats: Standardization,
@@ -198,7 +218,8 @@ def make_eval_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
     ``mesh``: ``hr_batch`` is this rank's slab (and block of rows), the
     noise is drawn at the global batch's shape, and every rank gets the
     global batch's means."""
-    loss_fn = make_elbo_loss_fn(model, cfg, training=False, fused=fused, quant=quant)
+    loss_fn = make_elbo_loss_fn(model, cfg, training=False, fused=fused, quant=quant,
+                                mesh=mesh)
     sharding = _Sharding(mesh, cfg)
 
     @torch.no_grad()

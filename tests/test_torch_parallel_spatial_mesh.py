@@ -6,7 +6,7 @@ and, in this process, the pieces that make a block of rows compute what
 the whole image computes: the split plain versions of kernels C/C′
 against the whole-image ones, the keep masks of C (shifted seed words)
 and D (the block mapping) against the global masks' rows, the block
-checks and the deferred options.
+checks and the one option still deferred (self-attention).
 
 Tolerances:
 - the 2 x 2 train step against JAX's one-device step (dropout 0, the
@@ -336,39 +336,36 @@ def _rows(n: int = 2, h: int = 16):
     return Rows(mesh, h0=0, height=n * h)
 
 
-@pytest.mark.parametrize("what", ["lr_to_hr", "lr_to_residuals", "bilinear", "mse+ssim",
-                                  "l1"])
-def test_deferred_options_raise_under_a_spatial_mesh(what):
-    """The options the spatially sharded step does not take raise
-    NotImplementedError naming ROADMAP.md §1 item 10, before any
-    collective."""
-    from probunet_tpu_torch.data.climex import compute_stats, preprocess_batch
+def test_attention_still_raises_under_a_spatial_mesh():
+    """UNetBlock's self-attention, the one option the spatially sharded
+    step does not take (no Probabilistic U-Net path enables it), raises
+    NotImplementedError naming its ROADMAP item, before any collective."""
+    from probunet_tpu_torch.models.layers import UNetBlock
 
-    hr = torch.from_numpy(hr_fields(3, 2))[:, :16]
-    stats = compute_stats(torch.from_numpy(hr_fields(3, 2)), 4)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 10"):
-        if what.startswith("lr_"):
-            preprocess_batch(hr, stats, what, 4, rows=_rows())
-        elif what == "bilinear":
-            preprocess_batch(hr, stats, "lrinterp_to_residuals", 4, "bilinear", rows=_rows())
-        else:
-            model = torch_tiny_model(params(), img_resolution=RESOLUTION)
-            x = torch.zeros((2, 16, RES, 3))
-            model.elbo(x, x, M=2, loss_type=what, eps=torch.zeros((2, 2, 4)), rows=_rows())
+    block = UNetBlock(8, 8, emb_channels=16, attention=True, num_heads=1,
+                      generator=torch.Generator().manual_seed(0))
+    x = torch.zeros((2, 8, 16, 32)).to(memory_format=torch.channels_last)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 11"):
+        block(x, torch.zeros((2, 16)), rows=_rows())
 
 
 def test_blocks_that_do_not_divide_raise():
     """A block of rows must divide by the pooling factor and by the levels'
-    pools: 12 rows at 4x pooling and two levels pass, 6 and 20 / 8 do not."""
+    pools: 12 rows at 4x pooling and two levels pass, 6 and 20 / 8 do not;
+    for the MS-SSIM ELBO also by its pools between scales: the flagship's
+    64 rows pass, 24 do not."""
     from probunet_tpu_torch.parallel.mesh import Mesh, row_sharding
     from probunet_tpu_torch.parallel.spatial import check_block
 
     check_block(12, 4, 2)
     check_block(64, 16, 4)       # the flagship's block at n_spatial = 2
+    check_block(64, 16, 4, msssim_scales=5)
     with pytest.raises(ValueError, match="pooling factor"):
         check_block(6, 4, 2)
     with pytest.raises(ValueError, match="levels"):
         check_block(20, 4, 4)
+    with pytest.raises(ValueError, match="MS-SSIM"):
+        check_block(24, 4, 2, msssim_scales=5)
     mesh = Mesh(shape={"data": 1, "spatial": 4}, coords={"data": 0, "spatial": 3}, groups={})
     assert row_sharding(mesh, 32) == slice(24, 32)
     with pytest.raises(ValueError, match="divide"):

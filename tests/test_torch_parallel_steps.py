@@ -375,8 +375,9 @@ def test_groupnorm_chain_with_a_slab_gives_the_global_rows(gn_impl):
 def test_make_mesh_in_a_world_of_one():
     """Without a process group the mesh is a world of one; a mesh the world
     does not hold raises (ValueError, as JAX's), a 1 x 2 spatial mesh
-    included, and an option the spatially sharded step defers raises
-    naming its ROADMAP item."""
+    included, and the WMSE + MS-SSIM loss of a rank's block of rows
+    raises without the global batch's data range."""
+    from probunet_tpu_torch.ops.losses import wmse_ms_ssim_loss
     from probunet_tpu_torch.parallel import make_mesh
     from probunet_tpu_torch.parallel.member_parallel import make_member_mesh
     from probunet_tpu_torch.parallel.mesh import Mesh
@@ -397,13 +398,12 @@ def test_make_mesh_in_a_world_of_one():
     with pytest.raises(ValueError):
         make_member_mesh(n_member=2, device="cpu")
     assert make_dp_tp_mesh(n_model=1, device="cpu").shape == {"data": 1, "model": 1}
-    # a rank's record of a 1 x 2 mesh: the L1 ELBO is deferred (item 10)
+    # a rank's record of a 1 x 2 mesh: a block's range is not the batch's
     rows = Rows(Mesh(shape={"data": 1, "spatial": 2}, coords={"data": 0, "spatial": 1},
-                     groups={}), h0=8, height=16)
-    model = torch_tiny_model(jax_tiny_model()[1])
-    x = torch.zeros((2, 8, 16, 3))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 10"):
-        model.elbo(x, x, loss_type="l1", eps=torch.zeros((2, 4)), rows=rows)
+                     groups={}), h0=64, height=128)
+    x = torch.zeros((2, 64, 128, 3))
+    with pytest.raises(ValueError, match="global batch's data_range"):
+        wmse_ms_ssim_loss(x, x, rows=rows)
 
 
 def test_slabs_of_a_global_batch():

@@ -190,6 +190,8 @@ def spatial_step(workdir, job):
         hr = torch.from_numpy(case["hr"])
         cfg = tiny_cfg(hr.shape[0], case["m"], resolution=tuple(hr.shape[1:3]),
                        **case.get("data", {}))
+        for k, v in case.get("loss", {}).items():
+            setattr(cfg.loss, k, v)
         model = torch_tiny_model(case.get("params", inp["params"]), dropout=case["dropout"],
                                  gn_impl=case["gn_impl"], remat=case.get("remat", False),
                                  num_filters=case.get("num_filters", (8, 16)),
@@ -255,7 +257,7 @@ def spatial_member(workdir, job):
         hr = torch.from_numpy(case["hr"])
         model = torch_tiny_model(inp["params"], img_resolution=tuple(hr.shape[1:3]))
         cfg = tiny_cfg(hr.shape[0], case["eps"].shape[0], resolution=tuple(hr.shape[1:3]),
-                       standardization=case["standardization"])
+                       standardization=case["standardization"], **case.get("data", {}))
         stats = Standardization(*(None if a is None else torch.from_numpy(a)
                                   for a in case["stats"]))
         mesh = make_member_mesh(n_member=case["n_member"], n_spatial=case["n_spatial"],
@@ -312,8 +314,56 @@ def spatial_ops(workdir, job):
     _save(workdir, job, out)
 
 
+def spatial_losses(workdir, job):
+    """On a ("data" = 1, "spatial" = world) mesh: ``ms_ssim`` of the rank's
+    block (its value and x's gradient, gathered); ``preprocess_batch`` of
+    the rank's block under bilinear interpolation for each pipeline and
+    standardization (gathered); and the train step under an ``lr_*``
+    pipeline (the type of what it raises)."""
+    from torch_parity import torch_tiny_model
+
+    from probunet_tpu_torch.data.climex import Standardization, compute_stats, preprocess_batch
+    from probunet_tpu_torch.ops.msssim import ms_ssim
+    from probunet_tpu_torch.parallel import make_mesh, make_parallel_train_step, shard_batch
+    from probunet_tpu_torch.parallel.spatial import rows_of
+    from probunet_tpu_torch.train.state import create_train_state
+
+    inp = _load(workdir, job)
+    mesh = make_mesh(1, world()[1], device="cpu")
+    n, pos = mesh.size("spatial"), mesh.coord("spatial")
+    out = {}
+
+    def gathered(t, dim=1):
+        return torch.cat(all_gather(t.contiguous(), mesh, "spatial"), dim=dim)
+
+    x, y = (torch.from_numpy(inp[k]).chunk(n, dim=1)[pos].clone() for k in ("x", "y"))
+    x.requires_grad_(True)
+    rows = rows_of(mesh, x.shape[1])
+    v = ms_ssim(x, y, torch.tensor(inp["data_range"]), win_size=7, rows=rows)
+    v.backward()   # of the replicated value: the mean over the axis is the gradient
+    out["ms_ssim"] = {"value": v.detach(), "grad": gathered(x.grad / n)}
+    hr = torch.from_numpy(inp["hr"])
+    block = shard_batch(hr, mesh)
+    stats = Standardization(*(torch.from_numpy(a) for a in inp["stats"]))
+    for pipeline, standardization in inp["preprocess"]:
+        got = preprocess_batch(block, stats, pipeline, 4, "bilinear", 1e-10, standardization,
+                               rows_of(mesh, block.shape[1]))
+        out[f"{pipeline} {standardization}"] = {
+            k: gathered(got[k]) for k in ("inputs", "targets", "lrinterp") if k in got}
+    cfg = tiny_cfg(hr.shape[0], 2, resolution=tuple(hr.shape[1:3]), pipeline="lr_to_residuals")
+    model = torch_tiny_model(inp["params"], img_resolution=tuple(hr.shape[1:3]))
+    state = create_train_state(model, seed=cfg.train.seed, device="cpu")
+    try:
+        make_parallel_train_step(model, cfg, mesh)(state, block, compute_stats(hr, 4), 1.0,
+                                                   0.1)
+        out["lr step"] = None
+    except (RuntimeError, TypeError, ValueError) as e:
+        out["lr step"] = type(e).__name__
+    _save(workdir, job, out)
+
+
 JOBS = {f.__name__: f for f in (dp_step, trainer, member, halo, tiled, tensor_parallel, cli,
-                                spatial_step, spatial_member, spatial_ops)}
+                                spatial_step, spatial_member, spatial_ops, spatial_losses)}
 
 
 def main():

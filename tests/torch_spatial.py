@@ -1,8 +1,10 @@
 """Shared inputs and references of the spatially sharded step's tests
 (``tests/test_torch_parallel_spatial_*.py``): the tiny model at 32x32
 (4x pooling, two levels, so a block of 16 or 8 rows divides by the pooling
-factor and the pools), its one-process steps in the port, and the JAX
-package's one-device train step on the same posterior noise.
+factor and the pools; 128x128 for the MS-SSIM ELBO), its one-process
+steps in the port, and the JAX package's one-device train step on the
+same posterior noise. A case's or a call's ``loss`` sets ``cfg.loss``
+fields (the ELBO and its weights).
 """
 
 from __future__ import annotations
@@ -19,12 +21,12 @@ DROPOUT = 0.1
 RESOLUTION = (RES, RES)
 
 
-def hr_fields(seed: int, n: int = B) -> np.ndarray:
-    """n synthetic ClimEx days at RES x RES in storage space."""
+def hr_fields(seed: int, n: int = B, res: int = RES) -> np.ndarray:
+    """n synthetic ClimEx days at res x res in storage space."""
     from probunet_tpu_torch.data.synthetic import synthetic_climex_fields
     from probunet_tpu_torch.data.transforms import apply_physical_transform
 
-    phys = synthetic_climex_fields(n, RES, RES, seed=seed)
+    phys = synthetic_climex_fields(n, res, res, seed=seed)
     return apply_physical_transform(torch.from_numpy(phys), ("pr", "tasmin", "tasmax")).numpy()
 
 
@@ -34,22 +36,31 @@ def params(num_filters: tuple[int, ...] = (8, 16)) -> dict:
     return jax_tiny_model(num_filters=num_filters, img_resolution=RESOLUTION)[1]
 
 
-def jax_cfg(batch: int, m: int, **data):
-    """The JAX package's config of ``tiny_cfg`` at RES x RES."""
+def port_cfg(batch: int, m: int, resolution=RESOLUTION, loss: dict | None = None, **data):
+    """``tiny_cfg`` at ``resolution`` with the ``loss`` fields set."""
+    cfg = tiny_cfg(batch, m, resolution=tuple(resolution), **data)
+    for k, v in (loss or {}).items():
+        setattr(cfg.loss, k, v)
+    return cfg
+
+
+def jax_cfg(batch: int, m: int, resolution=RESOLUTION, loss: dict | None = None, **data):
+    """The JAX package's config of :func:`port_cfg`."""
     from probunet_tpu.config import Config
 
     cfg = Config()
-    t = tiny_cfg(batch, m, resolution=RESOLUTION, **data)
-    for sec in ("data", "model", "train"):
+    t = port_cfg(batch, m, resolution, loss, **data)
+    for sec in ("data", "model", "train", "loss"):
         for k, v in vars(getattr(t, sec)).items():
             setattr(getattr(cfg, sec), k, v)
     return cfg
 
 
-def jax_train_step(monkeypatch, hr: np.ndarray, eps: np.ndarray):
+def jax_train_step(monkeypatch, hr: np.ndarray, eps: np.ndarray, loss: dict | None = None):
     """(metrics, the port's state dict of the parameters) after one JAX
-    ``make_train_step`` on one device, dropout 0, the posterior noise
-    ``eps``, beta_1 = 0.1."""
+    ``make_train_step`` on one device at hr's resolution, dropout 0, the
+    posterior noise ``eps`` ((M, B, D), or (B, D) for the L1 ELBO),
+    beta_1 = 0.1."""
     import jax
     import jax.numpy as jnp
 
@@ -59,17 +70,18 @@ def jax_train_step(monkeypatch, hr: np.ndarray, eps: np.ndarray):
     from probunet_tpu.train.state import TrainState, make_optimizer
     from probunet_tpu_torch.convert import convert_params
 
-    jmodel, p = jax_tiny_model(img_resolution=RESOLUTION)
+    res = tuple(hr.shape[1:3])
+    jmodel, p = jax_tiny_model(img_resolution=res)
     e = jnp.asarray(eps)
     monkeypatch.setattr(jd.DiagGaussian, "rsample",
                         lambda self, key, sample_shape=(): self.mu + self.sigma * e)
     state = TrainState.create(apply_fn=jmodel.apply, params=jax.tree.map(jnp.asarray, p),
                               tx=make_optimizer(), rng=jax.random.key(0))
-    step = make_train_step(jmodel, jax_cfg(hr.shape[0], eps.shape[0]), donate=False)
+    step = make_train_step(jmodel, jax_cfg(hr.shape[0], eps.shape[0], res, loss),
+                           donate=False)
     new, met = step(state, jnp.asarray(hr), compute_stats(jnp.asarray(hr), 4),
                     jnp.float32(1.0), jnp.float32(0.1))
-    want = convert_params(jax.device_get(new.params),
-                          torch_tiny_model(p, img_resolution=RESOLUTION))
+    want = convert_params(jax.device_get(new.params), torch_tiny_model(p, img_resolution=res))
     return {k: float(v) for k, v in met.items()}, want
 
 
@@ -84,11 +96,13 @@ def one_process(case: dict, steps: int | None = None):
     from probunet_tpu_torch.train.state import create_train_state
 
     hr = torch.from_numpy(case["hr"])
-    cfg = tiny_cfg(hr.shape[0], case["m"], resolution=RESOLUTION, **case.get("data", {}))
+    res = tuple(hr.shape[1:3])
+    cfg = port_cfg(hr.shape[0], case["m"], res, case.get("loss"), **case.get("data", {}))
     nf = case.get("num_filters", (8, 16))
-    model = torch_tiny_model(params(nf), dropout=case["dropout"], gn_impl=case["gn_impl"],
-                             remat=case.get("remat", False), num_filters=nf,
-                             img_resolution=RESOLUTION)
+    model = torch_tiny_model(case["params"] if "params" in case else params(nf),
+                             dropout=case["dropout"],
+                             gn_impl=case["gn_impl"], remat=case.get("remat", False),
+                             num_filters=nf, img_resolution=res)
     stats = compute_stats(hr, cfg.data.lowres_scale)
     if case.get("eval"):
         met = make_eval_step(model, cfg, fused=case["fused"])(
