@@ -7,9 +7,10 @@ Builds the hand-written CUDA kernels from ``probunet_tpu_torch/csrc`` with
 nvcc (sm_90a) and holds each against its plain PyTorch version on the card,
 at the shapes of the serve and training paths: the fcomb-CRPS forward (A)
 and backward (A′), the afCRPS-terms forward (B) and backward (B′), the
-GroupNorm chain's forward (C) and backward (C′), the hash dropout (D)
-and the int8 convolution of the int8 serving path (E, which no TPU kernel
-computes: the JAX package leaves it to XLA), with each kernel's time
+GroupNorm chain's forward (C) and backward (C′), the hash dropout (D),
+the int8 convolution of the int8 serving path (E) and the quantization
+and dequantization of the int8 saved convolution inputs (F, F′; no TPU
+kernel computes E, F or F′: the JAX package leaves them to XLA), with each kernel's time
 beside its plain version's and its bound; A and
 A′ on both of their kernels (bf16 operands on the tensor cores, f32 on
 the FP32 pipes), C and C′ on their per-shape plans and on the other
@@ -108,6 +109,17 @@ route, and drives both paths at the full width of the flagship preset
   its rate, FLOP count (the plain route's, on the CPU), MFU share (at
   most MFU_LIMIT), peak memory and the card's power limit, and the
   kernels of its path launched (E on the int8 modes);
+- int8 saved convolution inputs (``act_compress``, the JAX package's
+  ``PROBUNET_ACT_COMPRESS=int8``): kernels F (per-channel absmax, then
+  scales and int8 values) and F′ (dequantization) bit for bit against
+  their plain versions at the flagship's 128x128x32 bf16 convolution input
+  (bs=128) and one f32 shape, ties and a zero channel included, timed
+  beside them with their bounds; the f32 compressed training step on the
+  card against the CPU; the bf16 flagship's compressed eval step (no F,
+  no F′) and train step (one F and one F′ per convolution input) and the
+  bytes the step saves for the backward with compression off and on;
+  ``bench`` train with ``PROBUNET_ACT_COMPRESS`` unset and ``int8`` at
+  bs=128 and 512 (samples/s, peak memory);
 - the parallel paths (``parallel``): in a world of one over NCCL,
   ``make_parallel_train_step`` at the flagship's training step (bf16,
   bs=128, M=15) bit-equal to ``make_train_step``'s from the same state
@@ -151,12 +163,13 @@ nvcc; there is no CPU route. Any failed check raises, so the exit code is
 0 only when every phase passed. The line before the last is a JSON object
 with each kernel's launches on its main path (``launches``: the training
 path for A to D, the int8 serve runs for E's two routes, ``int8_conv``
-and ``int8_conv_mma_sync``), on the int8 serve runs
+and ``int8_conv_mma_sync``, ``bench`` train under compression at bs=128
+for F and F′), on the int8 serve runs
 (``launches_int8``), on the serve CLI's runs (``launches_cli``), on the training CLI's runs
 (``launches_train_cli``), on the EDM runs (``launches_edm``), on the
 ``explore`` runs (``launches_explore``), on the bench runs (``launches_bench``), on
-the parallel runs (``launches_parallel``: the world of one and both gloo
-ranks) and on the spatially sharded runs (``launches_spatial``, both
+the act_compress runs (``launches_act_compress``), on the parallel runs
+(``launches_parallel``: the world of one and both gloo ranks) and on the spatially sharded runs (``launches_spatial``, both
 ranks; C's and C′'s split route ``launches_spatial_split``) and on the
 spatial options' runs (``launches_spatial_options``,
 ``launches_spatial_options_split``), error, times
@@ -206,7 +219,7 @@ from probunet_tpu_torch.models.edm import EDMPrecond
 from probunet_tpu_torch.models.layers import EDMGroupNorm
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 from probunet_tpu_torch.models.unet import UNet, dropout_seeds
-from probunet_tpu_torch.ops import losses, quantize
+from probunet_tpu_torch.ops import act_compress, losses, quantize
 from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
 from probunet_tpu_torch.ops.kernels import int8_conv as int8_e
 from probunet_tpu_torch.train import loop as train_loop
@@ -221,6 +234,7 @@ from probunet_tpu_torch.train.loop import (
     train_epoch,
 )
 from probunet_tpu_torch.train.state import TrainState, create_train_state, global_norm
+from probunet_tpu_torch.utils.saved_bytes import elbo_saved_bytes
 
 BATCH = 128          # bench.py's serve batch
 N_BATCHES = 3
@@ -430,7 +444,17 @@ BENCH_MODES = (("train", {}, ("fcomb_crps", "fcomb_crps_bwd", "fused_gn", "fused
                ("ensemble", {"BENCH_QUANT": "int8"}, ("fused_gn", "int8_conv")),
                ("eval", {"BENCH_QUANT": "int8"}, ("fcomb_crps", "fused_gn", "int8_conv")))
 BENCH_ENV = ("BENCH_MODE", "BENCH_QUANT", "BENCH_QUANT_SKIP", "BENCH_BS", "BENCH_DTYPE",
-             "BENCH_REMAT", "BENCH_DROPOUT")
+             "BENCH_REMAT", "BENCH_DROPOUT", "PROBUNET_ACT_COMPRESS")
+BENCH_TRAIN_KERNELS = BENCH_MODES[0][2]
+# int8 saved convolution inputs (the `act_compress` phase, kernels F and
+# F′): the NHWC shapes held bit for bit against the plain versions (the
+# flagship's dominant bf16 convolution input at bs=128, and one f32), the
+# bench batch sizes run with compression off and on, and the batch of the
+# card's compressed eval and train steps whose launches are counted
+ACT8_CASES = (((BATCH, 128, 128, 32), "bfloat16"), ((32, 64, 64, 64), "float32"))
+ACT8_BENCH_BS = (128, 512)
+ACT8_STEP_BS = 16
+ACT8_KERNELS = ("act_compress_quantize", "act_compress_dequantize")
 MFU_LIMIT = 1.05
 EXPLORE_RTOL = 1e-3
 EXPLORE_CHECK = dict(max_items=64, n_contexts=8)
@@ -531,7 +555,8 @@ PTXAS_KERNELS = ("fcomb_crps_fwd_mma_kernel", "fcomb_crps_tile_kernel",
                  "afcrps_bwd_kernel", "afcrps_bwd_smem_kernel",
                  "gn_fwd_cluster_kernel", "gn_fwd_stats_kernel", "gn_fwd_apply_kernel",
                  "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel",
-                 "dropout_kernel", "int8_conv_kernel", "int8_conv_wgmma_kernel")
+                 "dropout_kernel", "int8_conv_kernel", "int8_conv_wgmma_kernel",
+                 "act8_absmax_kernel", "act8_quantize_kernel", "act8_dequantize_kernel")
 
 
 def _ptxas_report(log: str, names) -> dict:
@@ -1329,16 +1354,20 @@ def serve(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg,
 
 
 def train_device_vs_cpu(model32: ProbabilisticUNet, hr: torch.Tensor, stats, cfg,
-                        dev: torch.device) -> None:
+                        dev: torch.device, routes=(True, False), sensitivity: bool = True,
+                        what: str = "") -> None:
     """The f32 training step on the card (kernels A, A′, D and B, B′ on
     the unfused route) against the CPU (plain versions): two items,
     dropout 0.1, the same noise and seed words, beta_1 = 1. Loss and every
-    parameter's gradient, then the parameters after one AdamW step."""
+    parameter's gradient, then the parameters after one AdamW step.
+    ``routes``: the values of ``fused`` run; ``sensitivity``: also print
+    the CPU gradients' change under a 1e-6 move of the inputs; ``what``:
+    the model's label in the printed lines."""
     eps = torch.from_numpy(np.random.default_rng(11).standard_normal(
         (cfg.train.ensemble_size, 2, cfg.model.latent_dim)).astype(np.float32))
     seeds = torch.from_numpy(np.random.default_rng(12).integers(
         -2 ** 31, 2 ** 31, (len(model32.unet.dropout_blocks), 2), dtype=np.int32))
-    for fused in (True, False):
+    for fused in routes:
         out = {}
         for where in ("cpu", dev):
             model = copy.deepcopy(model32)
@@ -1352,7 +1381,7 @@ def train_device_vs_cpu(model32: ProbabilisticUNet, hr: torch.Tensor, stats, cfg
                                   beta_1=1.0, eps=eps.to(where), fused=fused, training=True,
                                   seeds=seeds.to(where))
             grads = torch.autograd.grad(total, state.optimizer.params)
-            if where == "cpu" and fused:
+            if where == "cpu" and fused and sensitivity:
                 # the gradients' own sensitivity: the CPU step again on
                 # inputs moved by a relative 1e-6
                 noise = torch.randn(batch["inputs"].shape,
@@ -1383,7 +1412,8 @@ def train_device_vs_cpu(model32: ProbabilisticUNet, hr: torch.Tensor, stats, cfg
         flipped = float((step_diff > lr).float().mean())
         redo_err = max(float((a - b.detach()).abs().max())
                        for a, b in zip(pg, redo.optimizer.params))
-        print(f"device vs cpu f32 train step fused={fused}: loss cuda={lg:.7g} cpu={lc:.7g} "
+        print(f"device vs cpu f32 train step{what and ' ' + what} fused={fused}: loss "
+              f"cuda={lg:.7g} cpu={lc:.7g} "
               f"rel_err={rel:.3e}; grads ||dg||/||g|| max={grad_err[worst]:.3e} ({worst}), "
               f"median={float(np.median(list(grad_err.values()))):.3e}; after AdamW: "
               f"vs the CPU optimizer on the card's gradients max|dp|={redo_err:.3e}; "
@@ -3173,43 +3203,18 @@ def int8_phase(model: ProbabilisticUNet, batches: list[torch.Tensor], stats, cfg
     return e_rows, launches
 
 
-def bench_phase(zero_counts, read_counts) -> dict:
-    """``python -m probunet_tpu_torch bench`` (``cli.main(["bench"])``) once
-    per mode of BENCH_MODES at its defaults (flagship, bf16, bs=128), under
-    PyTorch's default TF32 settings as a user's run gets them: each JSON
-    line printed whole, its rate, FLOP count, peak memory and power limit
-    finite and positive, its MFU share at most MFU_LIMIT, and the mode's
-    kernels launched (the counts set to 0 just before the mode). Returns
-    the launches by mode."""
+@contextlib.contextmanager
+def _bench_env(env: dict):
+    """The bench knobs (BENCH_ENV) set to ``env`` alone, and PyTorch's default
+    TF32 settings as a user's run gets them, for the block."""
     saved = {k: os.environ.get(k) for k in BENCH_ENV}
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
-    launches = {}
     try:
-        for mode, env, kernels in BENCH_MODES:
-            for k in BENCH_ENV:
-                os.environ.pop(k, None)
-            os.environ.update({"BENCH_MODE": mode, **env})
-            label = " ".join([mode, *env.values()])
-            zero_counts()
-            res, _, seconds, _ = _run_cli(["bench"])
-            launches[f"bench {label}"] = n = read_counts()
-            print(f"bench {label}: {json.dumps(res)}")
-            print(f"bench {label}: {seconds:.3f} s; launches {json.dumps(n)}")
-            flops = res.get("flops_per_step", res.get("flops_per_batch"))
-            numbers = (res["value"], flops, res["peak_memory_gb"],
-                       res["device"]["power_limit_w"], res["mfu_vs_h100_bf16_dense_peak"])
-            if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
-                       for v in numbers):
-                raise AssertionError(f"bench {label}: a number is not finite and positive")
-            if res["metric"].endswith("_cpu_smoke") or not res["device"]["name"]:
-                raise AssertionError(f"bench {label}: not a card run")
-            mfu = {k: v for k, v in res.items() if k.startswith("mfu")}
-            if not all(v <= MFU_LIMIT for v in mfu.values()):
-                raise AssertionError(f"bench {label}: MFU {mfu} above {MFU_LIMIT}")
-            idle = [k for k in kernels if n[k] <= 0]
-            if idle:
-                raise AssertionError(f"bench {label}: kernels {idle} were not launched")
+        for k in BENCH_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
@@ -3217,7 +3222,203 @@ def bench_phase(zero_counts, read_counts) -> dict:
             else:
                 os.environ[k] = v
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _bench_run(label: str, env: dict, kernels, zero_counts, read_counts) -> tuple[dict, dict]:
+    """``python -m probunet_tpu_torch bench`` (``cli.main(["bench"])``) under
+    ``env``: its JSON line printed whole, its rate, FLOP count, peak memory
+    and power limit finite and positive, its MFU share at most MFU_LIMIT,
+    and ``kernels`` launched (the counts set to 0 just before). Returns
+    (the line, the launches)."""
+    with _bench_env(env):
+        zero_counts()
+        res, _, seconds, _ = _run_cli(["bench"])
+        n = read_counts()
+    print(f"bench {label}: {json.dumps(res)}")
+    print(f"bench {label}: {seconds:.3f} s; launches {json.dumps(n)}")
+    flops = res.get("flops_per_step", res.get("flops_per_batch"))
+    numbers = (res["value"], flops, res["peak_memory_gb"],
+               res["device"]["power_limit_w"], res["mfu_vs_h100_bf16_dense_peak"])
+    if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in numbers):
+        raise AssertionError(f"bench {label}: a number is not finite and positive")
+    if res["metric"].endswith("_cpu_smoke") or not res["device"]["name"]:
+        raise AssertionError(f"bench {label}: not a card run")
+    mfu = {k: v for k, v in res.items() if k.startswith("mfu")}
+    if not all(v <= MFU_LIMIT for v in mfu.values()):
+        raise AssertionError(f"bench {label}: MFU {mfu} above {MFU_LIMIT}")
+    idle = [k for k in kernels if n[k] <= 0]
+    if idle:
+        raise AssertionError(f"bench {label}: kernels {idle} were not launched")
+    return res, n
+
+
+def bench_phase(zero_counts, read_counts) -> dict:
+    """``python -m probunet_tpu_torch bench`` once per mode of BENCH_MODES at
+    its defaults (flagship, bf16, bs=128) through :func:`_bench_run`.
+    Returns the launches by mode."""
+    launches = {}
+    for mode, env, kernels in BENCH_MODES:
+        label = " ".join([mode, *env.values()])
+        _, launches[f"bench {label}"] = _bench_run(label, {"BENCH_MODE": mode, **env}, kernels,
+                                                   zero_counts, read_counts)
     return launches
+
+
+def _act8_vs_plain(gen, shape, dtype: str) -> dict:
+    """Kernels F and F′ against their plain versions at one NHWC shape: q, s
+    and xh bit for bit (per-channel scales over four decades, a channel of
+    zeros and one of exact ties, absmax 127 / 8 so that every x / s is k +
+    1/2), then F's time (both launches), F′'s, the plain versions' and the
+    bounds. Returns their JSON rows."""
+    dev = gen.device
+    tdt = getattr(torch, dtype)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev) * torch.logspace(-2, 2, c, device=dev)
+    x[..., 0] = 0.0
+    ties = torch.randint(-127, 127, shape[:-1], generator=gen, device=dev) + 0.5
+    x[..., 1] = ties / 8
+    x.view(-1, c)[0, 1] = 127 / 8
+    x = x.to(tdt)
+    with torch.no_grad():
+        q, s = act_compress.quantize_channels(x)
+        xh = act_compress.dequantize(q, s, tdt)
+        s0 = act_compress.scales_plain(act_compress.absmax_plain(x))
+        q0 = act_compress.quantize_plain(x, s0)
+        xh0 = act_compress.dequantize_plain(q0, s0, tdt)
+        exact = {"q": torch.equal(q, q0), "s": torch.equal(s, s0), "xh": torch.equal(xh, xh0)}
+        f_ms = _sync_ms(lambda: act_compress.quantize_channels(x), 20)
+        f_plain_ms = _sync_ms(lambda: act_compress.quantize_plain(
+            x, act_compress.scales_plain(act_compress.absmax_plain(x))), 3, 1)
+        fp_ms = _sync_ms(lambda: act_compress.dequantize(q, s, tdt), 20)
+        fp_plain_ms = _sync_ms(lambda: act_compress.dequantize_plain(q, s, tdt), 3, 1)
+    n, e = x.numel(), x.element_size()
+    # F reads x twice and writes q (|x|, the max, a division and a rounding
+    # an element); F′ reads q and writes xh (one product an element)
+    rows = {"act_compress_quantize": {
+                "max_abs_err": float((q.int() - q0.int()).abs().max()), "ms": f_ms,
+                "plain_ms": f_plain_ms, **_bound(n * (2 * e + 1), 4.0 * n, "float32"),
+                "library_ms": None, "shape": list(shape), "dtype": dtype},
+            "act_compress_dequantize": {
+                "max_abs_err": float((xh.float() - xh0.float()).abs().max()), "ms": fp_ms,
+                "plain_ms": fp_plain_ms, **_bound(n * (1 + e), 1.0 * n, "float32"),
+                "library_ms": None, "shape": list(shape), "dtype": dtype}}
+    print(f"kernel act_compress   shape={shape} {dtype} exact={json.dumps(exact)} "
+          f"ties_even={bool((q[..., 1].flatten()[1:] % 2 == 0).all())} F_ms={f_ms:.4f} "
+          f"F_plain_ms={f_plain_ms:.4f} "
+          f"F_bound_ms={rows['act_compress_quantize']['bound_ms']:.4f} "
+          f"F'_ms={fp_ms:.4f} F'_plain_ms={fp_plain_ms:.4f} "
+          f"F'_bound_ms={rows['act_compress_dequantize']['bound_ms']:.4f}")
+    if not all(exact.values()):
+        raise AssertionError(f"act_compress kernels differ from their plain versions at "
+                             f"{shape} {dtype}: {exact}")
+    return rows
+
+
+def _act8_data(cfg, days: int, dev):
+    hr = apply_physical_transform(torch.from_numpy(synthetic_climex_fields(
+        days, *cfg.data.resolution, cfg.data.variables, seed=5)).to(dev), cfg.data.variables)
+    return hr, compute_stats(hr, cfg.data.lowres_scale)
+
+
+def _act8_steps(dev, zero_counts, read_counts) -> dict:
+    """The flagship bf16 model with compression on the card: the eval step
+    launches no F or F′; one train step launches each once a convolution
+    input (a split convolution's two inputs apart); the bytes the step saves
+    for the backward with compression off and on at bs=128. Returns the
+    launches."""
+    cfg = preset("probunet_multivar_128")
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.train.ensemble_size = TRAIN_M
+    hr, stats = _act8_data(cfg, BATCH, dev)
+    model = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0), device=dev,
+                                          act_compress=True)
+    zero_counts()
+    make_eval_step(model, cfg)(hr[:ACT8_STEP_BS], stats,
+                               torch.Generator(device=dev).manual_seed(0))
+    launches = {"act8 eval step": read_counts()}
+    inputs = []
+    hooks = [m.register_forward_hook(lambda mod, a, out: inputs.append(len(a)))
+             for m in model.unet.modules() if getattr(m, "act_compress", False) and m.kernel]
+    state = create_train_state(model, seed=cfg.train.seed, lr=cfg.train.lr, device=dev)
+    zero_counts()
+    make_train_step(model, cfg)(state, hr[:ACT8_STEP_BS], stats, 1.0, 1.0)
+    launches["act8 train step"] = n = read_counts()
+    for h in hooks:
+        h.remove()
+    want = sum(inputs)
+    print(f"act_compress steps bs={ACT8_STEP_BS}: eval step launches "
+          f"{json.dumps({k: launches['act8 eval step'][k] for k in ACT8_KERNELS})}; train "
+          f"step {json.dumps({k: n[k] for k in ACT8_KERNELS})} for {len(inputs)} convolution "
+          f"calls with {want} inputs")
+    if any(launches["act8 eval step"][k] for k in ACT8_KERNELS):
+        raise AssertionError("the eval step launched F or F′")
+    if not n["act_compress_quantize"] == n["act_compress_dequantize"] == want > 0:
+        raise AssertionError(f"the compressed train step launched F/F′ {n} times for {want} "
+                             "convolution inputs")
+    saved = {}
+    for on in (False, True):
+        act_compress.switch(model, on)
+        saved["act_compress" if on else "float"] = elbo_saved_bytes(model, cfg, hr, stats)
+        torch.cuda.empty_cache()
+    print(f"act_compress saved for backward (bs={BATCH} bf16, the training ELBO, distinct "
+          f"storages, parameters left out): {json.dumps(saved)}; ratio "
+          f"{saved['act_compress']['bytes'] / saved['float']['bytes']:.4f}")
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def act_compress_phase(dev, zero_counts, read_counts) -> tuple[dict, dict]:
+    """Int8 saved convolution inputs (PROBUNET_ACT_COMPRESS=int8, kernels F
+    and F′): ``bench`` train with compression off and on at each of
+    ACT8_BENCH_BS first, while nothing else of the phase holds device
+    memory (samples/s and peak memory; a batch that does not fit is
+    reported so); each kernel bit for bit against its plain version at
+    ACT8_CASES; the f32 compressed training step on the card against the
+    CPU (TF32 off); the eval and train steps' launches and the saved bytes
+    (:func:`_act8_steps`). Returns (the kernels' JSON rows, the launches by
+    run)."""
+    t0 = time.perf_counter()
+    launches, rates = {}, {}
+    print(f"act_compress: {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated before "
+          "the bench runs")
+    for bs in ACT8_BENCH_BS:
+        for on in (False, True):
+            label = f"train act_compress={'int8' if on else 'off'} bs={bs}"
+            env = {"BENCH_MODE": "train", "BENCH_BS": str(bs),
+                   **({"PROBUNET_ACT_COMPRESS": "int8"} if on else {})}
+            kernels = BENCH_TRAIN_KERNELS + (ACT8_KERNELS if on else ())
+            try:
+                res, n = _bench_run(label, env, kernels, zero_counts, read_counts)
+            except torch.OutOfMemoryError as e:
+                print(f"bench {label}: does not fit on the card ({str(e)[:200]})")
+                rates[label] = None
+                torch.cuda.empty_cache()
+                continue
+            if not on and any(n[k] for k in ACT8_KERNELS):
+                raise AssertionError(f"bench {label}: F or F′ launched with compression off")
+            launches[f"bench {label}"] = n
+            rates[label] = {"samples_per_s": res["value"],
+                            "peak_memory_gb": res["peak_memory_gb"]}
+            torch.cuda.empty_cache()
+    print(f"act_compress rates: {json.dumps(rates)}")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = {}
+    for shape, dtype in ACT8_CASES:
+        got = _act8_vs_plain(gen, shape, dtype)
+        rows = rows or got
+        torch.cuda.empty_cache()
+    cfg32 = preset("probunet_multivar_128")
+    model32 = ProbabilisticUNet.from_config(cfg32, torch.Generator().manual_seed(0),
+                                            device="cpu", act_compress=True)
+    _fill_zero_params(model32, torch.Generator().manual_seed(1))
+    hr, stats = _act8_data(cfg32, 8, "cpu")
+    train_device_vs_cpu(model32, hr, stats, cfg32, dev, routes=(True,), sensitivity=False,
+                        what="act_compress")
+    del model32
+    launches.update(_act8_steps(dev, zero_counts, read_counts))
+    print(f"act_compress phase {time.perf_counter() - t0:.3f} s")
+    return rows, launches
 
 
 def _free_port() -> int:
@@ -4095,7 +4296,9 @@ def launch_counters():
                 "dropout": dropout.dropout,
                 "int8_conv": int8_e.int8_conv,                  # E, either route
                 "int8_conv_wgmma": int8_e.launch_wgmma,
-                "int8_conv_mma_sync": int8_e.launch_mma_sync}
+                "int8_conv_mma_sync": int8_e.launch_mma_sync,
+                "act_compress_quantize": act_compress.quantize_channels,       # F
+                "act_compress_dequantize": act_compress.dequantize}           # F′
 
     def zero_counts():
         for fn in counters.values():
@@ -4246,8 +4449,10 @@ def main() -> None:
     print(f"launches on the training path ({n_steps} steps on {len(routes)} routes): "
           f"{json.dumps(launches)}")
     for name, n in launches.items():
-        # E serves only (no gradient); C and C′ split only under a spatial mesh
-        if n <= 0 and not name.startswith("int8_conv") and not name.endswith("_split"):
+        # E serves only (no gradient); C and C′ split only under a spatial mesh;
+        # F and F′ run only under PROBUNET_ACT_COMPRESS=int8 (their own phase)
+        if n <= 0 and not name.startswith("int8_conv") and not name.endswith("_split") \
+                and name not in ACT8_KERNELS:
             raise AssertionError(f"kernel {name} was not launched on the training path")
     plain = train[kernel_fused]
     for name in remats:
@@ -4319,6 +4524,13 @@ def main() -> None:
     print(f"launches on the bench runs: {json.dumps(bench_launches)}; bench phase "
           f"{time.perf_counter() - t0:.3f} s")
 
+    # int8 saved convolution inputs: kernels F and F′, the compressed steps and
+    # `bench` train with compression off and on
+    torch.cuda.empty_cache()
+    act8_rows, act8_launches = act_compress_phase(dev, zero_counts, read_counts)
+    report.update(act8_rows)
+    print(f"launches on the act_compress runs: {json.dumps(act8_launches)}")
+
     # the parallel paths: a world of one over NCCL, two gloo ranks on this card
     # (the spatially sharded paths last); the split kernels at the block shapes
     torch.cuda.empty_cache()
@@ -4339,15 +4551,25 @@ def main() -> None:
     # E's entries are its two routes' kernels, each counted by its route
     e_counters = {"int8_conv": "int8_conv_wgmma", "int8_conv_mma_sync": "int8_conv_mma_sync"}
     splits = {"fused_gn": "fused_gn_split", "fused_gn_bwd": "fused_gn_bwd_split"}
+    # F's and F′'s main path: `bench` train under PROBUNET_ACT_COMPRESS=int8
+    act8_main = act8_launches[f"bench train act_compress=int8 bs={ACT8_BENCH_BS[0]}"]
     for name in [n for n in counters if not n.startswith("int8_conv")
-                 and n not in splits.values()] + list(e_counters):
+                 and n not in splits.values() and n not in ACT8_KERNELS] + list(e_counters) \
+            + list(ACT8_KERNELS):
         counter = e_counters.get(name, name)
-        mod = int8_e if name in e_counters else modules[name.removesuffix("_bwd")]
+        mod = (int8_e if name in e_counters else act_compress if name in ACT8_KERNELS
+               else modules[name.removesuffix("_bwd")])
+        replaces = (mod.REPLACES_BWD if name.endswith("_bwd") else
+                    mod.REPLACES_DEQUANTIZE if name == "act_compress_dequantize"
+                    else mod.REPLACES)
         int8_n = sum(r[counter] for r in int8_launches.values())
+        main_n = (int8_n if name in e_counters else act8_main[counter] if name in ACT8_KERNELS
+                  else launches[counter])
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                        "replaces": mod.REPLACES_BWD if name.endswith("_bwd") else mod.REPLACES,
-                        # each kernel's own main path: training for A to D, int8 serving for E
-                        "launches": int8_n if name in e_counters else launches[counter],
+                        "replaces": replaces,
+                        # each kernel's own main path: training for A to D, int8
+                        # serving for E, compressed training for F and F′
+                        "launches": main_n,
                         **report[name], "launches_int8": int8_n,
                         "launches_cli": sum(r[counter] for r in cli_launches.values()),
                         "launches_train_cli": sum(r[counter]
@@ -4356,6 +4578,8 @@ def main() -> None:
                         "launches_explore": sum(r[counter]
                                                 for r in explore_launches.values()),
                         "launches_bench": sum(r[counter] for r in bench_launches.values()),
+                        "launches_act_compress": sum(r[counter]
+                                                     for r in act8_launches.values()),
                         "launches_parallel": sum(r[counter]
                                                  for r in parallel_launches.values()),
                         # the spatially sharded runs (both ranks): C and C′

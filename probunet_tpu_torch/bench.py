@@ -19,7 +19,9 @@ U-Net block, a comma list of levels such as ``0,`` for level 0 alone,
 ``save_convs``, ``save_convs_all``), ``BENCH_QUANT=int8`` (``ensemble`` and
 ``eval``: convolutions served int8 through kernel E after a calibration
 over 4 of the 8 batches) and ``BENCH_QUANT_SKIP`` (``ensemble``: regexes of
-convolutions kept in float, ``heads`` the latent heads).
+convolutions kept in float, ``heads`` the latent heads). As in the JAX
+package, ``PROBUNET_ACT_COMPRESS=int8`` builds the model with int8 saved
+convolution inputs (``ops.act_compress``; the train modes).
 
 Everything lives on the card: 8 batches of synthetic days made there
 (``data.synthetic.synthetic_climex_fields_device``), transformed, their

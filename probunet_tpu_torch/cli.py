@@ -237,18 +237,21 @@ def make_datasets(cfg: Config, splits=(0, 1, 2), device: str | torch.device | No
 def make_model(cfg: Config, device: str | torch.device | None = "cuda"):
     """The config's Probabilistic U-Net on ``device``, initialized from a
     generator seeded with ``cfg.train.seed`` (``ProbabilisticUNet.from_config``:
-    compute dtype and remat from the config)."""
+    compute dtype and remat from the config; int8 saved convolution inputs
+    under ``PROBUNET_ACT_COMPRESS=int8``, as in the JAX package)."""
     from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
+    from probunet_tpu_torch.ops import act_compress
 
     return ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(cfg.train.seed),
-                                         device=device)
+                                         device=device, act_compress=act_compress.enabled())
 
 
 def make_det_model(cfg: Config, name: str, device: str | torch.device | None = "cuda"):
     """``train-det``'s model ``name`` (``"unet"``: ``UNetAll`` of
     ``cfg.model.unet_type``; ``"linearcnn"``), in f32 as the JAX CLI
     builds it, initialized from a generator seeded with ``cfg.train.seed``,
-    on ``device``."""
+    on ``device`` (the U-Net's convolutions compressed under
+    ``PROBUNET_ACT_COMPRESS=int8``)."""
     gen = torch.Generator().manual_seed(cfg.train.seed)
     m = cfg.model
     if name == "linearcnn":
@@ -257,9 +260,11 @@ def make_det_model(cfg: Config, name: str, device: str | torch.device | None = "
                           generator=gen)
     else:
         from probunet_tpu_torch.models.unet import UNetAll
+        from probunet_tpu_torch.ops import act_compress
         model = UNetAll(m.unet_type, cfg.data.resolution, m.input_channels,
                         cfg.data.lowres_scale, m.num_blocks, m.channel_mult, m.num_classes,
-                        model_channels=m.model_channels, dropout=m.dropout, generator=gen)
+                        model_channels=m.model_channels, dropout=m.dropout, generator=gen,
+                        act_compress=act_compress.enabled())
     return model.to(resolve_device(device))
 
 

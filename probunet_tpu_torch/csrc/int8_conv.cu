@@ -86,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant.cuh"
+
 namespace probunet {
 namespace {
 
@@ -95,13 +97,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// rint(clamp(x / s)): clamping first or rounding first agree, the bounds
-// being integers; __float2int_rn rounds ties to even, as jnp.round
-__device__ __forceinline__ uint32_t quantize(float x, float s) {
-  const float v = fminf(fmaxf(__fdiv_rn(x, s), -127.f), 127.f);
-  return static_cast<uint32_t>(__float2int_rn(v)) & 0xffu;
-}
 
 // Word j (4 input channels) of chunk `chunk` of output channel co at tap
 // `tap` in the packed weight slabs (n_tile channels a block).

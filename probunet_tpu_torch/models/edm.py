@@ -35,7 +35,8 @@ class EDMPrecond(nn.Module):
                  sigma_max: float = float("inf"), sigma_data: float = 1.0,
                  model_channels: int = 64, channel_mult: Sequence[int] = (1, 2, 3, 4),
                  num_blocks: int = 2, dropout: float = 0.10, use_diffuse: bool = True,
-                 dtype: torch.dtype | None = None, gn_impl: str = "kernel", remat=False):
+                 dtype: torch.dtype | None = None, gn_impl: str = "kernel", remat=False,
+                 act_compress: bool = False):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.sigma_min, self.sigma_max, self.sigma_data = sigma_min, sigma_max, sigma_data
@@ -43,7 +44,8 @@ class EDMPrecond(nn.Module):
                           generator=generator, label_dim=label_dim,
                           model_channels=model_channels, channel_mult=tuple(channel_mult),
                           num_blocks=num_blocks, dropout=dropout, use_diffuse=use_diffuse,
-                          dtype=dtype, gn_impl=gn_impl, remat=remat)
+                          dtype=dtype, gn_impl=gn_impl, remat=remat,
+                          act_compress=act_compress)
 
     @property
     def dropout_blocks(self) -> list[str]:

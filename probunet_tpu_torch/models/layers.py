@@ -44,6 +44,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from probunet_tpu_torch.ops import quantize
+from probunet_tpu_torch.ops.act_compress import act8_conv
+from probunet_tpu_torch.ops.act_compress import conv as _conv
 from probunet_tpu_torch.ops.kernels import fused_gn
 from probunet_tpu_torch.ops.kernels.dropout import dropout as hash_dropout
 from probunet_tpu_torch.ops.kernels.dropout import apply_keep, global_index, hash_uniform
@@ -139,14 +141,6 @@ class EDMLinear(nn.Module):
         return y.to(x.dtype)
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype, padded: bool = False
-          ) -> torch.Tensor:
-    """SAME convolution; ``padded``: x's rows carry their halo already
-    (VALID over the rows, SAME over the columns)."""
-    k = w.shape[-1] // 2
-    return F.conv2d(x.to(dt), w.to(dt), padding=(0, k) if padded else k)
-
-
 def halo_rows(x: torch.Tensor, halo: int, rows) -> torch.Tensor:
     """The NCHW (channels_last) view ``x`` of a block of rows with ``halo``
     rows of each neighbour block (zeros at the image's edges), exchanged
@@ -163,15 +157,23 @@ class EDMConv(nn.Module):
     int8 serving (``ops.quantize``): a convolution records the absmax of its
     input after the resampling (and of ``x2``) under ``record_absmax``, and
     runs kernel E when ``quant_scales`` holds every scale its call needs,
-    else its float path."""
+    else its float path.
+
+    ``act_compress`` (the JAX package's ``PROBUNET_ACT_COMPRESS=int8``): the
+    float path's convolutions keep their inputs for the backward as
+    per-channel int8 (``ops.act_compress.act8_conv``; each input of the
+    split form on its own, the halo-padded block under a spatial mesh). The
+    int8 serving route takes precedence."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3, *,
                  generator: torch.Generator, up: bool = False, down: bool = False,
-                 init=INIT_DEFAULT, dtype: torch.dtype | None = None):
+                 init=INIT_DEFAULT, dtype: torch.dtype | None = None,
+                 act_compress: bool = False):
         super().__init__()
         if up and down:
             raise ValueError("EDMConv: up and down are exclusive")
         self.up, self.down, self.kernel, self.dtype = up, down, kernel, dtype
+        self.act_compress = act_compress
         self.weight = self.bias = None
         self.quant_scales = None
         if kernel:
@@ -185,12 +187,14 @@ class EDMConv(nn.Module):
                                               (out_channels,), generator))
 
     def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None,
-                rows=None) -> torch.Tensor:
+                rows=None, mesh=None) -> torch.Tensor:
         """``x2``: an optional second input, channel-concatenated after ``x``
         without materializing the concat: conv([x; x2], W) =
         conv(x, W[:, :c1]) + conv(x2, W[:, c1:]), each rounded like the JAX
         split form. ``rows``: x (and x2) is this rank's block of rows; each
-        input is halo-exchanged."""
+        input is halo-exchanged. ``mesh``: the training step's mesh, over
+        whose ("data", "spatial") ranks ``act_compress`` takes each input's
+        absmax."""
         if x2 is not None and (not self.kernel or self.up or self.down):
             raise ValueError("EDMConv: x2 needs a kernel and no resampling")
         if self.up:
@@ -213,12 +217,17 @@ class EDMConv(nn.Module):
                 y = y[:, :, halo:halo + h].contiguous(memory_format=torch.channels_last)
             return y
         dt = _out_dtype(x, self.dtype)
+
+        def conv(inp, w):
+            if self.act_compress:
+                return act8_conv(inp, w, dt, bool(halo), mesh)
+            return _conv(inp, w, dt, bool(halo))
+
         if x2 is None:
-            y = _conv(x, self.weight, dt, bool(halo))
+            y = conv(x, self.weight)
         else:
             c1 = x.shape[1]
-            y = (_conv(x, self.weight[:, :c1], dt, bool(halo))
-                 + _conv(x2, self.weight[:, c1:], dt, bool(halo)))
+            y = conv(x, self.weight[:, :c1]) + conv(x2, self.weight[:, c1:])
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 
@@ -392,7 +401,8 @@ class UNetBlock(nn.Module):
     It runs in plain torch: the JAX package computes it outside any TPU
     kernel. ``in_channels`` counts the skip tensor that the decoder's
     blocks take as ``skip_in``. ``gn_impl``: the route of the GroupNorm
-    chains (:class:`EDMGroupNorm`)."""
+    chains (:class:`EDMGroupNorm`); ``act_compress``: the convolutions'
+    (:class:`EDMConv`)."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, *,
                  generator: torch.Generator, up: bool = False, down: bool = False,
@@ -400,6 +410,7 @@ class UNetBlock(nn.Module):
                  channels_per_head: int = 64, dropout: float = 0.0,
                  skip_scale: float = 1.0, eps: float = 1e-5, adaptive_scale: bool = True,
                  dtype: torch.dtype | None = None, gn_impl: str = "kernel",
+                 act_compress: bool = False,
                  init=INIT_EDM, init_zero=INIT_ZERO, init_attn=None):
         super().__init__()
         self.dropout = dropout
@@ -408,40 +419,42 @@ class UNetBlock(nn.Module):
         self.num_heads = 0 if not attention else (
             num_heads if num_heads is not None else out_channels // channels_per_head)
         kw = dict(generator=generator, dtype=dtype)
+        cv = dict(kw, act_compress=act_compress)
         gn = dict(dtype=dtype, gn_impl=gn_impl, eps=eps)
         self.norm0 = EDMGroupNorm(in_channels, **gn)
         self.conv0 = EDMConv(in_channels, out_channels, 3, up=up, down=down,
-                             init=init, **kw)
+                             init=init, **cv)
         self.affine = EDMLinear(emb_channels, out_channels * (2 if adaptive_scale else 1),
                                 init=init, **kw)
         self.norm1 = EDMGroupNorm(out_channels, **gn)
-        self.conv1 = EDMConv(out_channels, out_channels, 3, init=init_zero, **kw)
+        self.conv1 = EDMConv(out_channels, out_channels, 3, init=init_zero, **cv)
         self.skip = None
         if out_channels != in_channels or up or down:
             kernel = 1 if out_channels != in_channels else 0
             self.skip = EDMConv(in_channels, out_channels, kernel, up=up, down=down,
-                                init=init, **kw)
+                                init=init, **cv)
         if self.num_heads:
             self.norm2 = EDMGroupNorm(out_channels, **gn)
             self.qkv = EDMConv(out_channels, out_channels * 3, 1,
-                               init=init_attn if init_attn is not None else init, **kw)
-            self.proj = EDMConv(out_channels, out_channels, 1, init=init_zero, **kw)
+                               init=init_attn if init_attn is not None else init, **cv)
+            self.proj = EDMConv(out_channels, out_channels, 1, init=init_zero, **cv)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 skip_in: torch.Tensor | None = None, train: bool = False,
                 drop_seed: torch.Tensor | None = None,
-                slab: tuple[int, int] | None = None, rows=None) -> torch.Tensor:
+                slab: tuple[int, int] | None = None, rows=None, mesh=None) -> torch.Tensor:
         """``drop_seed``: this block's (2,) int32 dropout seed words, needed
         when ``train`` and ``dropout > 0``. ``slab``: (first row, global
         batch) of x in a data-parallel step (``EDMGroupNorm``). ``rows``: x
-        is this rank's block of image rows (``parallel.spatial.Rows``)."""
+        is this rank's block of image rows (``parallel.spatial.Rows``).
+        ``mesh``: the training step's mesh (:class:`EDMConv`)."""
         if self.num_heads and rows is not None:
             from probunet_tpu_torch.parallel.spatial import deferred
 
             raise deferred("UNetBlock's self-attention")
         x_in = x
         full = x if skip_in is None else torch.cat([x, skip_in.to(x.dtype)], dim=1)
-        h = self.conv0(self.norm0(full, silu=True, rows=rows), rows=rows)
+        h = self.conv0(self.norm0(full, silu=True, rows=rows), rows=rows, mesh=mesh)
         params = self.affine(emb)
         drop_p = self.dropout if train else 0.0
         if self.adaptive_scale:
@@ -451,26 +464,26 @@ class UNetBlock(nn.Module):
         else:
             h = self.norm1(h + params[:, :, None, None], silu=True, drop_p=drop_p,
                            drop_seed=drop_seed, slab=slab, rows=rows)
-        h = self.conv1(h, rows=rows)
+        h = self.conv1(h, rows=rows, mesh=mesh)
         if self.skip is None:
             skip = full
         elif skip_in is not None:
-            skip = self.skip(x_in, skip_in.to(x_in.dtype), rows=rows)
+            skip = self.skip(x_in, skip_in.to(x_in.dtype), rows=rows, mesh=mesh)
         else:
-            skip = self.skip(full, rows=rows)
+            skip = self.skip(full, rows=rows, mesh=mesh)
         x = h + skip
         if self.skip_scale != 1.0:
             x = x * self.skip_scale
         if self.num_heads:
-            x = self._attention(x)
+            x = self._attention(x, mesh)
         return x
 
-    def _attention(self, x: torch.Tensor) -> torch.Tensor:
+    def _attention(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         """The attention branch on the NCHW (channels_last) view ``x``."""
         b, c, h, w = x.shape
         heads = self.num_heads
         ch = c // heads
-        qkv = self.qkv(self.norm2(x)).permute(0, 2, 3, 1)            # (B, H, W, 3C)
+        qkv = self.qkv(self.norm2(x), mesh=mesh).permute(0, 2, 3, 1)  # (B, H, W, 3C)
         # (B, HW, heads, 3ch) -> (B * heads, 3, ch, HW), the JAX split
         qkv = qkv.reshape(b, h * w, heads, 3 * ch).permute(0, 2, 3, 1)
         qkv = qkv.reshape(b * heads, 3, ch, h * w)
@@ -479,4 +492,4 @@ class UNetBlock(nn.Module):
         wgt = torch.softmax(logits, dim=2).to(x.dtype)
         a = torch.einsum("nqk,nck->ncq", wgt, v)
         a = a.reshape(b, heads, ch, h * w).permute(0, 3, 1, 2).reshape(b, h, w, c)
-        return (x + self.proj(a.permute(0, 3, 1, 2))) * self.skip_scale
+        return (x + self.proj(a.permute(0, 3, 1, 2), mesh=mesh)) * self.skip_scale

@@ -22,6 +22,10 @@ default, or the torch composition with kernel D; ``layers.EDMGroupNorm``)
 and ``remat`` its gradient rematerialization (``models/unet.py``);
 ``remat="save_convs_all"`` also checkpoints the prior and posterior
 encoders, storing their conv outputs. Neither changes the results.
+``act_compress`` keeps the U-Net's convolution inputs for the backward as
+per-channel int8 (``ops.act_compress``; the JAX package under
+``PROBUNET_ACT_COMPRESS=int8``): the loss is unchanged, the weight
+gradients see the int8 error.
 
 ``rows`` (``parallel.spatial.Rows``, the spatially sharded step) places
 x and the target as this rank's block of image rows: the U-Net and both
@@ -63,14 +67,15 @@ class ProbabilisticUNet(nn.Module):
                  channel_mult: Sequence[int] = (1, 2, 4, 8),
                  img_resolution: Sequence[int] = (128, 128), num_blocks: int = 2,
                  dropout: float = 0.10, dtype: torch.dtype | None = None,
-                 gn_impl: str = "kernel", remat=False):
+                 gn_impl: str = "kernel", remat=False, act_compress: bool = False):
         super().__init__()
         self.dtype = dtype
         kw = dict(generator=generator, dtype=dtype)
         self.unet = UNet(tuple(img_resolution), input_channels, num_filters[0],
                          model_channels=model_channels,
                          channel_mult=tuple(channel_mult), num_blocks=num_blocks,
-                         dropout=dropout, gn_impl=gn_impl, remat=remat, **kw)
+                         dropout=dropout, gn_impl=gn_impl, remat=remat,
+                         act_compress=act_compress, **kw)
         save_convs = remat == "save_convs_all"
         self.prior = AxisAlignedConvGaussian(input_channels, num_filters, latent_dim,
                                              posterior=False, save_convs=save_convs, **kw)
@@ -82,13 +87,15 @@ class ProbabilisticUNet(nn.Module):
     @classmethod
     def from_config(cls, cfg, generator: torch.Generator,
                     device: str | torch.device | None = "cuda",
-                    gn_impl: str = "kernel") -> "ProbabilisticUNet":
+                    gn_impl: str = "kernel", act_compress: bool = False
+                    ) -> "ProbabilisticUNet":
         """The model of a ``probunet_tpu_torch.config.Config`` (as the JAX
         CLI's ``make_model`` builds it, with ``remat =
         tuple(cfg.train.remat_levels) or cfg.train.remat``), initialized
         from ``generator`` on its device and moved to ``device`` (the CUDA
         device unless the caller passes ``device="cpu"``; raises without
-        one). ``gn_impl``: the GroupNorm chains' route."""
+        one). ``gn_impl``: the GroupNorm chains' route; ``act_compress``:
+        int8 saved convolution inputs."""
         dev = resolve_device(device)
         m = cfg.model
         return cls(generator=generator, input_channels=m.input_channels,
@@ -97,7 +104,7 @@ class ProbabilisticUNet(nn.Module):
                    channel_mult=m.channel_mult, img_resolution=cfg.data.resolution,
                    num_blocks=m.num_blocks, dropout=m.dropout,
                    dtype=torch.bfloat16 if m.compute_dtype == "bfloat16" else None,
-                   gn_impl=gn_impl,
+                   gn_impl=gn_impl, act_compress=act_compress,
                    remat=tuple(cfg.train.remat_levels) or cfg.train.remat).to(dev)
 
     def sample(self, x: torch.Tensor, num_samples: int = 1,
@@ -146,7 +153,7 @@ class ProbabilisticUNet(nn.Module):
              generator: torch.Generator | None = None, eps: torch.Tensor | None = None,
              fused: bool = True, training: bool = False,
              seeds: torch.Tensor | None = None, slab: tuple[int, int] | None = None,
-             rows=None, data_range=None):
+             rows=None, data_range=None, mesh=None):
         """ELBO = beta_0 * recon + beta_1 * KL(q || p) [+ beta_2 * KL(q || N(0, I))
         for ``"l1"``], the posterior noise ``eps`` or drawn from
         ``generator``: (M, B, D) for the ensemble losses, (B, D) for
@@ -163,7 +170,9 @@ class ProbabilisticUNet(nn.Module):
         block of image rows; the loss and metrics are the whole image's,
         alike on every rank of the axis. ``data_range``: MS-SSIM's, by
         default the target's max - min (at least 1e-5); a step over a mesh
-        passes the global batch's, which ``rows`` requires.
+        passes the global batch's, which ``rows`` requires. ``mesh``: that
+        step's mesh, over which the U-Net's compressed convolutions take
+        their absmax (``act_compress``).
 
         - ``"afcrps"`` / ``"crps"``: M >= 2 draws scored as an ensemble,
           fused (kernels A and A′) or unfused (``Fcomb.ensemble``, kernels
@@ -184,7 +193,7 @@ class ProbabilisticUNet(nn.Module):
         if loss_type in ("afcrps", "crps") and M < 2:
             raise ValueError(f"M must be >= 2 for {loss_type}, got {M}")
         feats = self.unet(x, train=training, seeds=seeds, generator=generator, slab=slab,
-                          rows=rows)
+                          rows=rows, mesh=mesh)
         prior = self.prior(x, rows=rows)
         posterior = self.posterior(x, target, rows=rows)
         kl = kl_diag_gaussians(posterior, prior)                    # (B,)

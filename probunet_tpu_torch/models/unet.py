@@ -30,6 +30,10 @@ the caller passes them as one (n_blocks, 2) tensor in block order
 (``dropout_blocks``) or they are drawn from the caller's generator, as the
 JAX U-Net draws one ``dropout`` key per block.
 
+``act_compress``: every convolution keeps its input for the backward as
+per-channel int8 (``layers.EDMConv``; the JAX package under
+``PROBUNET_ACT_COMPRESS=int8``).
+
 ``remat`` is the JAX module's gradient rematerialization, applied while
 autograd records:
 
@@ -107,7 +111,8 @@ class UNet(nn.Module):
                  model_channels: int = 16, channel_mult: Sequence[int] = (1, 4, 8, 16),
                  channel_mult_emb: int = 4, num_blocks: int = 2, dropout: float = 0.10,
                  label_dropout: float = 0.0, use_diffuse: bool = False,
-                 dtype: torch.dtype | None = None, gn_impl: str = "kernel", remat=False):
+                 dtype: torch.dtype | None = None, gn_impl: str = "kernel", remat=False,
+                 act_compress: bool = False):
         super().__init__()
         mc = model_channels
         self.dtype = dtype
@@ -116,12 +121,13 @@ class UNet(nn.Module):
         self.use_diffuse, self.augment_dim = use_diffuse, augment_dim
         self.emb_channels = emb = mc * channel_mult_emb
         kw = dict(generator=generator, dtype=dtype)
+        cv = dict(kw, act_compress=act_compress)
         self.dropout_blocks: list[str] = []  # every UNetBlock, in call order
         self.block_remat: dict[str, str | None] = {}
 
         def block(name, cin, cout, level, **extra):
             self.add_module(name, UNetBlock(cin, cout, emb, dropout=dropout, gn_impl=gn_impl,
-                                            **kw, **extra))
+                                            **cv, **extra))
             self.dropout_blocks.append(name)
             self.block_remat[name] = block_remat(remat, level)
 
@@ -145,7 +151,7 @@ class UNet(nn.Module):
             rx, ry = img_resolution[0] >> level, img_resolution[1] >> level
             if level == 0:
                 name = f"enc_{rx}x{ry}_conv"
-                self.add_module(name, EDMConv(in_channels, mc * mult, 3, init=INIT_EDM, **kw))
+                self.add_module(name, EDMConv(in_channels, mc * mult, 3, init=INIT_EDM, **cv))
                 cout = mc * mult
             else:
                 name = f"enc_{rx}x{ry}_down"
@@ -178,7 +184,7 @@ class UNet(nn.Module):
                 cout = mc * mult
                 self.decoder.append((name, True))
         self.out_norm = EDMGroupNorm(cout, dtype=dtype, gn_impl=gn_impl)
-        self.out_conv = EDMConv(cout, out_channels, 3, init=INIT_ZERO, **kw)
+        self.out_conv = EDMConv(cout, out_channels, 3, init=INIT_ZERO, **cv)
 
     def embedding(self, x: torch.Tensor, train: bool = False,
                   generator: torch.Generator | None = None,
@@ -217,13 +223,15 @@ class UNet(nn.Module):
                 class_labels: torch.Tensor | None = None,
                 augment_labels: torch.Tensor | None = None,
                 label_keep: torch.Tensor | None = None,
-                slab: tuple[int, int] | None = None, rows=None):
+                slab: tuple[int, int] | None = None, rows=None, mesh=None):
         """``train``: dropout on. ``seeds``: (len(dropout_blocks), 2) int32
         seed words in block order; drawn from ``generator`` when None.
         ``slab``: (first row, global batch) of ``x`` in a data-parallel
         step, whose rows then get the global batch's dropout masks.
         ``rows`` (``parallel.spatial.Rows``): ``x`` is this rank's block of
         image rows; every block, convolution and GroupNorm chain takes it.
+        ``mesh``: the training step's mesh, over whose ranks the compressed
+        convolutions take their absmax (``act_compress``).
         ``return_skips``: also return the first three encoder outputs (NHWC
         views in the compute dtype), which the asymmetric U-Nets inject.
         ``noise_labels`` (B,), ``class_labels`` (B, label_dim),
@@ -246,7 +254,8 @@ class UNet(nn.Module):
 
         def run(name, h, skip=None):
             block = self.get_submodule(name)
-            kw = dict(train=train, drop_seed=block_seeds.get(name), slab=slab, rows=rows)
+            kw = dict(train=train, drop_seed=block_seeds.get(name), slab=slab, rows=rows,
+                      mesh=mesh)
             mode = self.block_remat[name] if torch.is_grad_enabled() else None
             if mode == "save_convs":
                 return save_convs_checkpoint(block, h, emb, skip, **kw)
@@ -258,12 +267,12 @@ class UNet(nn.Module):
         skips = []
         for name in self.encoder:
             mod = self.get_submodule(name)
-            h = mod(h, rows=rows) if isinstance(mod, EDMConv) else run(name, h)
+            h = mod(h, rows=rows, mesh=mesh) if isinstance(mod, EDMConv) else run(name, h)
             skips.append(h)
         skips_postunet = [s.permute(0, 2, 3, 1) for s in skips[:3]]
         for name, takes_skip in self.decoder:
             h = run(name, h, skips.pop() if takes_skip else None)
-        h = self.out_conv(self.out_norm(h, silu=True, rows=rows), rows=rows)
+        h = self.out_conv(self.out_norm(h, silu=True, rows=rows), rows=rows, mesh=mesh)
         out = h.permute(0, 2, 3, 1).to(out_dtype)
         return (out, skips_postunet) if return_skips else out
 
@@ -282,14 +291,15 @@ class _PostUNet(nn.Module):
     def __init__(self, img_resolution: Sequence[int], in_channels: int, ds_scale: int,
                  num_res_blocks: int, channel_mult: Sequence[int], out_channels: int, *,
                  generator: torch.Generator, with_skips: bool, base_channels: int = 64,
-                 dtype: torch.dtype | None = None, gn_impl: str = "kernel"):
+                 dtype: torch.dtype | None = None, gn_impl: str = "kernel",
+                 act_compress: bool = False):
         super().__init__()
         base = base_channels
         emb = base * 4
         self.levels = int(math.log2(ds_scale))
         self.with_skips = with_skips
         self.num_res_blocks = num_res_blocks
-        kw = dict(generator=generator, dtype=dtype)
+        kw = dict(generator=generator, dtype=dtype, act_compress=act_compress)
         self.core_unet = UNet(tuple(img_resolution), in_channels, base, model_channels=base,
                               channel_mult=tuple(channel_mult), num_blocks=num_res_blocks,
                               gn_impl=gn_impl, **kw)
@@ -370,11 +380,11 @@ class UNetAll(nn.Module):
                  ds_scale: int, num_res_blocks: int, channel_mult: Sequence[int],
                  out_channels: int, model_channels: int = 16, dropout: float = 0.10,
                  dtype: torch.dtype | None = None, *, generator: torch.Generator,
-                 gn_impl: str = "kernel"):
+                 gn_impl: str = "kernel", act_compress: bool = False):
         super().__init__()
         if type not in UNET_TYPES:
             raise ValueError(f'Invalid UNet type "{type}"')
-        kw = dict(generator=generator, dtype=dtype, gn_impl=gn_impl)
+        kw = dict(generator=generator, dtype=dtype, gn_impl=gn_impl, act_compress=act_compress)
         if type == "symmetric":
             self.unet = UNet(tuple(img_resolution), in_channels, out_channels,
                              model_channels=model_channels, channel_mult=tuple(channel_mult),

@@ -15,6 +15,12 @@ Each module holds one kernel's wrapper and its plain PyTorch version:
   which no TPU kernel computes: the JAX package leaves it to XLA
   (``probunet_tpu/ops/quantize.py:int8_conv``).
 
+Kernels F and F′, the int8 saved convolution inputs' quantization and
+dequantization (``csrc/act_compress.cu``, fused by XLA in the JAX
+package), have their wrappers beside the autograd function that calls
+them, in ``probunet_tpu_torch/ops/act_compress.py`` (the JAX module's
+path).
+
 A wrapper runs the plain version for a CPU tensor and launches its kernel
 for a CUDA tensor, or raises: there is no fallback from the kernel. Each
 wrapper counts its launches in a plain integer attribute, ``launches``.

@@ -35,6 +35,9 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry -> argument types; every entry returns an int (cudaError_t)
 _SIGNATURES = {
+    "act8_absmax": (_P, _P, _LL, _I, _I, _I, _P),
+    "act8_dequantize": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    "act8_quantize": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
     "afcrps_tile_pixels": (),
     "afcrps_terms_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _P),
     "afcrps_terms_bwd": (_P,) * 6 + (_I, _I, _I, _LL, _LL, _LL, _LL, _I, _P),

@@ -42,7 +42,7 @@ from probunet_tpu_torch.data.climex import (
 from probunet_tpu_torch.data.loader import Batches, prefetch_to_device
 from probunet_tpu_torch.device import resolve_device
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
-from probunet_tpu_torch.ops import quantize
+from probunet_tpu_torch.ops import act_compress, quantize
 from probunet_tpu_torch.ops.msssim import LEVELS as MSSSIM_SCALES
 from probunet_tpu_torch.train.early_stop import EarlyStopper
 from probunet_tpu_torch.train.schedule import beta_schedule
@@ -69,7 +69,8 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
     of image rows (``preprocess_batch`` and ``elbo`` take it). ``mesh``:
     the mesh of ``slab`` and ``rows``, over which the ``"mse+ssim"`` ELBO
     takes MS-SSIM's data range: the global batch's targets' max - min,
-    once a call.
+    once a call; and a model built with ``act_compress`` each compressed
+    convolution's absmax.
 
     ``quant``: a scales tree (``ops.quantize``), attached to the model for
     the call: the convolutions that find their scale run int8 (kernel E; no
@@ -97,7 +98,7 @@ def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = Tr
                 beta_0=beta_0, beta_1=beta_1, beta_2=loss_cfg.beta_2, alpha=loss_cfg.alpha,
                 alpha_w=loss_cfg.alpha_w, beta_w=loss_cfg.beta_w, lam_w=loss_cfg.lam_w,
                 generator=generator, eps=eps, fused=fused, training=training, seeds=seeds,
-                slab=slab, rows=rows, data_range=data_range)
+                slab=slab, rows=rows, data_range=data_range, mesh=mesh)
         if collect_stats:
             metrics = {**metrics, "quant_stats": recorder.stats()}
         return total, metrics
@@ -356,7 +357,11 @@ class Trainer:
     device with the steps' ``mesh=`` form; the model must be alike
     on every rank (checked against rank 0's), every rank runs the same
     epochs, and only rank 0 logs, checkpoints and draws. The history equals
-    the single-process ``Trainer``'s."""
+    the single-process ``Trainer``'s.
+
+    ``PROBUNET_ACT_COMPRESS=int8`` in the environment turns on the model's
+    int8 saved convolution inputs (``ops.act_compress.switch``), as the
+    variable does in the JAX package."""
 
     def __init__(self, cfg: Config, model: ProbabilisticUNet, dataset_train,
                  dataset_val=None, logger=None, checkpoint_manager=None,
@@ -383,6 +388,8 @@ class Trainer:
                                        device=self.device)
         self.state = state
         self.model = state.model
+        if act_compress.enabled():
+            act_compress.switch(self.model)
         self.stats = dataset_train.device_stats(self.device)
         if mesh is not None:
             from probunet_tpu_torch.parallel.multihost import replicate_global

@@ -10,7 +10,8 @@ Tolerances:
   parameters rtol 2e-3 / atol 2e-5 (JAX ``tests/test_parallel.py:83``);
 - against the port's one-process step on the whole batch (dropout 0.1 on
   either GroupNorm route, the eval step, ``remat=True`` and
-  ``"save_convs_all"``, Fcomb width 32 on kernel A's route): the metrics rtol 1e-5, and the gradients AdamW
+  ``"save_convs_all"``, Fcomb width 32 on kernel A's route, int8 saved
+  convolution inputs): the metrics rtol 1e-5, and the gradients AdamW
   receives within 1e-5 of the largest gradient at the first step and 1e-4
   at the second (the block's partial sums add in another order than the
   whole image's, nothing else; the second step starts from states whose
@@ -85,7 +86,9 @@ def _cases(inputs):
             dict(base, name="remat save_convs_all", dropout=DROPOUT, gn_impl="composed",
                  remat="save_convs_all", steps=1),
             dict(base, name="kernel A", dropout=DROPOUT, gn_impl="kernel", num_filters=WIDE,
-                 params=params(WIDE))]
+                 params=params(WIDE)),
+            dict(base, name="act_compress", dropout=DROPOUT, gn_impl="kernel",
+                 act_compress=True)]
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +121,7 @@ def test_spatial_step_matches_jax(inputs, runs, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["dropout kernel", "dropout composed", "remat",
-                                  "remat save_convs_all", "kernel A"])
+                                  "remat save_convs_all", "kernel A", "act_compress"])
 def test_spatial_step_matches_single_process(inputs, runs, name):
     """Dropout 0.1 on either GroupNorm route (split kernels C/C′ under seed
     words shifted to the block's first element; the composed chain with its
@@ -126,8 +129,10 @@ def test_spatial_step_matches_single_process(inputs, runs, name):
     ``remat=True`` (the collectives rerun in the backward on both ranks),
     under ``remat="save_convs_all"`` (selective checkpointing of the U-Net
     and the encoders, the collectives among the recomputed operations),
-    and with Fcomb width 32 (kernel A's terms summed over the ranks): the
-    steps of the one-process step on the whole batch."""
+    with Fcomb width 32 (kernel A's terms summed over the ranks), and with
+    int8 saved convolution inputs (each halo-padded block's absmax taken
+    over both ranks): the steps of the one-process step on the whole
+    batch."""
     case = _case(inputs, name)
     outs = [r[name] for r in runs["spatial_step"]]
     assert_ranks_agree(outs)

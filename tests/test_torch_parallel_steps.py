@@ -23,6 +23,12 @@ Tolerances:
   single-process step on the whole batch, two steps: loss, recon, kl_mean
   and grad_norm rtol 1e-5, parameters atol 1e-6 (the two ranks' half-batch
   gradients summed in another order than one batch's, nothing else);
+- the data-parallel step with int8 saved convolution inputs
+  (``act_compress``, dropout 0.1, the composed route) against the port's
+  compressed single-process step: the same bounds (each convolution's
+  absmax is the MAX over both ranks' slabs, so the int8 copies equal the
+  whole batch's); with each rank's own absmax (a planted fault) the same
+  check fails;
 - ``Trainer(mesh=)`` against the single-process ``Trainer``: the history
   rtol 1e-5;
 - the member-sharded ensemble against JAX's on the same noise: rtol / atol
@@ -91,6 +97,9 @@ def runs(inputs, tmp_path_factory):
                   eps=inputs["eps"], steps=1)]
     cases += [dict(name=f"dropout {r}", hr=hr, m=M, dropout=DROPOUT, gn_impl=r, fused=True,
                    eps=None, steps=2) for r in DROP_ROUTES]
+    cases += [dict(name=name, hr=hr, m=M, dropout=DROPOUT, gn_impl="composed", fused=True,
+                   eps=None, steps=2, act_compress=True, absmax_per_rank=fault)
+              for name, fault in (("act8", False), ("act8 absmax per rank", True))]
     torch.save({"params": p, "cases": cases}, wd / "dp_step.in.pt")
     torch.save({"params": p, "batch": B, "m": M, "dropout": DROPOUT, "epochs": 2,
                 "train": inputs["train"], "val": inputs["val"]}, wd / "trainer.in.pt")
@@ -177,15 +186,26 @@ def test_dp_step_with_dropout_matches_single_process(inputs, runs, gn_impl):
     element offset and global block height), the draws global: two
     data-parallel steps equal two single-process steps on the whole
     batch."""
-    from probunet_tpu_torch.data.climex import compute_stats
-    from probunet_tpu_torch.train.loop import make_train_step
-    from probunet_tpu_torch.train.state import create_train_state
-
     name = f"dropout {gn_impl}"
     _assert_ranks_agree([r[name] for r in runs["dp_step"]])
     got = runs["dp_step"][0][name]
+    _assert_matches_single_process(got, inputs, gn_impl)
+    # the masks matter: without dropout the step differs
+    assert abs(float(got["metrics"][0]["loss"]) - float(runs["dp_step"][0]["jax"]["metrics"][0][
+        "loss"])) > 1e-4
+
+
+def _assert_matches_single_process(got, inputs, gn_impl, act_compress=False):
+    """Two data-parallel steps' metrics and parameters against two
+    single-process steps on the whole batch (dropout 0.1)."""
+    from probunet_tpu_torch.data.climex import compute_stats
+    from probunet_tpu_torch.ops.act_compress import switch
+    from probunet_tpu_torch.train.loop import make_train_step
+    from probunet_tpu_torch.train.state import create_train_state
+
     cfg = tiny_cfg(B, M)
-    model = torch_tiny_model(inputs["params"], dropout=DROPOUT, gn_impl=gn_impl)
+    model = switch(torch_tiny_model(inputs["params"], dropout=DROPOUT, gn_impl=gn_impl),
+                   act_compress)
     state = create_train_state(model, seed=cfg.train.seed, device="cpu")
     step = make_train_step(model, cfg)
     hr = torch.from_numpy(inputs["hr"])
@@ -196,9 +216,18 @@ def test_dp_step_with_dropout_matches_single_process(inputs, runs, gn_impl):
             assert_close(got["metrics"][i][k], met[k], DP_RTOL, 0.0, f"step {i} {k}")
     for k, v in model.state_dict().items():
         assert_close(got["params"][k], v, 0.0, DP_PARAM_ATOL, k)
-    # the masks matter: without dropout the step differs
-    assert abs(float(got["metrics"][0]["loss"]) - float(runs["dp_step"][0]["jax"]["metrics"][0][
-        "loss"])) > 1e-4
+
+
+def test_dp_step_with_act_compress_matches_single_process(inputs, runs):
+    """int8 saved convolution inputs on two ranks: every convolution's
+    absmax is the MAX over both slabs (the JAX step's over its global
+    batch), so two data-parallel steps equal two compressed single-process
+    steps; the same steps with each rank's own absmax do not."""
+    _assert_ranks_agree([r["act8"] for r in runs["dp_step"]])
+    _assert_matches_single_process(runs["dp_step"][0]["act8"], inputs, "composed", True)
+    with pytest.raises(AssertionError):
+        _assert_matches_single_process(runs["dp_step"][0]["act8 absmax per rank"], inputs,
+                                       "composed", True)
 
 
 def test_trainer_with_mesh_matches_single_process(inputs, runs, tmp_path):

@@ -31,19 +31,27 @@ def _save(workdir, job, out):
 
 
 def dp_step(workdir, job):
-    """make_parallel_train_step over ("data" = world), each case's steps."""
+    """make_parallel_train_step over ("data" = world), each case's steps
+    (``act_compress``: the model's int8 saved convolution inputs;
+    ``absmax_per_rank``: with each rank's own absmax, a planted fault)."""
     from torch_parity import torch_tiny_model
 
     from probunet_tpu_torch.data.climex import compute_stats
     from probunet_tpu_torch.parallel import make_mesh, make_parallel_train_step, shard_batch
     from probunet_tpu_torch.train.state import create_train_state
 
+    from probunet_tpu_torch.ops import act_compress
+
     inp = _load(workdir, job)
     out = {}
+    quantize = act_compress.quantize_channels
     for case in inp["cases"]:
         cfg = tiny_cfg(case["hr"].shape[0], case["m"])
         model = torch_tiny_model(inp["params"], dropout=case["dropout"],
                                  gn_impl=case["gn_impl"])
+        act_compress.switch(model, case.get("act_compress", False))
+        if case.get("absmax_per_rank"):   # a planted fault: each slab's own absmax
+            act_compress.quantize_channels = lambda xn, mesh=None: quantize(xn)
         state = create_train_state(model, seed=cfg.train.seed, device="cpu")
         mesh = make_mesh(device="cpu")
         hr = torch.from_numpy(case["hr"])
@@ -54,6 +62,7 @@ def dp_step(workdir, job):
         for _ in range(case["steps"]):
             state, met = step(state, shard_batch(hr, mesh), stats, 1.0, 0.1, eps=eps)
             metrics.append({k: v.numpy().copy() for k, v in met.items()})
+        act_compress.quantize_channels = quantize
         out[case["name"]] = {"metrics": metrics, "params": {
             k: v.detach().clone() for k, v in model.state_dict().items()}}
     _save(workdir, job, out)
@@ -176,10 +185,12 @@ def cli(workdir, job):
 
 def spatial_step(workdir, job):
     """The train (or eval) step on each case's ("data", "spatial") mesh:
-    every case's steps from a fresh state on the rank's block of rows."""
+    every case's steps from a fresh state on the rank's block of rows
+    (``act_compress``: the model's int8 saved convolution inputs)."""
     from torch_parity import torch_tiny_model
 
     from probunet_tpu_torch.data.climex import compute_stats
+    from probunet_tpu_torch.ops.act_compress import switch
     from probunet_tpu_torch.parallel import (make_mesh, make_parallel_eval_step,
                                              make_parallel_train_step, shard_batch)
     from probunet_tpu_torch.train.state import create_train_state
@@ -196,6 +207,7 @@ def spatial_step(workdir, job):
                                  gn_impl=case["gn_impl"], remat=case.get("remat", False),
                                  num_filters=case.get("num_filters", (8, 16)),
                                  img_resolution=tuple(hr.shape[1:3]))
+        switch(model, case.get("act_compress", False))
         mesh = make_mesh(case["n_data"], case["n_spatial"], device="cpu")
         stats = compute_stats(hr, cfg.data.lowres_scale)
         block = shard_batch(hr, mesh)

@@ -92,6 +92,7 @@ def one_process(case: dict, steps: int | None = None):
     from torch_mp_worker import captured_grads
 
     from probunet_tpu_torch.data.climex import compute_stats
+    from probunet_tpu_torch.ops.act_compress import switch
     from probunet_tpu_torch.train.loop import make_eval_step, make_train_step
     from probunet_tpu_torch.train.state import create_train_state
 
@@ -103,6 +104,7 @@ def one_process(case: dict, steps: int | None = None):
                              dropout=case["dropout"],
                              gn_impl=case["gn_impl"], remat=case.get("remat", False),
                              num_filters=nf, img_resolution=res)
+    switch(model, case.get("act_compress", False))
     stats = compute_stats(hr, cfg.data.lowres_scale)
     if case.get("eval"):
         met = make_eval_step(model, cfg, fused=case["fused"])(
