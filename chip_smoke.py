@@ -113,8 +113,10 @@ route, and drives both paths at the full width of the flagship preset
   ``PROBUNET_ACT_COMPRESS=int8``): kernels F (per-channel absmax, then
   scales and int8 values) and F′ (dequantization) bit for bit against
   their plain versions at the flagship's 128x128x32 bf16 convolution input
-  (bs=128) and one f32 shape, ties and a zero channel included, timed
-  beside them with their bounds; the f32 compressed training step on the
+  (bs=128) and one f32 shape, and on their one-element-a-thread instances
+  (the first convolution's 3-channel input, bf16 and f32, and views one
+  element past alignment), ties and a zero channel included, timed beside
+  them with their bounds; the f32 compressed training step on the
   card against the CPU; the bf16 flagship's compressed eval step (no F,
   no F′) and train step (one F and one F′ per convolution input) and the
   bytes the step saves for the backward with compression off and on;
@@ -447,11 +449,18 @@ BENCH_ENV = ("BENCH_MODE", "BENCH_QUANT", "BENCH_QUANT_SKIP", "BENCH_BS", "BENCH
              "BENCH_REMAT", "BENCH_DROPOUT", "PROBUNET_ACT_COMPRESS")
 BENCH_TRAIN_KERNELS = BENCH_MODES[0][2]
 # int8 saved convolution inputs (the `act_compress` phase, kernels F and
-# F′): the NHWC shapes held bit for bit against the plain versions (the
-# flagship's dominant bf16 convolution input at bs=128, and one f32), the
-# bench batch sizes run with compression off and on, and the batch of the
-# card's compressed eval and train steps whose launches are counted
-ACT8_CASES = (((BATCH, 128, 128, 32), "bfloat16"), ((32, 64, 64, 64), "float32"))
+# F′): the NHWC shapes held bit for bit against the plain versions, each
+# with the kernel instance it must take (8 elements a thread, or 1 where C
+# % 8 != 0 or a pointer is misaligned): the flagship's dominant bf16
+# convolution input at bs=128 (whose times go into the kernels line), one
+# f32 input, the first convolution's 3-channel input in bf16 (the main
+# path) and in f32 (the f32 step), and the dominant input again through
+# views one element past alignment; then the bench batch sizes run with
+# compression off and on, and the batch of the card's compressed eval and
+# train steps whose launches are counted
+ACT8_CASES = (((BATCH, 128, 128, 32), "bfloat16", False), ((32, 64, 64, 64), "float32", False),
+              ((BATCH, 128, 128, 3), "bfloat16", False), ((8, 128, 128, 3), "float32", False),
+              ((BATCH, 128, 128, 32), "bfloat16", True))
 ACT8_BENCH_BS = (128, 512)
 ACT8_STEP_BS = 16
 ACT8_KERNELS = ("act_compress_quantize", "act_compress_dequantize")
@@ -3264,12 +3273,24 @@ def bench_phase(zero_counts, read_counts) -> dict:
     return launches
 
 
-def _act8_vs_plain(gen, shape, dtype: str) -> dict:
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element past its storage's
+    (aligned) start, so that the wrappers take the 1-element instances."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _act8_vs_plain(gen, shape, dtype: str, misaligned: bool) -> dict:
     """Kernels F and F′ against their plain versions at one NHWC shape: q, s
     and xh bit for bit (per-channel scales over four decades, a channel of
     zeros and one of exact ties, absmax 127 / 8 so that every x / s is k +
     1/2), then F's time (both launches), F′'s, the plain versions' and the
-    bounds. Returns their JSON rows."""
+    bounds. ``misaligned``: x and F′'s q are views one element past
+    alignment. Fails unless the instance the wrappers pick is the one the
+    case is for (8 elements a thread only where C % 8 == 0 and aligned).
+    Returns their JSON rows."""
     dev = gen.device
     tdt = getattr(torch, dtype)
     c = shape[-1]
@@ -3279,9 +3300,18 @@ def _act8_vs_plain(gen, shape, dtype: str) -> dict:
     x[..., 1] = ties / 8
     x.view(-1, c)[0, 1] = 127 / 8
     x = x.to(tdt)
+    if misaligned:
+        x = _misaligned(x)
+    want_vec = int(c % 8 == 0 and not misaligned)
     with torch.no_grad():
         q, s = act_compress.quantize_channels(x)
+        if misaligned:
+            q = _misaligned(q)
         xh = act_compress.dequantize(q, s, tdt)
+        vec = {"F": act_compress._vec(c, x), "F'": act_compress._vec(c, q, xh)}
+        if vec != {"F": want_vec, "F'": want_vec}:
+            raise AssertionError(f"act_compress at {shape} {dtype} misaligned={misaligned}: "
+                                 f"the wrappers picked {vec}, the case is for {want_vec}")
         s0 = act_compress.scales_plain(act_compress.absmax_plain(x))
         q0 = act_compress.quantize_plain(x, s0)
         xh0 = act_compress.dequantize_plain(q0, s0, tdt)
@@ -3302,7 +3332,8 @@ def _act8_vs_plain(gen, shape, dtype: str) -> dict:
                 "max_abs_err": float((xh.float() - xh0.float()).abs().max()), "ms": fp_ms,
                 "plain_ms": fp_plain_ms, **_bound(n * (1 + e), 1.0 * n, "float32"),
                 "library_ms": None, "shape": list(shape), "dtype": dtype}}
-    print(f"kernel act_compress   shape={shape} {dtype} exact={json.dumps(exact)} "
+    print(f"kernel act_compress   shape={shape} {dtype} misaligned={misaligned} "
+          f"elements_a_thread={8 if want_vec else 1} exact={json.dumps(exact)} "
           f"ties_even={bool((q[..., 1].flatten()[1:] % 2 == 0).all())} F_ms={f_ms:.4f} "
           f"F_plain_ms={f_plain_ms:.4f} "
           f"F_bound_ms={rows['act_compress_quantize']['bound_ms']:.4f} "
@@ -3310,7 +3341,7 @@ def _act8_vs_plain(gen, shape, dtype: str) -> dict:
           f"F'_bound_ms={rows['act_compress_dequantize']['bound_ms']:.4f}")
     if not all(exact.values()):
         raise AssertionError(f"act_compress kernels differ from their plain versions at "
-                             f"{shape} {dtype}: {exact}")
+                             f"{shape} {dtype} misaligned={misaligned}: {exact}")
     return rows
 
 
@@ -3355,15 +3386,15 @@ def _act8_steps(dev, zero_counts, read_counts) -> dict:
     if not n["act_compress_quantize"] == n["act_compress_dequantize"] == want > 0:
         raise AssertionError(f"the compressed train step launched F/F′ {n} times for {want} "
                              "convolution inputs")
-    saved = {}
-    for on in (False, True):
-        act_compress.switch(model, on)
-        saved["act_compress" if on else "float"] = elbo_saved_bytes(model, cfg, hr, stats)
-        torch.cuda.empty_cache()
+    del state
+    saved = {"act_compress": elbo_saved_bytes(model, cfg, hr, stats)}
+    torch.cuda.empty_cache()
+    plain = ProbabilisticUNet.from_config(cfg, torch.Generator().manual_seed(0), device=dev)
+    saved["float"] = elbo_saved_bytes(plain, cfg, hr, stats)
     print(f"act_compress saved for backward (bs={BATCH} bf16, the training ELBO, distinct "
           f"storages, parameters left out): {json.dumps(saved)}; ratio "
           f"{saved['act_compress']['bytes'] / saved['float']['bytes']:.4f}")
-    del model, state
+    del model, plain
     torch.cuda.empty_cache()
     return launches
 
@@ -3372,8 +3403,8 @@ def act_compress_phase(dev, zero_counts, read_counts) -> tuple[dict, dict]:
     """Int8 saved convolution inputs (PROBUNET_ACT_COMPRESS=int8, kernels F
     and F′): ``bench`` train with compression off and on at each of
     ACT8_BENCH_BS first, while nothing else of the phase holds device
-    memory (samples/s and peak memory; a batch that does not fit is
-    reported so); each kernel bit for bit against its plain version at
+    memory (samples/s and peak memory; a batch that does not fit fails the
+    phase); each kernel bit for bit against its plain version at
     ACT8_CASES; the f32 compressed training step on the card against the
     CPU (TF32 off); the eval and train steps' launches and the saved bytes
     (:func:`_act8_steps`). Returns (the kernels' JSON rows, the launches by
@@ -3388,13 +3419,7 @@ def act_compress_phase(dev, zero_counts, read_counts) -> tuple[dict, dict]:
             env = {"BENCH_MODE": "train", "BENCH_BS": str(bs),
                    **({"PROBUNET_ACT_COMPRESS": "int8"} if on else {})}
             kernels = BENCH_TRAIN_KERNELS + (ACT8_KERNELS if on else ())
-            try:
-                res, n = _bench_run(label, env, kernels, zero_counts, read_counts)
-            except torch.OutOfMemoryError as e:
-                print(f"bench {label}: does not fit on the card ({str(e)[:200]})")
-                rates[label] = None
-                torch.cuda.empty_cache()
-                continue
+            res, n = _bench_run(label, env, kernels, zero_counts, read_counts)
             if not on and any(n[k] for k in ACT8_KERNELS):
                 raise AssertionError(f"bench {label}: F or F′ launched with compression off")
             launches[f"bench {label}"] = n
@@ -3404,8 +3429,8 @@ def act_compress_phase(dev, zero_counts, read_counts) -> tuple[dict, dict]:
     print(f"act_compress rates: {json.dumps(rates)}")
     gen = torch.Generator(device=dev).manual_seed(4321)
     rows = {}
-    for shape, dtype in ACT8_CASES:
-        got = _act8_vs_plain(gen, shape, dtype)
+    for shape, dtype, misaligned in ACT8_CASES:
+        got = _act8_vs_plain(gen, shape, dtype, misaligned)
         rows = rows or got
         torch.cuda.empty_cache()
     cfg32 = preset("probunet_multivar_128")

@@ -18,9 +18,9 @@ int8 error (at most s / 2 an element).
 The switch is the ``EDMConv`` argument ``act_compress`` (threaded from
 ``ProbabilisticUNet``, ``UNet``, ``UNetAll`` and ``EDMPrecond`` as
 ``gn_impl`` is). The entry points that build a model for training (``cli.py
-train`` and ``train-det``, ``bench.py``, ``Trainer``) read the JAX
-package's environment variable ``PROBUNET_ACT_COMPRESS=int8``
-(:func:`enabled`). Off by default.
+train`` and ``train-det``, ``bench.py``, through ``cli.make_model`` and
+``make_det_model``) read the JAX package's environment variable
+``PROBUNET_ACT_COMPRESS=int8`` (:func:`enabled`). Off by default.
 
 ``x`` is the NCHW view of a channels_last activation, so its NHWC view is a
 row-major (rows, C) matrix. Kernels (``csrc/act_compress.cu``):
@@ -58,15 +58,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def enabled(env=os.environ) -> bool:
     """The JAX package's switch: ``PROBUNET_ACT_COMPRESS=int8``."""
     return env.get("PROBUNET_ACT_COMPRESS", "") == "int8"
-
-
-def switch(model: torch.nn.Module, on: bool = True) -> torch.nn.Module:
-    """Set ``act_compress`` on every convolution of ``model`` that has the
-    switch (``layers.EDMConv``); returns ``model``."""
-    for mod in model.modules():
-        if hasattr(mod, "act_compress"):
-            mod.act_compress = bool(on)
-    return model
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype, padded: bool = False

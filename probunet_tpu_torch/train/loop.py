@@ -42,7 +42,7 @@ from probunet_tpu_torch.data.climex import (
 from probunet_tpu_torch.data.loader import Batches, prefetch_to_device
 from probunet_tpu_torch.device import resolve_device
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
-from probunet_tpu_torch.ops import act_compress, quantize
+from probunet_tpu_torch.ops import quantize
 from probunet_tpu_torch.ops.msssim import LEVELS as MSSSIM_SCALES
 from probunet_tpu_torch.train.early_stop import EarlyStopper
 from probunet_tpu_torch.train.schedule import beta_schedule
@@ -357,11 +357,7 @@ class Trainer:
     device with the steps' ``mesh=`` form; the model must be alike
     on every rank (checked against rank 0's), every rank runs the same
     epochs, and only rank 0 logs, checkpoints and draws. The history equals
-    the single-process ``Trainer``'s.
-
-    ``PROBUNET_ACT_COMPRESS=int8`` in the environment turns on the model's
-    int8 saved convolution inputs (``ops.act_compress.switch``), as the
-    variable does in the JAX package."""
+    the single-process ``Trainer``'s."""
 
     def __init__(self, cfg: Config, model: ProbabilisticUNet, dataset_train,
                  dataset_val=None, logger=None, checkpoint_manager=None,
@@ -388,8 +384,6 @@ class Trainer:
                                        device=self.device)
         self.state = state
         self.model = state.model
-        if act_compress.enabled():
-            act_compress.switch(self.model)
         self.stats = dataset_train.device_stats(self.device)
         if mesh is not None:
             from probunet_tpu_torch.parallel.multihost import replicate_global

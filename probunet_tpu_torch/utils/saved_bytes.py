@@ -1,38 +1,19 @@
 """The bytes a training step keeps for its backward pass, with and without
 int8 saved convolution inputs (``ops.act_compress``).
 
-    python -m probunet_tpu_torch.utils.saved_bytes [--preset probunet_multivar_128]
-        [--dtype bfloat16] [--batch 128] [--widths 8,16] [--device cpu]
-
 :func:`saved_bytes` counts what autograd keeps while a function runs
 (``torch.autograd.graph.saved_tensors_hooks``): each saved tensor's
 storage once, so a tensor two operations save (the skip convolution's
 input is the input GroupNorm kernel C saves too) counts once, and the
-parameters' storages not at all (they are resident anyway).
-
-The command counts the training ELBO of the preset at one and two items
-for each of two U-Net widths in ``--widths`` (``model_channels``; the
-encoders and Fcomb keep the preset's widths, so the reconstruction takes
-the same route) and extrapolates to the preset's width and to ``--batch``
-items by the bilinear fit of those four counts: bytes = c0 + c1 w + b (c2
-+ c3 w). The U-Net's activations grow with its width w and the batch b;
-the compute-dtype copies of the weights grow with neither, the encoders'
-activations with the batch alone. On the CPU the kernels' plain versions
-run, which save what the kernels save. Prints one JSON object.
+parameters' storages not at all (they are resident anyway). On the CPU
+the kernels' plain versions run, which save what the kernels save.
 """
 
 from __future__ import annotations
 
-import argparse
-import copy
-import json
-
 import torch
 
-from probunet_tpu_torch.config import preset
-from probunet_tpu_torch.data.climex import compute_stats, preprocess_batch
-from probunet_tpu_torch.data.synthetic import synthetic_climex_fields
-from probunet_tpu_torch.data.transforms import apply_physical_transform
+from probunet_tpu_torch.data.climex import preprocess_batch
 from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 
 
@@ -68,53 +49,3 @@ def elbo_saved_bytes(model: ProbabilisticUNet, cfg, hr: torch.Tensor, stats) -> 
     return saved_bytes(lambda: model.elbo(
         batch["inputs"], batch["targets"], M=cfg.train.ensemble_size, beta_1=1.0,
         generator=gen, training=True)[0], list(model.parameters()))
-
-
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--preset", default="probunet_multivar_128")
-    ap.add_argument("--dtype", default="bfloat16")
-    ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--widths", default="8,16")
-    ap.add_argument("--device", default="cpu")
-    args = ap.parse_args(argv)
-    cfg = preset(args.preset)
-    cfg.model.compute_dtype = args.dtype
-    widths = [int(v) for v in args.widths.split(",")]
-    full = cfg.model.model_channels
-    hr = apply_physical_transform(torch.from_numpy(synthetic_climex_fields(
-        2, *cfg.data.resolution, cfg.data.variables, seed=0)), cfg.data.variables)
-    stats = compute_stats(hr, cfg.data.lowres_scale)
-    dev = torch.device(args.device)
-    hr, stats = hr.to(dev), type(stats)(*[t.to(dev) for t in stats])
-    counts = {}
-    for on in (False, True):
-        got = {}
-        for w in widths:
-            c = copy.deepcopy(cfg)
-            c.model.model_channels = w
-            model = ProbabilisticUNet.from_config(c, torch.Generator().manual_seed(0),
-                                                  device=dev, act_compress=on)
-            for b in (1, 2):
-                got[w, b] = elbo_saved_bytes(model, c, hr[:b], stats)["bytes"]
-        w0, w1 = widths
-        # per item (slope in b) and per step (intercept), each linear in w
-        item = [got[w, 2] - got[w, 1] for w in (w0, w1)]
-        step = [got[w, 1] - i for w, i in zip((w0, w1), item)]
-
-        def at(v, w=full):
-            return v[0] + (v[1] - v[0]) * (w - w0) / (w1 - w0)
-
-        total = at(step) + args.batch * at(item)
-        counts["act_compress" if on else "float"] = {
-            "counted": {f"w={w} b={b}": n for (w, b), n in got.items()},
-            "bytes_per_item": at(item), "bytes_per_step": at(step), "gb": total / 1e9}
-    out = {"preset": args.preset, "dtype": args.dtype, "batch": args.batch,
-           "model_channels": full, **counts,
-           "ratio": counts["act_compress"]["gb"] / counts["float"]["gb"]}
-    print(json.dumps(out))
-    return out
-
-
-if __name__ == "__main__":
-    main()

@@ -182,8 +182,7 @@ def _batch():
 
 def _port_elbo(params, x, y, eps, seeds, act_compress=True, remat=False):
     model = torch_tiny_model(params, dropout=DROPOUT, gn_impl="composed", remat=remat,
-                             img_resolution=RES)
-    tac.switch(model, act_compress)
+                             img_resolution=RES, act_compress=act_compress)
     total, met = model.elbo(torch.from_numpy(x), torch.from_numpy(y), M=M, beta_1=0.7,
                             eps=torch.from_numpy(eps), training=True,
                             seeds=torch.from_numpy(seeds))
@@ -254,8 +253,8 @@ def test_eval_step_quantizes_nothing_and_the_train_step_every_conv(models, monke
 
     monkeypatch.setattr(tac, "quantize_channels", q_count)
     monkeypatch.setattr(tac, "dequantize", dq_count)
-    model = tac.switch(torch_tiny_model(params, dropout=DROPOUT, gn_impl="composed",
-                                        img_resolution=RES))
+    model = torch_tiny_model(params, dropout=DROPOUT, gn_impl="composed",
+                             img_resolution=RES, act_compress=True)
     cfg = tiny_cfg(B, M, resolution=RES)
     hr = torch.from_numpy(_batch()[1])
     stats = compute_stats(hr, cfg.data.lowres_scale)
@@ -273,8 +272,10 @@ def test_eval_step_quantizes_nothing_and_the_train_step_every_conv(models, monke
 
 
 def test_entry_points_read_the_environment(monkeypatch):
-    """``cli.make_model``/``make_det_model`` and ``Trainer`` under
-    PROBUNET_ACT_COMPRESS=int8, as the JAX package reads it; off otherwise."""
+    """``cli.make_model``/``make_det_model`` (the models of ``train``,
+    ``train-det`` and ``bench``) under PROBUNET_ACT_COMPRESS=int8, as the
+    JAX package reads it, and ``Trainer`` on ``train``'s model; off
+    otherwise."""
     from torch_mp import tiny_cfg
 
     from probunet_tpu_torch import cli
@@ -293,9 +294,6 @@ def test_entry_points_read_the_environment(monkeypatch):
     assert flags(cli.make_det_model(cfg, "unet", "cpu")) == {True}
     ds = ClimexDataset(hr=np.ones((4, 16, 16, 3), np.float32), variables=cfg.data.variables,
                        pipeline=cfg.data.pipeline, lowres_scale=4, device="cpu")
-    monkeypatch.delenv("PROBUNET_ACT_COMPRESS")
-    model = cli.make_model(cfg, "cpu")
-    monkeypatch.setenv("PROBUNET_ACT_COMPRESS", "int8")
-    assert flags(Trainer(cfg, model, ds, device="cpu").model) == {True}
+    assert flags(Trainer(cfg, cli.make_model(cfg, "cpu"), ds, device="cpu").model) == {True}
     monkeypatch.setenv("PROBUNET_ACT_COMPRESS", "fp8")
     assert not tac.enabled()

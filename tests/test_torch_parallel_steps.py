@@ -199,13 +199,12 @@ def _assert_matches_single_process(got, inputs, gn_impl, act_compress=False):
     """Two data-parallel steps' metrics and parameters against two
     single-process steps on the whole batch (dropout 0.1)."""
     from probunet_tpu_torch.data.climex import compute_stats
-    from probunet_tpu_torch.ops.act_compress import switch
     from probunet_tpu_torch.train.loop import make_train_step
     from probunet_tpu_torch.train.state import create_train_state
 
     cfg = tiny_cfg(B, M)
-    model = switch(torch_tiny_model(inputs["params"], dropout=DROPOUT, gn_impl=gn_impl),
-                   act_compress)
+    model = torch_tiny_model(inputs["params"], dropout=DROPOUT, gn_impl=gn_impl,
+                             act_compress=act_compress)
     state = create_train_state(model, seed=cfg.train.seed, device="cpu")
     step = make_train_step(model, cfg)
     hr = torch.from_numpy(inputs["hr"])

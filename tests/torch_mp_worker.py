@@ -48,8 +48,8 @@ def dp_step(workdir, job):
     for case in inp["cases"]:
         cfg = tiny_cfg(case["hr"].shape[0], case["m"])
         model = torch_tiny_model(inp["params"], dropout=case["dropout"],
-                                 gn_impl=case["gn_impl"])
-        act_compress.switch(model, case.get("act_compress", False))
+                                 gn_impl=case["gn_impl"],
+                                 act_compress=case.get("act_compress", False))
         if case.get("absmax_per_rank"):   # a planted fault: each slab's own absmax
             act_compress.quantize_channels = lambda xn, mesh=None: quantize(xn)
         state = create_train_state(model, seed=cfg.train.seed, device="cpu")
@@ -190,7 +190,6 @@ def spatial_step(workdir, job):
     from torch_parity import torch_tiny_model
 
     from probunet_tpu_torch.data.climex import compute_stats
-    from probunet_tpu_torch.ops.act_compress import switch
     from probunet_tpu_torch.parallel import (make_mesh, make_parallel_eval_step,
                                              make_parallel_train_step, shard_batch)
     from probunet_tpu_torch.train.state import create_train_state
@@ -206,8 +205,8 @@ def spatial_step(workdir, job):
         model = torch_tiny_model(case.get("params", inp["params"]), dropout=case["dropout"],
                                  gn_impl=case["gn_impl"], remat=case.get("remat", False),
                                  num_filters=case.get("num_filters", (8, 16)),
-                                 img_resolution=tuple(hr.shape[1:3]))
-        switch(model, case.get("act_compress", False))
+                                 img_resolution=tuple(hr.shape[1:3]),
+                                 act_compress=case.get("act_compress", False))
         mesh = make_mesh(case["n_data"], case["n_spatial"], device="cpu")
         stats = compute_stats(hr, cfg.data.lowres_scale)
         block = shard_batch(hr, mesh)

@@ -78,9 +78,11 @@ def jax_tiny_model(dtype_name: str = "float32", seed: int = 0, dropout: float = 
 def torch_tiny_model(params, dtype_name: str = "float32", dropout: float = 0.0,
                      gn_impl: str = "kernel", remat=False,
                      num_filters: tuple[int, ...] = TINY["num_filters"],
-                     img_resolution: tuple[int, int] = TINY["img_resolution"]):
+                     img_resolution: tuple[int, int] = TINY["img_resolution"],
+                     act_compress: bool = False):
     """The port's tiny Probabilistic U-Net loaded with ``params``, its
-    GroupNorm chains on route ``gn_impl``. Every activation the composed
+    GroupNorm chains on route ``gn_impl``, its U-Net's convolutions with
+    int8 saved inputs under ``act_compress``. Every activation the composed
     route's dropout sees is one kernel D takes (numel a multiple of 1024 at
     batch 2 and above). Kernel C takes every chain shape but one: norm1 of
     ``enc_8x8_down`` (8x8, C=8) runs the composed chain on either route,
@@ -95,7 +97,7 @@ def torch_tiny_model(params, dtype_name: str = "float32", dropout: float = 0.0,
         **{**TINY, "num_filters": num_filters, "img_resolution": img_resolution},
         dropout=dropout,
         dtype=torch.bfloat16 if dtype_name == "bfloat16" else None, gn_impl=gn_impl,
-        remat=remat)
+        remat=remat, act_compress=act_compress)
     return load_params(model, params).eval()
 
 

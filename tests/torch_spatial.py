@@ -92,7 +92,6 @@ def one_process(case: dict, steps: int | None = None):
     from torch_mp_worker import captured_grads
 
     from probunet_tpu_torch.data.climex import compute_stats
-    from probunet_tpu_torch.ops.act_compress import switch
     from probunet_tpu_torch.train.loop import make_eval_step, make_train_step
     from probunet_tpu_torch.train.state import create_train_state
 
@@ -103,8 +102,8 @@ def one_process(case: dict, steps: int | None = None):
     model = torch_tiny_model(case["params"] if "params" in case else params(nf),
                              dropout=case["dropout"],
                              gn_impl=case["gn_impl"], remat=case.get("remat", False),
-                             num_filters=nf, img_resolution=res)
-    switch(model, case.get("act_compress", False))
+                             num_filters=nf, img_resolution=res,
+                             act_compress=case.get("act_compress", False))
     stats = compute_stats(hr, cfg.data.lowres_scale)
     if case.get("eval"):
         met = make_eval_step(model, cfg, fused=case["fused"])(
