@@ -223,6 +223,7 @@ from probunet_tpu_torch.models.prob_unet import ProbabilisticUNet
 from probunet_tpu_torch.models.unet import UNet, dropout_seeds
 from probunet_tpu_torch.ops import act_compress, losses, quantize
 from probunet_tpu_torch.ops.kernels import _build, afcrps, dropout, fcomb_crps, fused_gn
+from probunet_tpu_torch.ops.kernels import avg_pool as avg_pool_g
 from probunet_tpu_torch.ops.kernels import int8_conv as int8_e
 from probunet_tpu_torch.train import loop as train_loop
 from probunet_tpu_torch.train.checkpoint import CheckpointManager
@@ -471,6 +472,13 @@ EXPLORE_CHECK = dict(max_items=64, n_contexts=8)
 # will not put two ranks on one GPU), f32, TF32 off, full widths, dropout
 # 0.1, a global batch of 8 (4 a rank); the world of one runs over NCCL
 PAR_BATCH, PAR_SAMPLE_M = 8, 16
+# kernel G (the ingest's window mean) against its plain version bit for bit:
+# (shape, k, first row of a block of rows or None, timed). The main path's
+# pooling (bs=128, 128x128, 3 variables, k = 16); the spatial phase's block
+# (rows 64-127 of a PAR_BATCH batch, as shard_batch gives it); an odd k.
+G_CASES = (((BATCH, 128, 128, 3), 16, None, True),
+           ((PAR_BATCH, 128, 128, 3), 16, 64, False),
+           ((PAR_BATCH, 96, 96, 3), 3, None, False))
 PAR_STEPS, PAR_WARMUP = 4, 2
 PAR_TIMEOUT = 420
 # two data-parallel steps against two one-process steps on the card: at
@@ -814,6 +822,72 @@ def _dropout_vs_plain(randn, shape, dtype: str, p_drop: float, timed: bool = Tru
     return row
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _avg_pool_vs_plain(gen, dev, shape, k: int, h0, timed: bool, card: str):
+    """Kernel G against its plain version at one shape, bit for bit, twice:
+    values spread over six decades; ``h0``: G pools the block of the batch's
+    rows from h0 on. With ``timed``, the JSON row: its time beside
+    the plain version's (k^2 adds on the card), ``Tensor.mean`` over the
+    window axes (the same function in another order) and its bound (x read
+    and the means written once; k^2 adds an output)."""
+    x = torch.randn(shape, generator=gen, device=dev) * 10.0 ** torch.randint(
+        -3, 3, shape, generator=gen, device=dev)
+    what = f"shape={shape} k={k}"
+    if h0 is not None:
+        x = x[:, h0:].contiguous()
+        what += f" rows {h0}:{shape[1]}"
+    got, again = avg_pool_g.window_mean(x, k), avg_pool_g.window_mean(x, k)
+    want = avg_pool_g.window_mean_plain(x, k)
+    exact = torch.equal(got, want) and torch.equal(got, again)
+    line = f"kernel avg_pool        {what} f32 exact={exact}"
+    row = None
+    if timed:
+        b, h, w, c = x.shape
+
+        def mean():
+            return x.reshape(b, h // k, k, w // k, k, c).mean(dim=(2, 4))
+
+        ms = _sync_ms(lambda: avg_pool_g.window_mean(x, k), 20)
+        plain_ms = _sync_ms(lambda: avg_pool_g.window_mean_plain(x, k), 3, 1)
+        library_ms = _sync_ms(mean, 20)
+        mean_bits = int((mean() != want).sum())
+        row = {"max_abs_err": float((got - want).abs().max()), "ms": ms, "plain_ms": plain_ms,
+               **_bound(4.0 * (x.numel() + got.numel()), float(x.numel()), "float32"),
+               "library_ms": library_ms}
+        line += (f" kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} Tensor.mean_ms={library_ms:.5f}"
+                 f" bound_ms={row['bound_ms']:.5f} ({row['bound_by']}); Tensor.mean differs "
+                 f"in the last bit at {mean_bits} of {want.numel()} means [{card}]")
+    print(line)
+    if not exact:
+        raise AssertionError(f"kernel G differs from its plain version at {what}")
+    return row
+
+
+def avg_pool_launches_per_step(model: ProbabilisticUNet, batch: torch.Tensor, stats, cfg,
+                               dev, zero_counts, read_counts, card: str) -> dict:
+    """Kernel G's launches in one training step and one eval step (bs=8)
+    of the flagship: one each, the batch's pooling in ``preprocess_batch``."""
+    state = create_train_state(copy.deepcopy(model), seed=cfg.train.seed, device=dev)
+    zero_counts()
+    make_train_step(state.model, cfg)(state, batch, stats, 1.0, 1.0)
+    n = {"train": read_counts()["avg_pool"]}
+    zero_counts()
+    make_eval_step(model, cfg)(batch, stats, torch.Generator(device=dev).manual_seed(0))
+    n["eval"] = read_counts()["avg_pool"]
+    print(f"kernel avg_pool launches per step: {json.dumps(n)} [{card}]")
+    if n != {"train": 1, "eval": 1}:
+        raise AssertionError(f"kernel G launched {n} times in a step, not once a pooling")
+    del state
+    torch.cuda.empty_cache()
+    return n
+
+
 def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
     """Each kernel against its plain version at the serve and training
     shapes. The JSON row of a kernel carries its training-path shape: M=15
@@ -854,6 +928,12 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
         torch.cuda.empty_cache()
     gn_preset_chains(randn, dev, "probunet_latent6_64", batch=8)
     report["int8_conv_mma_sync_at_main"] = e_routes_vs_plain(gen, dev)
+    torch.cuda.empty_cache()
+    card = _card()
+    for shape, k, h0, timed in G_CASES:
+        row = _avg_pool_vs_plain(gen, dev, shape, k, h0, timed, card)
+        if timed:
+            report["avg_pool"] = row
     torch.cuda.empty_cache()
     return report
 
@@ -2587,9 +2667,11 @@ def edm_phase(dev: torch.device, hr: torch.Tensor, stats, zero_counts, read_coun
           f"peak memory {peak:.3f} GB; losses {losses}; launches {json.dumps(n)}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite EDM losses {losses}")
-    want = {"fused_gn": UNET_CHAINS * EDM_TRAIN_STEPS, "fused_gn_bwd": UNET_CHAINS * EDM_TRAIN_STEPS}
+    want = {"fused_gn": UNET_CHAINS * EDM_TRAIN_STEPS, "fused_gn_bwd": UNET_CHAINS * EDM_TRAIN_STEPS,
+            "avg_pool": EDM_TRAIN_STEPS}
     if {k: v for k, v in n.items() if v} != want:
-        raise AssertionError(f"EDM training launches {n}, want {want}: 57 C and 57 C′ a step")
+        raise AssertionError(f"EDM training launches {n}, want {want}: 57 C, 57 C′ and one G "
+                             "(the batch's pooling) a step")
     hb = batches[0]
     _print_groups(f"edm breakdown train bs={EDM_TRAIN_BS}",
                   *_kernel_ms_by_group(lambda: step(state, hb, stats), 2), dt * 1e3 / EDM_TRAIN_STEPS)
@@ -2724,7 +2806,8 @@ def explore_phase(dev: torch.device, packed: str, ckpt: str, zero_counts, read_c
             bad = [k for k in arrays.files if not np.isfinite(arrays[k]).all()]
             if bad:
                 raise AssertionError(f"{name}: non-finite {bad}")
-            if not forwards[0] or {k: v for k, v in n.items() if v} != {
+            # G pools the explored days for their statistics and batches
+            if not forwards[0] or {k: v for k, v in n.items() if v and k != "avg_pool"} != {
                     "fused_gn": UNET_CHAINS * forwards[0]}:
                 raise AssertionError(f"{name}: launches {n} for {forwards[0]} U-Net forwards")
 
@@ -4284,7 +4367,7 @@ def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") ->
     print(f"spatial rank {rank} launches: {json.dumps(spatial)}; spatial part "
           f"{time.perf_counter() - t0:.3f} s")
     for name in ("fcomb_crps", "fcomb_crps_bwd", "afcrps", "afcrps_bwd", "fused_gn_split",
-                 "fused_gn_bwd_split", "dropout", "int8_conv"):
+                 "fused_gn_bwd_split", "dropout", "int8_conv", "avg_pool"):
         if spatial[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the spatial path")
     # the spatially sharded step's later options: their own launch counts
@@ -4296,7 +4379,7 @@ def parallel_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") ->
     print(f"spatial options rank {rank} launches: {json.dumps(options)}; spatial options "
           f"part {time.perf_counter() - t0:.3f} s")
     for name in ("fused_gn", "fused_gn_bwd", "fused_gn_split", "fused_gn_bwd_split", "dropout",
-                 "int8_conv"):
+                 "int8_conv", "avg_pool"):
         if options[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the spatial options' path")
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
@@ -4323,7 +4406,8 @@ def launch_counters():
                 "int8_conv_wgmma": int8_e.launch_wgmma,
                 "int8_conv_mma_sync": int8_e.launch_mma_sync,
                 "act_compress_quantize": act_compress.quantize_channels,       # F
-                "act_compress_dequantize": act_compress.dequantize}           # F′
+                "act_compress_dequantize": act_compress.dequantize,           # F′
+                "avg_pool": avg_pool_g.window_mean}                           # G
 
     def zero_counts():
         for fn in counters.values():
@@ -4356,9 +4440,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run "
                          "needs a CUDA device and has no CPU route")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = _card()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4461,6 +4543,8 @@ def main() -> None:
     # the training path: bs=128, M=15, dropout 0.1, on six routes
     cfg_train = copy.deepcopy(cfg)
     cfg_train.train.ensemble_size = TRAIN_M
+    avg_pool_launches_per_step(model, batches[0][:8], stats, cfg_train, dev, zero_counts,
+                               read_counts, card)
     kernel_fused = "kernel fused"
     remats = {f"kernel fused remat={r}": (_variant(model, cfg, remat=r), True)
               for r in REMAT_MODES}
@@ -4571,7 +4655,7 @@ def main() -> None:
           f"{json.dumps(options_launches)}; parallel phase {time.perf_counter() - t0:.3f} s")
 
     modules = {"fcomb_crps": fcomb_crps, "afcrps": afcrps, "fused_gn": fused_gn,
-               "dropout": dropout}
+               "dropout": dropout, "avg_pool": avg_pool_g}
     kernels = []
     # E's entries are its two routes' kernels, each counted by its route
     e_counters = {"int8_conv": "int8_conv_wgmma", "int8_conv_mma_sync": "int8_conv_mma_sync"}
@@ -4592,8 +4676,8 @@ def main() -> None:
                   else launches[counter])
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                         "replaces": replaces,
-                        # each kernel's own main path: training for A to D, int8
-                        # serving for E, compressed training for F and F′
+                        # each kernel's own main path: training for A to D and G,
+                        # int8 serving for E, compressed training for F and F′
                         "launches": main_n,
                         **report[name], "launches_int8": int8_n,
                         "launches_cli": sum(r[counter] for r in cli_launches.values()),

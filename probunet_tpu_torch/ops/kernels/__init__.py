@@ -13,7 +13,10 @@ Each module holds one kernel's wrapper and its plain PyTorch version:
   ``probunet_tpu/ops/pallas/dropout.py``;
 - :mod:`.int8_conv` — the int8 serving path's convolution (kernel E),
   which no TPU kernel computes: the JAX package leaves it to XLA
-  (``probunet_tpu/ops/quantize.py:int8_conv``).
+  (``probunet_tpu/ops/quantize.py:int8_conv``);
+- :mod:`.avg_pool` — the ingest's k x k window mean in XLA's order of
+  additions (kernel G, ``csrc/resample.cu``), which no TPU kernel computes
+  either (``probunet_tpu/ops/resample.py:avg_pool``, a reshape-mean).
 
 Kernels F and F′, the int8 saved convolution inputs' quantization and
 dequantization (``csrc/act_compress.cu``, fused by XLA in the JAX

@@ -47,11 +47,22 @@ def _gaussian_filter(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
 
 
 def _avg_pool2_padded(x: torch.Tensor) -> torch.Tensor:
-    """2x2 / stride-2 average pool, zero-padding odd sides, count_include_pad."""
+    """2x2 / stride-2 average pool of (N, H, W, C), zero-padding odd sides,
+    count_include_pad, at the JAX package's rounding points: its
+    ``lax.reduce_window`` adds a window's four terms one by one in x's type
+    from zero, row by row, or column by column where W is odd (XLA's order
+    on the CPU, measured at f32 and bf16), then divides by 4.
+    ``F.avg_pool2d`` adds row by row in f32 whatever W, so it differs at odd
+    W and in bf16."""
     h, w = x.shape[1], x.shape[2]
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 2, padding=(h % 2, w % 2),
-                     count_include_pad=True)
-    return y.permute(0, 2, 3, 1)
+    ph, pw = h % 2, w % 2
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    oh, ow = (h + 2 * ph) // 2, (w + 2 * pw) // 2
+    taps = ((0, 0), (1, 0), (0, 1), (1, 1)) if pw else ((0, 0), (0, 1), (1, 0), (1, 1))
+    total = torch.zeros((x.shape[0], oh, ow, x.shape[3]), dtype=x.dtype, device=x.device)
+    for i, j in taps:
+        total = total + xp[:, i:i + 2 * oh:2, j:j + 2 * ow:2]
+    return total / 4.0
 
 
 def _ssim_maps(x, y, data_range, win, k1: float = 0.01, k2: float = 0.03):

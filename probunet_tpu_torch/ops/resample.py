@@ -9,16 +9,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from probunet_tpu_torch.ops.kernels.avg_pool import window_mean
+
 
 def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Non-overlapping k x k mean over the (-3, -2) axes (a reshape-mean,
-    like ``nn.AvgPool2d(kernel_size=k)``)."""
+    """Non-overlapping k x k mean over the (-3, -2) axes (like
+    ``nn.AvgPool2d(kernel_size=k)``), in the JAX package's order of
+    additions: each window's terms added in row-major order, the sum times
+    f32(1 / k^2). The plain version for a CPU tensor, kernel G for a CUDA
+    tensor (``ops/kernels/avg_pool.py``)."""
     if k == 1:
         return x
-    *lead, h, w, c = x.shape
-    if h % k or w % k:
-        raise ValueError(f"spatial dims {(h, w)} not divisible by {k}")
-    return x.reshape(*lead, h // k, k, w // k, k, c).mean(dim=(-4, -2))
+    return window_mean(x, k)
 
 
 def upsample_nearest(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -47,7 +47,8 @@ def test_port_and_chip_smoke_import_without_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["names"]) >= 20
     # every kernel module, the GroupNorm chain's (C, C′) included
-    for kernel in ("afcrps", "fcomb_crps", "fused_gn", "dropout", "int8_conv", "_build"):
+    for kernel in ("afcrps", "fcomb_crps", "fused_gn", "dropout", "int8_conv", "avg_pool",
+                   "_build"):
         assert f"probunet_tpu_torch.ops.kernels.{kernel}" in res["names"], kernel
     for name in ("cli", "__main__", "data.climex", "evals.gev", "evals.histograms",
                  "evals.metrics", "utils.plotting", "ops.quantize", "parallel.spatial",

@@ -293,6 +293,69 @@ def test_c_masks_of_a_block_of_rows_are_the_global_rows():
     assert tgn.slab_seed(seed, 0, 0) is seed
 
 
+# the (H, W, C, G) of every GroupNorm chain of test_torch_parallel_spatial_steps.py's
+# "kernel A" case (the tiny U-Net at 32x32, Fcomb width 32)
+KERNEL_A_CHAINS = [(32, 32, 8, 2), (32, 32, 16, 4), (32, 32, 24, 6), (16, 16, 8, 2),
+                   (16, 16, 16, 4), (16, 16, 24, 6), (16, 16, 32, 8)]
+# largest |split - whole| over the largest |whole|, f32: the statistics and y
+# read up to 1.5e-6 on this test's inputs (1.7e-6 on that case's own
+# activations, tests/torch_parity_gaps.py), dx and the parameter terms 4.4e-7
+# (2.2e-7)
+SPLIT_STATS_TOL, SPLIT_GRADS_TOL = 4e-6, 1e-6
+
+
+@pytest.mark.parametrize("chain", KERNEL_A_CHAINS, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("p_drop", [0.0, 0.1], ids=["p0", "p0.1"])
+def test_split_c_agrees_with_the_whole_chain_at_the_kernel_a_shapes(chain, p_drop):
+    """Split C and C′ (plain versions) on the two row blocks of each chain
+    of the spatial step's "kernel A" case, B = 8, FiLM and SiLU on, half the
+    channels' means 2.8 standard deviations from 0 (GroupNorm's cancellation):
+    the keep masks of the blocks are the whole chain's bit for bit, and
+    mean, rstd, y, dx and the parameter terms differ from the whole chain's
+    only by f32 rounding. That case's gradient gap is not here: it is one
+    ReLU gate of Fcomb's hidden layer (tests/torch_parity_gaps.py)."""
+    from probunet_tpu_torch.ops.kernels import fused_gn as tgn
+
+    h, w, c, groups = chain
+    shape = (8, h, w, c)
+    x, gamma, beta, scale, shift, seed = _chain(shape, torch.float32, seed=h + c)
+    x = x + 2.8 * (torch.arange(c) % 2)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(c))
+    consts = (groups, 1e-6, p_drop, True)
+    y, mean, rstd = tgn.gn_film_silu_dropout_plain(x, gamma, beta, scale, shift, seed, *consts)
+    grads = tgn.gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed, mean,
+                                               rstd, groups, p_drop, True)
+    hb, count = h // 2, float(h * w * (c // groups))
+    blocks = [(x[:, i * hb:(i + 1) * hb], g[:, i * hb:(i + 1) * hb],
+               tgn.slab_seed(seed, 0, i * hb * w * c)) for i in (0, 1)]
+    if p_drop:
+        keep = torch.cat([tgn.gn_keep(xb.shape, s, p_drop) for xb, _, s in blocks], dim=1)
+        assert torch.equal(keep, tgn.gn_keep(shape, seed, p_drop))
+
+    def over_blocks(run):
+        """Each block's outputs, its partial sums summed with the other's."""
+        parts = []
+        for i in (0, 1):
+            run(i, lambda t: parts.append(t.clone()))
+        total = parts[0] + parts[1]
+        return [run(i, lambda t: t.copy_(total)) for i in (0, 1)]
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    fwd = over_blocks(lambda i, red: tgn.gn_split_fwd(
+        blocks[i][0], gamma, beta, scale, shift, blocks[i][2], *consts, count, red))
+    assert rel(torch.cat([o[0] for o in fwd], dim=1), y) <= SPLIT_STATS_TOL
+    for i in (1, 2):
+        assert rel(fwd[0][i], (mean, rstd)[i - 1]) <= SPLIT_STATS_TOL
+    bwd = over_blocks(lambda i, red: tgn.gn_split_bwd(
+        blocks[i][0], blocks[i][1], gamma, beta, scale, shift, blocks[i][2], mean, rstd,
+        groups, p_drop, True, count, red))
+    assert rel(torch.cat([o[0] for o in bwd], dim=1), grads[0]) <= SPLIT_GRADS_TOL
+    for i in range(1, 5):
+        assert rel(bwd[0][i] + bwd[1][i], grads[i]) <= SPLIT_GRADS_TOL
+
+
 @pytest.mark.parametrize("shape", [(4, 16, 8, 16), (4, 32, 16, 96)], ids=["16ch", "96ch"])
 def test_d_mapping_gives_the_global_rows(shape):
     """D's plain version (and its autograd function) on a block of rows of
