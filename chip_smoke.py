@@ -472,13 +472,25 @@ EXPLORE_CHECK = dict(max_items=64, n_contexts=8)
 # will not put two ranks on one GPU), f32, TF32 off, full widths, dropout
 # 0.1, a global batch of 8 (4 a rank); the world of one runs over NCCL
 PAR_BATCH, PAR_SAMPLE_M = 8, 16
-# kernel G (the ingest's window mean) against its plain version bit for bit:
-# (shape, k, first row of a block of rows or None, timed). The main path's
-# pooling (bs=128, 128x128, 3 variables, k = 16); the spatial phase's block
-# (rows 64-127 of a PAR_BATCH batch, as shard_batch gives it); an odd k.
+# kernel G (the ingest's window mean) against its plain version bit for bit,
+# twice: (shape, k, first row of a block of rows or None, timed). The main
+# path's pooling (bs=128, 128x128, 3 variables, k = 16); the spatial phase's
+# block (rows 64-127 of a PAR_BATCH batch, as shard_batch gives it); an odd
+# k (the generic instance); the 64x64 presets' batch pooled by 8; a year's
+# stack for compute_stats (72 MB, more than the L2 cache holds); a wide C
+# that takes the "channels" route.
 G_CASES = (((BATCH, 128, 128, 3), 16, None, True),
            ((PAR_BATCH, 128, 128, 3), 16, 64, False),
-           ((PAR_BATCH, 96, 96, 3), 3, None, False))
+           ((PAR_BATCH, 96, 96, 3), 3, None, False),
+           ((BATCH, 64, 64, 1), 8, None, False),
+           ((365, 128, 128, 3), 16, None, True),
+           ((8, 32, 32, 64), 16, None, False))
+# G's time at the main pooling before its redesign (PERF.md §6, PR 17's
+# final archive run; NVIDIA H100 80GB HBM3, 700.00 W)
+G_PR17_MS = 0.01927
+# the ring's sizes g_routes times beside the planned route: (stages, chains
+# a block)
+G_RING_SIZES = ((2, 32), (3, 32), (4, 32), (6, 32), (4, 96), (3, 192))
 PAR_STEPS, PAR_WARMUP = 4, 2
 PAR_TIMEOUT = 420
 # two data-parallel steps against two one-process steps on the card: at
@@ -573,7 +585,9 @@ PTXAS_KERNELS = ("fcomb_crps_fwd_mma_kernel", "fcomb_crps_tile_kernel",
                  "gn_fwd_cluster_kernel", "gn_fwd_stats_kernel", "gn_fwd_apply_kernel",
                  "gn_bwd_cluster_kernel", "gn_bwd_reduce_kernel", "gn_bwd_dx_kernel",
                  "dropout_kernel", "int8_conv_kernel", "int8_conv_wgmma_kernel",
-                 "act8_absmax_kernel", "act8_quantize_kernel", "act8_dequantize_kernel")
+                 "act8_absmax_kernel", "act8_quantize_kernel", "act8_dequantize_kernel",
+                 "window_mean_ring_kernel", "window_mean_direct_kernel",
+                 "window_mean_channels_kernel")
 
 
 def _ptxas_report(log: str, names) -> dict:
@@ -829,23 +843,43 @@ def _card() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def _avg_pool_vs_plain(gen, dev, shape, k: int, h0, timed: bool, card: str):
-    """Kernel G against its plain version at one shape, bit for bit, twice:
-    values spread over six decades; ``h0``: G pools the block of the batch's
-    rows from h0 on. With ``timed``, the JSON row: its time beside
-    the plain version's (k^2 adds on the card), ``Tensor.mean`` over the
-    window axes (the same function in another order) and its bound (x read
-    and the means written once; k^2 adds an output)."""
+def _g_field(gen, dev, shape, h0=None) -> torch.Tensor:
+    """A field spread over six decades, as kernel G's cases take it; with
+    ``h0`` the block of its rows from h0 on, contiguous."""
     x = torch.randn(shape, generator=gen, device=dev) * 10.0 ** torch.randint(
         -3, 3, shape, generator=gen, device=dev)
-    what = f"shape={shape} k={k}"
-    if h0 is not None:
-        x = x[:, h0:].contiguous()
-        what += f" rows {h0}:{shape[1]}"
-    got, again = avg_pool_g.window_mean(x, k), avg_pool_g.window_mean(x, k)
+    return x if h0 is None else x[:, h0:].contiguous()
+
+
+def _g_plan_text(pl) -> str:
+    if pl.route == "ring":
+        return (f"route=ring k_inst={pl.k_inst} vec={pl.vec} tile={pl.rows}x{pl.cols} "
+                f"strides={pl.col_stride}/{pl.row_stride} stages={pl.stages} "
+                f"threads={pl.threads} smem={pl.smem} grid={pl.grid}")
+    return (f"route={pl.route} k_inst={pl.k_inst}"
+            + (f" c_inst={pl.c_inst}" if pl.route == "direct" else "")
+            + f" threads={pl.threads} grid={pl.grid}")
+
+
+def _g_exact(x, k: int, want, pl=None) -> bool:
+    got = avg_pool_g._launch(x, k, pl)
+    return torch.equal(got, want) and torch.equal(avg_pool_g._launch(x, k, pl), got)
+
+
+def _avg_pool_vs_plain(gen, dev, shape, k: int, h0, timed: bool, card: str):
+    """Kernel G on its planned route against its plain version at one
+    shape, bit for bit, twice: values spread over six decades; ``h0``: G
+    pools the block of the batch's rows from h0 on. With ``timed``, the
+    JSON row: its time beside the plain version's (k^2 adds on the card),
+    ``Tensor.mean`` over the window axes (the same function in another
+    order), its bound (x read and the means written once; k^2 adds an
+    output) and the share of the HBM rate it reached."""
+    x = _g_field(gen, dev, shape, h0)
+    what = f"shape={shape} k={k}" + ("" if h0 is None else f" rows {h0}:{shape[1]}")
+    pl = avg_pool_g.plan_of(x, k)
     want = avg_pool_g.window_mean_plain(x, k)
-    exact = torch.equal(got, want) and torch.equal(got, again)
-    line = f"kernel avg_pool        {what} f32 exact={exact}"
+    exact = _g_exact(x, k, want)
+    line = f"kernel avg_pool        {what} f32 exact={exact} plan: {_g_plan_text(pl)}"
     row = None
     if timed:
         b, h, w, c = x.shape
@@ -857,16 +891,62 @@ def _avg_pool_vs_plain(gen, dev, shape, k: int, h0, timed: bool, card: str):
         plain_ms = _sync_ms(lambda: avg_pool_g.window_mean_plain(x, k), 3, 1)
         library_ms = _sync_ms(mean, 20)
         mean_bits = int((mean() != want).sum())
-        row = {"max_abs_err": float((got - want).abs().max()), "ms": ms, "plain_ms": plain_ms,
-               **_bound(4.0 * (x.numel() + got.numel()), float(x.numel()), "float32"),
-               "library_ms": library_ms}
+        n_bytes = 4.0 * (x.numel() + want.numel())
+        row = {"max_abs_err": float((avg_pool_g.window_mean(x, k) - want).abs().max()),
+               "ms": ms, "plain_ms": plain_ms,
+               **_bound(n_bytes, float(x.numel()), "float32"), "library_ms": library_ms,
+               "plan": _g_plan_text(pl)}
         line += (f" kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} Tensor.mean_ms={library_ms:.5f}"
-                 f" bound_ms={row['bound_ms']:.5f} ({row['bound_by']}); Tensor.mean differs "
-                 f"in the last bit at {mean_bits} of {want.numel()} means [{card}]")
+                 f" bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) HBM share "
+                 f"{n_bytes / (ms * 1e-3) / H100_BYTES_PER_S:.4f}; Tensor.mean differs in the "
+                 f"last bit at {mean_bits} of {want.numel()} means [{card}]")
     print(line)
     if not exact:
         raise AssertionError(f"kernel G differs from its plain version at {what}")
     return row
+
+
+def g_routes(gen, dev, shape, k: int, card: str) -> dict:
+    """Every route of kernel G, and the ring at each of G_RING_SIZES and
+    with 4-byte copies, at one shape: each bit for bit with the plain
+    version twice, then timed in turns (each route, then the same routes
+    in reverse order) beside ``Tensor.mean``; the time a route is the mean
+    of its two readings. Returns {route: ms}."""
+    x = _g_field(gen, dev, shape)
+    b, h, w, c = x.shape
+    want = avg_pool_g.window_mean_plain(x, k)
+    plans = {"planned": avg_pool_g.plan_of(x, k)}
+    for stages, chains in G_RING_SIZES:
+        plans[f"ring stages={stages} chains={chains}"] = avg_pool_g.plan_of(
+            x, k, route="ring", stages=stages, block_chains=chains)
+    # the ring's 4-byte copies, which a field starting off 16 bytes takes
+    plans["ring 4-byte copies"] = avg_pool_g.plan(
+        b, h, w, c, k, False, avg_pool_g._sms(dev), route="ring")
+    for route in ("direct", "channels"):
+        try:
+            plans[route] = avg_pool_g.plan_of(x, k, route=route)
+        except ValueError:
+            pass
+    for name, pl in plans.items():
+        if not _g_exact(x, k, want, pl):
+            raise AssertionError(f"kernel G on {name} ({pl}) differs from its plain version "
+                                 f"at {shape} k={k}")
+
+    def mean():
+        return x.reshape(b, h // k, k, w // k, k, c).mean(dim=(2, 4))
+
+    runs = {**{n: (lambda pl=pl: avg_pool_g._launch(x, k, pl)) for n, pl in plans.items()},
+            "Tensor.mean": mean}
+    ms = {n: 0.0 for n in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for n in order:
+            ms[n] += _sync_ms(runs[n], 20) / 2
+    bound = _bound(4.0 * (x.numel() + want.numel()), float(x.numel()), "float32")["bound_ms"]
+    for n, t in ms.items():
+        text = _g_plan_text(plans[n]) if n in plans else "the library call"
+        print(f"kernel avg_pool route  shape={shape} k={k} {n}: ms={t:.5f} "
+              f"(bound {bound:.5f}) {text} [{card}]")
+    return ms
 
 
 def avg_pool_launches_per_step(model: ProbabilisticUNet, batch: torch.Tensor, stats, cfg,
@@ -930,10 +1010,19 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
     report["int8_conv_mma_sync_at_main"] = e_routes_vs_plain(gen, dev)
     torch.cuda.empty_cache()
     card = _card()
-    for shape, k, h0, timed in G_CASES:
+    for i, (shape, k, h0, timed) in enumerate(G_CASES):
         row = _avg_pool_vs_plain(gen, dev, shape, k, h0, timed, card)
-        if timed:
+        if i == 0:
             report["avg_pool"] = row
+            print(f"kernel avg_pool        main pooling: {row['ms']:.5f} ms (PR 17's design "
+                  f"{G_PR17_MS} ms, PERF.md), Tensor.mean {row['library_ms']:.5f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms; within 2x the bound: "
+                  f"{row['ms'] <= 2 * row['bound_ms']}, no slower than Tensor.mean: "
+                  f"{row['ms'] <= row['library_ms']} [{card}]")
+    # every route at the main pooling, a year's stack of it, the 64x64
+    # presets' batch and a year's stack of that
+    for shape, k in (G_CASES[0][:2], G_CASES[4][:2], G_CASES[3][:2], ((365, 64, 64, 1), 8)):
+        g_routes(gen, dev, shape, k, card)
     torch.cuda.empty_cache()
     return report
 
@@ -3604,12 +3693,13 @@ def _split_chain_vs_plain(randn, dev, shape, groups: int, timed: bool) -> dict:
     n = float(hh * w * (c // groups))
     consts = (groups, 1e-5, 0.1, True)
 
-    def fwd(fn):
+    def fwd(fn, plain=False):   # the plain version also takes the block's first row
         return _two_blocks(lambda i, red: fn(blocks[i][0], gamma, beta, scale, shift,
-                                             blocks[i][2], *consts, n, red))
+                                             blocks[i][2], *consts, n, red,
+                                             *([i * h] if plain else [])))
 
     got, again = fwd(fused_gn._launch_split_fwd), fwd(fused_gn._launch_split_fwd)
-    want = fwd(fused_gn.gn_split_fwd_plain)
+    want = fwd(fused_gn.gn_split_fwd_plain, plain=True)
     whole_keep = fused_gn.gn_keep(shape, seed, 0.1)
     err = {"y": 0.0, "mean": 0.0, "rstd": 0.0, "dx": 0.0, "dgamma": 0.0, "dbeta": 0.0,
            "dscale": 0.0, "dshift": 0.0}
@@ -3625,13 +3715,14 @@ def _split_chain_vs_plain(randn, dev, shape, groups: int, timed: bool) -> dict:
         masks &= (torch.equal(keep, whole_keep[:, i * h:(i + 1) * h])
                   and bool((gi[0][~keep] == 0).all()) and kept_zeros <= 1e-6 * keep.numel())
 
-    def bwd(fn):
+    def bwd(fn, plain=False):
         return _two_blocks(lambda i, red: fn(blocks[i][0], blocks[i][1], gamma, beta, scale,
                                              shift, blocks[i][2], got[i][1], got[i][2],
-                                             groups, 0.1, True, n, red))
+                                             groups, 0.1, True, n, red,
+                                             *([i * h] if plain else [])))
 
     gb, gb2, wb = (bwd(fused_gn._launch_split_bwd), bwd(fused_gn._launch_split_bwd),
-                   bwd(fused_gn.gn_split_bwd_plain))
+                   bwd(fused_gn.gn_split_bwd_plain, plain=True))
     for u, v in zip(gb, gb2):
         if not all(torch.equal(p, q) for p, q in zip(u, v)):
             raise AssertionError(f"split C′ is not bit-reproducible at {shape}")
@@ -3655,12 +3746,12 @@ def _split_chain_vs_plain(randn, dev, shape, groups: int, timed: bool) -> dict:
         ms = {"split C": _sync_ms(lambda: fused_gn._launch_split_fwd(x0, *args, n, noop), 20),
               "unsplit C": _sync_ms(lambda: fused_gn._launch(x0, *args), 20),
               "split C plain": _sync_ms(
-                  lambda: fused_gn.gn_split_fwd_plain(x0, *args, n, noop), 2, 1)}
+                  lambda: fused_gn.gn_split_fwd_plain(x0, *args, n, noop, 0), 2, 1)}
         bargs = (x0, g0, gamma, beta, scale, shift, s0, mean0, rstd0, groups, 0.1, True)
         ms.update({"split C′": _sync_ms(lambda: fused_gn._launch_split_bwd(*bargs, n, noop), 20),
                    "unsplit C′": _sync_ms(lambda: fused_gn._launch_bwd(*bargs), 20),
                    "split C′ plain": _sync_ms(
-                       lambda: fused_gn.gn_split_bwd_plain(*bargs, n, noop), 2, 1)})
+                       lambda: fused_gn.gn_split_bwd_plain(*bargs, n, noop, 0), 2, 1)})
         m = x0.numel()
         vec = 4.0 * (2 * c + 2 * b * c + 2 * b * groups)
         fb = _bound(2.0 * 2 * m + vec, 26.0 * m, "float32")

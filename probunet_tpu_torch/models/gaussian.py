@@ -120,10 +120,12 @@ class AxisAlignedConvGaussian(nn.Module):
                 h = _max_pool2(h)
             for j in range(3):
                 h = torch.relu(self.get_submodule(f"enc{i}_conv{j}")(h, rows=rows))
-        if rows is None:
-            h = h.mean(dim=(2, 3), keepdim=True)  # global average pool
-        else:   # the block's sum over the ranks, over the global pixel count
-            total = rows.sum(h.sum(dim=(2, 3), keepdim=True, dtype=torch.float32))
-            h = (total / (rows.whole(h.shape[2]) * h.shape[3])).to(h.dtype)
+        if rows is not None:
+            # the image gathered: the block placed at its rows among zero rows
+            # and summed over the ranks (each element one block's value plus
+            # zeros: exact), so the mean is the one-process mean bit for bit
+            h0, height = rows.first(h.shape[2]), rows.whole(h.shape[2])
+            h = rows.sum(F.pad(h.float(), (0, 0, h0, height - h0 - h.shape[2]))).to(h.dtype)
+        h = h.mean(dim=(2, 3), keepdim=True)  # global average pool
         return (self.conv_mu(h)[:, :, 0, 0].float(),
                 self.conv_log_sigma(h)[:, :, 0, 0].float())

@@ -15,8 +15,9 @@ Each module holds one kernel's wrapper and its plain PyTorch version:
   which no TPU kernel computes: the JAX package leaves it to XLA
   (``probunet_tpu/ops/quantize.py:int8_conv``);
 - :mod:`.avg_pool` — the ingest's k x k window mean in XLA's order of
-  additions (kernel G, ``csrc/resample.cu``), which no TPU kernel computes
-  either (``probunet_tpu/ops/resample.py:avg_pool``, a reshape-mean).
+  additions (kernel G, ``csrc/resample.cu``, on a route its per-shape plan
+  picks), which no TPU kernel computes either
+  (``probunet_tpu/ops/resample.py:avg_pool``, a reshape-mean).
 
 Kernels F and F′, the int8 saved convolution inputs' quantization and
 dequantization (``csrc/act_compress.cu``, fused by XLA in the JAX

@@ -1,4 +1,4 @@
-"""Time kernels C, C′ and D of two checkouts of the repo on one card.
+"""Time kernels C, C′, D and G of two checkouts of the repo on one card.
 
     python3 -m probunet_tpu_torch.ops.kernels.ab_timing DIR_A DIR_B
 
@@ -6,10 +6,12 @@ The checkouts run in the order A, B, B, A, each in a process of its own
 that builds (or loads) that checkout's kernel library and imports that
 checkout's ``chip_smoke.py``. Each run times C and C′ at
 ``chip_smoke.GN_CASES[0]`` (the flagship's (128, 128, 128, 32) bf16
-chain, FiLM and dropout 0.1) and D at (128, 128, 128, 32) bf16, p = 0.1,
-through ``chip_smoke._gn_vs_plain`` and ``_dropout_vs_plain``, which also
-hold each kernel against its plain version. Prints one JSON line a run,
-and the card's name and power limit first.
+chain, FiLM and dropout 0.1), D at (128, 128, 128, 32) bf16, p = 0.1, and
+G at ``chip_smoke.G_CASES[0]`` (the batch's (128, 128, 128, 3) f32 pooled
+by 16) through ``chip_smoke._gn_vs_plain``, ``_dropout_vs_plain`` and
+``_avg_pool_vs_plain``, which also hold each kernel against its plain
+version. Prints one JSON line a run, and the card's name and power limit
+first.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ def randn(*shape, scale=1.0):
 
 rows = cs._gn_vs_plain(randn, dev, *cs.GN_CASES[0])
 d = cs._dropout_vs_plain(randn, (cs.BATCH, 128, 128, 32), "bfloat16", 0.1)
+g = cs._avg_pool_vs_plain(gen, dev, *cs.G_CASES[0], cs._card())
 print("AB " + json.dumps({"C_ms": rows["fused_gn"]["ms"], "C'_ms": rows["fused_gn_bwd"]["ms"],
-                          "D_ms": d["ms"]}))
+                          "D_ms": d["ms"], "G_ms": g["ms"]}))
 """
 
 

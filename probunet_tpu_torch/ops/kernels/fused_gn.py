@@ -39,7 +39,15 @@ and apply passes run on the sums with the global element count n. C′
 writes the block's partial Sdz, Sdzx, from which its dgamma, dbeta,
 dscale and dshift come (per-rank terms that the parameter all-reduce adds
 up); after ``reduce``, c1, c2, c3 come from the sums and the dx pass runs.
-The plain versions take the same steps with one tile (T = 1).
+The split plain versions gather the image instead: a block's x (C), or
+its dz and dz*x (C′), placed at its rows (from ``h0``) among zero rows of
+the image's height and summed over the ranks by ``reduce``, each element
+one block's value plus zeros, so every rank holds the image's values
+exactly and takes its statistics (C) or sums (C′) as the whole chain's
+plain version does, bit for bit. A sharded step on the CPU thus takes
+the one-process step's GroupNorm forward and dx exactly, and no ReLU gate
+downstream flips on the rounding of a partial sum. The per-rank
+parameter terms of C′ stay the block's.
 
 Kernels C and C′ each follow a plan made here per shape, before the
 launch (:func:`fwd_plan`, :func:`bwd_plan`): one thread-block cluster
@@ -275,16 +283,19 @@ def _bcast(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None, :]
 
 
-def gn_film_silu_dropout_plain(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
-                       p_drop: float, silu: bool):
-    """The plain PyTorch forward: (y in x's dtype, mean (B, G), rstd (B, G))."""
+def _stats(x, groups: int, eps: float):
+    """mean and rstd (B, G) of the whole chain x (B, H, W, C)."""
     b, h, w, c = x.shape
     n = float(h * w * (c // groups))
     xg = x.reshape(b, h * w, groups, c // groups)
     s1 = xg.sum(dim=(1, 3), dtype=torch.float32)
     s2 = (xg * xg).sum(dim=(1, 3), dtype=torch.float32)
     mean = s1 / n
-    rstd = torch.rsqrt(s2 / n - mean * mean + eps)
+    return mean, torch.rsqrt(s2 / n - mean * mean + eps)
+
+
+def _apply(x, mean, rstd, gamma, beta, scale, shift, seed2, p_drop: float, silu: bool):
+    """y in x's dtype from the statistics."""
     *_, a, bb = _coefs(mean, rstd, gamma, beta, scale, shift)
     z = x.float() * _bcast(a) + _bcast(bb)
     out = z * torch.sigmoid(z) if silu else z
@@ -292,7 +303,15 @@ def gn_film_silu_dropout_plain(x, gamma, beta, scale, shift, seed2, groups: int,
         keep = gn_keep(x.shape, seed2, p_drop)
         scaled = out * torch.tensor(_drop_scale(p_drop), device=x.device)
         out = torch.where(keep, scaled, torch.zeros((), device=x.device))
-    return out.to(x.dtype), mean, rstd
+    return out.to(x.dtype)
+
+
+def gn_film_silu_dropout_plain(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
+                       p_drop: float, silu: bool):
+    """The plain PyTorch forward: (y in x's dtype, mean (B, G), rstd (B, G))."""
+    mean, rstd = _stats(x, groups, eps)
+    return (_apply(x, mean, rstd, gamma, beta, scale, shift, seed2, p_drop, silu),
+            mean, rstd)
 
 
 def _bwd_dz(x, g, coefs, seed2, p_drop: float, silu: bool):
@@ -355,68 +374,75 @@ def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean,
 # The split route: a block of rows, its statistics summed by the caller
 # ---------------------------------------------------------------------------
 
+def _gathered(blocks: list[torch.Tensor], h0: int, height: int, reduce) -> torch.Tensor:
+    """The image's values of each (B, h, W, C) block tensor, in f32: (len,
+    B, height, W, C), the blocks placed at rows h0.. among zeros and
+    summed over the ranks in place by ``reduce`` (each element one block's
+    value plus zeros: exact)."""
+    b, h, w, c = blocks[0].shape
+    out = torch.zeros((len(blocks), b, height, w, c), dtype=torch.float32,
+                      device=blocks[0].device)
+    for i, t in enumerate(blocks):
+        out[i, :, h0:h0 + h] = t
+    reduce(out)
+    return out
+
+
 def gn_split_fwd_plain(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
-                       p_drop: float, silu: bool, n: float, reduce):
-    """Split C's plain version: the block's per-channel partial s1, s2 as a
-    (2, B, 1, C) f32 tensor, ``reduce`` (summing it over the ranks in
-    place), then mean and rstd over ``n`` elements a group and y: (y, mean
-    (B, G), rstd (B, G))."""
-    b, h, w, c = x.shape
-    xc = x.reshape(b, h * w, c)
-    partial = torch.stack([xc.sum(dim=1, dtype=torch.float32),
-                           (xc * xc).sum(dim=1, dtype=torch.float32)])[:, :, None, :]
-    reduce(partial)
-    s1, s2 = partial.sum(dim=2).reshape(2, b, groups, c // groups).sum(dim=3)
-    mean = s1 / n
-    rstd = torch.rsqrt(s2 / n - mean * mean + eps)
-    *_, a, bb = _coefs(mean, rstd, gamma, beta, scale, shift)
-    z = x.float() * _bcast(a) + _bcast(bb)
-    out = z * torch.sigmoid(z) if silu else z
-    if p_drop > 0.0:
-        keep = gn_keep(x.shape, seed2, p_drop)
-        scaled = out * torch.tensor(_drop_scale(p_drop), device=x.device)
-        out = torch.where(keep, scaled, torch.zeros((), device=x.device))
-    return out.to(x.dtype), mean, rstd
+                       p_drop: float, silu: bool, n: float, reduce, h0: int):
+    """Split C's plain version: the image gathered (the block's x placed at
+    its rows, from ``h0``, among zero rows of the image's height n / (W *
+    C/G), summed over the ranks by ``reduce``), its statistics those of
+    the whole chain's plain version, and the block's y: (y, mean (B, G),
+    rstd (B, G))."""
+    _, _, w, c = x.shape
+    image = _gathered([x], h0, round(n / (w * (c // groups))), reduce)[0].to(x.dtype)
+    mean, rstd = _stats(image, groups, eps)
+    return (_apply(x, mean, rstd, gamma, beta, scale, shift, seed2, p_drop, silu),
+            mean, rstd)
 
 
 def gn_split_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
-                       p_drop: float, silu: bool, n: float, reduce):
-    """Split C′'s plain version: the block's partial Sdz, Sdzx ((2, B, 1, C)
-    f32) give its dgamma, dbeta, dscale and dshift; ``reduce`` sums the
-    partials over the ranks in place, and dx comes from the sums over ``n``
-    elements a group: (dx, dgamma, dbeta, dscale, dshift)."""
+                       p_drop: float, silu: bool, n: float, reduce, h0: int):
+    """Split C′'s plain version: the block's sums of dz and dz*x give its
+    dgamma, dbeta, dscale and dshift; dz and dz*x gathered over the image
+    as in :func:`gn_split_fwd_plain` give the whole chain's sums, and dx
+    from them over ``n`` elements a group: (dx, dgamma, dbeta, dscale,
+    dshift)."""
+    _, _, w, c = x.shape
     coefs = _coefs(mean, rstd, gamma, beta, scale, shift)
     xf, dz = _bwd_dz(x, g, coefs, seed2, p_drop, silu)
-    partial = torch.stack([dz.sum(dim=(1, 2)), (dz * xf).sum(dim=(1, 2))])[:, :, None, :]
-    dshift, dscale, du_s, dux_hat = _bwd_terms(partial[0, :, 0], partial[1, :, 0], coefs)
-    dshift, dgamma, dbeta = dshift.clone(), dux_hat.sum(dim=0), du_s.sum(dim=0)
-    reduce(partial)
-    _, _, du_s, dux_hat = _bwd_terms(*partial.sum(dim=2), coefs)
+    dzx = dz * xf
+    dshift, dscale, du_s, dux_hat = _bwd_terms(dz.sum(dim=(1, 2)), dzx.sum(dim=(1, 2)), coefs)
+    dgamma, dbeta = dux_hat.sum(dim=0), du_s.sum(dim=0)
+    image = _gathered([dz, dzx], h0, round(n / (w * (c // groups))), reduce)
+    _, _, du_s, dux_hat = _bwd_terms(image[0].sum(dim=(1, 2)), image[1].sum(dim=(1, 2)), coefs)
     dx = _bwd_dx(xf, dz, du_s, dux_hat, coefs, gamma, groups, n)
     return dx.to(x.dtype), dgamma, dbeta, dscale, dshift
 
 
 def gn_split_fwd(x, gamma, beta, scale, shift, seed2, groups: int, eps: float, p_drop: float,
-                 silu: bool, n: float, reduce):
-    """Split C on a block of rows: (y, mean, rstd) without autograd, the
-    statistics over ``n`` elements a group after ``reduce`` (in place, on
-    the (2, B, T, C) f32 partial sums). The plain version for CPU tensors,
-    kernel C's split entries for CUDA tensors."""
+                 silu: bool, n: float, reduce, h0: int):
+    """Split C on a block of rows (its first row ``h0`` in the image): (y,
+    mean, rstd) without autograd, the statistics over ``n`` elements a
+    group after ``reduce`` (in place: the kernels' (2, B, T, C) f32
+    partial sums, the plain version's gathered image). The plain version
+    for CPU tensors, kernel C's split entries for CUDA tensors."""
     args = (x, gamma, beta, scale, shift, seed2)
     if all(t.device.type == "cpu" for t in args):
-        return gn_split_fwd_plain(*args, groups, eps, p_drop, silu, n, reduce)
+        return gn_split_fwd_plain(*args, groups, eps, p_drop, silu, n, reduce, h0)
     return _launch_split_fwd(*args, groups, eps, p_drop, silu, n, reduce)
 
 
 def gn_split_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
-                 p_drop: float, silu: bool, n: float, reduce):
-    """Split C′ on a block of rows: (dx, dgamma, dbeta, dscale, dshift), the
-    parameter terms the block's, dx from the partials after ``reduce``. The
-    plain version for CPU tensors, kernel C′'s split entries for CUDA
-    tensors."""
+                 p_drop: float, silu: bool, n: float, reduce, h0: int):
+    """Split C′ on a block of rows (its first row ``h0``): (dx, dgamma,
+    dbeta, dscale, dshift), the parameter terms the block's, dx from the
+    sums after ``reduce``. The plain version for CPU tensors, kernel C′'s
+    split entries for CUDA tensors."""
     args = (x, g, gamma, beta, scale, shift, seed2, mean, rstd)
     if all(t.device.type == "cpu" for t in args):
-        return gn_split_bwd_plain(*args, groups, p_drop, silu, n, reduce)
+        return gn_split_bwd_plain(*args, groups, p_drop, silu, n, reduce, h0)
     return _launch_split_bwd(*args, groups, p_drop, silu, n, reduce)
 
 
@@ -469,11 +495,11 @@ class _Chain(torch.autograd.Function):
         return (*grads, None, None, None, None, None, None)
 
 
-def _split(x: torch.Tensor, groups: int, rows) -> tuple[float, object]:
+def _split(x: torch.Tensor, groups: int, rows) -> tuple[float, object, int]:
     """(the global element count of a group, the in-place sum over the
-    ranks) of a block of rows of a chain."""
+    ranks, the block's first row) of a block of rows of a chain."""
     _, h, w, c = x.shape
-    return float(rows.whole(h) * w * (c // groups)), rows.sum_
+    return float(rows.whole(h) * w * (c // groups)), rows.sum_, rows.first(h)
 
 
 def gn_film_silu_dropout(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -11,14 +11,18 @@ Tolerances:
 - against the port's one-process step on the whole batch (dropout 0.1 on
   either GroupNorm route, the eval step, ``remat=True`` and
   ``"save_convs_all"``, Fcomb width 32 on kernel A's route, int8 saved
-  convolution inputs): the metrics rtol 1e-5, and the gradients AdamW
-  receives within 1e-5 of the largest gradient at the first step and 1e-4
-  at the second (the block's partial sums add in another order than the
-  whole image's, nothing else; the second step starts from states whose
-  Adam updates may already differ where a gradient lies at rounding
-  level: one of 2,304 elements of ``posterior.enc1_conv1.weight`` moved
-  1.3e-5 apart in this run, so the parameters are held through their
-  gradients). The masks are the global elements' bit for bit
+  convolution inputs), one step at a time from one shared state, as JAX
+  ``tests/test_parallel.py:83`` holds one step: step 0 from the shared
+  initial state, step 1 from the one-process step's state after step 0
+  (its parameters, AdamW moments and count). At each step the metrics
+  rtol 1e-5, and the gradients AdamW receives within GRAD_RTOL of the
+  largest gradient (C′'s parameter terms, the composed chain's sums and
+  the CRPS terms add the blocks' partial sums in another order than the
+  whole image's, nothing else; the split plain C/C′ and the encoders'
+  mean gather the image and are exact). Two trajectories that each took step
+  1 from their own state would part where Adam's first update moves a
+  weight whose gradient lies at rounding level, and with it a ReLU gate
+  of Fcomb's hidden layer. The masks are the global elements' bit for bit
   (``test_torch_parallel_spatial_mesh.py`` holds the keep masks);
   a wrong mask moves the gradients far beyond these limits;
 - the halo exchange and the sum over the axis, values and gradients,
@@ -54,7 +58,7 @@ pytestmark = pytest.mark.usefixtures("torch_one_thread")
 LOSS_RTOL = 1e-4
 JAX_PARAM_RTOL, JAX_PARAM_ATOL = 2e-3, 2e-5
 RTOL = 1e-5
-GRAD_RTOL = (1e-5, 1e-4)
+GRAD_RTOL = (1e-5, 1e-5)
 CRPS_RTOL, CRPS_ATOL = 1e-5, 1e-6
 N = 2
 WIDE = (32, 16)   # Fcomb width 32: the fused ELBO takes kernel A's route
@@ -91,11 +95,34 @@ def _cases(inputs):
                  act_compress=True)]
 
 
+SINGLE = ("dropout kernel", "dropout composed", "eval", "remat", "remat save_convs_all",
+          "kernel A", "act_compress")
+
+
 @pytest.fixture(scope="module")
-def runs(inputs, tmp_path_factory):
-    """Each job's outputs by rank, from one spawn of two gloo ranks."""
+def singles(inputs, torch_one_thread):  # noqa: F811
+    """The one-process steps of the cases held to them: (metrics, gradients,
+    the train state before each step)."""
+    out = {}
+    for name in SINGLE:
+        states = []
+        mets, grads, _ = one_process(_case(inputs, name), states=states)
+        out[name] = (mets, grads, states)
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(inputs, singles, tmp_path_factory):
+    """Each job's outputs by rank, from one spawn of two gloo ranks. A case
+    held to the one-process step starts each step after the first from
+    the one-process step's state there."""
     wd = tmp_path_factory.mktemp("parallel_spatial_steps")
-    torch.save({"params": params(), "cases": _cases(inputs)}, wd / "spatial_step.in.pt")
+    cases = _cases(inputs)
+    for case in cases:
+        states = singles[case["name"]][2] if case["name"] in singles else []
+        if len(states) > 1:
+            case["starts"] = [None, *states[1:]]
+    torch.save({"params": params(), "cases": cases}, wd / "spatial_step.in.pt")
     torch.save({k: inputs[k] for k in ("x", "w1", "w2", "ws", "ens", "tgt")},
                wd / "spatial_ops.in.pt")
     jobs = ("spatial_step", "spatial_ops")
@@ -122,7 +149,7 @@ def test_spatial_step_matches_jax(inputs, runs, monkeypatch):
 
 @pytest.mark.parametrize("name", ["dropout kernel", "dropout composed", "remat",
                                   "remat save_convs_all", "kernel A", "act_compress"])
-def test_spatial_step_matches_single_process(inputs, runs, name):
+def test_spatial_step_matches_single_process(inputs, runs, singles, name):
     """Dropout 0.1 on either GroupNorm route (split kernels C/C′ under seed
     words shifted to the block's first element; the composed chain with its
     sums summed over the ranks and kernel D's block mapping), under
@@ -131,12 +158,12 @@ def test_spatial_step_matches_single_process(inputs, runs, name):
     and the encoders, the collectives among the recomputed operations),
     with Fcomb width 32 (kernel A's terms summed over the ranks), and with
     int8 saved convolution inputs (each halo-padded block's absmax taken
-    over both ranks): the steps of the one-process step on the whole
-    batch."""
-    case = _case(inputs, name)
+    over both ranks): each step that of the one-process step on the whole
+    batch from the same state."""
     outs = [r[name] for r in runs["spatial_step"]]
     assert_ranks_agree(outs)
-    mets, grads, _ = one_process(case)
+    mets, grads, _ = singles[name]
+    assert len(outs[0]["metrics"]) == len(mets) == _case(inputs, name)["steps"]
     for i, met in enumerate(mets):
         assert_metrics_close(outs[0]["metrics"][i], met, RTOL, f"{name} step {i}")
         assert_grads_close(outs[0]["grads"][i], grads[i], GRAD_RTOL[i], f"{name} step {i}")
@@ -145,12 +172,12 @@ def test_spatial_step_matches_single_process(inputs, runs, name):
     assert abs(float(outs[0]["metrics"][0]["loss"]) - float(nodrop)) > 1e-4
 
 
-def test_spatial_eval_step_matches_single_process(inputs, runs):
+def test_spatial_eval_step_matches_single_process(runs, singles):
     """make_parallel_eval_step on the 1 x 2 mesh: the one-process eval
     step's recon, kl_mean and loss."""
     outs = [r["eval"] for r in runs["spatial_step"]]
     assert_ranks_agree(outs)
-    mets, _, _ = one_process(_case(inputs, "eval"))
+    mets, _, _ = singles["eval"]
     assert_metrics_close(outs[0]["metrics"][0], mets[0], RTOL, "eval",
                          names=("recon", "kl_mean", "loss"))
 

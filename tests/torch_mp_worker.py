@@ -185,7 +185,9 @@ def cli(workdir, job):
 
 def spatial_step(workdir, job):
     """The train (or eval) step on each case's ("data", "spatial") mesh:
-    every case's steps from a fresh state on the rank's block of rows
+    every case's steps on the rank's block of rows, the first from a fresh
+    state; ``starts``: for each step, the saved state it starts from
+    (:func:`train_state_of`), or None to go on from the previous step
     (``act_compress``: the model's int8 saved convolution inputs)."""
     from torch_parity import torch_tiny_model
 
@@ -220,7 +222,10 @@ def spatial_step(workdir, job):
         step = make_parallel_train_step(model, cfg, mesh, fused=case["fused"])
         eps = None if case["eps"] is None else torch.from_numpy(case["eps"])
         metrics = []
-        for _ in range(case["steps"]):
+        starts = case.get("starts") or [None] * case["steps"]
+        for start in starts:
+            if start is not None:
+                load_train_state(state, start)
             state, met = step(state, block, stats, 1.0, 0.1, eps=eps)
             metrics.append({k: v.numpy().copy() for k, v in met.items()})
         out[case["name"]] = {"metrics": metrics, "grads": grads, "params": {
@@ -252,6 +257,20 @@ def captured_grads(state) -> list:
 
     state.optimizer.step = capture
     return seen
+
+
+def train_state_of(state) -> dict:
+    """A copy of a train state: the model's parameters and buffers, the
+    AdamW moments and count, and the step count."""
+    return {"model": {k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            "optimizer": state.optimizer.state_dict(), "step": state.step}
+
+
+def load_train_state(state, saved: dict) -> None:
+    """Set a train state to one saved by :func:`train_state_of`."""
+    state.model.load_state_dict(saved["model"])
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = saved["step"]
 
 
 def spatial_member(workdir, job):

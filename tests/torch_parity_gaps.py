@@ -3,8 +3,8 @@ near their bounds, taken apart (ROADMAP.md §3). Run from the repository's
 root:
 
     python tests/torch_parity_gaps.py chains
-    python tests/torch_parity_gaps.py gates [--row-order] [SEED]
-    python tests/torch_parity_gaps.py steps [--row-order] [--jax-stats] SEED ...
+    python tests/torch_parity_gaps.py gates [SEED]
+    python tests/torch_parity_gaps.py steps [--continued] [--jax-stats] SEED ...
     python tests/torch_parity_gaps.py ingest [--jax-stats]
 
 The first three take apart the spatially sharded step's "kernel A" case
@@ -15,10 +15,10 @@ CPU) against the one-process step.
 
 ``chains``: every GroupNorm chain of the one-process step, recorded, then
 run split into its two row blocks with the plain split C/C′ (seed words
-shifted by ``slab_seed``, partial sums added as the ranks' all-reduce adds
-them): (H, W, C, G), the keep masks' differing elements, and the largest
-difference of mean, rstd, y, dx, dgamma, dbeta, dscale and dshift over the
-largest element.
+shifted by ``slab_seed``, each block placed at its rows among zero rows
+and the blocks added as the ranks' all-reduce adds them): (H, W, C, G),
+the keep masks' differing elements, and the largest difference of mean,
+rstd, y, dx, dgamma, dbeta, dscale and dshift over the largest element.
 
 ``gates``: kernel A's inputs (the Fcomb features' projection and the
 latents' part) on both routes at steps 0 and 1, the elements where a ReLU
@@ -27,14 +27,17 @@ terms differs between the routes, with the pre-activations there, and how
 far A′'s outputs part.
 
 ``steps``: the case's step-0 and step-1 gaps for each data seed of
-``hr_fields`` (21 is the test's): the largest gradient difference over the
-largest gradient, and the grad_norm difference over the test's bound (rtol
-1e-5). ``--row-order`` runs both routes with every sum over the image that
-the forward takes (C's statistics, C′'s sums for dx, the encoders' global
-mean) added in one order: each image row's sums over W, the rows in order,
-a block's rows placed among the image's rows and summed over the ranks.
-The forward of the sharded step is then the one-process forward bit for
-bit at step 0.
+``hr_fields`` (21 is the test's), each step from the state the test starts
+it from (step 1 from the one-process step's state after step 0): the
+largest gradient difference over the largest gradient, the grad_norm
+difference over the test's bound (rtol 1e-5), and whether the step passes
+the test's checks (the metrics within RTOL, the gradients within
+GRAD_RTOL); then the number of seeds failing at each step.
+``--continued`` runs the comparison the test made before: the sharded
+run's step 1 from its own state after its step 0. The split plain C/C′
+and the encoders' global mean gather the image (a block placed among zero
+rows and summed over the ranks), so the sharded forward is the
+one-process forward bit for bit from a shared state.
 
 ``ingest``: ``test_torch_ingest.py::test_dataset_from_packed_with_crop``'s
 worst margin (|port - JAX| over the test's bound, 1e-6 + 1e-6 |JAX|) for
@@ -59,7 +62,6 @@ TESTS = Path(__file__).resolve().parent
 sys.path[:0] = [str(TESTS.parent), str(TESTS)]
 
 WIDE = (32, 16)
-ROW_ORDER_ENV = "PARITY_GAPS_ROW_ORDER"
 JAX_STATS_ENV = "PARITY_GAPS_JAX_STATS"
 
 
@@ -78,105 +80,8 @@ def _rel(got, want) -> float:
 
 
 # ---------------------------------------------------------------------------
-# --row-order: the image's sums in one order on both routes
+# --jax-stats: compute_stats' time mean and std in XLA's order
 # ---------------------------------------------------------------------------
-
-def use_row_order() -> None:
-    """Patch the plain C/C′ and the encoders' global mean to add every sum
-    over the image as the whole image's row sums in row order (a block's
-    rows placed among zeros and summed over the ranks)."""
-    from probunet_tpu_torch.models import gaussian
-    from probunet_tpu_torch.ops.kernels import fused_gn as fg
-
-    def row_sums(u, v):
-        return torch.stack([u.sum(dim=2, dtype=torch.float32),
-                            v.sum(dim=2, dtype=torch.float32)])
-
-    def stats(rs, groups, n, eps):
-        _, b, _, c = rs.shape
-        s1, s2 = rs.sum(dim=2).reshape(2, b, groups, c // groups).sum(dim=3)
-        mean = s1 / n
-        return mean, torch.rsqrt(s2 / n - mean * mean + eps)
-
-    def placed(rs, reduce):
-        out = rs.new_zeros((*rs.shape[:2], reduce.height, rs.shape[3]))
-        out[:, :, reduce.h0:reduce.h0 + rs.shape[2]] = rs
-        reduce(out)
-        return out
-
-    def apply(x, mean, rstd, gamma, beta, scale, shift, seed2, p_drop, silu):
-        *_, a, bb = fg._coefs(mean, rstd, gamma, beta, scale, shift)
-        z = x.float() * fg._bcast(a) + fg._bcast(bb)
-        out = z * torch.sigmoid(z) if silu else z
-        if p_drop > 0.0:
-            keep = fg.gn_keep(x.shape, seed2, p_drop)
-            out = torch.where(keep, out * torch.tensor(fg._drop_scale(p_drop)),
-                              torch.zeros(()))
-        return out.to(x.dtype)
-
-    def fwd(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu):
-        _, h, w, c = x.shape
-        mean, rstd = stats(row_sums(x, x * x), groups, float(h * w * (c // groups)), eps)
-        return apply(x, mean, rstd, gamma, beta, scale, shift, seed2, p_drop, silu), mean, rstd
-
-    def bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_drop, silu):
-        _, h, w, c = x.shape
-        coefs = fg._coefs(mean, rstd, gamma, beta, scale, shift)
-        xf, dz = fg._bwd_dz(x, g, coefs, seed2, p_drop, silu)
-        dshift, dscale, du_s, dux_hat = fg._bwd_terms(*row_sums(dz, dz * xf).sum(dim=2), coefs)
-        dx = fg._bwd_dx(xf, dz, du_s, dux_hat, coefs, gamma, groups, float(h * w * (c // groups)))
-        return dx.to(x.dtype), dux_hat.sum(dim=0), du_s.sum(dim=0), dscale, dshift
-
-    def split_fwd(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, n, reduce):
-        mean, rstd = stats(placed(row_sums(x, x * x), reduce), groups, n, eps)
-        return apply(x, mean, rstd, gamma, beta, scale, shift, seed2, p_drop, silu), mean, rstd
-
-    def split_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_drop, silu, n,
-                  reduce):
-        coefs = fg._coefs(mean, rstd, gamma, beta, scale, shift)
-        xf, dz = fg._bwd_dz(x, g, coefs, seed2, p_drop, silu)
-        rs = row_sums(dz, dz * xf)
-        dshift, dscale, du_s, dux_hat = fg._bwd_terms(*rs.sum(dim=2), coefs)
-        dgamma, dbeta = dux_hat.sum(dim=0), du_s.sum(dim=0)
-        _, _, du_s, dux_hat = fg._bwd_terms(*placed(rs, reduce).sum(dim=2), coefs)
-        dx = fg._bwd_dx(xf, dz, du_s, dux_hat, coefs, gamma, groups, n)
-        return dx.to(x.dtype), dgamma, dbeta, dscale, dshift
-
-    class Reduce:
-        def __init__(self, rows, h):
-            self.rows, self.h0, self.height = rows, rows.first(h), rows.whole(h)
-
-        def __call__(self, t):
-            return self.rows.sum_(t)
-
-    def split(x, groups, rows):
-        _, h, w, c = x.shape
-        return float(rows.whole(h) * w * (c // groups)), Reduce(rows, h)
-
-    def moments(self, x, target, rows=None):
-        if self.posterior and target is not None:
-            x = torch.cat([x, target.to(x.dtype)], dim=-1)
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        h = x.permute(0, 3, 1, 2)
-        for i in range(self.levels):
-            if i != 0:
-                h = gaussian._max_pool2(h)
-            for j in range(3):
-                h = torch.relu(self.get_submodule(f"enc{i}_conv{j}")(h, rows=rows))
-        rs = h.sum(dim=3, dtype=torch.float32)                   # (B, C, rows)
-        if rows is not None:
-            h0, n = rows.first(rs.shape[2]), rows.whole(rs.shape[2])
-            rs = rows.sum(torch.cat([rs.new_zeros((*rs.shape[:2], h0)), rs,
-                                     rs.new_zeros((*rs.shape[:2], n - h0 - rs.shape[2]))], 2))
-        h = (rs.sum(dim=2)[:, :, None, None] / (rs.shape[2] * h.shape[3])).to(h.dtype)
-        return (self.conv_mu(h)[:, :, 0, 0].float(),
-                self.conv_log_sigma(h)[:, :, 0, 0].float())
-
-    fg.gn_film_silu_dropout_plain, fg.gn_film_silu_dropout_bwd_plain = fwd, bwd
-    fg.gn_split_fwd_plain, fg.gn_split_bwd_plain, fg._split = split_fwd, split_bwd, split
-    gaussian.AxisAlignedConvGaussian._moments = moments
-
 
 def use_jax_stats() -> None:
     """Patch ``compute_stats`` to take the time mean and std as XLA does."""
@@ -207,8 +112,6 @@ def use_jax_stats() -> None:
 
 
 def _patches() -> None:
-    if os.environ.get(ROW_ORDER_ENV):
-        use_row_order()
     if os.environ.get(JAX_STATS_ENV):
         use_jax_stats()
 
@@ -251,12 +154,20 @@ def _worker() -> None:
     w.main()
 
 
-def _runs(case: dict):
+def _runs(case: dict, continued: bool = False):
     """(the sharded run's rank-0 outputs, kernel A's inputs on each rank, the
-    one-process metrics, gradients and kernel A inputs)."""
+    one-process metrics, gradients and kernel A inputs). The sharded run
+    takes each step after the first from the one-process step's state
+    there, or with ``continued`` from its own."""
     import torch_mp
     from torch_spatial import one_process, params
 
+    store: list = []
+    _record_kernel_a(store)
+    states: list = []
+    one = one_process(case, states=states)[:2]
+    if not continued:
+        case = dict(case, starts=[None, *states[1:]])
     with tempfile.TemporaryDirectory() as wd:
         torch.save({"params": params(), "cases": [case]}, Path(wd) / "spatial_step.in.pt")
         worker, torch_mp.WORKER = torch_mp.WORKER, str(Path(__file__).resolve())
@@ -266,10 +177,7 @@ def _runs(case: dict):
             torch_mp.WORKER = worker
         out = torch.load(Path(wd) / "spatial_step.rank0.pt", weights_only=False)[case["name"]]
         ranks = [torch.load(Path(wd) / f"kernel_a.rank{r}.pt") for r in (0, 1)]
-    store: list = []
-    _record_kernel_a(store)
-    mets, grads, _ = one_process(case)
-    return out, ranks, (mets, grads, store)
+    return out, ranks, (*one, store)
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +219,7 @@ def chains() -> None:
         y, mean, rstd = plain["fwd"](*fa)
         got = two_blocks(lambda r, red: fg.gn_split_fwd_plain(
             x[:, rows[r]].contiguous(), gamma, beta, scale, shift, seeds[r], groups, eps, p,
-            silu, n, red))
+            silu, n, red, r * hb))
         masks = "-" if p == 0 else int((torch.cat([fg.gn_keep(x[:, r].shape, s, p) for r, s in
                                                    zip(rows, seeds)], 1)
                                         != fg.gn_keep(x.shape, seed2, p)).sum())
@@ -319,7 +227,7 @@ def chains() -> None:
         want = plain["bwd"](x, g, *fa[1:6], mean, rstd, groups, p, silu)
         back = two_blocks(lambda r, red: fg.gn_split_bwd_plain(
             x[:, rows[r]].contiguous(), g[:, rows[r]].contiguous(), gamma, beta, scale, shift,
-            seeds[r], mean, rstd, groups, p, silu, n, red))
+            seeds[r], mean, rstd, groups, p, silu, n, red, r * hb))
         diffs = {"mean": _rel(got[0][1], mean), "rstd": _rel(got[0][2], rstd),
                  "y": _rel(torch.cat([o[0] for o in got], 1), y),
                  "dx": _rel(torch.cat([o[0] for o in back], 1), want[0])}
@@ -369,18 +277,28 @@ def gates(seed: int = 21) -> None:
               "elements beyond 1e-3 of it; " + ", ".join(f"{k} {v:.3e}" for k, v in terms.items()))
 
 
-def steps(seeds: list[int], what: str) -> None:
+def steps(seeds: list[int], what: str, continued: bool) -> None:
+    from test_torch_parallel_spatial_steps import GRAD_RTOL, RTOL
+
+    failed = {0: [], 1: []}
     for seed in seeds:
-        out, _, (mets, grads, _) = _runs(_case(seed))
+        out, _, (mets, grads, _) = _runs(_case(seed), continued)
         row = []
         for i in range(len(mets)):
             err = max(float((a - b).abs().max()) for a, b in zip(out["grads"][i], grads[i]))
             err /= max(float(b.abs().max()) for b in grads[i])
-            norm = float(mets[i]["grad_norm"])
-            gap = abs(float(out["metrics"][i]["grad_norm"]) - norm) / (1e-5 * abs(norm))
-            row.append(f"step {i}: gradients {err:.3e} of the largest, grad_norm {gap:.3f} "
-                       f"of its bound")
+            gaps = {k: abs(float(out["metrics"][i][k]) - float(v)) / (RTOL * abs(float(v)))
+                    for k, v in mets[i].items() if k in ("loss", "recon", "kl_mean", "grad_norm")}
+            ok = err <= GRAD_RTOL[i] and max(gaps.values()) <= 1.0
+            if not ok:
+                failed[i].append(seed)
+            row.append(f"step {i}: gradients {err:.3e} of the largest, grad_norm "
+                       f"{gaps['grad_norm']:.3f} of its bound, worst metric "
+                       f"{max(gaps, key=gaps.get)} {max(gaps.values()):.3f}, "
+                       + ("passes" if ok else "FAILS"))
         print(f"seed {seed}{what}: " + "; ".join(row), flush=True)
+    print(f"{what.strip() or 'shared state'}: " + "; ".join(
+        f"step {i} fails on {len(v)} of {len(seeds)} seeds {v}" for i, v in failed.items()))
 
 
 def ingest() -> None:
@@ -418,18 +336,20 @@ def main(argv: list[str]) -> None:
     if what == "chains":
         chains()
     elif what in ("gates", "steps", "ingest"):
-        flags = {"--row-order": ROW_ORDER_ENV, "--jax-stats": JAX_STATS_ENV}
+        flags = {"--jax-stats": JAX_STATS_ENV}
         for flag, env in flags.items():
             if flag in rest:
                 os.environ[env] = "1"   # the ranks read it too
         _patches()
-        seeds = [int(s) for s in rest if s not in flags] or [21]
+        continued = "--continued" in rest
+        seeds = [int(s) for s in rest if s not in flags and s != "--continued"] or [21]
         if what == "ingest":
             ingest()
         elif what == "gates":
             gates(seeds[0])
         else:
-            steps(seeds, "".join(f" {f[2:]}" for f in flags if f in rest))
+            steps(seeds, "".join(f" {f[2:]}" for f in [*flags, "--continued"] if f in rest),
+                  continued)
     else:
         raise SystemExit(__doc__)
 

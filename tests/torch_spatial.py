@@ -85,11 +85,12 @@ def jax_train_step(monkeypatch, hr: np.ndarray, eps: np.ndarray, loss: dict | No
     return {k: float(v) for k, v in met.items()}, want
 
 
-def one_process(case: dict, steps: int | None = None):
+def one_process(case: dict, steps: int | None = None, states: list | None = None):
     """The port's one-process train step (or eval step) on the whole batch
     of a spawned case: (metrics of each step, gradients AdamW received at
-    each step, state dict)."""
-    from torch_mp_worker import captured_grads
+    each step, state dict). ``states``: a list that gets the train state
+    before each step (``torch_mp_worker.train_state_of``)."""
+    from torch_mp_worker import captured_grads, train_state_of
 
     from probunet_tpu_torch.data.climex import compute_stats
     from probunet_tpu_torch.train.loop import make_eval_step, make_train_step
@@ -115,6 +116,8 @@ def one_process(case: dict, steps: int | None = None):
     eps = None if case["eps"] is None else torch.from_numpy(case["eps"])
     metrics = []
     for _ in range(steps or case["steps"]):
+        if states is not None:
+            states.append(train_state_of(state))
         state, met = step(state, hr, stats, 1.0, 0.1, eps=eps)
         metrics.append(met)
     return metrics, grads, model.state_dict()
