@@ -9,8 +9,10 @@ at the shapes of the serve and training paths: the fcomb-CRPS forward (A)
 and backward (A′), the afCRPS-terms forward (B) and backward (B′), the
 GroupNorm chain's forward (C) and backward (C′), the hash dropout (D),
 the int8 convolution of the int8 serving path (E) and the quantization
-and dequantization of the int8 saved convolution inputs (F, F′; no TPU
-kernel computes E, F or F′: the JAX package leaves them to XLA), with each kernel's time
+and dequantization of the int8 saved convolution inputs (F, F′) and the
+ingest's window mean in XLA's order of additions (G, on the route its
+per-shape plan picks; no TPU kernel computes E, F, F′ or G: the JAX
+package leaves them to XLA), with each kernel's time
 beside its plain version's and its bound; A and
 A′ on both of their kernels (bf16 operands on the tensor cores, f32 on
 the FP32 pipes), C and C′ on their per-shape plans and on the other
@@ -476,7 +478,8 @@ PAR_BATCH, PAR_SAMPLE_M = 8, 16
 # twice: (shape, k, first row of a block of rows or None, timed). The main
 # path's pooling (bs=128, 128x128, 3 variables, k = 16); the spatial phase's
 # block (rows 64-127 of a PAR_BATCH batch, as shard_batch gives it); an odd
-# k (the generic instance); the 64x64 presets' batch pooled by 8; a year's
+# k (the generic instance, on "channels": a window row of 9 floats is no
+# whole 16-byte copy); the 64x64 presets' batch pooled by 8; a year's
 # stack for compute_stats (72 MB, more than the L2 cache holds); a wide C
 # that takes the "channels" route.
 G_CASES = (((BATCH, 128, 128, 3), 16, None, True),
@@ -485,12 +488,12 @@ G_CASES = (((BATCH, 128, 128, 3), 16, None, True),
            ((BATCH, 64, 64, 1), 8, None, False),
            ((365, 128, 128, 3), 16, None, True),
            ((8, 32, 32, 64), 16, None, False))
-# G's time at the main pooling before its redesign (PERF.md §6, PR 17's
-# final archive run; NVIDIA H100 80GB HBM3, 700.00 W)
-G_PR17_MS = 0.01927
-# the ring's sizes g_routes times beside the planned route: (stages, chains
-# a block)
-G_RING_SIZES = ((2, 32), (3, 32), (4, 32), (6, 32), (4, 96), (3, 192))
+# G's time at the main pooling before its redesign (PERF.md, kernel G;
+# NVIDIA H100 80GB HBM3, 700.00 W)
+G_BEFORE_MS = 0.01927
+# the main pooling through a view one element past 16 bytes: the plan takes
+# "channels" (the ring's 16-byte copies cannot), timed
+G_OFF16 = ((BATCH, 128, 128, 3), 16)
 PAR_STEPS, PAR_WARMUP = 4, 2
 PAR_TIMEOUT = 420
 # two data-parallel steps against two one-process steps on the card: at
@@ -853,32 +856,33 @@ def _g_field(gen, dev, shape, h0=None) -> torch.Tensor:
 
 def _g_plan_text(pl) -> str:
     if pl.route == "ring":
-        return (f"route=ring k_inst={pl.k_inst} vec={pl.vec} tile={pl.rows}x{pl.cols} "
+        return (f"route=ring k_inst={pl.k_inst} tile={pl.rows}x{pl.cols} "
                 f"strides={pl.col_stride}/{pl.row_stride} stages={pl.stages} "
                 f"threads={pl.threads} smem={pl.smem} grid={pl.grid}")
-    return (f"route={pl.route} k_inst={pl.k_inst}"
-            + (f" c_inst={pl.c_inst}" if pl.route == "direct" else "")
-            + f" threads={pl.threads} grid={pl.grid}")
+    return f"route={pl.route} k_inst={pl.k_inst} threads={pl.threads} grid={pl.grid}"
 
 
-def _g_exact(x, k: int, want, pl=None) -> bool:
-    got = avg_pool_g._launch(x, k, pl)
-    return torch.equal(got, want) and torch.equal(avg_pool_g._launch(x, k, pl), got)
-
-
-def _avg_pool_vs_plain(gen, dev, shape, k: int, h0, timed: bool, card: str):
+def _avg_pool_vs_plain(gen, dev, shape, k: int, h0, timed: bool, card: str,
+                       off16: bool = False):
     """Kernel G on its planned route against its plain version at one
     shape, bit for bit, twice: values spread over six decades; ``h0``: G
-    pools the block of the batch's rows from h0 on. With ``timed``, the
+    pools the block of the batch's rows from h0 on; ``off16``: x is a view
+    one element past 16 bytes, and the plan must take "channels". With ``timed``, the
     JSON row: its time beside the plain version's (k^2 adds on the card),
     ``Tensor.mean`` over the window axes (the same function in another
     order), its bound (x read and the means written once; k^2 adds an
     output) and the share of the HBM rate it reached."""
     x = _g_field(gen, dev, shape, h0)
-    what = f"shape={shape} k={k}" + ("" if h0 is None else f" rows {h0}:{shape[1]}")
+    if off16:
+        x = _misaligned(x)
+    what = (f"shape={shape} k={k}" + ("" if h0 is None else f" rows {h0}:{shape[1]}")
+            + (" x off 16 bytes" if off16 else ""))
     pl = avg_pool_g.plan_of(x, k)
+    if off16 and pl.route != "channels":
+        raise AssertionError(f"kernel G's plan for x off 16 bytes is {pl}, not channels")
     want = avg_pool_g.window_mean_plain(x, k)
-    exact = _g_exact(x, k, want)
+    got = avg_pool_g._launch(x, k)
+    exact = torch.equal(got, want) and torch.equal(avg_pool_g._launch(x, k), got)
     line = f"kernel avg_pool        {what} f32 exact={exact} plan: {_g_plan_text(pl)}"
     row = None
     if timed:
@@ -904,49 +908,6 @@ def _avg_pool_vs_plain(gen, dev, shape, k: int, h0, timed: bool, card: str):
     if not exact:
         raise AssertionError(f"kernel G differs from its plain version at {what}")
     return row
-
-
-def g_routes(gen, dev, shape, k: int, card: str) -> dict:
-    """Every route of kernel G, and the ring at each of G_RING_SIZES and
-    with 4-byte copies, at one shape: each bit for bit with the plain
-    version twice, then timed in turns (each route, then the same routes
-    in reverse order) beside ``Tensor.mean``; the time a route is the mean
-    of its two readings. Returns {route: ms}."""
-    x = _g_field(gen, dev, shape)
-    b, h, w, c = x.shape
-    want = avg_pool_g.window_mean_plain(x, k)
-    plans = {"planned": avg_pool_g.plan_of(x, k)}
-    for stages, chains in G_RING_SIZES:
-        plans[f"ring stages={stages} chains={chains}"] = avg_pool_g.plan_of(
-            x, k, route="ring", stages=stages, block_chains=chains)
-    # the ring's 4-byte copies, which a field starting off 16 bytes takes
-    plans["ring 4-byte copies"] = avg_pool_g.plan(
-        b, h, w, c, k, False, avg_pool_g._sms(dev), route="ring")
-    for route in ("direct", "channels"):
-        try:
-            plans[route] = avg_pool_g.plan_of(x, k, route=route)
-        except ValueError:
-            pass
-    for name, pl in plans.items():
-        if not _g_exact(x, k, want, pl):
-            raise AssertionError(f"kernel G on {name} ({pl}) differs from its plain version "
-                                 f"at {shape} k={k}")
-
-    def mean():
-        return x.reshape(b, h // k, k, w // k, k, c).mean(dim=(2, 4))
-
-    runs = {**{n: (lambda pl=pl: avg_pool_g._launch(x, k, pl)) for n, pl in plans.items()},
-            "Tensor.mean": mean}
-    ms = {n: 0.0 for n in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for n in order:
-            ms[n] += _sync_ms(runs[n], 20) / 2
-    bound = _bound(4.0 * (x.numel() + want.numel()), float(x.numel()), "float32")["bound_ms"]
-    for n, t in ms.items():
-        text = _g_plan_text(plans[n]) if n in plans else "the library call"
-        print(f"kernel avg_pool route  shape={shape} k={k} {n}: ms={t:.5f} "
-              f"(bound {bound:.5f}) {text} [{card}]")
-    return ms
 
 
 def avg_pool_launches_per_step(model: ProbabilisticUNet, batch: torch.Tensor, stats, cfg,
@@ -1014,15 +975,12 @@ def kernels_vs_plain(dev: torch.device) -> dict[str, dict]:
         row = _avg_pool_vs_plain(gen, dev, shape, k, h0, timed, card)
         if i == 0:
             report["avg_pool"] = row
-            print(f"kernel avg_pool        main pooling: {row['ms']:.5f} ms (PR 17's design "
-                  f"{G_PR17_MS} ms, PERF.md), Tensor.mean {row['library_ms']:.5f} ms, bound "
+            print(f"kernel avg_pool        main pooling: {row['ms']:.5f} ms (the design "
+                  f"before {G_BEFORE_MS} ms, PERF.md), Tensor.mean {row['library_ms']:.5f} ms, bound "
                   f"{row['bound_ms']:.5f} ms; within 2x the bound: "
                   f"{row['ms'] <= 2 * row['bound_ms']}, no slower than Tensor.mean: "
                   f"{row['ms'] <= row['library_ms']} [{card}]")
-    # every route at the main pooling, a year's stack of it, the 64x64
-    # presets' batch and a year's stack of that
-    for shape, k in (G_CASES[0][:2], G_CASES[4][:2], G_CASES[3][:2], ((365, 64, 64, 1), 8)):
-        g_routes(gen, dev, shape, k, card)
+    _avg_pool_vs_plain(gen, dev, *G_OFF16, None, True, card, off16=True)
     torch.cuda.empty_cache()
     return report
 
@@ -3690,12 +3648,11 @@ def _split_chain_vs_plain(randn, dev, shape, groups: int, timed: bool) -> dict:
     seed = torch.tensor([20250101, -7], dtype=torch.int32, device=dev)
     blocks = [(x[:, i * h:(i + 1) * h].contiguous(), g[:, i * h:(i + 1) * h].contiguous(),
                fused_gn.slab_seed(seed, 0, i * h * w * c)) for i in (0, 1)]
-    n = float(hh * w * (c // groups))
     consts = (groups, 1e-5, 0.1, True)
 
     def fwd(fn, plain=False):   # the plain version also takes the block's first row
         return _two_blocks(lambda i, red: fn(blocks[i][0], gamma, beta, scale, shift,
-                                             blocks[i][2], *consts, n, red,
+                                             blocks[i][2], *consts, hh, red,
                                              *([i * h] if plain else [])))
 
     got, again = fwd(fused_gn._launch_split_fwd), fwd(fused_gn._launch_split_fwd)
@@ -3718,7 +3675,7 @@ def _split_chain_vs_plain(randn, dev, shape, groups: int, timed: bool) -> dict:
     def bwd(fn, plain=False):
         return _two_blocks(lambda i, red: fn(blocks[i][0], blocks[i][1], gamma, beta, scale,
                                              shift, blocks[i][2], got[i][1], got[i][2],
-                                             groups, 0.1, True, n, red,
+                                             groups, 0.1, True, hh, red,
                                              *([i * h] if plain else [])))
 
     gb, gb2, wb = (bwd(fused_gn._launch_split_bwd), bwd(fused_gn._launch_split_bwd),
@@ -3743,15 +3700,15 @@ def _split_chain_vs_plain(randn, dev, shape, groups: int, timed: bool) -> dict:
         y0, mean0, rstd0 = got[0]
         args = (gamma, beta, scale, shift, s0, *consts)
         noop = lambda t: None   # noqa: E731  (the ranks' all-reduce, not timed)
-        ms = {"split C": _sync_ms(lambda: fused_gn._launch_split_fwd(x0, *args, n, noop), 20),
+        ms = {"split C": _sync_ms(lambda: fused_gn._launch_split_fwd(x0, *args, hh, noop), 20),
               "unsplit C": _sync_ms(lambda: fused_gn._launch(x0, *args), 20),
               "split C plain": _sync_ms(
-                  lambda: fused_gn.gn_split_fwd_plain(x0, *args, n, noop, 0), 2, 1)}
+                  lambda: fused_gn.gn_split_fwd_plain(x0, *args, hh, noop, 0), 2, 1)}
         bargs = (x0, g0, gamma, beta, scale, shift, s0, mean0, rstd0, groups, 0.1, True)
-        ms.update({"split C′": _sync_ms(lambda: fused_gn._launch_split_bwd(*bargs, n, noop), 20),
+        ms.update({"split C′": _sync_ms(lambda: fused_gn._launch_split_bwd(*bargs, hh, noop), 20),
                    "unsplit C′": _sync_ms(lambda: fused_gn._launch_bwd(*bargs), 20),
                    "split C′ plain": _sync_ms(
-                       lambda: fused_gn.gn_split_bwd_plain(*bargs, n, noop, 0), 2, 1)})
+                       lambda: fused_gn.gn_split_bwd_plain(*bargs, hh, noop, 0), 2, 1)})
         m = x0.numel()
         vec = 4.0 * (2 * c + 2 * b * c + 2 * b * groups)
         fb = _bound(2.0 * 2 * m + vec, 26.0 * m, "float32")

@@ -22,24 +22,24 @@
 // the chains of different outputs interleave. Three routes, chosen per shape
 // by ops/kernels/avg_pool.py:plan before the launch:
 //
-// - "ring" (C < 32): a block owns tiles of R output rows x TB output columns
-//   (all C channels), one thread a chain (output element), and walks its
-//   tiles in a persistent loop. The tile's window rows stream through a ring
-//   of `stages` slots in shared memory, one window row of each of the tile's
-//   R rows a slot, filled by 16-byte cp.async (4-byte where the rows are not
-//   16-byte aligned): window row i is added while rows i+1 .. i+stages-1
-//   land (the plan's 3 slots: rows i+1 and i+2). Each column's k*C floats
-//   sit at a padded stride, chosen by the plan so that a warp's reads do not
-//   conflict. k = 16 and 8 (the presets' factors) are template instances
-//   whose k loads run ahead of the k adds.
-// - "direct" (instances for (k, C) = (16, 3) and (8, 1); the plan takes it
-//   for (8, 1)): a thread owns one output column and its C chains, and reads
-//   each window row's k*C floats straight from device memory as float4s, the
-//   next row's in flight while this one adds. Where a column's window row is
-//   32 bytes, the ring's slots wait one after another and this is faster.
-// - "channels" (C >= 32, or a window row the ring cannot hold): a thread
-//   owns one output element; a warp's 32 channels make its loads coalesce
-//   without staging. It takes every shape.
+// - "ring" (C < 32, x and its window rows on 16 bytes): a block owns tiles
+//   of R output rows x TB output columns (all C channels), one thread a
+//   chain (output element), and walks its tiles in a persistent loop. The
+//   tile's window rows stream through a ring of 2 or 3 slots in shared
+//   memory, one window row of each of the tile's R rows a slot, filled by
+//   16-byte cp.async: window row i is added while rows i+1 and i+2 land.
+//   Each column's k*C floats sit at a padded stride, chosen by the plan so
+//   that a warp's reads do not conflict. k = 16 and 8 (the presets' factors)
+//   are template instances whose k loads run ahead of the k adds.
+// - "direct" ((k, C) = (8, 1), the 64x64 presets, x on 16 bytes): a thread
+//   owns one output column and reads each window row's 8 floats straight
+//   from device memory as two float4s, the next row's in flight while this
+//   one adds. A column's window row is 32 bytes there, and the ring's slots
+//   would wait one after another.
+// - "channels" (everything else: C >= 32, x or its rows off 16 bytes, or a
+//   window row the ring cannot hold): a thread owns one output element; a
+//   warp's 32 channels make its loads coalesce without staging. It takes
+//   every shape.
 
 #include <cuda_runtime.h>
 
@@ -47,7 +47,7 @@ namespace probunet {
 namespace {
 
 constexpr int kMaxThreads = 256;
-constexpr int kMaxStages = 8;
+constexpr int kMaxStages = 3;
 constexpr int kSmemLimit = 232448;   // 227 KB a block (opt-in above 48 KB)
 
 struct PoolArgs {
@@ -58,18 +58,14 @@ struct PoolArgs {
   int k, c, w, wo;
   int r, tb;         // "ring": output rows and columns of a tile
   int cs, rs;        // "ring": floats between two columns' / two rows' window rows in a slot
-  int stages;        // "ring": slots of the ring
+  int stages;        // "ring": slots of the ring, 2 or 3
   float inv_area;
 };
 
-template <int VEC>
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
+// One 16-byte copy from device to shared memory, both 16-byte aligned.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (VEC == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gmem) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa), "l"(gmem) : "memory");
-  }
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -81,21 +77,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Wait until at most `pending` of this thread's copy groups are in flight.
-__device__ __forceinline__ void cp_async_wait_pending(int pending) {
-  switch (pending) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    default: cp_async_wait<6>(); break;
-  }
-}
-
-// Route "ring". K: the instance's k (0: any k); VEC: floats a copy moves.
-template <int K, int VEC>
+// Route "ring". K: the instance's k (0: any k).
+template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
 window_mean_ring_kernel(const PoolArgs a) {
   extern __shared__ __align__(16) float ring[];
@@ -105,7 +88,7 @@ window_mean_ring_kernel(const PoolArgs a) {
   const long long row_len = static_cast<long long>(a.w) * c;   // floats of an input row
   const int seg = a.tb * kc;                 // floats of a tile row's window row
   const int slot_floats = a.r * a.rs;
-  const int nvec = a.r * seg / VEC;          // copies a slot
+  const int nvec = a.r * seg / 4;            // 16-byte copies a slot
   const int nthreads = blockDim.x;
   const int t = threadIdx.x;
   const int tpr = a.wo / a.tb;               // tiles across an output row
@@ -121,8 +104,8 @@ window_mean_ring_kernel(const PoolArgs a) {
 
   // The copies this thread makes into every slot: the source offset from the
   // slot's first input float and the offset in the slot. A thread makes at
-  // most K / VEC of them (the plan gives a block a thread a chain).
-  constexpr int kCopies = K ? K / VEC : 1;
+  // most K / 4 of them (the plan gives a block a thread a chain).
+  constexpr int kCopies = K ? K / 4 : 1;
   long long src_off[kCopies];
   int dst_off[kCopies];
   if constexpr (K != 0) {
@@ -132,7 +115,7 @@ window_mean_ring_kernel(const PoolArgs a) {
       src_off[n] = -1;
       dst_off[n] = 0;
       if (v < nvec) {
-        const int e = v * VEC;
+        const int e = v * 4;
         const int r = e / seg;
         const int q = e - r * seg;
         const int b = q / kc;
@@ -156,15 +139,15 @@ window_mean_ring_kernel(const PoolArgs a) {
       if constexpr (K != 0) {
 #pragma unroll
         for (int n = 0; n < kCopies; ++n)
-          if (src_off[n] >= 0) cp_async<VEC>(dst + dst_off[n], src + src_off[n]);
+          if (src_off[n] >= 0) cp_async16(dst + dst_off[n], src + src_off[n]);
       } else {
         for (int v = t; v < nvec; v += nthreads) {
-          const int e = v * VEC;
+          const int e = v * 4;
           const int r = e / seg;
           const int q = e - r * seg;
           const int b = q / kc;
-          cp_async<VEC>(dst + r * a.rs + b * a.cs + (q - b * kc),
-                        src + r * static_cast<long long>(k) * row_len + q);
+          cp_async16(dst + r * a.rs + b * a.cs + (q - b * kc),
+                     src + r * static_cast<long long>(k) * row_len + q);
         }
       }
       --p_left;
@@ -184,7 +167,11 @@ window_mean_ring_kernel(const PoolArgs a) {
     float acc = 0.f;
     for (int i = 0; i < k; ++i) {
       // stage (n, i) has landed once at most stages - 2 groups are pending
-      cp_async_wait_pending(a.stages - 2);
+      if (a.stages == 3) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
       __syncthreads();
       // every thread is done with the slot read at the previous stage: refill it
       fill_next();
@@ -215,7 +202,8 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Route "direct": a thread an output column, its C chains in registers.
+// Route "direct": a thread an output column, its C chains in registers
+// (instanced for (K, C) = (8, 1)).
 template <int K, int C>
 __global__ void __launch_bounds__(kMaxThreads)
 window_mean_direct_kernel(const PoolArgs a) {
@@ -304,13 +292,6 @@ int launch(Kernel kernel, const PoolArgs& a, int threads, int smem, long long gr
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int K>
-int launch_ring(const PoolArgs& a, int vec, int threads, int smem, long long grid,
-                cudaStream_t st) {
-  return vec == 4 ? launch(window_mean_ring_kernel<K, 4>, a, threads, smem, grid, st)
-                  : launch(window_mean_ring_kernel<K, 1>, a, threads, smem, grid, st);
-}
-
 }  // namespace
 }  // namespace probunet
 
@@ -318,15 +299,14 @@ extern "C" {
 
 // x: (items, h, w, c) f32 row-major; out: (items, h/k, w/k, c) f32 row-major,
 // written. inv_area: f32(1 / k^2). The launch plan (route 0 "ring", 1
-// "direct", 2 "channels"; the instance's k, 16, 8 or 0 for any; "direct"'s
-// C; "ring"'s copy width vec, tile of r output rows x tb columns, slot
-// strides cs and rs, stages; threads, dynamic shared memory in bytes and
-// blocks) is ops/kernels/avg_pool.py:plan's. One launch;
-// cudaErrorInvalidValue for a shape or plan G does not take.
+// "direct", 2 "channels"; the instance's k, 16, 8 or 0 for any; "ring"'s
+// tile of r output rows x tb columns, slot strides cs and rs, stages;
+// threads, dynamic shared memory in bytes and blocks) is
+// ops/kernels/avg_pool.py:plan's. One launch; cudaErrorInvalidValue for a
+// shape or plan G does not take.
 int window_mean_f32(const void* x, void* out, long long items, int h, int w, int c, int k,
-                    float inv_area, int route, int k_inst, int c_inst, int vec, int r, int tb,
-                    int cs, int rs, int stages, int threads, int smem, long long grid,
-                    void* stream) {
+                    float inv_area, int route, int k_inst, int r, int tb, int cs, int rs,
+                    int stages, int threads, int smem, long long grid, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (items <= 0 || c <= 0 || k < 1 || h < k || w < k || h % k || w % k) return bad;
   if (k_inst != 0 && k_inst != k) return bad;
@@ -346,13 +326,12 @@ int window_mean_f32(const void* x, void* out, long long items, int h, int w, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 0) {
     const long long kc = static_cast<long long>(k) * c;
-    if ((vec != 4 && vec != 1) || r < 1 || tb < 1 || a.rows % r || a.wo % tb ||
-        (r > 1 && tb != a.wo) || cs < kc || cs % vec || rs < tb * static_cast<long long>(cs) ||
-        rs % vec || stages < 2 || stages > probunet::kMaxStages ||
-        static_cast<long long>(r) * tb * c > threads ||
+    if (!aligned || (static_cast<long long>(w) * c) % 4 || kc % 4 || r < 1 || tb < 1 ||
+        a.rows % r || a.wo % tb || (r > 1 && tb != a.wo) || cs < kc || cs % 4 ||
+        rs < tb * static_cast<long long>(cs) || rs % 4 || stages < 2 ||
+        stages > probunet::kMaxStages || static_cast<long long>(r) * tb * c > threads ||
         static_cast<long long>(stages) * r * rs * 4 != smem)
       return bad;
-    if (vec == 4 && (!aligned || (static_cast<long long>(w) * c) % 4 || kc % 4)) return bad;
     a.r = r;
     a.tb = tb;
     a.cs = cs;
@@ -360,20 +339,20 @@ int window_mean_f32(const void* x, void* out, long long items, int h, int w, int
     a.stages = stages;
     a.tiles = (a.rows / r) * (a.wo / tb);
     switch (k_inst) {
-      case 16: return probunet::launch_ring<16>(a, vec, threads, smem, grid, st);
-      case 8: return probunet::launch_ring<8>(a, vec, threads, smem, grid, st);
-      default: return probunet::launch_ring<0>(a, vec, threads, smem, grid, st);
+      case 16:
+        return probunet::launch(probunet::window_mean_ring_kernel<16>, a, threads, smem, grid,
+                                st);
+      case 8:
+        return probunet::launch(probunet::window_mean_ring_kernel<8>, a, threads, smem, grid,
+                                st);
+      default:
+        return probunet::launch(probunet::window_mean_ring_kernel<0>, a, threads, smem, grid,
+                                st);
     }
   }
   if (route == 1) {
-    if (!aligned || (static_cast<long long>(w) * c) % 4 || c != c_inst || smem != 0) return bad;
-    if (k_inst == 16 && c_inst == 3)
-      return probunet::launch(probunet::window_mean_direct_kernel<16, 3>, a, threads, 0, grid,
-                              st);
-    if (k_inst == 8 && c_inst == 1)
-      return probunet::launch(probunet::window_mean_direct_kernel<8, 1>, a, threads, 0, grid,
-                              st);
-    return bad;
+    if (!aligned || w % 4 || k != 8 || c != 1 || k_inst != 8 || smem != 0) return bad;
+    return probunet::launch(probunet::window_mean_direct_kernel<8, 1>, a, threads, 0, grid, st);
   }
   if (route == 2 && smem == 0) {
     switch (k_inst) {

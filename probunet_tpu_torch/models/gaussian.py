@@ -12,9 +12,12 @@ checkpointing while autograd records: conv outputs are stored, the ReLU
 and pooling chains recomputed in the backward. ``rows``
 (``parallel.spatial.Rows``): the input is this rank's block of image
 rows; the 3x3 convolutions halo-exchange one row, the max pools stay
-local, and the global average pool is the block's sum summed over the
-ranks and divided by the global pixel count, so mu and log sigma are
-alike on every rank.
+local, and mu and log sigma are alike on every rank. The global average
+pool on the card is the block's sum summed over the ranks ((B, C) a
+rank) and divided by the global pixel count; on the CPU the ranks gather
+the image's map ((B, C, height, W) a rank) and take the one-process mean
+of it, exactly, as the split plain GroupNorm gathers its image
+(``ops/kernels/fused_gn.py``).
 """
 
 from __future__ import annotations
@@ -120,12 +123,17 @@ class AxisAlignedConvGaussian(nn.Module):
                 h = _max_pool2(h)
             for j in range(3):
                 h = torch.relu(self.get_submodule(f"enc{i}_conv{j}")(h, rows=rows))
-        if rows is not None:
+        if rows is None:
+            h = h.mean(dim=(2, 3), keepdim=True)  # global average pool
+        elif h.device.type == "cpu":
             # the image gathered: the block placed at its rows among zero rows
             # and summed over the ranks (each element one block's value plus
             # zeros: exact), so the mean is the one-process mean bit for bit
             h0, height = rows.first(h.shape[2]), rows.whole(h.shape[2])
             h = rows.sum(F.pad(h.float(), (0, 0, h0, height - h0 - h.shape[2]))).to(h.dtype)
-        h = h.mean(dim=(2, 3), keepdim=True)  # global average pool
+            h = h.mean(dim=(2, 3), keepdim=True)
+        else:   # the block's sum over the ranks, over the global pixel count
+            total = rows.sum(h.sum(dim=(2, 3), keepdim=True, dtype=torch.float32))
+            h = (total / (rows.whole(h.shape[2]) * h.shape[3])).to(h.dtype)
         return (self.conv_mu(h)[:, :, 0, 0].float(),
                 self.conv_log_sigma(h)[:, :, 0, 0].float())

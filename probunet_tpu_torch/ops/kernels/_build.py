@@ -59,7 +59,7 @@ _SIGNATURES = {
     "int8_conv_wgmma": (_P, _P, _P, _F, _I, _P, _P, _P, _F, _I, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "int8_conv_wgmma_occupancy": (_I,) * 10 + (_P,),
-    "window_mean_f32": (_P, _P, _LL, _I, _I, _I, _I, _F) + (_I,) * 11 + (_LL, _P),
+    "window_mean_f32": (_P, _P, _LL, _I, _I, _I, _I, _F) + (_I,) * 9 + (_LL, _P),
 }
 
 

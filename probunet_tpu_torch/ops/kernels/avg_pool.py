@@ -16,18 +16,19 @@ in XLA's order, so the pooled field is the JAX package's bit for bit.
 - :func:`plan`: how G runs a shape, made before the launch and cached.
   The order fixes only the sequence of one output's additions, so the
   window rows stream and the outputs' chains interleave. Route
-  ``"ring"`` (C < 32): a block walks tiles of output rows and columns, a
-  thread a chain, and the tiles' window rows pass through a ring of
-  shared-memory slots filled by cp.async while the previous row adds;
-  columns sit at a padded stride so a warp's reads do not conflict.
-  Route ``"channels"`` (C >= 32, where a warp's channels coalesce without
-  staging, or a window row the ring cannot hold): a thread an output,
-  straight from device memory; it takes every shape. Route ``"direct"``
-  (instances for the presets' (k, C) = (16, 3) and (8, 1); the plan takes
-  it for (8, 1), where the card ran it faster): a thread an output
-  column, its C chains in registers, each window row read as float4s
-  with the next one in flight. k = 16 and 8 are template instances whose
-  loads run ahead of the adds; any other k takes the generic instance.
+  ``"ring"`` (C < 32, x and its window rows on 16 bytes): a block walks
+  tiles of output rows and columns, a thread a chain, and the tiles'
+  window rows pass through a ring of shared-memory slots filled by
+  16-byte cp.async while the previous row adds; columns sit at a padded
+  stride so a warp's reads do not conflict. Route ``"direct"`` ((k, C) =
+  (8, 1), the 64x64 presets, x on 16 bytes): a thread an output column,
+  each window row read as two float4s with the next one in flight.
+  Route ``"channels"`` (everything else: C >= 32, where a warp's
+  channels coalesce without staging, x or its rows off 16 bytes, or a
+  window row the ring cannot hold): a thread an output, straight from
+  device memory; it takes every shape. k = 16 and 8 are template
+  instances whose loads run ahead of the adds; any other k takes the
+  generic instance.
 - :func:`window_mean`: the wrapper. A CUDA tensor launches kernel G (f32,
   row-major (..., H, W, C)), one launch a pooling, or raises.
 """
@@ -55,12 +56,11 @@ SMEM_RESERVED = 1024       # the runtime's share a block
 BLOCKS_SM = 32
 THREADS_SM = 2048
 THREADS_MAX = 256
-STAGES_MAX = 8
 STAGES = 3                 # ring slots: window rows i+1 and i+2 land while row i adds
 BLOCK_CHAINS = 32          # "ring": a tile's chains, rounded up to whole output rows
 CHANNELS_MIN = 32          # from here a warp's channels make 128-byte loads
 INSTANCES = (16, 8)        # k with a template instance of their own
-DIRECT = ((16, 3), (8, 1))   # (k, C) of the "direct" instances
+DIRECT = (8, 1)            # (k, C) of the "direct" instance
 DIRECT_THREADS = 64
 CHANNELS_THREADS = 256
 ROUTES = {"ring": 0, "direct": 1, "channels": 2}
@@ -71,8 +71,6 @@ class Plan(NamedTuple):
 
     route: str          # "ring", "direct" or "channels"
     k_inst: int         # the instance's k: 16, 8, or 0 for any k
-    c_inst: int         # "direct": the instance's C (else 0)
-    vec: int            # "ring": floats a cp.async copies, 4 (16 bytes) or 1
     rows: int           # "ring": output rows of a tile
     cols: int           # "ring": output columns of a tile
     col_stride: int     # "ring": floats between two columns' window rows in a slot
@@ -111,14 +109,13 @@ def _conflicts(rows: int, cols: int, c: int, cs: int, rs: int, chains: int) -> i
     return worst
 
 
-def _strides(k: int, c: int, rows: int, cols: int, vec: int) -> tuple[int, int]:
-    """(col_stride, row_stride) of a slot: the least padding (whole copies)
-    whose reads conflict least."""
-    kc = -(-k * c // vec) * vec
+def _strides(k: int, c: int, rows: int, cols: int) -> tuple[int, int]:
+    """(col_stride, row_stride) of a slot: the least padding (whole 16-byte
+    copies) whose reads conflict least."""
     chains = rows * cols * c
     best = None
-    for pc in range(0, 32, vec):
-        cs = kc + pc
+    for pc in range(0, 32, 4):
+        cs = k * c + pc
         for pr in range(0, 32 if rows > 1 else 1, 4):
             rs = cols * cs + pr
             key = (_conflicts(rows, cols, c, cs, rs, chains), rows * rs, cs)
@@ -127,80 +124,65 @@ def _strides(k: int, c: int, rows: int, cols: int, vec: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
-def _ring(items: int, ho: int, wo: int, c: int, k: int, vec: int, sms: int, stages: int,
-          block_chains: int) -> Plan | None:
+def _ring(items: int, ho: int, wo: int, c: int, k: int, sms: int) -> Plan | None:
+    """The "ring" plan, or None where two slots of one column's window row
+    do not fit a block's shared memory."""
     rows_out = items * ho
-    kc = -(-k * c // vec) * vec
+    kc = k * c
     cols = next((d for d in range(min(wo, THREADS_MAX // c), 0, -1)
                  if wo % d == 0 and 2 * d * kc * 4 <= SMEM_BLOCK), None)
     if cols is None:
         return None
     rows = 1
     if cols == wo:
-        most = min(THREADS_MAX, max(block_chains, wo * c)) // (wo * c)
+        most = min(THREADS_MAX, max(BLOCK_CHAINS, wo * c)) // (wo * c)
         rows = next(d for d in range(most, 0, -1) if rows_out % d == 0)
-    cs, rs = _strides(k, c, rows, cols, vec)
+    cs, rs = _strides(k, c, rows, cols)
     slot = rows * rs * 4
-    stages = min(stages, STAGES_MAX, SMEM_BLOCK // slot)
+    stages = min(STAGES, SMEM_BLOCK // slot)
     if stages < 2:
         return None
     threads = -(-rows * cols * c // 32) * 32
     smem = stages * slot
     per_sm = min(BLOCKS_SM, THREADS_SM // threads, SMEM_SM // (smem + SMEM_RESERVED))
     tiles = rows_out // rows * (wo // cols)
-    return Plan("ring", k if k in INSTANCES else 0, 0, vec, rows, cols, cs, rs, stages,
-                threads, smem, min(tiles, sms * per_sm))
+    return Plan("ring", k if k in INSTANCES else 0, rows, cols, cs, rs, stages, threads, smem,
+                min(tiles, sms * per_sm))
 
 
 @functools.lru_cache(maxsize=None)
-def plan(items: int, h: int, w: int, c: int, k: int, aligned: bool = True, sms: int = SMS,
-         route: str | None = None, stages: int = STAGES,
-         block_chains: int = BLOCK_CHAINS) -> Plan:
+def plan(items: int, h: int, w: int, c: int, k: int, aligned: bool = True,
+         sms: int = SMS) -> Plan:
     """Kernel G's plan for ``items`` fields (h, w, c) pooled by k; ``aligned``:
-    x starts on 16 bytes; ``sms``: the card's SMs. ``route`` forces a
-    route, ``stages`` and ``block_chains`` size the ring (the defaults are
-    the plan's). Rule: "direct" for (k, C) = (8, 1) with x aligned; else
-    "ring" where C < 32 and two slots of one column's window row fit a
-    block's shared memory; else "channels". A shape or a forced route G
-    does not take raises ValueError. Cached: immutable.
+    x starts on 16 bytes; ``sms``: the card's SMs. Rule: where x and its
+    window rows lie on 16 bytes, "direct" for (k, C) = (8, 1) and "ring"
+    for C < 32 where two slots of one column's window row fit a block's
+    shared memory; else "channels". A shape G does not take raises
+    ValueError. Cached: immutable.
 
-    Chip readings (H100 80GB HBM3, 700 W; ``chip_smoke.py:g_routes``, each
-    route bit for bit): at the flagship's (128, 128, 128, 3) by 16 the
-    ring took 0.0106 ms at 2 to 6 slots and 1 to 8 output rows a tile,
-    "direct" 0.0118, "channels" 0.0114, ``Tensor.mean`` 0.0160; at a
-    year's stack of them 0.0315-0.0327 (3 slots 0.0321), 0.0433, 0.0364
-    and 0.0403. At the 64x64 presets' (128, 64, 64, 1) by 8 the ring's
-    eight window rows of 32 bytes a column wait one after another (0.0057
-    ms) and "direct" reads them from device memory in 0.0029, against
-    0.0053 for ``Tensor.mean``."""
+    The rule follows the card's readings of every route (H100 80GB HBM3,
+    700 W; PERF.md, kernel G): at the flagship's (128, 128, 128, 3) by 16
+    the ring took 0.0106 ms, "channels" 0.0114 and ``Tensor.mean``
+    0.0160; at the 64x64 presets' (128, 64, 64, 1) by 8 the ring's eight
+    window rows of 32 bytes a column wait one after another (0.0057 ms)
+    and "direct" reads them from device memory in 0.0029; the ring's
+    4-byte copies for an x off 16 bytes (0.0175 ms at the flagship's
+    batch) lost to "channels" (0.0115), which reads scalars anyway."""
     if items < 1 or c < 1 or k < 1 or h < k or w < k or h % k or w % k:
         raise ValueError(f"window_mean: G takes no pooling of {(items, h, w, c)} by {k}")
     ho, wo = h // k, w // k
-    vec = 4 if aligned and (w * c) % 4 == 0 and (k * c) % 4 == 0 else 1
-    k_inst = k if k in INSTANCES else 0
-    if route is None and (k, c) == (8, 1) and vec == 4:
-        route = "direct"
-    if route in (None, "ring"):
-        p = _ring(items, ho, wo, c, k, vec, sms, stages, block_chains)
-        if route is None:
-            route = "ring" if p is not None and c < CHANNELS_MIN else "channels"
-    if route == "ring":
-        if p is None:
-            raise ValueError(f"window_mean: a window row of {k * c} floats does not fit "
-                             "the ring")
-        return p
-    if route == "direct":
-        if (k, c) not in DIRECT or vec != 4:
-            raise ValueError(f"window_mean: no direct instance takes k={k}, C={c} "
-                             f"(aligned={aligned})")
+    vectors = aligned and (w * c) % 4 == 0 and (k * c) % 4 == 0
+    if vectors and (k, c) == DIRECT:
         n = items * ho * wo
-        return Plan("direct", k, c, 4, 0, 0, 0, 0, 0, DIRECT_THREADS, 0,
+        return Plan("direct", k, 0, 0, 0, 0, 0, DIRECT_THREADS, 0,
                     min(-(-n // DIRECT_THREADS), sms * (THREADS_SM // DIRECT_THREADS)))
-    if route == "channels":
-        n = items * ho * wo * c
-        return Plan("channels", k_inst, 0, 1, 0, 0, 0, 0, 0, CHANNELS_THREADS, 0,
-                    min(-(-n // CHANNELS_THREADS), sms * (THREADS_SM // CHANNELS_THREADS)))
-    raise ValueError(f"window_mean: unknown route {route!r}")
+    if vectors and c < CHANNELS_MIN:
+        p = _ring(items, ho, wo, c, k, sms)
+        if p is not None:
+            return p
+    n = items * ho * wo * c
+    return Plan("channels", k if k in INSTANCES else 0, 0, 0, 0, 0, 0, CHANNELS_THREADS, 0,
+                min(-(-n // CHANNELS_THREADS), sms * (THREADS_SM // CHANNELS_THREADS)))
 
 
 def window_mean_plain(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -223,13 +205,13 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def plan_of(x: torch.Tensor, k: int, **kwargs) -> Plan:
+def plan_of(x: torch.Tensor, k: int) -> Plan:
     """:func:`plan` for a CUDA tensor x (..., H, W, C)."""
     *lead, h, w, c = x.shape
-    return plan(math.prod(lead), h, w, c, k, x.data_ptr() % 16 == 0, _sms(x.device), **kwargs)
+    return plan(math.prod(lead), h, w, c, k, x.data_ptr() % 16 == 0, _sms(x.device))
 
 
-def _launch(x: torch.Tensor, k: int, pl: Plan | None = None) -> torch.Tensor:
+def _launch(x: torch.Tensor, k: int) -> torch.Tensor:
     _check_shape(x, k)
     if x.dtype != torch.float32:
         raise ValueError(f"window_mean: kernel G takes f32, got {x.dtype}")
@@ -240,12 +222,12 @@ def _launch(x: torch.Tensor, k: int, pl: Plan | None = None) -> torch.Tensor:
     out = torch.empty((*lead, h // k, w // k, c), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    pl = pl or plan_of(x, k)
+    pl = plan_of(x, k)
     with torch.cuda.device(x.device):
         err = _build.library().window_mean_f32(
             x.data_ptr(), out.data_ptr(), math.prod(lead), h, w, c, k, float(inverse_area(k)),
-            ROUTES[pl.route], pl.k_inst, pl.c_inst, pl.vec, pl.rows, pl.cols, pl.col_stride,
-            pl.row_stride, pl.stages, pl.threads, pl.smem, pl.grid,
+            ROUTES[pl.route], pl.k_inst, pl.rows, pl.cols, pl.col_stride, pl.row_stride,
+            pl.stages, pl.threads, pl.smem, pl.grid,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "window_mean_f32")
     window_mean.launches += 1

@@ -39,15 +39,21 @@ and apply passes run on the sums with the global element count n. C′
 writes the block's partial Sdz, Sdzx, from which its dgamma, dbeta,
 dscale and dshift come (per-rank terms that the parameter all-reduce adds
 up); after ``reduce``, c1, c2, c3 come from the sums and the dx pass runs.
-The split plain versions gather the image instead: a block's x (C), or
-its dz and dz*x (C′), placed at its rows (from ``h0``) among zero rows of
-the image's height and summed over the ranks by ``reduce``, each element
-one block's value plus zeros, so every rank holds the image's values
-exactly and takes its statistics (C) or sums (C′) as the whole chain's
-plain version does, bit for bit. A sharded step on the CPU thus takes
-the one-process step's GroupNorm forward and dx exactly, and no ReLU gate
-downstream flips on the rounding of a partial sum. The per-rank
-parameter terms of C′ stay the block's.
+The split plain versions, the CPU route, gather the image instead: a
+block's x (C), or its dz and dz*x (C′), placed at its rows (from ``h0``)
+among zero rows of the image's ``height`` and summed over the ranks by
+``reduce``, each element one block's value plus zeros, so every rank
+holds the image's values exactly and takes its statistics (C) or sums
+(C′) as the whole chain's plain version does, bit for bit. A sharded
+step on the CPU thus takes the one-process step's GroupNorm forward and
+dx exactly, and no ReLU gate downstream flips on the rounding of a
+partial sum; the per-rank parameter terms of C′ stay the block's. The
+price is the CPU's alone: a rank holds the (B, height, W, C) f32 image
+of a chain (C′: two of them) and each collective moves it, where the
+kernels' route moves (2, B, T, C) partials. So the card's route differs
+from its plain version in the order of the image sums, by f32 rounding,
+and the kernels ignore ``h0``: their partials do not depend on where the
+block lies.
 
 Kernels C and C′ each follow a plan made here per shape, before the
 launch (:func:`fwd_plan`, :func:`bwd_plan`): one thread-block cluster
@@ -374,6 +380,12 @@ def gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean,
 # The split route: a block of rows, its statistics summed by the caller
 # ---------------------------------------------------------------------------
 
+def _count(x: torch.Tensor, groups: int, height: int) -> float:
+    """The elements of a group over the image's ``height`` rows."""
+    _, _, w, c = x.shape
+    return float(height * w * (c // groups))
+
+
 def _gathered(blocks: list[torch.Tensor], h0: int, height: int, reduce) -> torch.Tensor:
     """The image's values of each (B, h, W, C) block tensor, in f32: (len,
     B, height, W, C), the blocks placed at rows h0.. among zeros and
@@ -389,61 +401,58 @@ def _gathered(blocks: list[torch.Tensor], h0: int, height: int, reduce) -> torch
 
 
 def gn_split_fwd_plain(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
-                       p_drop: float, silu: bool, n: float, reduce, h0: int):
+                       p_drop: float, silu: bool, height: int, reduce, h0: int):
     """Split C's plain version: the image gathered (the block's x placed at
-    its rows, from ``h0``, among zero rows of the image's height n / (W *
-    C/G), summed over the ranks by ``reduce``), its statistics those of
-    the whole chain's plain version, and the block's y: (y, mean (B, G),
-    rstd (B, G))."""
-    _, _, w, c = x.shape
-    image = _gathered([x], h0, round(n / (w * (c // groups))), reduce)[0].to(x.dtype)
+    its rows, from ``h0``, among zero rows of the image's ``height``,
+    summed over the ranks by ``reduce``), its statistics those of the
+    whole chain's plain version, and the block's y: (y, mean (B, G), rstd
+    (B, G))."""
+    image = _gathered([x], h0, height, reduce)[0].to(x.dtype)
     mean, rstd = _stats(image, groups, eps)
     return (_apply(x, mean, rstd, gamma, beta, scale, shift, seed2, p_drop, silu),
             mean, rstd)
 
 
 def gn_split_bwd_plain(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
-                       p_drop: float, silu: bool, n: float, reduce, h0: int):
+                       p_drop: float, silu: bool, height: int, reduce, h0: int):
     """Split C′'s plain version: the block's sums of dz and dz*x give its
     dgamma, dbeta, dscale and dshift; dz and dz*x gathered over the image
     as in :func:`gn_split_fwd_plain` give the whole chain's sums, and dx
-    from them over ``n`` elements a group: (dx, dgamma, dbeta, dscale,
-    dshift)."""
-    _, _, w, c = x.shape
+    from them: (dx, dgamma, dbeta, dscale, dshift)."""
     coefs = _coefs(mean, rstd, gamma, beta, scale, shift)
     xf, dz = _bwd_dz(x, g, coefs, seed2, p_drop, silu)
     dzx = dz * xf
     dshift, dscale, du_s, dux_hat = _bwd_terms(dz.sum(dim=(1, 2)), dzx.sum(dim=(1, 2)), coefs)
     dgamma, dbeta = dux_hat.sum(dim=0), du_s.sum(dim=0)
-    image = _gathered([dz, dzx], h0, round(n / (w * (c // groups))), reduce)
+    image = _gathered([dz, dzx], h0, height, reduce)
     _, _, du_s, dux_hat = _bwd_terms(image[0].sum(dim=(1, 2)), image[1].sum(dim=(1, 2)), coefs)
-    dx = _bwd_dx(xf, dz, du_s, dux_hat, coefs, gamma, groups, n)
+    dx = _bwd_dx(xf, dz, du_s, dux_hat, coefs, gamma, groups, _count(x, groups, height))
     return dx.to(x.dtype), dgamma, dbeta, dscale, dshift
 
 
 def gn_split_fwd(x, gamma, beta, scale, shift, seed2, groups: int, eps: float, p_drop: float,
-                 silu: bool, n: float, reduce, h0: int):
-    """Split C on a block of rows (its first row ``h0`` in the image): (y,
-    mean, rstd) without autograd, the statistics over ``n`` elements a
-    group after ``reduce`` (in place: the kernels' (2, B, T, C) f32
+                 silu: bool, height: int, reduce, h0: int):
+    """Split C on a block of rows (its first row ``h0`` of the image's
+    ``height``): (y, mean, rstd) without autograd, the statistics over
+    the image after ``reduce`` (in place: the kernels' (2, B, T, C) f32
     partial sums, the plain version's gathered image). The plain version
     for CPU tensors, kernel C's split entries for CUDA tensors."""
     args = (x, gamma, beta, scale, shift, seed2)
     if all(t.device.type == "cpu" for t in args):
-        return gn_split_fwd_plain(*args, groups, eps, p_drop, silu, n, reduce, h0)
-    return _launch_split_fwd(*args, groups, eps, p_drop, silu, n, reduce)
+        return gn_split_fwd_plain(*args, groups, eps, p_drop, silu, height, reduce, h0)
+    return _launch_split_fwd(*args, groups, eps, p_drop, silu, height, reduce)
 
 
 def gn_split_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups: int,
-                 p_drop: float, silu: bool, n: float, reduce, h0: int):
-    """Split C′ on a block of rows (its first row ``h0``): (dx, dgamma,
-    dbeta, dscale, dshift), the parameter terms the block's, dx from the
-    sums after ``reduce``. The plain version for CPU tensors, kernel C′'s
-    split entries for CUDA tensors."""
+                 p_drop: float, silu: bool, height: int, reduce, h0: int):
+    """Split C′ on a block of rows (its first row ``h0`` of the image's
+    ``height``): (dx, dgamma, dbeta, dscale, dshift), the parameter terms
+    the block's, dx from the sums after ``reduce``. The plain version for
+    CPU tensors, kernel C′'s split entries for CUDA tensors."""
     args = (x, g, gamma, beta, scale, shift, seed2, mean, rstd)
     if all(t.device.type == "cpu" for t in args):
-        return gn_split_bwd_plain(*args, groups, p_drop, silu, n, reduce, h0)
-    return _launch_split_bwd(*args, groups, p_drop, silu, n, reduce)
+        return gn_split_bwd_plain(*args, groups, p_drop, silu, height, reduce, h0)
+    return _launch_split_bwd(*args, groups, p_drop, silu, height, reduce)
 
 
 def gn_film_silu_dropout_fwd(x, gamma, beta, scale, shift, seed2, groups: int, eps: float,
@@ -478,7 +487,7 @@ class _Chain(torch.autograd.Function):
         if rows is None:
             y, mean, rstd = gn_film_silu_dropout_fwd(*args)
         else:
-            y, mean, rstd = gn_split_fwd(*args, *_split(x, groups, rows))
+            y, mean, rstd = gn_split_fwd(*args, *_split(x, rows))
         ctx.save_for_backward(x, gamma, beta, scale, shift, seed2, mean, rstd)
         ctx.consts = (groups, p_drop, silu)
         ctx.rows = rows
@@ -491,15 +500,15 @@ class _Chain(torch.autograd.Function):
         if ctx.rows is None:
             grads = gn_film_silu_dropout_bwd(*args)
         else:
-            grads = gn_split_bwd(*args, *_split(x, ctx.consts[0], ctx.rows))
+            grads = gn_split_bwd(*args, *_split(x, ctx.rows))
         return (*grads, None, None, None, None, None, None)
 
 
-def _split(x: torch.Tensor, groups: int, rows) -> tuple[float, object, int]:
-    """(the global element count of a group, the in-place sum over the
-    ranks, the block's first row) of a block of rows of a chain."""
-    _, h, w, c = x.shape
-    return float(rows.whole(h) * w * (c // groups)), rows.sum_, rows.first(h)
+def _split(x: torch.Tensor, rows) -> tuple[int, object, int]:
+    """(the image's height, the in-place sum over the ranks, the block's
+    first row) of a block of rows of a chain."""
+    h = x.shape[1]
+    return rows.whole(h), rows.sum_, rows.first(h)
 
 
 def gn_film_silu_dropout(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -629,11 +638,11 @@ def _param_ptrs(*params) -> tuple[int, ...]:
     return tuple(t.data_ptr() for t in params)
 
 
-def _launch_split_fwd(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, n,
+def _launch_split_fwd(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, silu, height,
                       reduce):
     """Split C: ``fused_gn_fwd_stats``, ``reduce`` on the partials, then
-    ``fused_gn_fwd_apply`` with the global count ``n``; the block's shape
-    must be ``supported``."""
+    ``fused_gn_fwd_apply`` with the count of the image's ``height`` rows;
+    the block's shape must be ``supported``."""
     _check(x, dict(gamma=gamma, beta=beta, scale=scale, shift=shift, seed2=seed2), groups,
            "gn_film_silu_dropout (split)")
     b, h, w, c = x.shape
@@ -654,7 +663,7 @@ def _launch_split_fwd(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, 
         err = lib.fused_gn_fwd_apply(
             x.data_ptr(), partial.data_ptr(), *_param_ptrs(gamma, beta, scale, shift, seed2),
             y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), coef.data_ptr(), b, h * w, c,
-            groups, float(np.float32(n)), float(np.float32(eps)), float(np.float32(p_drop)),
+            groups, float(np.float32(_count(x, groups, height))), float(np.float32(eps)), float(np.float32(p_drop)),
             float(_drop_scale(p_drop)), int(silu), bf16,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_gn_fwd_apply")
@@ -664,10 +673,10 @@ def _launch_split_fwd(x, gamma, beta, scale, shift, seed2, groups, eps, p_drop, 
 
 
 def _launch_split_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups, p_drop,
-                      silu, n, reduce):
+                      silu, height, reduce):
     """Split C′: ``fused_gn_bwd_stats`` (the block's partials and parameter
     terms), ``reduce`` on the partials, then ``fused_gn_bwd_dx`` with the
-    global count ``n``."""
+    count of the image's ``height`` rows."""
     _check(x, dict(g=g, gamma=gamma, beta=beta, scale=scale, shift=shift, seed2=seed2,
                    mean=mean, rstd=rstd), groups, "gn_film_silu_dropout backward (split)")
     b, h, w, c = x.shape
@@ -695,7 +704,7 @@ def _launch_split_bwd(x, g, gamma, beta, scale, shift, seed2, mean, rstd, groups
         err = lib.fused_gn_bwd_dx(
             x.data_ptr(), g.data_ptr(), *ptrs, mean.data_ptr(), rstd.data_ptr(),
             partial.data_ptr(), coef.data_ptr(), dx.data_ptr(), b, h * w, c, groups,
-            float(np.float32(n)), *consts, torch.cuda.current_stream(x.device).cuda_stream)
+            float(np.float32(_count(x, groups, height))), *consts, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_gn_bwd_dx")
     gn_film_silu_dropout_bwd.launches += 1
     gn_split_bwd.launches += 1

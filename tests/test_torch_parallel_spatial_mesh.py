@@ -242,31 +242,30 @@ def test_split_c_plain_versions_give_the_whole_images_rows(dtype, n):
     grads = tgn.gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed, mean,
                                                rstd, 8, 0.3, True)
     h = shape[1] // n
-    count = float(shape[1] * shape[2] * 4)
     blocks = [slice(i * h, (i + 1) * h) for i in range(n)]
     seeds = [tgn.slab_seed(seed, 0, r.start * shape[2] * shape[3]) for r in blocks]
     # every block's partials, then each block's sum of them all
     parts = []
     for r, s in zip(blocks, seeds):
-        tgn.gn_split_fwd(x[:, r], gamma, beta, scale, shift, s, *consts, count,
+        tgn.gn_split_fwd(x[:, r], gamma, beta, scale, shift, s, *consts, shape[1],
                          lambda t: parts.append(t.clone()), r.start)
     total = sum(parts)
     bparts = []
     for r, s in zip(blocks, seeds):
         y_b, mean_b, rstd_b = tgn.gn_split_fwd(x[:, r], gamma, beta, scale, shift, s, *consts,
-                                               count, lambda t: t.copy_(total), r.start)
+                                               shape[1], lambda t: t.copy_(total), r.start)
         tol = (2 ** -7, 2 ** -7) if dtype == torch.bfloat16 else (PLAIN_RTOL, PLAIN_ATOL)
         assert torch.equal(y_b == 0, y[:, r] == 0)
         assert_close(y_b.float(), y[:, r].float(), *tol, "y")
         assert_close(mean_b, mean, PLAIN_RTOL, PLAIN_ATOL, "mean")
         assert_close(rstd_b, rstd, PLAIN_RTOL, PLAIN_ATOL, "rstd")
         tgn.gn_split_bwd(x[:, r], g[:, r], gamma, beta, scale, shift, s, mean, rstd,
-                         8, 0.3, True, count, lambda t: bparts.append(t.clone()), r.start)
+                         8, 0.3, True, shape[1], lambda t: bparts.append(t.clone()), r.start)
     btotal = sum(bparts)
     terms = []
     for r, s in zip(blocks, seeds):
         out = tgn.gn_split_bwd(x[:, r], g[:, r], gamma, beta, scale, shift, s, mean, rstd,
-                               8, 0.3, True, count, lambda t: t.copy_(btotal), r.start)
+                               8, 0.3, True, shape[1], lambda t: t.copy_(btotal), r.start)
         tol = (2 ** -7, 2 ** -7) if dtype == torch.bfloat16 else (1e-4, 1e-5)
         assert_close(out[0].float(), grads[0][:, r].float(), *tol, "dx")
         terms.append(out[1:])
@@ -325,7 +324,7 @@ def test_split_c_agrees_with_the_whole_chain_at_the_kernel_a_shapes(chain, p_dro
     y, mean, rstd = tgn.gn_film_silu_dropout_plain(x, gamma, beta, scale, shift, seed, *consts)
     grads = tgn.gn_film_silu_dropout_bwd_plain(x, g, gamma, beta, scale, shift, seed, mean,
                                                rstd, groups, p_drop, True)
-    hb, count = h // 2, float(h * w * (c // groups))
+    hb = h // 2
     blocks = [(x[:, i * hb:(i + 1) * hb], g[:, i * hb:(i + 1) * hb],
                tgn.slab_seed(seed, 0, i * hb * w * c)) for i in (0, 1)]
     if p_drop:
@@ -344,13 +343,13 @@ def test_split_c_agrees_with_the_whole_chain_at_the_kernel_a_shapes(chain, p_dro
         return float((got - want).abs().max() / want.abs().max())
 
     fwd = over_blocks(lambda i, red: tgn.gn_split_fwd(
-        blocks[i][0], gamma, beta, scale, shift, blocks[i][2], *consts, count, red, i * hb))
+        blocks[i][0], gamma, beta, scale, shift, blocks[i][2], *consts, h, red, i * hb))
     assert rel(torch.cat([o[0] for o in fwd], dim=1), y) <= SPLIT_STATS_TOL
     for i in (1, 2):
         assert rel(fwd[0][i], (mean, rstd)[i - 1]) <= SPLIT_STATS_TOL
     bwd = over_blocks(lambda i, red: tgn.gn_split_bwd(
         blocks[i][0], blocks[i][1], gamma, beta, scale, shift, blocks[i][2], mean, rstd,
-        groups, p_drop, True, count, red, i * hb))
+        groups, p_drop, True, h, red, i * hb))
     assert rel(torch.cat([o[0] for o in bwd], dim=1), grads[0]) <= SPLIT_GRADS_TOL
     for i in range(1, 5):
         assert rel(bwd[0][i] + bwd[1][i], grads[i]) <= SPLIT_GRADS_TOL

@@ -12,7 +12,7 @@
   column by column where W is odd.
 
 Kernel G runs only on the card, where ``chip_smoke.py`` holds it to the
-plain version bit for bit on every route; here, the wrapper's shape checks
+plain version bit for bit on each of its routes; here, the wrapper's shape checks
 and the plan the wrapper launches it with, at every pooling shape a
 preset reaches.
 """
@@ -98,9 +98,9 @@ def test_g_plans_stay_within_the_cards_limits(aligned):
     wide C and an odd k: at most 227 KB of shared memory and 1,024 (the
     kernels' bound: 256) threads a block, a grid of 1 to 2^31 - 1 blocks,
     and a "ring" tile that divides the output rows and columns, one thread
-    a chain. The presets' poolings take the ring, 16-byte copies where x
-    and its rows are aligned, but for the aligned (k, C) = (8, 1), which
-    takes "direct"."""
+    a chain, its slots whole 16-byte copies. The presets' poolings take
+    the ring where x is aligned, but for (k, C) = (8, 1), which takes
+    "direct"; where x is not, "channels"."""
     shapes = _pooling_shapes()
     assert len(shapes) >= 40
     for items, h, w, c, k in [*shapes, (8, 32, 32, 64, 16), (8, 96, 96, 3, 3),
@@ -110,17 +110,18 @@ def test_g_plans_stay_within_the_cards_limits(aligned):
         assert pl.threads % 32 == 0 and 1 <= pl.grid < 2 ** 31, pl
         assert pl.k_inst == (k if k in (8, 16) else 0)
         if (items, h, w, c, k) in shapes:
-            direct = aligned and (k, c) == (8, 1)
-            assert pl.route == ("direct" if direct else "ring"), (items, h, w, c, k, pl)
+            route = ("channels" if not aligned else
+                     "direct" if (k, c) == (8, 1) else "ring")
+            assert pl.route == route, (items, h, w, c, k, pl)
         if pl.route == "ring":
             rows_out, wo = items * (h // k), w // k
+            assert aligned and w * c % 4 == 0 and k * c % 4 == 0
             assert rows_out % pl.rows == 0 and wo % pl.cols == 0 and pl.threads >= (
                 pl.rows * pl.cols * c)
             assert pl.rows == 1 or pl.cols == wo
             assert pl.col_stride >= k * c and pl.row_stride >= pl.cols * pl.col_stride
-            assert pl.smem == pl.stages * pl.rows * pl.row_stride * 4 and 2 <= pl.stages <= 8
-            assert pl.vec == (4 if aligned and w * c % 4 == 0 and k * c % 4 == 0 else 1)
-            assert pl.col_stride % pl.vec == 0 and pl.row_stride % pl.vec == 0
+            assert pl.smem == pl.stages * pl.rows * pl.row_stride * 4 and 2 <= pl.stages <= 3
+            assert pl.col_stride % 4 == 0 and pl.row_stride % 4 == 0
             assert pl.grid <= rows_out // pl.rows * (wo // pl.cols)
         else:
             assert pl.route in ("channels", "direct") and pl.smem == 0
@@ -132,26 +133,23 @@ def test_g_plans_stay_within_the_cards_limits(aligned):
 
 
 def test_g_takes_a_wide_c_and_raises_on_what_it_does_not_take():
-    """C >= 32 takes the "channels" route, and so does a window row the
-    ring cannot hold; "direct" takes only its two instances; a shape that
-    does not divide, a k below 1 or an empty field raises, as do a dtype
-    other than f32 and a non-contiguous x at the wrapper, before any
-    launch."""
+    """C >= 32 takes the "channels" route, and so do a window row the ring
+    cannot hold, a window row that is no whole 16-byte copies (k = 3, C =
+    3) and an x off 16 bytes; "direct" takes (k, C) = (8, 1) on 16 bytes
+    only; a shape that does not divide, a k below 1 or an empty field
+    raises, as do a dtype other than f32 and a non-contiguous x at the
+    wrapper, before any launch."""
     assert g.plan(8, 32, 32, 64, 16).route == "channels"
     assert g.plan(1, 1024, 1024, 31, 1024).route == "channels"
-    with pytest.raises(ValueError, match="does not fit the ring"):
-        g.plan(1, 1024, 1024, 31, 1024, route="ring")
-    assert g.plan(128, 128, 128, 3, 16, route="direct").c_inst == 3
-    assert g.plan(8, 64, 64, 1, 8, route="direct").k_inst == 8
-    for args, kw in [((8, 96, 96, 3, 3), {}), ((8, 64, 64, 1, 8), {"aligned": False})]:
-        with pytest.raises(ValueError, match="no direct instance"):
-            g.plan(*args, route="direct", **kw)
+    assert g.plan(8, 96, 96, 3, 3).route == "channels"
+    assert g.plan(128, 128, 128, 3, 16, aligned=False).route == "channels"
+    assert g.plan(8, 64, 64, 1, 8).route == "direct"
+    assert g.plan(8, 64, 64, 1, 8, aligned=False).route == "channels"
+    assert g.plan(8, 64, 64, 2, 8).route == "ring"
     for shape in [(2, 12, 8, 3, 3), (2, 8, 12, 3, 16), (2, 8, 8, 3, 0), (0, 8, 8, 3, 2),
                   (2, 8, 8, 0, 2)]:
         with pytest.raises(ValueError, match="G takes no pooling"):
             g.plan(*shape)
-    with pytest.raises(ValueError, match="unknown route"):
-        g.plan(2, 8, 8, 3, 2, route="tma")
     with pytest.raises(ValueError, match="takes f32"):
         g._launch(torch.zeros(2, 8, 8, 3, dtype=torch.bfloat16), 2)
     with pytest.raises(ValueError, match="not row-major contiguous"):

@@ -213,13 +213,13 @@ def chains() -> None:
         x, gamma, beta, scale, shift, seed2, groups, eps, p, silu = fa
         ba = next(a for a in calls["bwd"] if a[0].shape == x.shape and torch.equal(a[0], x))
         b, h, w, c = x.shape
-        hb, n = h // 2, float(h * w * (c // groups))
+        hb = h // 2
         seeds = [fg.slab_seed(seed2, 0, r * hb * w * c) for r in (0, 1)]
         rows = [slice(r * hb, (r + 1) * hb) for r in (0, 1)]
         y, mean, rstd = plain["fwd"](*fa)
         got = two_blocks(lambda r, red: fg.gn_split_fwd_plain(
             x[:, rows[r]].contiguous(), gamma, beta, scale, shift, seeds[r], groups, eps, p,
-            silu, n, red, r * hb))
+            silu, h, red, r * hb))
         masks = "-" if p == 0 else int((torch.cat([fg.gn_keep(x[:, r].shape, s, p) for r, s in
                                                    zip(rows, seeds)], 1)
                                         != fg.gn_keep(x.shape, seed2, p)).sum())
@@ -227,7 +227,7 @@ def chains() -> None:
         want = plain["bwd"](x, g, *fa[1:6], mean, rstd, groups, p, silu)
         back = two_blocks(lambda r, red: fg.gn_split_bwd_plain(
             x[:, rows[r]].contiguous(), g[:, rows[r]].contiguous(), gamma, beta, scale, shift,
-            seeds[r], mean, rstd, groups, p, silu, n, red, r * hb))
+            seeds[r], mean, rstd, groups, p, silu, h, red, r * hb))
         diffs = {"mean": _rel(got[0][1], mean), "rstd": _rel(got[0][2], rstd),
                  "y": _rel(torch.cat([o[0] for o in got], 1), y),
                  "dx": _rel(torch.cat([o[0] for o in back], 1), want[0])}
