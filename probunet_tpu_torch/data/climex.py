@@ -27,6 +27,7 @@ from probunet_tpu_torch.data import transforms
 from probunet_tpu_torch.data.synthetic import synthetic_climex_fields, synthetic_timestamps
 from probunet_tpu_torch.device import resolve_device
 from probunet_tpu_torch.ops.resample import avg_pool, repeat_interleave_2d, upsample
+from probunet_tpu_torch.utils.profiling import span
 
 PIPELINE_TYPES = (
     "lr_to_hr",
@@ -445,7 +446,8 @@ class ClimexDataset:
 
     def get_hr_batch(self, idx: np.ndarray) -> np.ndarray:
         """Raw HR slice (host memory) for a batch of time indices."""
-        return self.hr[np.asarray(idx)]
+        with span("data.gather"):
+            return self.hr[np.asarray(idx)]
 
     def device_stats(self, device: torch.device) -> Standardization:
         """The statistics as tensors on ``device``, copied there once."""

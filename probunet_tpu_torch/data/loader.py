@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from probunet_tpu_torch.device import resolve_device
+from probunet_tpu_torch.utils.profiling import span
 
 
 class Batches:
@@ -63,12 +64,13 @@ class _PinnedSlot:
         self.copied: torch.cuda.Event | None = None
 
     def fill(self, host: torch.Tensor) -> torch.Tensor:
-        if self.copied is not None:
-            self.copied.synchronize()   # its last copy has read the buffer
-        if self.buf is None or self.buf.shape != host.shape or self.buf.dtype != host.dtype:
-            self.buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        self.buf.copy_(host)
-        return self.buf
+        with span("data.pin"):
+            if self.copied is not None:
+                self.copied.synchronize()   # its last copy has read the buffer
+            if self.buf is None or self.buf.shape != host.shape or self.buf.dtype != host.dtype:
+                self.buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+            self.buf.copy_(host)
+            return self.buf
 
 
 def prefetch_to_device(iterable: Iterable, size: int = 2,

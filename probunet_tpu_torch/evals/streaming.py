@@ -15,6 +15,7 @@ import torch
 
 from probunet_tpu_torch.evals.psd import psd
 from probunet_tpu_torch.ops.losses import crps_empirical
+from probunet_tpu_torch.utils.profiling import span
 
 
 def _batch_partials(ens: torch.Tensor, gt: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -73,7 +74,9 @@ class EvalAccumulator:
         self._hist_model = None
 
     def update(self, ens: torch.Tensor, gt: torch.Tensor) -> None:
-        p = {k: v.cpu().numpy() for k, v in _batch_partials(ens, gt).items()}
+        partials = _batch_partials(ens, gt)
+        with span("evals.read"):
+            p = {k: v.cpu().numpy() for k, v in partials.items()}
         self._rows.append({k: p[k] for k in ("crps_pt", "mae_pt", "spread_pt")})
         self._n_items += int(p["crps_pt"].shape[0])
         lo = np.minimum(p["gt_min"], p["ens_min"])

@@ -56,6 +56,7 @@ from probunet_tpu_torch.ops.losses import (
     l1_loss_per_channel,
     wmse_ms_ssim_loss,
 )
+from probunet_tpu_torch.utils.profiling import span
 
 LOSS_TYPES = ("afcrps", "crps", "mse+ssim", "l1")
 
@@ -112,9 +113,10 @@ class ProbabilisticUNet(nn.Module):
                eps: torch.Tensor | None = None, rows=None) -> torch.Tensor:
         """Prior ensemble with shared U-Net features: (B, M, H, W, K);
         ``rows``: x is this rank's block of rows, and so is the output."""
-        feats = self.unet(x, rows=rows)
-        zs = self.prior(x, rows=rows).rsample(generator, (num_samples,), eps)
-        return self.fcomb.ensemble(feats, zs)
+        with span("serve.sample"):
+            feats = self.unet(x, rows=rows)
+            zs = self.prior(x, rows=rows).rsample(generator, (num_samples,), eps)
+            return self.fcomb.ensemble(feats, zs)
 
     def encode(self, x: torch.Tensor, target: torch.Tensor | None = None, rows=None):
         """(features, prior, posterior-or-None); ``rows``: x (and target)

@@ -52,6 +52,7 @@ from probunet_tpu_torch.train.state import (
     global_norm,
     step_generator,
 )
+from probunet_tpu_torch.utils.profiling import Throughput, device_sync, span
 
 
 def make_elbo_loss_fn(model: ProbabilisticUNet, cfg: Config, training: bool = True,
@@ -192,16 +193,19 @@ def make_train_step(model: ProbabilisticUNet, cfg: Config, fused: bool = True,
              beta_0: float, beta_1: float, eps: torch.Tensor | None = None,
              seeds: torch.Tensor | None = None):
         gen = step_generator(state.seed, state.step, hr_batch.device)
-        loss, metrics = loss_fn(hr_batch, stats, gen, beta_0, beta_1, eps, seeds,
-                                *sharding.blocks(hr_batch))
+        with span("train.forward"):
+            loss, metrics = loss_fn(hr_batch, stats, gen, beta_0, beta_1, eps, seeds,
+                                    *sharding.blocks(hr_batch))
         params = state.optimizer.params
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        # optax decays every parameter: one that autograd does not reach
-        # (the prior at beta_1 = 0) gets a zero gradient, not None
-        grads = sharding.grads([torch.zeros_like(p) if g is None else g
-                                for p, g in zip(params, grads)])
-        grad_norm = global_norm(grads)
-        state.optimizer.step(grads)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            # optax decays every parameter: one that autograd does not reach
+            # (the prior at beta_1 = 0) gets a zero gradient, not None
+            grads = sharding.grads([torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(params, grads)])
+        with span("train.optimizer"):
+            grad_norm = global_norm(grads)
+            state.optimizer.step(grads)
         state.step += 1
         out = {"loss": loss.detach(), "grad_norm": grad_norm}
         out.update({k: v.detach() for k, v in metrics.items() if k != "kl"})
@@ -297,16 +301,29 @@ def train_epoch(step_fn: Callable, state: TrainState, dataset, stats: Standardiz
     src/train_prob_unet_model.py:105-158). With ``ckpt`` and
     ``cfg.train.checkpoint_every`` > 0 a checkpoint is written every N
     steps. With ``mesh`` (and the data-parallel ``step_fn``) every rank
-    visits the same global batches and loads its slab of each."""
+    visits the same global batches and loads its slab of each.
+
+    The rates (``steps_per_sec``, ``samples_per_sec``) leave the first
+    step out: their window opens once its output is on the host, and
+    ``first_step_s`` is the time from the epoch's start to then (the first
+    batch, compilation and the first step). An epoch of one step has no
+    rate (0.0)."""
     batches = Batches(len(dataset), cfg.train.batch_size, shuffle=True,
                       seed=cfg.train.seed + epoch)
     recon_vals, kl_vals = [], []
     every = cfg.train.checkpoint_every
-    t0 = time.time()
+    rate = Throughput(cfg.train.batch_size)
+    t0 = time.perf_counter()
     n = 0
     for hr in _hr_batches(dataset, batches, _device(state), mesh):
         state, metrics = step_fn(state, hr, stats, beta_0, beta_1)
         n += 1
+        if n == 1:
+            device_sync(metrics["recon"])
+            first_step_s = time.perf_counter() - t0
+            rate.start()
+        else:
+            rate.step()
         if logger is not None and n % cfg.train.log_every == 0:
             logger.log(metrics, step=state.step, kind="train")
         if ckpt is not None and every and state.step % every == 0:
@@ -315,12 +332,11 @@ def train_epoch(step_fn: Callable, state: TrainState, dataset, stats: Standardiz
         kl_vals.append(metrics["kl_mean"])
     if not recon_vals:
         raise ValueError("train_epoch: fewer items than one batch")
-    # one host sync at the epoch's end
+    # one host sync at the epoch's end, which closes the rate's window
     mean_recon = float(torch.stack(recon_vals).mean())
     mean_kl = float(torch.stack(kl_vals).mean())
-    dt = time.time() - t0
-    return state, {"recon": mean_recon, "kl": mean_kl, "steps_per_sec": n / dt,
-                   "samples_per_sec": n * cfg.train.batch_size / dt}
+    return state, {"recon": mean_recon, "kl": mean_kl, **rate.summary(),
+                   "first_step_s": first_step_s}
 
 
 def eval_model(eval_step_fn: Callable, state: TrainState, dataset, stats: Standardization,

@@ -7,16 +7,27 @@
   forward operation whose backward produced a NaN;
 - :func:`device_sync`: a host read of a value that depends on the work
   being timed;
-- :class:`Throughput`: steps/s and samples/s with warm-up excluded.
+- :class:`Throughput`: steps/s and samples/s with warm-up excluded;
+- :func:`span`: the program's own host spans (``layer.what``) at its
+  layer boundaries, kept in memory (:func:`spans`, :func:`clear`) while
+  tracing is on: after ``enable(True)``, with ``PROBUNET_TRACE=1`` set at
+  import, or while a ``torch.profiler`` session is active. Off, a span
+  costs a check of two flags and returns a shared no-op context; on, two
+  host clock reads and one append. A span never touches the device.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -109,3 +120,80 @@ class Throughput:
         if self.pixels_per_sample:
             out["pixels_per_sec"] = out["samples_per_sec"] * self.pixels_per_sample
         return out
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+class Span(NamedTuple):
+    """One closed span: ``start``/``end`` in ``time.perf_counter_ns()``;
+    ``parent`` the ``id`` of the span open around it on its thread, or
+    None."""
+
+    id: int
+    name: str
+    start: int
+    end: int
+    parent: int | None
+    thread: int
+
+
+MAX_SPANS = 65536
+_on = os.environ.get("PROBUNET_TRACE") == "1"
+_spans: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_ids = itertools.count()
+_open = threading.local()
+_OFF = contextlib.nullcontext()
+
+
+def enable(on: bool = True) -> None:
+    """Record spans from now on (``on``), or only while a profiler runs."""
+    global _on
+    _on = bool(on)
+
+
+def profiler_active() -> bool:
+    """Whether a ``torch.profiler`` session is recording (any activities)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A context recording the enclosed host time as span ``name`` while
+    tracing is on; the shared no-op context otherwise."""
+    if not (_on or profiler_active()):
+        return _OFF
+    return _Recording(name)
+
+
+class _Recording:
+    __slots__ = ("id", "name", "start", "parent")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        self.parent = stack[-1] if stack else None
+        stack.append(self.id)
+        self.start = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> bool:
+        end = time.perf_counter_ns()
+        _open.stack.pop()
+        _spans.append(Span(self.id, self.name, self.start, end, self.parent,
+                           threading.get_ident()))
+        return False
+
+
+def spans() -> list[Span]:
+    """The recorded spans, oldest first (the last ``MAX_SPANS``)."""
+    return list(_spans)
+
+
+def clear() -> None:
+    """Forget every recorded span."""
+    _spans.clear()

@@ -20,6 +20,7 @@
   roundings in another order per step).
 - Checkpoint resume (bit for bit), ``beta_schedule`` and ``EarlyStopper``
   against the JAX functions, and ``Trainer.fit`` on the CPU.
+- ``train_epoch``'s rate leaves its first step out (a fake clock).
 """
 
 import copy
@@ -309,6 +310,38 @@ def test_trainer_fit_two_epochs_on_cpu(dropout_models, tiny_data, tmp_path):
     assert trainer.state.step == 6 and ckpt.steps() == [6]
     assert [r["kind"] for r in logger.history].count("epoch") == 2
     logger.close()
+
+
+def test_train_epoch_rate_leaves_the_first_step_out(monkeypatch):
+    """On a fake clock where the first step takes 10 s and each later one
+    1 s, the epoch's rate is one step a second and ``first_step_s`` 10."""
+    import time
+    from types import SimpleNamespace
+
+    from probunet_tpu_torch.train.loop import train_epoch
+
+    clock = [100.0]
+    monkeypatch.setattr(time, "perf_counter", lambda: clock[0])
+    cfg = _tiny_cfg()
+
+    class Days:
+        def __len__(self):
+            return 5 * B
+
+        def get_hr_batch(self, idx):
+            return np.zeros((len(idx), 1), np.float32)
+
+    state = SimpleNamespace(model=torch.nn.Linear(1, 1), step=0)
+
+    def step_fn(state, hr, stats, beta_0, beta_1):
+        clock[0] += 10.0 if state.step == 0 else 1.0
+        state.step += 1
+        return state, {"recon": torch.tensor(1.0), "kl_mean": torch.tensor(0.5)}
+
+    state, out = train_epoch(step_fn, state, Days(), None, cfg, 1.0, 0.0, epoch=1)
+    assert state.step == 5 and out["first_step_s"] == 10.0
+    assert out["steps_per_sec"] == 1.0 and out["samples_per_sec"] == B
+    assert (out["recon"], out["kl"]) == (1.0, 0.5)
 
 
 def test_entry_points_default_to_cuda():
